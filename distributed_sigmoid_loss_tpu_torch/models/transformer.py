@@ -1,0 +1,243 @@
+"""Shared transformer core for both towers: ``Mlp``, ``Attention``, ``Block``,
+``Encoder`` and ``MapHead``, with the JAX package's numerics.
+
+- Parameters are f32 and are cast to the activation dtype (with the bias) at
+  each projection, as flax's ``Dense(dtype=...)`` does.
+- ``LayerNorm`` takes its statistics in f32 with eps 1e-6 and flax's fast
+  variance ``E[x²] − E[x]²``, then casts back to the activation dtype.
+- The MLP uses the tanh approximation of GELU.
+- ``Attention`` keeps the JAX dispatch: the fused short-attention kernel for
+  bf16 self-attention on a CUDA device when it fits, dense attention for f32
+  and for cross-attention.
+
+``remat`` and ``scan_layers`` only shape training and the JAX parameter
+layout; the port always runs a plain loop over ``blocks``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_sigmoid_loss_tpu_torch.ops import flash_attention, short_attention
+from distributed_sigmoid_loss_tpu_torch.parallel import ring_attention
+
+__all__ = [
+    "Dense", "LayerNorm", "Mlp", "Attention", "Block", "Encoder", "MapHead",
+    "check_attention_fits", "dtype_of",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Named in the error for bf16 self-attention beyond the short kernel's fit.
+FLASH_ROADMAP_ROW = "ROADMAP.md queue B, K7 (ops/flash_attention.py long-sequence flash kernel)"
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def check_attention_fits(cfg, seq_len: int) -> None:
+    """``attn_impl="flash"`` forces the fused kernel: refuse a tower whose
+    sequence the short kernel cannot take, since the flash kernel is not
+    ported."""
+    if cfg.attn_impl == "flash" and not short_attention.short_attention_fits(
+        seq_len, cfg.width, dtype_of(cfg.dtype).itemsize, cfg.num_heads
+    ):
+        raise NotImplementedError(
+            f"attn_impl='flash' at s={seq_len}, width={cfg.width}, "
+            f"heads={cfg.num_heads}, {cfg.dtype} does not fit the short kernel "
+            f"and needs the flash kernel, not ported yet: {FLASH_ROADMAP_ROW}"
+        )
+
+
+def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    t.uniform_(-bound, bound, generator=generator)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated at ±2σ, scaled so the
+    variance is 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    t.mul_(std)
+
+
+class Dense(nn.Module):
+    """``y = x @ Wᵀ + b`` with f32 parameters cast to ``dtype`` per call.
+    ``weight`` is (out, in), the transpose of a flax kernel. Here and in the
+    other modules, ``generator=None`` leaves the weights uninitialized, for a
+    state dict to be loaded or the ``meta`` device."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, *, init: str = "xavier",
+                 device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+        if generator is not None:
+            w = self.weight.data
+            if init == "xavier":
+                xavier_uniform_(w, d_in, d_out, generator)
+            else:
+                lecun_normal_(w, d_in, generator)
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=...)``: f32 statistics, eps 1e-6, fast
+    variance clamped at 0, output in ``dtype``."""
+
+    def __init__(self, width: int, dtype: torch.dtype, *, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(width, device=device))
+        self.bias = nn.Parameter(torch.zeros(width, device=device))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp(x32.square().mean(dim=-1, keepdim=True) - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean) * mul + self.bias).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, width: int, mlp_ratio, dtype, *, device=None, generator=None):
+        super().__init__()
+        # A fractional ratio (HF so400m: 4304/1152) rounds back to the integer.
+        hidden = int(round(width * mlp_ratio))
+        self.wi = Dense(width, hidden, dtype, device=device, generator=generator)
+        self.wo = Dense(hidden, width, dtype, device=device, generator=generator)
+
+    def forward(self, x):
+        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+
+
+class Attention(nn.Module):
+    """Multi-head attention with separate q/k/v projections.
+
+    ``attn_impl``: "dense", "flash" (the fused kernel, CUDA tensors only) or
+    "auto" (the fused kernel for bf16 self-attention on CUDA, dense
+    otherwise). bf16 self-attention that does not fit the short kernel would
+    need the flash kernel, which is not ported: that raises.
+    """
+
+    def __init__(self, width: int, num_heads: int, dtype, *, attn_impl: str = "auto",
+                 causal: bool = False, device=None, generator=None):
+        super().__init__()
+        self.width, self.num_heads, self.dtype = width, num_heads, dtype
+        self.attn_impl, self.causal = attn_impl, causal
+        kw = dict(device=device, generator=generator)
+        self.q = Dense(width, width, dtype, **kw)
+        self.k = Dense(width, width, dtype, **kw)
+        self.v = Dense(width, width, dtype, **kw)
+        self.out = Dense(width, width, dtype, **kw)
+
+    def forward(self, x_q, x_kv=None):
+        is_self_attention = x_kv is None
+        x_kv = x_q if x_kv is None else x_kv
+        head_dim = self.width // self.num_heads
+
+        def split(t):
+            return t.reshape(t.shape[:-1] + (self.num_heads, head_dim))
+
+        q, k, v = split(self.q(x_q)), split(self.k(x_kv)), split(self.v(x_kv))
+        if self.attn_impl == "flash" and not is_self_attention:
+            raise ValueError(
+                "attn_impl='flash' requires self-attention (the fused kernels "
+                "assume q/k/v share one sequence); use 'auto' or 'dense' for "
+                "cross-attention"
+            )
+        if self.attn_impl == "flash" and not flash_attention.flash_attention_available(q):
+            raise ValueError(
+                f"attn_impl='flash' requires a CUDA tensor (got {q.device}); use "
+                "'auto' to take the dense path off the GPU"
+            )
+        use_fused = self.attn_impl == "flash" or (
+            self.attn_impl == "auto"
+            and is_self_attention
+            and self.dtype == torch.bfloat16
+            and flash_attention.flash_attention_available(q)
+        )
+        if use_fused and short_attention.short_attention_fits(
+            q.shape[1], self.width, self.dtype.itemsize, self.num_heads
+        ):
+            out = short_attention.short_self_attention(q, k, v, self.causal)
+        elif use_fused:
+            raise NotImplementedError(
+                f"self-attention at s={q.shape[1]}, width={self.width}, "
+                f"heads={self.num_heads}, {self.dtype} does not fit the short "
+                f"kernel and needs the flash kernel, not ported yet: {FLASH_ROADMAP_ROW}"
+            )
+        else:
+            out = ring_attention.dense_attention(q, k, v, causal=self.causal)
+        out = out.to(self.dtype)
+        return self.out(out.reshape(out.shape[:-2] + (self.width,)))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, width: int, num_heads: int, mlp_ratio, dtype, *, attn_impl="auto",
+                 causal=False, device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.ln1 = LayerNorm(width, dtype, device=device)
+        self.attn = Attention(width, num_heads, dtype, attn_impl=attn_impl, causal=causal, **kw)
+        self.ln2 = LayerNorm(width, dtype, device=device)
+        self.mlp = Mlp(width, mlp_ratio, dtype, **kw)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class Encoder(nn.Module):
+    """Stack of blocks followed by a final LayerNorm."""
+
+    def __init__(self, width: int, depth: int, num_heads: int, mlp_ratio, dtype, *,
+                 attn_impl="auto", causal=False, device=None, generator=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Block(width, num_heads, mlp_ratio, dtype, attn_impl=attn_impl, causal=causal,
+                  device=device, generator=generator)
+            for _ in range(depth)
+        )
+        self.ln_final = LayerNorm(width, dtype, device=device)
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x)
+        return self.ln_final(x)
+
+
+class MapHead(nn.Module):
+    """SigLIP's MAP (multihead attention pooling) head: a learned probe token
+    attends over the sequence (no LayerNorm before, no residual around the
+    attention), followed by an MLP residual."""
+
+    def __init__(self, width: int, num_heads: int, mlp_ratio, dtype, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.probe = nn.Parameter(torch.empty(1, 1, width, device=device))
+        if generator is not None:
+            # flax xavier_uniform on (1, 1, width): fan_in 1, fan_out width.
+            xavier_uniform_(self.probe.data, 1, width, generator)
+        self.attn = Attention(width, num_heads, dtype, device=device, generator=generator)
+        self.ln = LayerNorm(width, dtype, device=device)
+        self.mlp = Mlp(width, mlp_ratio, dtype, device=device, generator=generator)
+
+    def forward(self, tokens):
+        probe = self.probe.to(self.dtype).expand(tokens.shape[0], 1, -1)
+        x = self.attn(probe, tokens)
+        x = x + self.mlp(self.ln(x))
+        return x[:, 0]
