@@ -11,15 +11,22 @@ and nothing is caught:
 1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``);
 2. build every kernel from ``distributed_sigmoid_loss_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together);
-3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and time kernel, plain version and the
-   PyTorch library call beside the work's least time on this card;
-4. the main path: SigLIP-B/16 at full width and depth in bf16, seeded random
-   weights, ``InferenceEngine`` + ``EmbeddingService`` serving a 256-image
-   corpus and 64 mixed requests from 8 threads, with the kernel launch
-   counts read around that run, then the towers' device time by kernel at
-   the largest bucket (torch.profiler);
-5. a JSON line of the kernels' numbers and, last, the device record.
+3. hold each kernel (K1, the attention forward; K2, its backward) against
+   its plain PyTorch version on the card at the shapes the main paths give
+   it, and time kernel, plain version and the PyTorch library call beside
+   the work's least time on this card;
+4. the serving path: SigLIP-B/16 at full width and depth in bf16, seeded
+   random weights, ``InferenceEngine`` + ``EmbeddingService`` serving a
+   256-image corpus and 64 mixed requests from 8 threads, with the kernel
+   launch counts read around that run, then the towers' device time by
+   kernel at the largest bucket (torch.profiler);
+5. the training path: the headline train step (B/16, 16 accumulated
+   microbatches of 128 pairs, ``save_hot`` remat, bf16 accumulator and Adam
+   first moment, ring loss at precision "default") for 3 steps, with the
+   launch counts read around them; then one microbatch's device time by
+   kernel, the gradient through the whole model with the kernels against
+   both plain versions, and a 10-step fit of one fixed batch;
+6. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -27,7 +34,9 @@ Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -43,12 +52,47 @@ BF16_FLOP_PER_S = 989e12
 # different orders (a p may move one bf16 ulp) and round the output to bf16
 # (|out| < 2 here, one ulp <= 2^-7): two output ulps.
 K1_ATOL = 1.6e-2
+# K2 vs its plain version in bf16: both round p and ds to bf16 after f32 sums
+# taken in different orders (a p or ds may move one bf16 ulp) and round each
+# gradient to bf16; 2^-6 of a gradient's largest magnitude is at least two
+# bf16 ulps there.
+K2_RTOL_OF_MAX = 2.0 ** -6
 BUCKETS = (1, 8, 32, 128)
 CORPUS, REQUESTS, CLIENTS = 256, 64, 8
+# The headline train step (bench.py's no-argument run): 16 microbatches of 128.
+ACCUM, MICRO, TRAIN_STEPS = 16, 128, 3
+FIT_STEPS = 10
+# Kernel cases of both kernels: (b, s, h, dh, causal).
+ATTENTION_CASES = {
+    "vision": (128, 196, 12, 64, False),  # B/16 image tower, batch 128
+    "text": (128, 64, 12, 64, False),  # B/16 text tower, batch 128
+    "causal": (4, 77, 8, 64, True),
+    "head_dim_72": (2, 256, 16, 72, False),  # so400m head width, L/14 length
+    "scalar_path": (2, 50, 3, 20, True),  # width 60: element-wise loads and stores
+}
 
 
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
+
+
+def ptxas_usage(build_log: str) -> dict:
+    """``{kernel<template args>: "N registers, S spill bytes"}`` from ``nvcc
+    -Xptxas -v``."""
+    usage, kernel = {}, None
+    for line in build_log.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            short = re.search(r"(short_attention_(?:fwd|bwd_dq|bwd_dkdv)_kernel)ILi(\d+)E", name)
+            kernel = f"{short.group(1)}<{short.group(2)}>" if short else name
+        elif kernel and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            usage[kernel] = f"spill {spill.group(1)} B" if spill else line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            usage[kernel] = f"{regs.group(1)} registers, " + usage.get(kernel, "")
+    return usage
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -65,44 +109,72 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, s, h, dh, causal=False) -> tuple[float, str]:
-    """Least time for the attention forward: q, k, v read once and out
-    written once (bf16) against the two products' operations (causal: only
-    the unmasked half-triangle the data needs)."""
-    nbytes = 4 * b * s * h * dh * 2
+def device_ms(fn, iters: int = 5):
+    """Mean device time of the kernels of one call of ``fn`` over ``iters``
+    calls (torch.profiler), without the host's launch gaps that a CUDA-event
+    time includes; None ("not measured") when the profiler records no
+    kernel, which it has done for a whole call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+
+
+def attention_bound_ms(b, s, h, dh, causal=False, tensors=4, products=2) -> tuple[float, str]:
+    """Least time for attention work: ``tensors`` (b, s, h, dh) bf16 tensors
+    each read or written once against ``products`` matrix products over the
+    (causal: unmasked half-triangle) score pairs. The forward moves q, k, v,
+    out in two products; the backward q, k, v, do, dq, dk, dv in five."""
+    nbytes = tensors * b * s * h * dh * 2
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 2 * 2 * b * h * pairs * dh
+    flops = products * 2 * b * h * pairs * dh
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_breakdown(fn, wall_ms: float) -> dict:
+KERNEL_GROUPS = (
+    ("short_attention_bwd", "short_attention_bwd"),
+    ("short_attention", "short_attention_fwd"),
+)
+
+
+def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
     """Device time of one call of ``fn`` by kernel (torch.profiler), grouped
-    into K1, matrix products and the rest, with the device's idle share
-    against ``wall_ms`` (the call's CUDA-event time)."""
+    into K1, K2, matrix products and the rest, with the device's idle share
+    against ``wall_ms`` (the call's time unprofiled). ``host_ops=False``
+    traces the device alone, for calls of ~10^5 kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise AssertionError("the profiler saw no kernel on the device")
-    groups = {"short_attention_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"short_attention_fwd": 0.0, "short_attention_bwd": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        if "short_attention" in name:
-            group = "short_attention_fwd"
-        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
-            group = "matmul"
-        else:
-            group = "other"
+        group = next((g for key, g in KERNEL_GROUPS if key in name), None)
+        if group is None:
+            matmul = any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
+            group = "matmul" if matmul else "other"
         groups[group] += e.self_device_time_total / 1e3
     total = sum(groups.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
         "kernel_ms": total,
+        "kernel_launches": sum(e.count for e in kernels),
         "ms_by_group": groups,
         "idle_share": max(0.0, 1.0 - total / wall_ms),
         "top": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top],
@@ -114,15 +186,8 @@ def check_short_attention(sa, gen) -> dict:
     JSON record of the vision shape (the main path's largest)."""
     import torch.nn.functional as F
 
-    cases = {
-        "vision": (128, 196, 12, 64, False),  # B/16 image tower, bucket 128
-        "text": (128, 64, 12, 64, False),  # B/16 text tower, bucket 128
-        "causal": (4, 77, 8, 64, True),
-        "head_dim_72": (2, 256, 16, 72, False),  # so400m head width, L/14 length
-        "scalar_path": (2, 50, 3, 20, True),  # width 60: element-wise loads and stores
-    }
     record = None
-    for name, (b, s, h, dh, causal) in cases.items():
+    for name, (b, s, h, dh, causal) in ATTENTION_CASES.items():
         q, k, v = (
             torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
             for _ in range(3)
@@ -134,7 +199,7 @@ def check_short_attention(sa, gen) -> dict:
         finite = bool(torch.isfinite(out).all())
         row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=err,
                    atol=K1_ATOL, finite=finite,
-                   blocks_per_sm=sa._library().short_attention_occupancy(s, dh))
+                   blocks_per_sm=sa._library("short_attention").short_attention_occupancy(s, dh))
         if name in ("vision", "text"):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["ms"] = time_ms(lambda: sa.short_self_attention(q, k, v, causal))
@@ -142,10 +207,61 @@ def check_short_attention(sa, gen) -> dict:
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
             )
+            row["device_ms"] = device_ms(lambda: sa.short_self_attention(q, k, v, causal))
+            row["library_device_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            )
             row["bound_ms"], row["bound_by"] = attention_bound_ms(b, s, h, dh, causal)
         log("kernel", **row)
         if not finite or err > K1_ATOL:
             raise AssertionError(f"short_attention_fwd disagrees with its plain version: {row}")
+        if name == "vision":
+            record = row
+    return record
+
+
+def check_short_attention_bwd(sa, gen) -> dict:
+    """K2 against its plain version at the same cases as K1; returns the
+    JSON record of the vision shape (the main path's largest)."""
+    import torch.nn.functional as F
+
+    lib = sa._library("short_attention_bwd")
+    record = None
+    for name, (b, s, h, dh, causal) in ATTENTION_CASES.items():
+        q, k, v, do = (
+            torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(4)
+        )
+        got = sa.short_self_attention_bwd(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        ref = sa.short_self_attention_bwd_plain(q, k, v, do, causal)
+        errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+        tols = {n: K2_RTOL_OF_MAX * r.float().abs().max().item() for n, r in zip(("dq", "dk", "dv"), ref)}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=errs, atol=tols,
+                   finite=finite,
+                   blocks_per_sm={"dq": lib.short_attention_bwd_occupancy(s, dh, 0),
+                                  "dkdv": lib.short_attention_bwd_occupancy(s, dh, 1)})
+        if name in ("vision", "text"):
+            row["ms"] = time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal))
+            row["plain_ms"] = time_ms(lambda: sa.short_self_attention_bwd_plain(q, k, v, do, causal))
+            # Library yardstick: the backward of scaled_dot_product_attention,
+            # taken by autograd on the same inputs.
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            dout = do.transpose(1, 2)
+            row["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            )
+            row["device_ms"] = device_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal))
+            row["library_device_ms"] = device_ms(
+                lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            )
+            row["bound_ms"], row["bound_by"] = attention_bound_ms(b, s, h, dh, causal, 7, 5)
+            del out, leaves
+        log("kernel_bwd", **row)
+        if not finite or any(errs[n] > tols[n] for n in errs):
+            raise AssertionError(f"short_attention_bwd disagrees with its plain version: {row}")
         if name == "vision":
             record = row
     return record
@@ -221,7 +337,7 @@ def run_main_path(args, sa) -> dict:
         t.join()
     t_requests = time.monotonic() - t0
     torch.cuda.synchronize()
-    launches = sa.launches()
+    launches, bwd_launches = sa.launches(), sa.bwd_launches()
     tower_calls = dict(engine.calls)
     # -- end of the main path ----------------------------------------------
     if errors:
@@ -250,6 +366,8 @@ def run_main_path(args, sa) -> dict:
     expected = cfg.vision.depth * tower_calls.get("image", 0) + cfg.text.depth * tower_calls.get("text", 0)
     if launches != expected or launches == 0:
         raise AssertionError(f"short_attention launches {launches} != 12 per tower call ({expected})")
+    if bwd_launches != 0:
+        raise AssertionError(f"serving launched the attention backward {bwd_launches} times")
     svc.close()
     lat_ms = sorted(1e3 * x for x in lat)
     log("main", warmup_s=t_warm, compile_count=engine.compile_count,
@@ -290,7 +408,184 @@ def run_main_path(args, sa) -> dict:
         log("profile", tower=tower, batch=128, **row)
     if min(cos) <= 0.999:
         raise AssertionError(f"kernel vs plain attention through the model: cosine {cos}")
+    del model, engine, svc
+    torch.cuda.empty_cache()
     return {"short_attention_fwd": launches}
+
+
+def forward_flops_per_pair(cfg) -> float:
+    """Forward FLOPs of one image-text pair through the towers, on the
+    model-FLOPs basis of the JAX package's bench (its
+    ``model_forward_flops_per_pair``, copied here): per layer
+    (4 + 4 + 4·mlp_ratio)·s·w² + 4·s²·w, plus the patch embedding, the MAP
+    heads' k/v projections and the projections; the loss matmul excluded."""
+    def tower(s, w, depth, ratio):
+        return depth * ((4 + 4 + 4 * ratio) * s * w * w + 4 * s * s * w)
+
+    v, t = cfg.vision, cfg.text
+    s_img = (v.image_size // v.patch_size) ** 2
+    vit = tower(s_img, v.width, v.depth, v.mlp_ratio)
+    vit += 2.0 * s_img * v.patch_size * v.patch_size * 3 * v.width
+    if v.pool == "map":
+        vit += 4.0 * s_img * v.width * v.width
+    if v.use_proj:
+        vit += 2.0 * v.width * v.embed_dim
+    txt = tower(t.context_length, t.width, t.depth, t.mlp_ratio)
+    if t.pool == "map":
+        txt += 4.0 * t.context_length * t.width * t.width
+    txt += 2.0 * t.width * t.embed_dim
+    return float(vit + txt)
+
+
+def headline_config():
+    """SigLIP-B/16 as the headline train step runs it: save_hot remat in both
+    towers, the ring loss at precision "default"."""
+    from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
+
+    cfg = SigLIPConfig.b16()
+    remat = dict(remat=True, remat_policy="save_hot")
+    return dataclasses.replace(
+        cfg,
+        vision=dataclasses.replace(cfg.vision, **remat),
+        text=dataclasses.replace(cfg.text, **remat),
+        loss=dataclasses.replace(cfg.loss, variant="ring", precision="default"),
+    )
+
+
+def random_batch(cfg, n, gen) -> dict:
+    hw, ctx = cfg.vision.image_size, cfg.text.context_length
+    return {
+        "images": torch.rand((n, hw, hw, 3), device="cuda", generator=gen),
+        "tokens": torch.randint(1, cfg.text.vocab_size, (n, ctx), device="cuda", generator=gen),
+    }
+
+
+def tower_grads(model, per_shard, batch) -> dict:
+    """Flattened f32 gradient of each tower for one (micro)batch."""
+    model.zero_grad(set_to_none=True)
+    zimg, ztxt, lp = model(batch["images"], batch["tokens"])
+    per_shard(zimg, ztxt, lp["t_prime"], lp["bias"]).backward()
+    out = {tower: torch.cat([p.grad.float().flatten() for n, p in model.named_parameters()
+                             if n.startswith(tower + ".")])
+           for tower in ("visual", "textual")}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def run_train_path(args, sa) -> dict:
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
+
+    cfg = headline_config()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = SigLIP(cfg, device="cuda", generator=gen)
+    tx = make_optimizer(TrainConfig(warmup_steps=100, total_steps=100_000,
+                                    adam_mu_dtype="bfloat16"))
+    state = create_train_state(model, tx)
+    step = make_train_step(model, cfg.loss, accum_steps=ACCUM, accum_dtype="bfloat16")
+    batches = [random_batch(cfg, ACCUM * MICRO, gen) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log("train", config="SigLIP-B/16", remat_policy=cfg.vision.remat_policy,
+        accum_steps=ACCUM, microbatch=MICRO, accum_dtype="bfloat16", adam_mu_dtype="bfloat16",
+        loss_variant=cfg.loss.variant, loss_precision=cfg.loss.precision,
+        loss_precision_meaning="embeddings rounded to bf16, products summed in f32 (one bf16 pass)",
+        train_config="TrainConfig(warmup_steps=100, total_steps=100_000)")
+
+    # -- the training path, between the two reads of the launch counts -----
+    sa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, metrics = [], []
+    for batch in batches:
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        m = {k: v.item() for k, v in m.items()}
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        metrics.append(m)
+    launches, bwd_launches = sa.launches(), sa.bwd_launches()
+    # -- end of the training path ------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    expected = (cfg.vision.depth + cfg.text.depth) * ACCUM * TRAIN_STEPS
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    pairs_per_s = ACCUM * MICRO / steady
+    flops = 3.0 * forward_flops_per_pair(cfg)
+    for i, (m, t) in enumerate(zip(metrics, step_s)):
+        log("train", step=i, step_ms=1e3 * t, **m)
+    log("train", steady_step_ms=1e3 * steady, pairs_per_s=pairs_per_s,
+        model_tflops_per_pair_basis=flops / 1e12,
+        mfu=flops * pairs_per_s / BF16_FLOP_PER_S, max_memory_allocated_gib=peak / 2**30,
+        short_attention_fwd_launches=launches, short_attention_bwd_launches=bwd_launches,
+        expected_each=expected, traced_bwd_batch_heads=sa.traced_bwd_batch_heads())
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite train metrics: {metrics}")
+    if launches != expected or bwd_launches != expected:
+        raise AssertionError(
+            f"attention launches fwd {launches} / bwd {bwd_launches} != 24 per microbatch "
+            f"({expected}); a forward count of 48 per microbatch means the remat policy "
+            "re-ran the attention forward"
+        )
+
+    # Outside the counted run: one whole step, the optimizer update alone,
+    # and one microbatch's forward+backward, on the device by kernel group.
+    log("profile", path="train step", accum_steps=ACCUM, batch=ACCUM * MICRO,
+        **device_breakdown(lambda: step(state, batches[0]), 1e3 * steady, host_ops=False))
+    zero_grads = [torch.zeros_like(p) for p in state.params]
+    update_ms = time_ms(lambda: state.tx.apply(state.params, zero_grads, state.opt_state),
+                        iters=3, warmup=1)
+    log("train", optimizer_update_ms=update_ms, params=len(zero_grads))
+    del zero_grads
+    per_shard = make_per_shard_loss(variant=cfg.loss.variant, precision=cfg.loss.precision)
+    micro = {k: v[:MICRO] for k, v in batches[0].items()}
+
+    def microstep():
+        zimg, ztxt, lp = model(micro["images"], micro["tokens"])
+        per_shard(zimg, ztxt, lp["t_prime"], lp["bias"]).backward()
+        model.zero_grad(set_to_none=True)
+
+    micro_ms = time_ms(microstep, iters=5, warmup=2)
+    log("profile", path="train microbatch fwd+bwd", batch=MICRO, **device_breakdown(microstep, micro_ms))
+
+    # The gradient through the whole model, kernels vs both plain versions.
+    small = {k: v[:8] for k, v in batches[0].items()}
+    kernel_grads = tower_grads(model, per_shard, small)
+    launch_fwd, launch_bwd = sa._launch_fwd, sa._launch_bwd
+    sa._launch_fwd = lambda q, k, v, c, sc: sa.short_self_attention_plain(q, k, v, c, sc)
+    sa._launch_bwd = lambda q, k, v, do, c, sc: sa.short_self_attention_bwd_plain(q, k, v, do, c, sc)
+    try:
+        plain_grads = tower_grads(model, per_shard, small)
+    finally:
+        sa._launch_fwd, sa._launch_bwd = launch_fwd, launch_bwd
+    cos = {t: float(torch.nn.functional.cosine_similarity(kernel_grads[t], plain_grads[t], dim=0))
+           for t in kernel_grads}
+    log("train", grad_cosine_kernel_vs_plain_b8=cos)
+    if min(cos.values()) <= 0.999:
+        raise AssertionError(f"kernel vs plain gradient through the model: cosine {cos}")
+    del state, step, batches, kernel_grads, plain_grads
+    torch.cuda.empty_cache()
+
+    # A short fit: FIT_STEPS steps on one fixed batch at a constant rate.
+    # Adam's first steps are about lr·sign(g) on each of 210M parameters, a
+    # first-order change of the loss of about lr·‖g‖₁ (‖g‖₂ ≈ 55 here): at
+    # 1e-5 that is several nats and the loss jumps about; at 1e-6 it descends.
+    fit_tx = make_optimizer(TrainConfig(learning_rate=1e-6, warmup_steps=0,
+                                        schedule="constant", adam_mu_dtype="bfloat16"))
+    fit_state = create_train_state(model, fit_tx)
+    fit_step = make_train_step(model, cfg.loss)
+    fixed = random_batch(cfg, MICRO, gen)
+    losses = []
+    for _ in range(FIT_STEPS):
+        fit_state, m = fit_step(fit_state, fixed)
+        losses.append(m["loss"].item())
+    log("train", fit_losses=losses)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+    return {"short_attention_fwd": launches, "short_attention_bwd": bwd_launches}
 
 
 def main() -> int:
@@ -319,34 +614,60 @@ def main() -> int:
     t0 = time.monotonic()
     built = _cuda.build()
     for lib, info in built.items():
-        usage = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
-        log("build", library=lib, seconds=info["seconds"], ptxas=usage[:4])
+        log("build", library=lib, seconds=info["seconds"], ptxas=ptxas_usage(info["log"]))
     log("build", seconds=time.monotonic() - t0, built=sorted(built))
-    smem = sa._library().short_attention_smem_bytes(196, 64)
-    if smem != sa.short_attention_smem_bytes(196, 64):
-        raise AssertionError(f"kernel smem {smem} != python mirror {sa.short_attention_smem_bytes(196, 64)}")
+    for lib, mirror in (("short_attention", sa.short_attention_smem_bytes),
+                        ("short_attention_bwd", sa.short_attention_bwd_smem_bytes)):
+        smem = getattr(sa._library(lib), f"{lib}_smem_bytes")(196, 64)
+        if smem != mirror(196, 64):
+            raise AssertionError(f"{lib} smem {smem} != python mirror {mirror(196, 64)}")
 
     # Phase 3: each kernel against its plain version.
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_short_attention(sa, gen)
+    k2 = check_short_attention_bwd(sa, gen)
 
-    # Phase 4: the main path.
-    launches = run_main_path(args, sa)
+    # Phases 4 and 5: the main paths, each between two reads of the counts.
+    t0 = time.monotonic()
+    serve = run_main_path(args, sa)
+    t_serve = time.monotonic() - t0
+    t0 = time.monotonic()
+    train = run_train_path(args, sa)
+    log("paths", serve_s=t_serve, train_s=time.monotonic() - t0)
 
-    # Phase 5: the records.
+    # Phase 6: the records.
+    source = "distributed_sigmoid_loss_tpu_torch/csrc/"
+    replaces = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
+    shape = "b=128 s=196 h=12 dh=64 bf16"
     kernels = [{
         "name": "short_attention_fwd",
         "route": "cuda",
-        "source": "distributed_sigmoid_loss_tpu_torch/csrc/short_attention.cu",
-        "replaces": "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:257",
-        "launches": launches["short_attention_fwd"],
+        "source": source + "short_attention.cu",
+        "replaces": replaces + "257",
+        "launches": serve["short_attention_fwd"] + train["short_attention_fwd"],
+        "launches_by_path": {"serve": serve["short_attention_fwd"],
+                             "train": train["short_attention_fwd"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
-        "shape": "b=128 s=196 h=12 dh=64 bf16",
+        "shape": shape,
+    }, {
+        "name": "short_attention_bwd",
+        "route": "cuda",
+        "source": source + "short_attention_bwd.cu",
+        "replaces": replaces + "278",
+        "launches": train["short_attention_bwd"],
+        "launches_by_path": {"serve": 0, "train": train["short_attention_bwd"]},
+        "max_abs_err": max(k2["max_abs_err"].values()),
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+        "shape": shape,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

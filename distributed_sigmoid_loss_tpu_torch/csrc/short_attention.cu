@@ -23,13 +23,10 @@
 // edge (s=196 is not a multiple of 16) is zero-padded in shared memory and
 // masked out of the softmax. wgmma/TMA pipelining is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "short_attention_common.cuh"
 
 using namespace nvcuda;
+using namespace short_attention;
 
 namespace {
 
@@ -48,8 +45,6 @@ struct Geometry {
   size_t smem;  // dynamic shared memory of one block, bytes
 };
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 __host__ __device__ inline Geometry geometry(int s, int dh) {
   Geometry g;
   g.s_pad = round_up(s, 16);
@@ -59,52 +54,6 @@ __host__ __device__ inline Geometry geometry(int s, int dh) {
   g.smem = (size_t)2 * g.s_pad * g.ld_kv * sizeof(__nv_bfloat16) +
            (size_t)kWarps * kRowsPerWarp * g.ld_s * sizeof(float);
   return g;
-}
-
-__device__ inline float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ inline float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// 16-byte asynchronous copy global -> shared; src_bytes = 0 zero-fills.
-__device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
-}
-
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copy rows [row0, row0 + rows) of one head's (s, dh) slice, whose rows lie
-// at stride `width` in global memory, into shared memory at row stride `ld`,
-// zero-filling rows >= s and columns in [dh, dh_pad). With `vec` (dh % 8 == 0,
-// width % 8 == 0 and a 16-byte aligned base) every thread issues all its
-// copies before waiting on any, so their latencies overlap; the caller waits
-// (cp_async_wait_all) and synchronises before reading.
-__device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0, int rows,
-                          int s, int width, int dh, int dh_pad, int ld, int tid, int nthreads,
-                          bool vec) {
-  if (vec) {
-    const int chunks = dh_pad / 8;
-    for (int i = tid; i < rows * chunks; i += nthreads) {
-      const int r = i / chunks, c = (i % chunks) * 8, row = row0 + r;
-      const bool live = row < s && c < dh;
-      cp_async16(dst + r * ld + c, live ? src + (size_t)row * width + c : src, live ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < rows * dh_pad; i += nthreads) {
-      const int r = i / dh_pad, c = i % dh_pad, row = row0 + r;
-      __nv_bfloat16 val = __float2bfloat16(0.f);
-      if (row < s && c < dh) val = src[(size_t)row * width + c];
-      dst[r * ld + c] = val;
-    }
-  }
 }
 
 template <int DT>
@@ -235,16 +184,7 @@ short_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     wmma::store_matrix_sync(strip + t * 16, oacc[t], g.ld_s, wmma::mem_row_major);
   __syncwarp();
 
-  for (int r = 0; r < kRowsPerWarp && r0 + r < s; ++r) {
-    __nv_bfloat16* orow = out + slab + (size_t)(r0 + r) * width;
-    const float* srow = strip + r * g.ld_s;
-    if (vec) {  // even offsets: two bf16 per 4-byte store
-      for (int d = 2 * lane; d < dh; d += 64)
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(srow[d], srow[d + 1]);
-    } else {
-      for (int d = lane; d < dh; d += 32) orow[d] = __float2bfloat16(srow[d]);
-    }
-  }
+  store_rows(out + slab, strip, r0, s, width, dh, g.ld_s, lane, vec);
 }
 
 template <int DT>

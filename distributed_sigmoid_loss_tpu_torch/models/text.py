@@ -38,7 +38,8 @@ class TextTransformer(nn.Module):
             self.token_embed.data.normal_(0.0, 0.02, generator=generator)
             self.pos_embed.data.normal_(0.0, 0.02, generator=generator)
         self.encoder = Encoder(cfg.width, cfg.depth, cfg.num_heads, cfg.mlp_ratio, dtype,
-                               attn_impl=cfg.attn_impl, causal=cfg.causal, **kw)
+                               attn_impl=cfg.attn_impl, causal=cfg.causal, remat=cfg.remat,
+                               remat_policy=cfg.remat_policy, **kw)
         if cfg.pool == "map":
             self.map_head = MapHead(cfg.width, cfg.num_heads, cfg.mlp_ratio, dtype, **kw)
         self.proj = Dense(cfg.width, cfg.embed_dim, dtype, init="lecun", **kw)

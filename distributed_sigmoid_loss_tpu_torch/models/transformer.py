@@ -9,25 +9,45 @@
 - ``Attention`` keeps the JAX dispatch: the fused short-attention kernel for
   bf16 self-attention on a CUDA device when it fits, dense attention for f32
   and for cross-attention.
+- ``remat`` recomputes each block in the backward
+  (``torch.utils.checkpoint``, non-reentrant), with the JAX package's
+  ``remat_policy`` as a selective-checkpoint policy: ``"nothing"`` recomputes
+  everything; ``"save_hot"`` keeps ``attn_core`` and ``mlp_hidden``;
+  ``"save_all_hot"`` also keeps ``q_proj``/``k_proj``/``v_proj``;
+  ``"save_mlp"`` keeps ``mlp_hidden`` only. PyTorch's selective checkpointing
+  chooses by op, not by name, so a name is an op it can recognise:
+  ``attn_core`` is the fused kernel's custom op
+  (``short_attention.ATTN_CORE_OP``; the dense core of the f32 towers is
+  recomputed), and the other names tag the ops run inside
+  :func:`checkpoint_name`. Under ``save_hot`` the backward never launches the
+  attention forward again.
 
-``remat`` and ``scan_layers`` only shape training and the JAX parameter
-layout; the port always runs a plain loop over ``blocks``.
+``scan_layers`` only shapes the JAX parameter layout; the port always runs a
+plain loop over ``blocks``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from distributed_sigmoid_loss_tpu_torch.ops import flash_attention, short_attention
 from distributed_sigmoid_loss_tpu_torch.parallel import ring_attention
 
 __all__ = [
     "Dense", "LayerNorm", "Mlp", "Attention", "Block", "Encoder", "MapHead",
-    "check_attention_fits", "dtype_of",
+    "check_attention_fits", "checkpoint_name", "dtype_of", "REMAT_POLICIES",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -38,6 +58,37 @@ FLASH_ROADMAP_ROW = "ROADMAP.md queue B, K7 (ops/flash_attention.py long-sequenc
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+# remat_policy -> the names whose values the backward keeps (JAX
+# models/transformer.py:_remat_policy).
+REMAT_POLICIES = {
+    "nothing": (),
+    "save_hot": ("attn_core", "mlp_hidden"),
+    "save_all_hot": ("attn_core", "mlp_hidden", "q_proj", "k_proj", "v_proj"),
+    "save_mlp": ("mlp_hidden",),
+}
+
+_CHECKPOINT_NAME = contextvars.ContextVar("checkpoint_name", default=None)
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Name the ops run inside for the remat policy (JAX ``checkpoint_name``).
+    The recompute runs the same code, so it sees the same names."""
+    token = _CHECKPOINT_NAME.set(name)
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.reset(token)
+
+
+def _policy(saved: tuple[str, ...]):
+    def policy(ctx, op, *args, **kwargs):
+        name = "attn_core" if op == short_attention.ATTN_CORE_OP else _CHECKPOINT_NAME.get()
+        return CheckpointPolicy.MUST_SAVE if name in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 def check_attention_fits(cfg, seq_len: int) -> None:
@@ -118,7 +169,9 @@ class Mlp(nn.Module):
         self.wo = Dense(hidden, width, dtype, device=device, generator=generator)
 
     def forward(self, x):
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        with checkpoint_name("mlp_hidden"):
+            hidden = self.wi(x)
+        return self.wo(F.gelu(hidden, approximate="tanh"))
 
 
 class Attention(nn.Module):
@@ -149,7 +202,12 @@ class Attention(nn.Module):
         def split(t):
             return t.reshape(t.shape[:-1] + (self.num_heads, head_dim))
 
-        q, k, v = split(self.q(x_q)), split(self.k(x_kv)), split(self.v(x_kv))
+        with checkpoint_name("q_proj"):
+            q = split(self.q(x_q))
+        with checkpoint_name("k_proj"):
+            k = split(self.k(x_kv))
+        with checkpoint_name("v_proj"):
+            v = split(self.v(x_kv))
         if self.attn_impl == "flash" and not is_self_attention:
             raise ValueError(
                 "attn_impl='flash' requires self-attention (the fused kernels "
@@ -201,11 +259,23 @@ class Block(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Stack of blocks followed by a final LayerNorm."""
+    """Stack of blocks followed by a final LayerNorm. With ``remat``, each
+    block is recomputed in the backward under ``remat_policy`` (see the
+    module docstring); without gradients, blocks run plainly."""
 
     def __init__(self, width: int, depth: int, num_heads: int, mlp_ratio, dtype, *,
-                 attn_impl="auto", causal=False, device=None, generator=None):
+                 attn_impl="auto", causal=False, remat: bool = False,
+                 remat_policy: str = "nothing", device=None, generator=None):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy: {remat_policy!r}")
+        self.remat = remat
+        saved = REMAT_POLICIES[remat_policy]
+        self._checkpoint_kw = {"use_reentrant": False}
+        if saved:
+            self._checkpoint_kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _policy(saved)
+            )
         self.blocks = nn.ModuleList(
             Block(width, num_heads, mlp_ratio, dtype, attn_impl=attn_impl, causal=causal,
                   device=device, generator=generator)
@@ -214,8 +284,9 @@ class Encoder(nn.Module):
         self.ln_final = LayerNorm(width, dtype, device=device)
 
     def forward(self, x):
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, **self._checkpoint_kw) if remat else block(x)
         return self.ln_final(x)
 
 

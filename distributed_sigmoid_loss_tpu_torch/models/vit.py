@@ -69,7 +69,8 @@ class ViT(nn.Module):
         if generator is not None:
             self.pos_embed.data.normal_(0.0, 0.02, generator=generator)
         self.encoder = Encoder(cfg.width, cfg.depth, cfg.num_heads, cfg.mlp_ratio, dtype,
-                               attn_impl=cfg.attn_impl, **kw)
+                               attn_impl=cfg.attn_impl, remat=cfg.remat,
+                               remat_policy=cfg.remat_policy, **kw)
         if cfg.pool == "map":
             self.map_head = MapHead(cfg.width, cfg.num_heads, cfg.mlp_ratio, dtype, **kw)
         if cfg.use_proj:

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``build/`` at the root of
-the checkout, named by a hash of their source, so an edited source never
-loads a stale library. Nothing here runs at import time: the CPU tests import
-every module of the package on a host without ``nvcc``.
+the checkout, named by a hash of their source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header never loads a stale
+library. Nothing here runs at import time: the CPU tests import every module
+of the package on a host without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build"
 
 # Kernel library name -> source under csrc/.
-SOURCES = {"short_attention": "short_attention.cu"}
+SOURCES = {
+    "short_attention": "short_attention.cu",
+    "short_attention_bwd": "short_attention_bwd.cu",
+}
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,6 +53,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,25 +1,33 @@
-"""Fused short-sequence multi-head self-attention forward: a CUDA kernel for
-the towers, with its plain PyTorch version beside it.
+"""Fused short-sequence multi-head self-attention, forward (K1) and backward
+(K2): CUDA kernels for the towers, with their plain PyTorch versions beside
+them, joined by one ``torch.autograd.Function``.
 
-Replaces the Pallas TPU kernel
-``distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py::
-_short_attention_fwd`` (body ``_fwd_kernel``). It computes, per (batch row,
-head), ``softmax(q·kᵀ·scale [causal mask]) · v``: dots on the activation-dtype
-inputs with f32 accumulation, f32 scale and softmax, ``p`` rounded to the
-activation dtype before ``p·v``, output in the input dtype.
+Replaces the Pallas TPU kernels of
+``distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py``:
 
-Bound on an H100: memory. At ViT-B/16 vision, b=128 (s=196, h=12, dh=64),
-q, k, v and out are 4·128·196·768·2 B ≈ 154 MB, ≈ 46 µs at the datasheet's
-3.35 TB/s, while the two products are 15.1 GFLOP, ≈ 15 µs at 989 TFLOP/s.
-The kernel (``csrc/short_attention.cu``) therefore reads q/k/v once, in the
-towers' native (b, s, h·dh) layout with no transposes, writes out once, and
-keeps every O(s²) intermediate in shared memory: one block per (64-row q
-tile, head, batch row) holds the head's K and V, tensor-core products feed an
-f32 softmax in each warp's shared strip. Only the backward (K2) and the
-long-sequence flash kernel (K7) remain to be ported.
+- K1, ``_short_attention_fwd`` (body ``_fwd_kernel``): per (batch row,
+  head), ``softmax(q·kᵀ·scale [causal mask]) · v``, dots on the
+  activation-dtype inputs with f32 accumulation, f32 scale and softmax, ``p``
+  rounded to the activation dtype before ``p·v``, output in the input dtype.
+  Kernel: ``csrc/short_attention.cu``.
+- K2, ``_short_attention_bwd`` (body ``_bwd_kernel``): dq, dk, dv by
+  recompute from the saved (q, k, v), as the JAX ``custom_vjp`` saves them:
+  f32 ``p``, ``dv = bf16(p)ᵀ·do``, f32 ``dp = do·vᵀ``,
+  ``ds = bf16(p ⊙ (dp − rowsum(dp ⊙ p)) · scale)``, ``dq = ds·k``,
+  ``dk = dsᵀ·q``. Kernel: ``csrc/short_attention_bwd.cu``.
 
-On a CPU tensor :func:`short_self_attention` runs the plain version; on a
-CUDA tensor it launches the kernel or raises.
+Both are memory-bound on an H100 (the sources' header notes give the
+reckoning). Only the head-batched backward (K3) and the long-sequence flash
+kernel (K7) remain to be ported.
+
+The forward is registered as the custom op ``dsl_torch_port::short_attention_fwd``
+(:data:`ATTN_CORE_OP`), so selective activation checkpointing can recognise
+the attention core by op and keep its output instead of launching K1 again in
+the backward (``models/transformer.py``, ``remat_policy="save_hot"``).
+
+On CPU tensors :func:`short_self_attention` runs the plain forward and, in
+the backward, the plain backward (never autograd through the plain forward).
+On CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -34,11 +42,20 @@ from distributed_sigmoid_loss_tpu_torch.ops import _cuda
 __all__ = [
     "short_self_attention",
     "short_self_attention_plain",
+    "short_self_attention_bwd",
+    "short_self_attention_bwd_plain",
+    "ShortSelfAttention",
+    "ATTN_CORE_OP",
     "short_attention_fits",
     "short_attention_smem_bytes",
+    "short_attention_bwd_smem_bytes",
+    "set_bwd_batch_heads",
+    "traced_bwd_batch_heads",
+    "reset_traced_bwd_batch_heads",
     "SMEM_BUDGET_BYTES",
     "MAX_HEAD_DIM",
     "launches",
+    "bwd_launches",
     "reset_launches",
 ]
 
@@ -46,25 +63,66 @@ _NEG_INF = -1e30
 
 # Shared memory one Hopper block may use (232,448 bytes, H100 and H200).
 SMEM_BUDGET_BYTES = 227 * 1024
-# The kernel keeps a 16-row strip of q in registers as head_dim/16 MMA tiles.
+# The kernels keep a 16-row strip of q (or k) in registers as head_dim/16 MMA tiles.
 MAX_HEAD_DIM = 128
 
 _WARPS, _ROWS_PER_WARP = 4, 16
 
+# Named in the refusal of the head-batched backward.
+K3_ROADMAP_ROW = (
+    "ROADMAP.md queue A item 4 and queue B, K3 (the head-batched "
+    "short-attention backward _bwd_kernel_batched)"
+)
+
 _count_lock = threading.Lock()
-_launches = 0
+_launches = {"fwd": 0, "bwd": 0}
+
+# Every backward choice that actually ran in this process (False = the
+# per-head backward K2; the head-batched K3 is not ported).
+_TRACED_BWD_BATCH_HEADS: set[bool] = set()
 
 
 def launches() -> int:
-    """Kernel launches since the last :func:`reset_launches` (plain-version
+    """K1 kernel launches since the last :func:`reset_launches` (plain-version
     calls on CPU tensors are not launches)."""
-    return _launches
+    return _launches["fwd"]
+
+
+def bwd_launches() -> int:
+    """K2 kernel calls since the last :func:`reset_launches`. One call is the
+    two launches of ``short_attention_bwd`` (dq, then dk/dv), counted once."""
+    return _launches["bwd"]
 
 
 def reset_launches() -> None:
-    global _launches
     with _count_lock:
-        _launches = 0
+        _launches.update(fwd=0, bwd=0)
+
+
+def _count(kernel: str) -> None:
+    with _count_lock:
+        _launches[kernel] += 1
+
+
+def set_bwd_batch_heads(enabled: bool) -> None:
+    """The JAX package's switch to the head-batched backward (K3). Only the
+    per-head backward (K2) is ported: ``True`` raises."""
+    if enabled:
+        raise NotImplementedError(
+            f"the head-batched short-attention backward is not ported yet: {K3_ROADMAP_ROW}"
+        )
+
+
+def traced_bwd_batch_heads() -> tuple[bool, ...]:
+    """Distinct backward choices that ran so far, sorted: ``()`` when no
+    fused short-attention backward has run in this process, ``(False,)`` when
+    every one was the per-head backward."""
+    return tuple(sorted(_TRACED_BWD_BATCH_HEADS))
+
+
+def reset_traced_bwd_batch_heads() -> None:
+    """Clear the record (test isolation)."""
+    _TRACED_BWD_BATCH_HEADS.clear()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,99 +130,150 @@ def _round_up(x: int, m: int) -> int:
 
 
 def short_attention_smem_bytes(s: int, head_dim: int) -> int:
-    """Dynamic shared memory of one kernel block: K and V of one head (bf16,
+    """Dynamic shared memory of one K1 block: K and V of one head (bf16,
     rows padded to 16, row stride head_dim_pad + 8) plus four warps' f32
-    16-row logits strips. Mirrors ``geometry()`` in the CUDA source."""
+    16-row logits strips. Mirrors ``geometry()`` in ``short_attention.cu``."""
     s_pad, dh_pad = _round_up(s, 16), _round_up(head_dim, 16)
     ld_s = max(s_pad, dh_pad) + 4
     return 2 * s_pad * (dh_pad + 8) * 2 + _WARPS * _ROWS_PER_WARP * ld_s * 4
 
 
+def short_attention_bwd_smem_bytes(s: int, head_dim: int) -> int:
+    """Dynamic shared memory of one block of either K2 kernel: two of the
+    head's (s, head_dim) operands in bf16 (rows padded to 16, row stride
+    head_dim_pad + 8), four warp regions (the larger of 16 staged rows of two
+    operands, four 16×16 scratch tiles, or 16 f32 output rows; rounded up to
+    128 bytes) and three f32 row statistics per query. Mirrors ``geometry()``
+    in ``short_attention_bwd.cu``."""
+    s_pad, dh_pad = _round_up(s, 16), _round_up(head_dim, 16)
+    ld_kv = dh_pad + 8
+    staged = 2 * _ROWS_PER_WARP * ld_kv * 2
+    scratch = 2 * 256 * 4 + 2 * 256 * 2
+    out = _ROWS_PER_WARP * (dh_pad + 4) * 4
+    warp = _round_up(max(staged, scratch, out), 128)
+    return 2 * s_pad * ld_kv * 2 + _WARPS * warp + 3 * s_pad * 4
+
+
 def short_attention_fits(s: int, width: int, dtype_bytes: int, num_heads: int) -> bool:
-    """True when the kernel takes this shape: bf16 activations, head_dim at
-    most :data:`MAX_HEAD_DIM`, and one block's shared memory within the
-    227 KB Hopper budget. B/16 (s=196 and 64, dh=64) and L/14 (s=256) fit;
-    s=1024 at dh=64 does not."""
+    """True when the kernels take this shape: bf16 activations, head_dim at
+    most :data:`MAX_HEAD_DIM`, and one block of the forward and of the
+    backward within the 227 KB Hopper budget. B/16 (s=196 and 64, dh=64) and
+    L/14 (s=256) fit; s=1024 at dh=64 does not."""
     head_dim = width // num_heads
     return (
         dtype_bytes == 2
         and head_dim <= MAX_HEAD_DIM
-        and short_attention_smem_bytes(s, head_dim) <= SMEM_BUDGET_BYTES
+        and max(short_attention_smem_bytes(s, head_dim),
+                short_attention_bwd_smem_bytes(s, head_dim)) <= SMEM_BUDGET_BYTES
     )
+
+
+def _resolve_scale(q, scale):
+    return (q.shape[-1] ** -0.5) if scale is None else float(scale)
+
+
+def _probs(qf, kf, scale: float, causal: bool):
+    """f32 (or wider) softmax probabilities (b, h, s_q, s_k) from upcast q, k."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        s = qf.shape[1]
+        mask = torch.ones(s, s, dtype=torch.bool, device=qf.device).tril()
+        logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    return torch.softmax(logits, dim=-1)
 
 
 def short_self_attention_plain(q, k, v, causal: bool = False, scale: float | None = None):
-    """The kernel's function in plain PyTorch, with the same rounding points.
+    """K1's function in plain PyTorch, with the same rounding points.
     q/k/v: (b, s, h, dh) → (b, s, h, dh) in q's dtype."""
-    dh = q.shape[-1]
-    scale = (dh ** -0.5) if scale is None else scale
+    scale = _resolve_scale(q, scale)
     # Activation-dtype inputs, f32 accumulation: the products of two bf16
     # values are exact in f32, so upcasting first is the same contraction.
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        s = q.shape[1]
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    acc = torch.promote_types(q.dtype, torch.float32)
+    p = _probs(q.to(acc), k.to(acc), scale, causal)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(acc), v.to(acc))
     return out.to(q.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _cuda.load("short_attention")
-    if not getattr(lib, "_typed", False):
-        p = ctypes.c_void_p
-        i = ctypes.c_int
+def short_self_attention_bwd_plain(q, k, v, do, causal: bool = False,
+                                   scale: float | None = None):
+    """K2's function in plain PyTorch, at ``_bwd_kernel``'s rounding points:
+    p in f32 from f32 logits; ``p_lo = p`` rounded to the activation dtype
+    feeds dv; dp in f32; the rowsum over the f32 p; ds rounded to the
+    activation dtype before dq and dk; outputs in q's dtype.
+    q/k/v/do: (b, s, h, dh) → (dq, dk, dv), each (b, s, h, dh)."""
+    scale = _resolve_scale(q, scale)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = (t.to(acc) for t in (q, k, v))
+    dof = do.to(v.dtype).to(acc)
+    p = _probs(qf, kf, scale, causal)
+    p_lo = p.to(v.dtype).to(acc)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_lo, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = ((p * (dp - (dp * p).sum(dim=-1, keepdim=True))) * scale).to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _cuda.load(name)
+    if getattr(lib, "_typed", False):
+        return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "short_attention":
         lib.short_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
-        lib.short_attention_fwd.restype = ctypes.c_int
+        lib.short_attention_fwd.restype = i
         lib.short_attention_smem_bytes.argtypes = [i, i]
         lib.short_attention_smem_bytes.restype = ctypes.c_longlong
         lib.short_attention_occupancy.argtypes = [i, i]
-        lib.short_attention_occupancy.restype = ctypes.c_int
+        lib.short_attention_occupancy.restype = i
         lib.short_attention_error_string.argtypes = [i]
         lib.short_attention_error_string.restype = ctypes.c_char_p
-        lib._typed = True
+    else:
+        lib.short_attention_bwd.argtypes = [p] * 8 + [i, i, i, i, ctypes.c_float, i, i, p]
+        lib.short_attention_bwd.restype = i
+        lib.short_attention_bwd_smem_bytes.argtypes = [i, i]
+        lib.short_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.short_attention_bwd_occupancy.argtypes = [i, i, i]
+        lib.short_attention_bwd_occupancy.restype = i
+        lib.short_attention_bwd_error_string.argtypes = [i]
+        lib.short_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib._typed = True
     return lib
 
 
-def short_self_attention(q, k, v, causal: bool = False, scale: float | None = None):
-    """Fused self-attention forward for short sequences: (b, s, h, dh) → same.
-
-    CPU tensors run :func:`short_self_attention_plain`. CUDA tensors must be
-    contiguous bf16 of one shape that :func:`short_attention_fits`; they run
-    the kernel, or this raises. Forward only: the backward kernel is not
-    ported, so a call that would need gradients raises.
-    """
-    if q.device.type == "cpu":
-        return short_self_attention_plain(q, k, v, causal, scale)
+def _check_cuda(fn: str, q, others) -> None:
+    """What the kernels take: CUDA, one shape, device and dtype (bf16),
+    contiguous, a shape that :func:`short_attention_fits`."""
     if not q.is_cuda:
-        raise ValueError(f"short_self_attention: unsupported device {q.device}")
-    b, s, h, dh = q.shape
-    for name, t in (("k", k), ("v", v)):
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    for name, t in others:
         if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
             raise ValueError(
-                f"short_self_attention: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                f"{fn}: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
                 f"differs from q {tuple(q.shape)} {q.dtype} on {q.device}"
             )
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"short_self_attention kernel takes bfloat16, got {q.dtype}")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("short_self_attention kernel takes contiguous q, k, v")
+        raise TypeError(f"{fn} kernel takes bfloat16, got {q.dtype}")
+    if not q.is_contiguous() or not all(t.is_contiguous() for _, t in others):
+        raise ValueError(f"{fn} kernel takes contiguous tensors")
+    b, s, h, dh = q.shape
     if not short_attention_fits(s, h * dh, 2, h):
-        raise ValueError(f"short_self_attention: s={s}, h={h}, dh={dh} does not fit the kernel")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "short_self_attention backward (K2) is not ported yet; call under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
-    scale = (dh ** -0.5) if scale is None else scale
-    width = h * dh
-    vec = int(
-        dh % 8 == 0 and width % 8 == 0
-        and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    )
+        raise ValueError(f"{fn}: s={s}, h={h}, dh={dh} does not fit the kernel")
+
+
+def _vec(dh: int, width: int, tensors) -> int:
+    """1 when every row is a whole number of 16-byte chunks (the kernels'
+    asynchronous 16-byte copies and paired stores), else 0 (element-wise)."""
+    return int(dh % 8 == 0 and width % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _launch_fwd(q, k, v, causal: bool, scale: float):
+    """Launch K1 on checked CUDA tensors; returns the new output."""
+    b, s, h, dh = q.shape
     out = torch.empty_like(q)
-    lib = _library()
+    vec = _vec(dh, h * dh, (q, k, v, out))
+    lib = _library("short_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.short_attention_fwd(
@@ -174,7 +283,99 @@ def short_self_attention(q, k, v, causal: bool = False, scale: float | None = No
     if err != 0:
         msg = lib.short_attention_error_string(err).decode()
         raise RuntimeError(f"short_attention_fwd launch failed: CUDA error {err} ({msg})")
-    global _launches
-    with _count_lock:
-        _launches += 1
+    _count("fwd")
     return out
+
+
+def _launch_bwd(q, k, v, do, causal: bool, scale: float):
+    """Launch K2 on checked CUDA tensors; returns new (dq, dk, dv)."""
+    b, s, h, dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    stats = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
+    vec = _vec(dh, h * dh, (q, k, v, do, dq, dk, dv))
+    lib = _library("short_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.short_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            b, s, h, dh, float(scale), int(bool(causal)), vec, stream,
+        )
+    if err != 0:
+        msg = lib.short_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"short_attention_bwd launch failed: CUDA error {err} ({msg})")
+    _count("bwd")
+    return dq, dk, dv
+
+
+def _forward(q, k, v, causal: bool, scale: float):
+    # The module attributes are looked up per call, so a caller may swap the
+    # plain version in for a kernel-vs-plain comparison on the card.
+    if q.device.type == "cpu":
+        return short_self_attention_plain(q, k, v, causal, scale)
+    _check_cuda("short_self_attention", q, (("k", k), ("v", v)))
+    return _launch_fwd(q, k, v, causal, scale)
+
+
+@torch.library.custom_op("dsl_torch_port::short_attention_fwd", mutates_args=())
+def _short_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool, scale: float) -> torch.Tensor:
+    return _forward(q, k, v, causal, scale)
+
+
+# The attention core as selective checkpointing sees it (``attn_core``).
+ATTN_CORE_OP = torch.ops.dsl_torch_port.short_attention_fwd.default
+
+
+def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | None = None):
+    """K2: the gradients (dq, dk, dv) of :func:`short_self_attention` at
+    output gradient ``do``, all (b, s, h, dh).
+
+    CPU tensors run :func:`short_self_attention_bwd_plain`. CUDA tensors must
+    be bf16 of one shape that :func:`short_attention_fits`; they run the
+    kernel, or this raises. Records the per-head choice in
+    :func:`traced_bwd_batch_heads`.
+    """
+    scale = _resolve_scale(q, scale)
+    _TRACED_BWD_BATCH_HEADS.add(False)
+    if q.device.type == "cpu":
+        return short_self_attention_bwd_plain(q, k, v, do, causal, scale)
+    do = do.contiguous()
+    _check_cuda("short_self_attention_bwd", q, (("k", k), ("v", v), ("do", do)))
+    return _launch_bwd(q, k, v, do, causal, scale)
+
+
+class ShortSelfAttention(torch.autograd.Function):
+    """K1 forward and K2 backward as one autograd node. The forward saves
+    (q, k, v), as the JAX ``custom_vjp`` does; the backward recomputes the
+    probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _short_attention_fwd_op(q, k, v, causal, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = short_self_attention_bwd(q, k, v, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def short_self_attention(q, k, v, causal: bool = False, scale: float | None = None):
+    """Fused self-attention for short sequences: (b, s, h, dh) → same, with
+    the K2 backward under autograd.
+
+    CPU tensors run :func:`short_self_attention_plain` (and, backward,
+    :func:`short_self_attention_bwd_plain`). CUDA tensors must be contiguous
+    bf16 of one shape that :func:`short_attention_fits`; they run the
+    kernels, or this raises. A call that needs no gradient (serving) skips
+    the autograd node and the custom op's dispatch, whose host time would
+    exceed K1's own at the text tower's shape.
+    """
+    scale = _resolve_scale(q, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return ShortSelfAttention.apply(q, k, v, bool(causal), scale)
+    return _forward(q, k, v, bool(causal), scale)

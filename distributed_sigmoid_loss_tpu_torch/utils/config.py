@@ -1,12 +1,13 @@
 """Config dataclasses of the port: copies of the JAX package's
 ``utils/config.py`` (``LossConfig``, ``ViTConfig``, ``TextConfig``,
-``SigLIPConfig`` and ``tower_quant_mode``), kept field for field so one
-config means the same model in both packages.
+``SigLIPConfig``, ``TrainConfig`` and ``tower_quant_mode``), kept field for
+field so one config means the same model and run in both packages.
 
-Fields that only shape training or the parameter layout (``remat``,
-``remat_policy``, ``scan_layers``) are accepted and ignored by the port's
-forward. Fields whose paths are not ported yet are refused by
-:func:`check_supported`.
+``remat`` and ``remat_policy`` shape the backward (``models/transformer.py``);
+``scan_layers`` only names the JAX parameter layout, which
+``models.convert.params_from_jax`` reads either way. Fields whose paths are
+not ported yet are refused by :func:`check_supported` and, for training, by
+``train.make_optimizer`` / ``train.make_train_step``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ class LossConfig:
     family: Literal["sigmoid", "softmax"] = "sigmoid"
     bidir: bool = True  # rwightman_sigmoid_loss.py:30
     axis_name: str = "dp"
-    # HIGHEST = fp32 accumulation for parity gates; DEFAULT = bf16 for throughput.
+    # "highest" = an IEEE f32 product for parity gates; "default" = one bf16
+    # pass with f32 accumulation (ops/sigmoid_loss.py).
     precision: str = "highest"
     # Streaming 2-D loss kernel for every logits block (fused gather, chunked
     # scan body, ring hop). The loss kernels are not ported yet (K4-K6).
@@ -205,6 +207,27 @@ class SigLIPConfig:
     @classmethod
     def tiny_test(cls) -> "SigLIPConfig":
         return cls(vision=ViTConfig.tiny_test(), text=TextConfig.tiny_test())
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    warmup_steps: int = 2000
+    total_steps: int = 100_000
+    b1: float = 0.9
+    b2: float = 0.95
+    global_batch: int = 4096
+    # "warmup_cosine" (open_clip default), "rsqrt" (the SigLIP paper's inverse
+    # sqrt with linear warmup — total_steps-free, for open-ended pretraining),
+    # or "constant" (after warmup).
+    schedule: Literal["warmup_cosine", "rsqrt", "constant"] = "warmup_cosine"
+    # Dtype of Adam's first moment (None = param dtype, f32). "bfloat16" halves
+    # the larger moment buffer; the second moment stays f32.
+    adam_mu_dtype: str | None = None
+    # Optimizer family: "adamw" (ported); "lion" and "adafactor" are not
+    # ported yet (train.make_optimizer refuses them).
+    optimizer: Literal["adamw", "lion", "adafactor"] = "adamw"
 
 
 def check_supported(cfg: "ViTConfig | TextConfig") -> None:

@@ -1,0 +1,119 @@
+"""The port's short-attention backward (K2) vs the JAX package, on the CPU.
+
+The CUDA kernel runs only on the card (``chip_smoke.py`` holds it against
+the plain version there). Here ``short_self_attention_bwd_plain`` is held to
+the JAX ``_short_attention_bwd`` running ``_bwd_kernel`` in the Pallas
+interpreter on the same numpy inputs, and the autograd Function around K1
+and K2 is checked on CPU tensors, where it runs both plain versions.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_sigmoid_loss_tpu.ops.pallas_short_attention import _short_attention_bwd
+from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa
+
+# (b, s, h, dh): s=64 is the text tower's length, s=50 is ragged like
+# ViT-B/16's 196 (not a multiple of 16); dh 16 and 24 (24 is not a multiple
+# of 16 either).
+SHAPES = [(2, 64, 2, 16), (1, 50, 3, 24)]
+
+
+def _inputs(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32).astype(dtype) for _ in range(4)]
+
+
+def _jax_bwd(q, k, v, do, causal, jdtype):
+    out = _short_attention_bwd(
+        causal, None, True, False,
+        tuple(jnp.asarray(x, jdtype) for x in (q, k, v)), jnp.asarray(do, jdtype),
+    )
+    return [np.asarray(x.astype(jnp.float32)) for x in out]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,dh", SHAPES)
+def test_plain_bwd_matches_pallas_kernel_f32(b, s, h, dh, causal):
+    q, k, v, do = _inputs(0, (b, s, h, dh), np.float32)
+    ref = _jax_bwd(q, k, v, do, causal, jnp.float32)
+    got = sa.short_self_attention_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, do)), causal)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.float32
+        # f32 on both sides; only the order of the f32 sums differs
+        # (observed: at most 6e-7 absolute).
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+# bf16: both sides round p (for dv) and ds (for dq, dk) to bf16 after f32
+# sums taken in different orders, so a p or ds can land one bf16 ulp apart,
+# and the outputs are rounded to bf16. The gradients here stay below 4 in
+# magnitude, where one bf16 ulp is at most 2^-6: two output ulps, 3.125e-2
+# (observed: at most one ulp).
+BF16_ATOL = 3.125e-2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,dh", SHAPES)
+def test_plain_bwd_matches_pallas_kernel_bf16(b, s, h, dh, causal):
+    q, k, v, do = (x.astype(np.float32) for x in _inputs(1, (b, s, h, dh), np.float32))
+    ref = _jax_bwd(q, k, v, do, causal, jnp.bfloat16)
+    got = sa.short_self_attention_bwd_plain(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)), causal
+    )
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.bfloat16
+        assert np.abs(r).max() < 4
+        np.testing.assert_allclose(g.float().numpy(), r, atol=BF16_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_function_gradcheck_float64(causal):
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 5, 2, 3, dtype=torch.float64, generator=g, requires_grad=True)
+               for _ in range(3))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: sa.short_self_attention(a, b, c, causal), (q, k, v)
+    )
+
+
+def test_autograd_backward_is_the_plain_bwd_not_autograd_of_the_forward():
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(2, (1, 20, 2, 8), np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = sa.short_self_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    ref = sa.short_self_attention_bwd_plain(q, k, v, do, causal=True)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_set_bwd_batch_heads_true_raises_and_the_record_shows_the_backward_that_ran():
+    with pytest.raises(NotImplementedError, match="K3"):
+        sa.set_bwd_batch_heads(True)
+    sa.set_bwd_batch_heads(False)
+    sa.reset_traced_bwd_batch_heads()
+    assert sa.traced_bwd_batch_heads() == ()
+    q = torch.zeros(1, 4, 1, 8, requires_grad=True)
+    sa.short_self_attention(q, q, q).sum().backward()
+    assert sa.traced_bwd_batch_heads() == (False,)
+
+
+def test_bwd_launch_counter_stays_zero_on_cpu():
+    sa.reset_launches()
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+              for x in _inputs(3, (1, 16, 2, 8), np.float32)[:3]]
+    sa.short_self_attention(*leaves).float().sum().backward()
+    sa.short_self_attention_bwd(*(t.detach() for t in leaves), leaves[0].detach(), causal=True)
+    assert sa.launches() == 0 and sa.bwd_launches() == 0
+
+
+def test_bwd_smem_fits_every_shape_the_forward_takes():
+    # One K2 block at B/16 vision: Q and dO (208 rows × 72, bf16), four
+    # 4608-byte warp regions (16 staged rows of two operands) and three f32
+    # statistics per padded query row.
+    assert sa.short_attention_bwd_smem_bytes(196, 64) == 2 * 208 * 72 * 2 + 4 * 4608 + 3 * 208 * 4
+    for s, dh in ((196, 64), (64, 64), (256, 64), (256, 72), (256, 128), (16, 128)):
+        assert sa.short_attention_bwd_smem_bytes(s, dh) <= sa.SMEM_BUDGET_BYTES
+    assert sa.short_attention_fits(256, 1152, 2, 16)
