@@ -20,13 +20,25 @@ and nothing is caught:
    256-image corpus and 64 mixed requests from 8 threads, with the kernel
    launch counts read around that run, then the towers' device time by
    kernel at the largest bucket (torch.profiler);
+   Then the loss kernels (K4, the streaming loss forward; K5 and K6, its
+   backward) against their plain versions in seven cases (the headline
+   block, a fused all-gather rank view, a ring hop at 32k global over 8
+   ranks with and without positives, bf16, ragged, So400m width), timed at
+   the ring hop beside cuBLAS's f32 product ("product only");
 5. the training path: the headline train step (B/16, 16 accumulated
    microbatches of 128 pairs, ``save_hot`` remat, bf16 accumulator and Adam
    first moment, ring loss at precision "default") for 3 steps, with the
    launch counts read around them; then one microbatch's device time by
    kernel, the gradient through the whole model with the kernels against
    both plain versions, and a 10-step fit of one fixed batch;
-6. a JSON line of the kernels' numbers and, last, the device record.
+6. the rank view: what rank 3 of an 8-GPU chunked all-gather run at 32k
+   global computes after its gather (``sigmoid_loss_chunk_scan`` with
+   ``use_pallas=True`` over 8 chunks of 4096), forward and backward against
+   the plain chunk scan, with its time, peak memory and launches;
+7. the headline step with ``LossConfig(use_pallas=True)`` for 2 steps, with
+   the launch counts read around them, and the gradient through the whole
+   model with the loss kernels against their plain versions;
+8. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -57,11 +69,37 @@ K1_ATOL = 1.6e-2
 # gradient to bf16; 2^-6 of a gradient's largest magnitude is at least two
 # bf16 ulps there.
 K2_RTOL_OF_MAX = 2.0 ** -6
+# FP32 outside the tensor cores (NVIDIA data sheet, H100 SXM): the loss
+# kernels' IEEE f32 FMAs.
+FP32_FLOP_PER_S = 67e12
+NEGATIVE_ONLY_OFFSET = -(2 ** 24)
+# Loss-kernel cases: (b, n, d, pos_offset, dtype).
+LOSS_CASES = {
+    "headline_block": (128, 128, 512, 0, torch.float32),  # one microbatch of the headline, W = 1
+    "allgather_w8_rank3": (128, 1024, 512, 3 * 128, torch.float32),  # fused all-gather, rank 3 of 8
+    "ring_hop_32k_positive": (4096, 4096, 512, 0, torch.float32),  # 32k global over 8 ranks
+    "ring_hop_32k_negative": (4096, 4096, 512, NEGATIVE_ONLY_OFFSET, torch.float32),
+    "bf16_block": (128, 128, 512, 0, torch.bfloat16),
+    "ragged": (100, 300, 200, 7, torch.float32),
+    "so400m_width": (256, 512, 1152, 0, torch.float32),  # SigLIPConfig.so400m embeddings
+}
+LOSS_TIMED = "ring_hop_32k_positive"
+# Loss kernels vs plain versions, both IEEE f32 with sums in other orders:
+# the loss at rtol 1e-5; each gradient within 1e-4 of its largest magnitude
+# (sums over up to 4096 products of order-1 terms). bf16 inputs: the
+# gradients are rounded to bf16 at the end, so two bf16 ulps of the largest.
+LOSS_RTOL = 1e-5
+LOSS_GRAD_RTOL_OF_MAX = 1e-4
+BF16_GRAD_RTOL_OF_MAX = 2.0 ** -7
 BUCKETS = (1, 8, 32, 128)
 CORPUS, REQUESTS, CLIENTS = 256, 64, 8
 # The headline train step (bench.py's no-argument run): 16 microbatches of 128.
 ACCUM, MICRO, TRAIN_STEPS = 16, 128, 3
 FIT_STEPS = 10
+# The rank view of the chunked all-gather at 32k global over 8 ranks:
+# (local_b, W, d, rank), and the steps of the headline with use_pallas.
+RANK_VIEW = (4096, 8, 512, 3)
+TRAIN_PALLAS_STEPS = 2
 # Kernel cases of both kernels: (b, s, h, dh, causal).
 ATTENTION_CASES = {
     "vision": (128, 196, 12, 64, False),  # B/16 image tower, batch 128
@@ -84,8 +122,11 @@ def ptxas_usage(build_log: str) -> dict:
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
-            short = re.search(r"(short_attention_(?:fwd|bwd_dq|bwd_dkdv)_kernel)ILi(\d+)E", name)
-            kernel = f"{short.group(1)}<{short.group(2)}>" if short else name
+            short = re.search(r"((?:short_attention|sigmoid_loss)_\w*?kernel)(?:IL[ib](\d+)E)?", name)
+            if short:
+                kernel = short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
+            else:
+                kernel = name
         elif kernel and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)
             usage[kernel] = f"spill {spill.group(1)} B" if spill else line.strip()
@@ -267,7 +308,115 @@ def check_short_attention_bwd(sa, gen) -> dict:
     return record
 
 
-def run_main_path(args, sa) -> dict:
+def loss_case_inputs(b, n, d, off, dtype, gen):
+    """Unit rows; the text row of each positive pair is its image row plus
+    noise, so positives score high as trained embeddings do. t′ and bias at
+    their inits (log 10, -10)."""
+    import torch.nn.functional as F
+
+    zimg = F.normalize(torch.randn(b, d, device="cuda", generator=gen), dim=-1)
+    ztxt = F.normalize(torch.randn(n, d, device="cuda", generator=gen), dim=-1)
+    rows = torch.arange(b, device="cuda")
+    keep = (rows + off >= 0) & (rows + off < n)
+    cols = rows[keep] + off
+    ztxt[cols] = F.normalize(zimg[rows[keep]] + 0.5 * ztxt[cols], dim=-1)
+    tp = torch.tensor(float(np.log(10.0)), device="cuda")
+    bias = torch.tensor(-10.0, device="cuda")
+    return zimg.to(dtype), ztxt.to(dtype), tp, bias
+
+
+def loss_bound_ms(b, n, d, which) -> tuple[float, str]:
+    """Least time of one loss kernel call: its f32 inputs read once and
+    outputs written once, against its IEEE f32 operations at the peak outside
+    the tensor cores. K4 reads both operands and does 2·b·n·d; K5 also writes
+    dzimg, K6 dztxt, and each does 4·b·n·d (the logits again and the
+    gradient product)."""
+    nbytes = 4 * (b + n) * d + {"fwd": 0, "bwd_img": 4 * b * d, "bwd_txt": 4 * n * d}[which]
+    flops = (2 if which == "fwd" else 4) * b * n * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_loss_kernels(ssl, gen) -> dict:
+    """K4, K5 and K6 against their plain versions (TF32 off) in every case of
+    LOSS_CASES, through the autograd node a caller uses: the loss and all
+    four gradients. Times the three kernels at LOSS_TIMED. Returns
+    ``{kernel: record}`` for the JSON line."""
+    lib = ssl._library()
+    records = {}
+    for name, (b, n, d, off, dtype) in LOSS_CASES.items():
+        zimg, ztxt, tp, bias = loss_case_inputs(b, n, d, off, dtype, gen)
+        leaves = [t.detach().requires_grad_() for t in (zimg, ztxt, tp, bias)]
+        loss = ssl.streaming_block_loss_sum(*leaves, off)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        one = torch.ones((), device="cuda")
+        ref_loss = ssl.streaming_loss_fwd_plain(zimg, ztxt, tp, bias, off)
+        dzi, dtp, dbias = ssl.streaming_loss_bwd_img_plain(zimg, ztxt, tp, bias, off, one)
+        dzt = ssl.streaming_loss_bwd_txt_plain(zimg, ztxt, tp, bias, off, one)
+        refs = (dzi.to(dtype), dzt.to(dtype), dtp, dbias)
+        grad_rtol = BF16_GRAD_RTOL_OF_MAX if dtype == torch.bfloat16 else LOSS_GRAD_RTOL_OF_MAX
+        errs = {"loss": abs(loss.item() - ref_loss.item())}
+        tols = {"loss": LOSS_RTOL * abs(ref_loss.item())}
+        for gname, got, ref in zip(("dzimg", "dztxt", "dt_prime", "dbias"), grads, refs):
+            errs[gname] = (got.float() - ref.float()).abs().max().item()
+            tols[gname] = grad_rtol * ref.float().abs().max().item()
+        finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+        row = dict(case=name, shape=[b, n, d], pos_offset=off, dtype=str(dtype).split(".")[1],
+                   loss=loss.item(), max_abs_err=errs, atol=tols, finite=finite,
+                   smem_bwd=lib.sigmoid_loss_bwd_smem_bytes(d),
+                   bwd_splits={"img": lib.sigmoid_loss_bwd_splits(b, n, d),
+                               "txt": lib.sigmoid_loss_bwd_splits(n, b, d)},
+                   blocks_per_sm={"fwd": lib.sigmoid_loss_occupancy(d, 0),
+                                  "bwd": lib.sigmoid_loss_occupancy(d, 1)})
+        log("loss_kernel", **row)
+        if not finite or any(errs[k] > tols[k] for k in errs):
+            raise AssertionError(f"loss kernels disagree with their plain versions: {row}")
+        if name != LOSS_TIMED:
+            continue
+        g = one
+        p = torch.randn(b, n, device="cuda", generator=gen)
+        calls = {
+            "fwd": (lambda: ssl._launch_fwd(zimg, ztxt, tp, bias, off),
+                    lambda: ssl.streaming_loss_fwd_plain(zimg, ztxt, tp, bias, off),
+                    lambda: zimg @ ztxt.T),
+            "bwd_img": (lambda: ssl._launch_bwd_img(zimg, ztxt, tp, bias, off, g),
+                        lambda: ssl.streaming_loss_bwd_img_plain(zimg, ztxt, tp, bias, off, g),
+                        lambda: (zimg @ ztxt.T, p @ ztxt)),
+            "bwd_txt": (lambda: ssl._launch_bwd_txt(zimg, ztxt, tp, bias, off, g),
+                        lambda: ssl.streaming_loss_bwd_txt_plain(zimg, ztxt, tp, bias, off, g),
+                        lambda: (zimg @ ztxt.T, p.T @ zimg)),
+        }
+        err_of = {"fwd": errs["loss"], "bwd_img": max(errs["dzimg"], errs["dt_prime"], errs["dbias"]),
+                  "bwd_txt": errs["dztxt"]}
+        for which, (kernel, plain, library) in calls.items():
+            rec = dict(case=name, shape=[b, n, d], max_abs_err=err_of[which],
+                       ms=time_ms(kernel, iters=10), device_ms=device_ms(kernel),
+                       plain_ms=time_ms(plain, iters=5),
+                       library_ms=time_ms(library, iters=10), library_device_ms=device_ms(library),
+                       library_call="product only: cuBLAS IEEE-f32 torch.matmul of the same "
+                                    + ("product" if which == "fwd" else "two products"))
+            rec["bound_ms"], rec["bound_by"] = loss_bound_ms(b, n, d, which)
+            log("loss_kernel_time", kernel=which, **rec)
+            records[which] = rec
+        del p
+    return records
+
+
+def reset_counts(sa, ssl) -> None:
+    sa.reset_launches()
+    ssl.reset_launches()
+
+
+def read_counts(sa, ssl) -> dict:
+    """Launches of every kernel since :func:`reset_counts`."""
+    loss = ssl.launches()
+    return {"short_attention_fwd": sa.launches(), "short_attention_bwd": sa.bwd_launches(),
+            "sigmoid_loss_fwd": loss["fwd"], "sigmoid_loss_bwd_img": loss["bwd_img"],
+            "sigmoid_loss_bwd_txt": loss["bwd_txt"]}
+
+
+def run_main_path(args, sa, ssl) -> dict:
     from distributed_sigmoid_loss_tpu_torch.eval.retrieval import topk_ids
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
     from distributed_sigmoid_loss_tpu_torch.serve import (
@@ -290,7 +439,7 @@ def run_main_path(args, sa) -> dict:
     hw, ctx, vocab = cfg.vision.image_size, cfg.text.context_length, cfg.text.vocab_size
 
     # -- the main path, between the two reads of the launch counts ----------
-    sa.reset_launches()
+    reset_counts(sa, ssl)
     engine.calls.clear()
     t0 = time.monotonic()
     warmed = engine.warmup()
@@ -337,7 +486,8 @@ def run_main_path(args, sa) -> dict:
         t.join()
     t_requests = time.monotonic() - t0
     torch.cuda.synchronize()
-    launches, bwd_launches = sa.launches(), sa.bwd_launches()
+    counts = read_counts(sa, ssl)
+    launches, bwd_launches = counts["short_attention_fwd"], counts["short_attention_bwd"]
     tower_calls = dict(engine.calls)
     # -- end of the main path ----------------------------------------------
     if errors:
@@ -410,7 +560,7 @@ def run_main_path(args, sa) -> dict:
         raise AssertionError(f"kernel vs plain attention through the model: cosine {cos}")
     del model, engine, svc
     torch.cuda.empty_cache()
-    return {"short_attention_fwd": launches}
+    return counts
 
 
 def forward_flops_per_pair(cfg) -> float:
@@ -472,7 +622,7 @@ def tower_grads(model, per_shard, batch) -> dict:
     return out
 
 
-def run_train_path(args, sa) -> dict:
+def run_train_path(args, sa, ssl) -> dict:
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
     from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
     from distributed_sigmoid_loss_tpu_torch.train import (
@@ -498,7 +648,7 @@ def run_train_path(args, sa) -> dict:
         train_config="TrainConfig(warmup_steps=100, total_steps=100_000)")
 
     # -- the training path, between the two reads of the launch counts -----
-    sa.reset_launches()
+    reset_counts(sa, ssl)
     torch.cuda.reset_peak_memory_stats()
     step_s, metrics = [], []
     for batch in batches:
@@ -508,7 +658,8 @@ def run_train_path(args, sa) -> dict:
         torch.cuda.synchronize()
         step_s.append(time.monotonic() - t0)
         metrics.append(m)
-    launches, bwd_launches = sa.launches(), sa.bwd_launches()
+    counts = read_counts(sa, ssl)
+    launches, bwd_launches = counts["short_attention_fwd"], counts["short_attention_bwd"]
     # -- end of the training path ------------------------------------------
     peak = torch.cuda.max_memory_allocated()
     expected = (cfg.vision.depth + cfg.text.depth) * ACCUM * TRAIN_STEPS
@@ -585,7 +736,142 @@ def run_train_path(args, sa) -> dict:
     log("train", fit_losses=losses)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
-    return {"short_attention_fwd": launches, "short_attention_bwd": bwd_launches}
+    del fit_state, fit_step, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_rank_view(ssl, sa, gen) -> dict:
+    """What rank 3 of an 8-GPU all-gather run at 32k global computes after
+    its gather: the chunked scan with the streaming kernel over 8 text
+    chunks of 4096 (forward and backward), against the plain chunk scan
+    (checkpointed logits blocks, IEEE f32). Launches read around the kernel
+    run: one K4, K5 and K6 per chunk."""
+    import torch.nn.functional as F
+
+    from distributed_sigmoid_loss_tpu_torch.ops.sigmoid_loss import sigmoid_loss_chunk_scan
+
+    b, w, d, pos = RANK_VIEW
+    zimg, _, tp, bias = loss_case_inputs(b, b, d, 0, torch.float32, gen)
+    chunks = F.normalize(torch.randn(w, b, d, device="cuda", generator=gen), dim=-1)
+    chunks[pos] = F.normalize(zimg + 0.5 * chunks[pos], dim=-1)
+
+    def run(use_pallas):
+        leaves = [t.detach().requires_grad_() for t in (zimg, chunks, tp, bias)]
+        loss = sigmoid_loss_chunk_scan(*leaves, positive_chunk=pos, use_pallas=use_pallas)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    out = {}
+    for use_pallas in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        # -- the rank-view path (kernel run), between two reads of the counts
+        reset_counts(sa, ssl)
+        t0 = time.monotonic()
+        loss, grads = run(use_pallas)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts(sa, ssl)
+        # -- end of the rank-view path
+        out[use_pallas] = dict(loss=loss, grads=grads, counts=counts,
+                               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                               first_call_ms=1e3 * wall,
+                               ms=time_ms(lambda: run(use_pallas), iters=3, warmup=1))
+    kern, plain = out[True], out[False]
+    errs = {"loss": abs(kern["loss"].item() - plain["loss"].item())}
+    tols = {"loss": LOSS_RTOL * abs(plain["loss"].item())}
+    for name, g, r in zip(("dzimg", "dtxt_chunks", "dt_prime", "dbias"), kern["grads"], plain["grads"]):
+        errs[name] = (g - r).abs().max().item()
+        tols[name] = LOSS_GRAD_RTOL_OF_MAX * r.abs().max().item()
+    counts = kern["counts"]
+    loss_counts = {k: v for k, v in counts.items() if k.startswith("sigmoid_loss")}
+    log("rank_view", config=f"chunked all-gather, rank {pos} of {w}, {w * b} global, d={d}",
+        loss=kern["loss"].item(), max_abs_err=errs, atol=tols,
+        kernel_ms=kern["ms"], plain_ms=plain["ms"], kernel_first_call_ms=kern["first_call_ms"],
+        kernel_peak_gib=kern["peak_gib"], plain_peak_gib=plain["peak_gib"], launches=loss_counts)
+    if any(errs[k] > tols[k] for k in errs):
+        raise AssertionError(f"rank-view chunk scan: kernel vs plain {errs} over {tols}")
+    if any(v != w for v in loss_counts.values()):
+        raise AssertionError(f"rank view launched {loss_counts}, expected {w} of each loss kernel")
+    del out, kern, plain, chunks
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_train_pallas_path(args, sa, ssl) -> dict:
+    """The headline step with the streaming loss kernel as its loss body
+    (``LossConfig(use_pallas=True)``, ring at W = 1): TRAIN_PALLAS_STEPS
+    steps between two reads of the counts, then the gradient through the
+    whole model with the loss kernels against their plain versions."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
+
+    cfg = headline_config()
+    cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, use_pallas=True))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    model = SigLIP(cfg, device="cuda", generator=gen)
+    state = create_train_state(model, make_optimizer(
+        TrainConfig(warmup_steps=100, total_steps=100_000, adam_mu_dtype="bfloat16")))
+    step = make_train_step(model, cfg.loss, accum_steps=ACCUM, accum_dtype="bfloat16")
+    batches = [random_batch(cfg, ACCUM * MICRO, gen) for _ in range(TRAIN_PALLAS_STEPS)]
+    torch.cuda.synchronize()
+
+    # -- the use_pallas training path, between the two reads of the counts --
+    reset_counts(sa, ssl)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, metrics = [], []
+    for batch in batches:
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        m = {k: v.item() for k, v in m.items()}
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        metrics.append(m)
+    counts = read_counts(sa, ssl)
+    # -- end of the use_pallas training path --------------------------------
+    for i, (m, t) in enumerate(zip(metrics, step_s)):
+        log("train_pallas", step=i, step_ms=1e3 * t, **m)
+    expect_loss = ACCUM * TRAIN_PALLAS_STEPS
+    expect_attn = (cfg.vision.depth + cfg.text.depth) * ACCUM * TRAIN_PALLAS_STEPS
+    log("train_pallas", loss_config="ring, W = 1, use_pallas=True (streaming loss kernel, IEEE f32)",
+        accum_steps=ACCUM, microbatch=MICRO, launches=counts,
+        expected={"each loss kernel": expect_loss, "each attention kernel": expect_attn},
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite train metrics: {metrics}")
+    if any(counts[k] != expect_loss for k in counts if k.startswith("sigmoid_loss")) or \
+            counts["short_attention_fwd"] != expect_attn or counts["short_attention_bwd"] != expect_attn:
+        raise AssertionError(f"use_pallas train step launches {counts}: expected {expect_loss} of "
+                             f"each loss kernel and {expect_attn} of each attention kernel")
+
+    # The gradient through the whole model, the loss kernels vs their plain
+    # versions (TF32 off, so the plain product is IEEE f32 too).
+    per_shard = make_per_shard_loss(variant=cfg.loss.variant, use_pallas=True)
+    small = {k: v[:8] for k, v in batches[0].items()}
+    kernel_grads = tower_grads(model, per_shard, small)
+    real = ssl._launch_fwd, ssl._launch_bwd_img, ssl._launch_bwd_txt
+    ssl._launch_fwd = ssl.streaming_loss_fwd_plain
+    ssl._launch_bwd_img = ssl.streaming_loss_bwd_img_plain
+    ssl._launch_bwd_txt = ssl.streaming_loss_bwd_txt_plain
+    try:
+        plain_grads = tower_grads(model, per_shard, small)
+    finally:
+        ssl._launch_fwd, ssl._launch_bwd_img, ssl._launch_bwd_txt = real
+    cos = {t: float(torch.nn.functional.cosine_similarity(kernel_grads[t], plain_grads[t], dim=0))
+           for t in kernel_grads}
+    log("train_pallas", grad_cosine_loss_kernel_vs_plain_b8=cos)
+    if min(cos.values()) <= 0.999:
+        raise AssertionError(f"loss kernel vs plain gradient through the model: cosine {cos}")
+    del state, step, batches, model, kernel_grads, plain_grads
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -597,6 +883,7 @@ def main() -> int:
         return 1
     from distributed_sigmoid_loss_tpu_torch.ops import _cuda
     from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa
+    from distributed_sigmoid_loss_tpu_torch.ops import streaming_sigmoid_loss as ssl
 
     # Phase 1: the card.
     smi = subprocess.run(
@@ -621,54 +908,63 @@ def main() -> int:
         smem = getattr(sa._library(lib), f"{lib}_smem_bytes")(196, 64)
         if smem != mirror(196, 64):
             raise AssertionError(f"{lib} smem {smem} != python mirror {mirror(196, 64)}")
+    loss_lib = ssl._library()
+    for d in (200, 512, 1152, 2000):
+        if loss_lib.sigmoid_loss_bwd_smem_bytes(d) != ssl.bwd_smem_bytes(d):
+            raise AssertionError(f"sigmoid_loss smem at d={d} != python mirror")
+    if loss_lib.sigmoid_loss_fwd_partials(100, 300) != ssl.fwd_partials(100, 300):
+        raise AssertionError("sigmoid_loss partial count != python mirror")
 
     # Phase 3: each kernel against its plain version.
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_short_attention(sa, gen)
     k2 = check_short_attention_bwd(sa, gen)
+    loss_recs = check_loss_kernels(ssl, gen)
 
-    # Phases 4 and 5: the main paths, each between two reads of the counts.
-    t0 = time.monotonic()
-    serve = run_main_path(args, sa)
-    t_serve = time.monotonic() - t0
-    t0 = time.monotonic()
-    train = run_train_path(args, sa)
-    log("paths", serve_s=t_serve, train_s=time.monotonic() - t0)
+    # Phases 4-7: the main paths, each between two reads of the counts.
+    paths, seconds = {}, {}
+    for path, run in (("serve", lambda: run_main_path(args, sa, ssl)),
+                      ("train", lambda: run_train_path(args, sa, ssl)),
+                      ("rank_view", lambda: run_rank_view(ssl, sa, gen)),
+                      ("train_pallas", lambda: run_train_pallas_path(args, sa, ssl))):
+        t0 = time.monotonic()
+        paths[path] = run()
+        seconds[path] = time.monotonic() - t0
+    log("paths", seconds=seconds, launches=paths)
 
-    # Phase 6: the records.
+    # Phase 8: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
-    replaces = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
-    shape = "b=128 s=196 h=12 dh=64 bf16"
-    kernels = [{
-        "name": "short_attention_fwd",
-        "route": "cuda",
-        "source": source + "short_attention.cu",
-        "replaces": replaces + "257",
-        "launches": serve["short_attention_fwd"] + train["short_attention_fwd"],
-        "launches_by_path": {"serve": serve["short_attention_fwd"],
-                             "train": train["short_attention_fwd"]},
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-        "shape": shape,
-    }, {
-        "name": "short_attention_bwd",
-        "route": "cuda",
-        "source": source + "short_attention_bwd.cu",
-        "replaces": replaces + "278",
-        "launches": train["short_attention_bwd"],
-        "launches_by_path": {"serve": 0, "train": train["short_attention_bwd"]},
-        "max_abs_err": max(k2["max_abs_err"].values()),
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"],
-        "library_ms": k2["library_ms"],
-        "shape": shape,
-    }]
+    attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
+    loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"
+
+    def launches(kernel):
+        by_path = {p: c[kernel] for p, c in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    def timed(rec):
+        return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    attn_shape = "b=128 s=196 h=12 dh=64 bf16"
+    b, n, d = LOSS_CASES[LOSS_TIMED][:3]
+    loss_shape = f"b={b} n={n} d={d} f32"
+    kernels = [
+        {"name": "short_attention_fwd", "route": "cuda", "source": source + "short_attention.cu",
+         "replaces": attn + "257", **launches("short_attention_fwd"),
+         "max_abs_err": k1["max_abs_err"], **timed(k1), "shape": attn_shape},
+        {"name": "short_attention_bwd", "route": "cuda",
+         "source": source + "short_attention_bwd.cu", "replaces": attn + "278",
+         **launches("short_attention_bwd"), "max_abs_err": max(k2["max_abs_err"].values()),
+         **timed(k2), "shape": attn_shape},
+    ]
+    for kernel, which, line in (("sigmoid_loss_fwd", "fwd", "429"),
+                                ("sigmoid_loss_bwd_img", "bwd_img", "462"),
+                                ("sigmoid_loss_bwd_txt", "bwd_txt", "485")):
+        rec = loss_recs[which]
+        kernels.append({"name": kernel, "route": "cuda", "source": source + "sigmoid_loss.cu",
+                        "replaces": loss + line, **launches(kernel),
+                        "max_abs_err": rec["max_abs_err"], **timed(rec),
+                        "device_ms": rec["device_ms"], "library_call": rec["library_call"],
+                        "shape": loss_shape})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -20,6 +20,10 @@ Algorithm 1), ported from the JAX package's ``ops/sigmoid_loss.py``.
   operands (the products of two bf16 values are exact in f32). The same
   numbers on the CPU and the card; the product is (b, d) × (d, n) with
   b = n = 128 at the headline, too small for its speed to matter.
+
+The streaming loss kernel (``use_pallas``, K4-K6,
+``ops/streaming_sigmoid_loss.py``) ignores ``precision``, as the JAX kernel
+does: its product is IEEE f32 on the f32-cast embeddings.
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from distributed_sigmoid_loss_tpu_torch.ops.streaming_sigmoid_loss import (
+    INT8_ROADMAP_ROW,
+    NEGATIVE_ONLY_OFFSET,
+    streaming_block_loss_or_none,
+)
 
 __all__ = [
     "init_loss_params",
@@ -41,7 +51,6 @@ __all__ = [
     "T_PRIME_INIT",
     "BIAS_INIT",
     "PRECISIONS",
-    "LOSS_KERNELS_ROADMAP_ROW",
 ]
 
 # The JAX package's init_loss_params values (the SigLIP paper's Algorithm 1):
@@ -50,12 +59,6 @@ T_PRIME_INIT = math.log(10.0)
 BIAS_INIT = -10.0
 
 PRECISIONS = ("highest", "default")
-
-# Named in the refusals of the streaming loss kernels.
-LOSS_KERNELS_ROADMAP_ROW = (
-    "ROADMAP.md queue A item 3 and queue B, K4-K6 (the streaming sigmoid-loss "
-    "kernel ops/pallas_sigmoid_loss.py)"
-)
 
 
 def init_loss_params(dtype=torch.float32, device=None) -> dict:
@@ -120,15 +123,26 @@ def sigmoid_loss_chunk_scan(zimg, txt_chunks, t_prime, bias, *, positive_chunk,
     body runs under ``torch.utils.checkpoint``, so the backward recomputes its
     logits from the embeddings instead of keeping them. The chunk sums
     accumulate in f32 whatever the embedding dtype. Returns the sum divided
-    by ``n_img``. The streaming loss kernel (``use_pallas``, ``quant``) is
-    not ported.
+    by ``n_img``.
+
+    ``use_pallas=True`` makes the streaming loss kernel the chunk body, at
+    offset 0 on ``positive_chunk`` and ``NEGATIVE_ONLY_OFFSET`` elsewhere. It
+    holds no logits and its backward recomputes them, so the body is not
+    checkpointed: one K4, K5 and K6 call per chunk. ``quant="int8"`` (the
+    int8 kernel) is not ported and raises.
     """
-    if use_pallas or quant:
-        raise NotImplementedError(
-            f"use_pallas / quant in the chunk scan: {LOSS_KERNELS_ROADMAP_ROW}"
-        )
+    if quant:
+        raise NotImplementedError(f"quant={quant!r} in the chunk scan: {INT8_ROADMAP_ROW}")
     n_img = zimg.shape[0]
     positive_chunk = int(positive_chunk)
+    if use_pallas:
+        acc = torch.zeros((), dtype=torch.float32, device=zimg.device)
+        for k in range(txt_chunks.shape[0]):
+            off = 0 if k == positive_chunk else NEGATIVE_ONLY_OFFSET
+            total = streaming_block_loss_or_none(zimg, txt_chunks[k], t_prime, bias, off,
+                                                 normalize=False)
+            acc = acc + total.float()
+        return acc / n_img
 
     def body(chunk, k: int):
         logits = pairwise_logits(zimg, chunk, t_prime, bias, precision=precision)

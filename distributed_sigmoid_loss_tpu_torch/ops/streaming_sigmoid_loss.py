@@ -1,0 +1,385 @@
+"""The streaming sigmoid-loss block: the summed loss of one (b × n) logits
+block without ever holding the logits, forward (K4) and backward (K5, K6):
+CUDA kernels with their plain PyTorch versions beside them, joined by one
+``torch.autograd.Function``.
+
+Replaces the Pallas TPU kernels of
+``distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py``. With ``t =
+exp(t′)``, ``raw = zimg·ztxtᵀ`` and ``logit = raw·t + bias``, labels +1 where
+``col == row + pos_offset`` and −1 elsewhere:
+
+- K4, ``_fwd`` (body ``_fwd_kernel``): ``Σ softplus(−label·logit)``.
+- K5, ``_bwd`` pass 1 (body ``_bwd_img_kernel``): ``dl = g·(−label·σ(−label·logit))``,
+  ``dzimg = t·dl·ztxt``, ``dt′ = t·Σ dl·raw``, ``dbias = Σ dl``.
+- K6, ``_bwd`` pass 2 (body ``_bwd_txt_kernel``): ``dztxt = t·dlᵀ·zimg``.
+
+Kernels: ``csrc/sigmoid_loss.cu``. As in the JAX kernel the product is f32
+on the f32-cast embeddings whatever ``precision`` the caller's loss names,
+the backward recomputes every logit tile from the saved embeddings, and the
+gradients come back in the inputs' dtypes. The int8 variant
+(``_tile_raw_int8``) is not ported: ``quant="int8"`` raises naming its row.
+
+On CPU tensors the functions run the plain versions. On CUDA tensors they
+launch the kernels or raise; every shape is taken (the kernels mask ragged
+b, n and d), so unlike the JAX dispatch nothing falls back to another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from distributed_sigmoid_loss_tpu_torch.ops import _cuda
+
+__all__ = [
+    "streaming_block_loss_sum",
+    "streaming_block_loss_or_none",
+    "streaming_loss_fwd_plain",
+    "streaming_loss_bwd_img_plain",
+    "streaming_loss_bwd_txt_plain",
+    "StreamingBlockLossSum",
+    "traced_loss_kernels",
+    "reset_traced_loss_kernels",
+    "launches",
+    "reset_launches",
+    "fwd_partials",
+    "bwd_smem_bytes",
+    "NEGATIVE_ONLY_OFFSET",
+    "INT8_ROADMAP_ROW",
+]
+
+# Positive-diagonal offset that matches no column: every label is -1 (ring
+# hops after the first, the non-positive chunks of the chunk scan).
+NEGATIVE_ONLY_OFFSET = -(2 ** 24)
+
+INT8_ROADMAP_ROW = (
+    "ROADMAP.md queue A item 6.2 (the int8 variant of the streaming loss "
+    "kernel, ops/pallas_sigmoid_loss.py:_tile_raw_int8, with ops/quant.py)"
+)
+
+# Mirrors of the kernels' tiling (csrc/sigmoid_loss.cu): K4's 64 × 64 tiles,
+# K5/K6's 32 owned rows, the widest slice of gradient columns one block keeps.
+# (How many blocks share K5/K6's other operand depends on the card's SM
+# count: the library reports it, sigmoid_loss_bwd_splits.)
+_FWD_TILE, _BWD_ROWS, _BWD_CHUNK, _MAX_SLICE, _PAD = 64, 32, 64, 1152, 4
+
+_count_lock = threading.Lock()
+_launches = {"fwd": 0, "bwd_img": 0, "bwd_txt": 0}
+
+# Every loss-kernel choice made in this process ("streaming" = the streaming
+# block ran; the port has no other choice to record).
+_TRACED_LOSS_KERNELS: set[str] = set()
+
+
+def launches() -> dict:
+    """Kernel calls since the last :func:`reset_launches`: ``{"fwd": K4,
+    "bwd_img": K5, "bwd_txt": K6}``. One call is the kernel and the fixed-order
+    sum of its partials, counted once; plain-version calls on CPU tensors are
+    not launches."""
+    with _count_lock:
+        return dict(_launches)
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        _launches.update(fwd=0, bwd_img=0, bwd_txt=0)
+
+
+def _count(kernel: str) -> None:
+    with _count_lock:
+        _launches[kernel] += 1
+
+
+def traced_loss_kernels() -> tuple[str, ...]:
+    """Distinct loss-kernel choices made so far, sorted: ``()`` when no
+    streaming block has run in this process, ``("streaming",)`` after."""
+    return tuple(sorted(_TRACED_LOSS_KERNELS))
+
+
+def reset_traced_loss_kernels() -> None:
+    """Clear the record (test isolation)."""
+    _TRACED_LOSS_KERNELS.clear()
+
+
+def _ceil_div(x: int, m: int) -> int:
+    return -(-x // m)
+
+
+def fwd_partials(b: int, n: int) -> int:
+    """K4's per-tile partials (mirrors ``sigmoid_loss_fwd_partials``)."""
+    return _ceil_div(b, _FWD_TILE) * _ceil_div(n, _FWD_TILE)
+
+
+def bwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one K5/K6 block at width ``d``: the staged
+    operands, the tile's dlogits and 32 owned rows of gradient accumulators
+    over the block's slice of columns (mirrors ``bwd_smem_floats``)."""
+    slices = _ceil_div(d, _MAX_SLICE)
+    slice_ = _ceil_div(_ceil_div(d, slices), _BWD_CHUNK) * _BWD_CHUNK
+    stage = max(16 * (_BWD_ROWS + _PAD) + 16 * (64 + _PAD), 64 * (_BWD_CHUNK + _PAD))
+    return 4 * (stage + 64 * (_BWD_ROWS + _PAD) + _BWD_ROWS * (slice_ + _PAD))
+
+
+# --- the plain versions -------------------------------------------------------
+
+
+def _check_ieee(t: torch.Tensor) -> None:
+    if t.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "the plain streaming loss needs IEEE f32 products, but TF32 is on "
+            f"(float32 matmul precision {torch.get_float32_matmul_precision()!r}); "
+            "set torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+
+
+def _logits(zimg, ztxt, t_prime, bias):
+    """(raw, logits, t): the f32 product of the f32-cast embeddings, then
+    ``raw·t + bias`` rounded as JAX rounds it."""
+    _check_ieee(zimg)
+    raw = zimg.float() @ ztxt.float().T
+    t = torch.exp(t_prime.float())
+    return raw, raw * t + bias.float(), t
+
+
+def _labels(b: int, n: int, pos_offset: int, device) -> torch.Tensor:
+    rows = torch.arange(b, device=device)[:, None]
+    cols = torch.arange(n, device=device)[None, :]
+    return torch.where(cols == rows + int(pos_offset), 1.0, -1.0)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``max(x, 0) + log1p(exp(−|x|))``, no threshold."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g):
+    raw, logits, t = _logits(zimg, ztxt, t_prime, bias)
+    labels = _labels(raw.shape[0], raw.shape[1], pos_offset, raw.device)
+    x = labels * logits
+    return g.float() * (-labels * torch.sigmoid(-x)), raw, t
+
+
+def streaming_loss_fwd_plain(zimg, ztxt, t_prime, bias, pos_offset: int = 0) -> torch.Tensor:
+    """K4's function: the f32 sum of ``softplus(−label·logit)`` over the block."""
+    _, logits, _ = _logits(zimg, ztxt, t_prime, bias)
+    labels = _labels(logits.shape[0], logits.shape[1], pos_offset, logits.device)
+    return _softplus(-labels * logits).sum()
+
+
+def streaming_loss_bwd_img_plain(zimg, ztxt, t_prime, bias, pos_offset: int, g):
+    """K5's function at upstream gradient ``g``: ``(dzimg, dt′, dbias)`` in f32."""
+    dl, raw, t = _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g)
+    return (dl @ ztxt.float()) * t, (dl * raw).sum() * t, dl.sum()
+
+
+def streaming_loss_bwd_txt_plain(zimg, ztxt, t_prime, bias, pos_offset: int, g):
+    """K6's function at upstream gradient ``g``: ``dztxt`` in f32."""
+    dl, _, t = _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g)
+    return (dl.T @ zimg.float()) * t
+
+
+# --- the kernels ---------------------------------------------------------------
+
+
+def _library() -> ctypes.CDLL:
+    lib = _cuda.load("sigmoid_loss")
+    if getattr(lib, "_typed", False):
+        return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sigmoid_loss_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.sigmoid_loss_fwd.restype = i
+    lib.sigmoid_loss_bwd_img.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.sigmoid_loss_bwd_img.restype = i
+    lib.sigmoid_loss_bwd_txt.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.sigmoid_loss_bwd_txt.restype = i
+    lib.sigmoid_loss_fwd_partials.argtypes = [i, i]
+    lib.sigmoid_loss_fwd_partials.restype = ctypes.c_longlong
+    lib.sigmoid_loss_bwd_scratch_floats.argtypes = [i, i, i, i]
+    lib.sigmoid_loss_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.sigmoid_loss_bwd_splits.argtypes = [i, i, i]
+    lib.sigmoid_loss_bwd_splits.restype = i
+    lib.sigmoid_loss_bwd_smem_bytes.argtypes = [i]
+    lib.sigmoid_loss_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.sigmoid_loss_occupancy.argtypes = [i, i]
+    lib.sigmoid_loss_occupancy.restype = i
+    lib.sigmoid_loss_error_string.argtypes = [i]
+    lib.sigmoid_loss_error_string.restype = ctypes.c_char_p
+    lib._typed = True
+    return lib
+
+
+def _cuda_args(fn: str, zimg, ztxt, *scalars):
+    """What the kernels take: 2-D embeddings of one width and one-element
+    scalars, all on one CUDA device, in a floating dtype; returns them as
+    contiguous f32 (the kernels' operand type, as JAX casts them)."""
+    device = zimg.device
+    if zimg.dim() != 2 or ztxt.dim() != 2 or zimg.shape[1] != ztxt.shape[1]:
+        raise ValueError(f"{fn}: zimg {tuple(zimg.shape)} and ztxt {tuple(ztxt.shape)} "
+                         "must be (b, d) and (n, d)")
+    if zimg.shape[0] < 1 or ztxt.shape[0] < 1 or zimg.shape[1] < 1:
+        raise ValueError(f"{fn}: empty block {tuple(zimg.shape)} x {tuple(ztxt.shape)}")
+    for name, t in (("zimg", zimg), ("ztxt", ztxt)) + tuple(("scalar", s) for s in scalars):
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} on {t.device}, zimg on {device}")
+        if not t.is_floating_point():
+            raise TypeError(f"{fn}: {name} has dtype {t.dtype}")
+    for s in scalars:
+        if s.numel() != 1:
+            raise ValueError(f"{fn}: scalar argument of shape {tuple(s.shape)}")
+    return [t.float().contiguous() for t in (zimg, ztxt, *scalars)]
+
+
+def _vec(*tensors) -> int:
+    """1 when every row is a whole number of aligned 16-byte chunks (the
+    kernels' float4 loads), else 0 (element-wise loads)."""
+    return int(tensors[0].shape[1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise(lib, name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.sigmoid_loss_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _launch_fwd(zimg, ztxt, t_prime, bias, pos_offset: int) -> torch.Tensor:
+    zimg, ztxt, t_prime, bias = _cuda_args("streaming_loss_fwd", zimg, ztxt, t_prime, bias)
+    (b, d), n = zimg.shape, ztxt.shape[0]
+    partials = torch.empty(fwd_partials(b, n), dtype=torch.float32, device=zimg.device)
+    out = torch.empty((), dtype=torch.float32, device=zimg.device)
+    lib = _library()
+    with torch.cuda.device(zimg.device):
+        err = lib.sigmoid_loss_fwd(
+            zimg.data_ptr(), ztxt.data_ptr(), t_prime.data_ptr(), bias.data_ptr(),
+            b, n, d, int(pos_offset), _vec(zimg, ztxt), partials.data_ptr(), out.data_ptr(),
+            _stream(zimg.device),
+        )
+    _raise(lib, "sigmoid_loss_fwd", err)
+    _count("fwd")
+    return out
+
+
+def _launch_bwd_img(zimg, ztxt, t_prime, bias, pos_offset: int, g):
+    zimg, ztxt, t_prime, bias, g = _cuda_args("streaming_loss_bwd_img", zimg, ztxt,
+                                              t_prime, bias, g)
+    (b, d), n = zimg.shape, ztxt.shape[0]
+    dzimg = torch.empty((b, d), dtype=torch.float32, device=zimg.device)
+    out2 = torch.empty(2, dtype=torch.float32, device=zimg.device)
+    lib = _library()
+    with torch.cuda.device(zimg.device):
+        scratch = torch.empty(lib.sigmoid_loss_bwd_scratch_floats(b, n, d, 1),
+                              dtype=torch.float32, device=zimg.device)
+        err = lib.sigmoid_loss_bwd_img(
+            zimg.data_ptr(), ztxt.data_ptr(), t_prime.data_ptr(), bias.data_ptr(), g.data_ptr(),
+            b, n, d, int(pos_offset), _vec(zimg, ztxt, dzimg), dzimg.data_ptr(),
+            scratch.data_ptr(), out2.data_ptr(), _stream(zimg.device),
+        )
+    _raise(lib, "sigmoid_loss_bwd_img", err)
+    _count("bwd_img")
+    return dzimg, out2[0], out2[1]
+
+
+def _launch_bwd_txt(zimg, ztxt, t_prime, bias, pos_offset: int, g):
+    zimg, ztxt, t_prime, bias, g = _cuda_args("streaming_loss_bwd_txt", zimg, ztxt,
+                                              t_prime, bias, g)
+    (b, d), n = zimg.shape, ztxt.shape[0]
+    dztxt = torch.empty((n, d), dtype=torch.float32, device=zimg.device)
+    lib = _library()
+    with torch.cuda.device(zimg.device):
+        scratch = torch.empty(lib.sigmoid_loss_bwd_scratch_floats(n, b, d, 0),
+                              dtype=torch.float32, device=zimg.device)
+        err = lib.sigmoid_loss_bwd_txt(
+            zimg.data_ptr(), ztxt.data_ptr(), t_prime.data_ptr(), bias.data_ptr(), g.data_ptr(),
+            b, n, d, int(pos_offset), _vec(zimg, ztxt, dztxt), dztxt.data_ptr(),
+            scratch.data_ptr(), _stream(zimg.device),
+        )
+    _raise(lib, "sigmoid_loss_bwd_txt", err)
+    _count("bwd_txt")
+    return dztxt
+
+
+# The module attributes are looked up per call, so a caller may swap a plain
+# version in for a kernel-vs-plain comparison on the card.
+def _fwd(zimg, ztxt, t_prime, bias, pos_offset):
+    if zimg.device.type == "cpu":
+        return streaming_loss_fwd_plain(zimg, ztxt, t_prime, bias, pos_offset)
+    return _launch_fwd(zimg, ztxt, t_prime, bias, pos_offset)
+
+
+def _bwd_img(zimg, ztxt, t_prime, bias, pos_offset, g):
+    if zimg.device.type == "cpu":
+        return streaming_loss_bwd_img_plain(zimg, ztxt, t_prime, bias, pos_offset, g)
+    return _launch_bwd_img(zimg, ztxt, t_prime, bias, pos_offset, g)
+
+
+def _bwd_txt(zimg, ztxt, t_prime, bias, pos_offset, g):
+    if zimg.device.type == "cpu":
+        return streaming_loss_bwd_txt_plain(zimg, ztxt, t_prime, bias, pos_offset, g)
+    return _launch_bwd_txt(zimg, ztxt, t_prime, bias, pos_offset, g)
+
+
+class StreamingBlockLossSum(torch.autograd.Function):
+    """K4 forward, K5 then K6 backward, as one autograd node. The forward
+    saves only the embeddings and the scalars, as the JAX ``custom_vjp``
+    does; the backward recomputes the logits from them."""
+
+    @staticmethod
+    def forward(ctx, zimg, ztxt, t_prime, bias, pos_offset: int):
+        ctx.save_for_backward(zimg, ztxt, t_prime, bias)
+        ctx.pos_offset = pos_offset
+        return _fwd(zimg, ztxt, t_prime, bias, pos_offset)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        zimg, ztxt, t_prime, bias = ctx.saved_tensors
+        off = ctx.pos_offset
+        dzimg, dtp, dbias = _bwd_img(zimg, ztxt, t_prime, bias, off, g)
+        dztxt = _bwd_txt(zimg, ztxt, t_prime, bias, off, g)
+        return (
+            dzimg.to(zimg.dtype),
+            dztxt.to(ztxt.dtype),
+            dtp.reshape(t_prime.shape).to(t_prime.dtype),
+            dbias.reshape(bias.shape).to(bias.dtype),
+            None,
+        )
+
+
+def _refuse_quant(quant: str) -> None:
+    if quant not in ("", "int8"):
+        raise ValueError(f"unknown loss quant: {quant!r}")
+    if quant:
+        raise NotImplementedError(
+            f"quant='int8' in the streaming loss kernel is not ported yet: {INT8_ROADMAP_ROW}"
+        )
+
+
+def streaming_block_loss_sum(zimg, ztxt, t_prime, bias, pos_offset: int = 0, quant: str = ""):
+    """SUM of ``-log_sigmoid(labels · (exp(t_prime)·raw + bias))`` over the
+    (b × n) block, positives on ``col == row + pos_offset`` (pass
+    :data:`NEGATIVE_ONLY_OFFSET` for an all-negatives block), as an f32 0-d
+    tensor; ``raw`` is the f32 product of the f32-cast embeddings.
+    Unnormalized: divide by the local batch outside. Differentiable in the
+    embeddings, ``t_prime`` and ``bias`` (K5, K6)."""
+    _refuse_quant(quant)
+    return StreamingBlockLossSum.apply(zimg, ztxt, t_prime, bias, int(pos_offset))
+
+
+def streaming_block_loss_or_none(zimg, ztxt, t_prime, bias, pos_offset, *, quant: str = "",
+                                 normalize: bool = True):
+    """The streaming block loss as the distributed variants call it: the
+    per-image-normalized block loss (``normalize=True``, the fused and ring
+    call sites) or the raw block sum (``normalize=False``, what the chunk
+    scan accumulates). Records ``"streaming"`` in :func:`traced_loss_kernels`.
+    Keeps the JAX name, but never returns None: the kernels take every shape,
+    where the TPU kernel falls back to XLA for shapes it cannot tile."""
+    _refuse_quant(quant)
+    _TRACED_LOSS_KERNELS.add("streaming")
+    total = streaming_block_loss_sum(zimg, ztxt, t_prime, bias, pos_offset)
+    return total / zimg.shape[0] if normalize else total

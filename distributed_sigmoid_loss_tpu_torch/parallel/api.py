@@ -1,66 +1,69 @@
-"""The loss family/variant dispatch of the train step: ``make_per_shard_loss``
-from the JAX package's ``parallel/api.py``, at world size 1.
+"""The loss family/variant dispatch and the user-facing sharded loss, ported
+from the JAX package's ``parallel/api.py``, over ``torch.distributed``.
 
-At one process both variants of the sigmoid family are the positive block
-alone: the ring's first block before any hop (JAX ``ring_loss.py:100-104``),
-the all-gather's single chunk. The world-size > 1 paths (neighbour exchanges,
-the all-gather with its reduce-scatter backward), the streaming loss kernels
-(K4-K6) and the softmax family are not ported: they raise, naming their
-ROADMAP rows.
+JAX hands ``make_sharded_loss_fn`` a mesh and returns the ``pmean`` of the
+per-shard losses, whose gradient is already the data-parallel average. Here
+each process runs the returned function on its own rows; its gradient is
+that of this rank's loss, so, as the reference does under DDP
+(test_distributed_sigmoid_loss.py:79-83), the gradients are averaged over
+the ranks afterwards with :func:`average_gradients`. A rank's gradient with
+respect to its own embeddings is W × JAX's gradient of the ``pmean``'d loss
+with respect to those rows; the average over ranks of the parameters'
+gradients equals JAX's.
+
+The softmax family is not ported: it raises, naming its ROADMAP row.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Literal
 
 import torch
+import torch.distributed as dist
 
-from distributed_sigmoid_loss_tpu_torch.ops.sigmoid_loss import (
-    LOSS_KERNELS_ROADMAP_ROW,
-    sigmoid_loss_block,
-    sigmoid_loss_chunk_scan,
-)
+from distributed_sigmoid_loss_tpu_torch.ops.streaming_sigmoid_loss import INT8_ROADMAP_ROW
+from distributed_sigmoid_loss_tpu_torch.parallel.allgather_loss import allgather_sigmoid_loss
+from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_group, axis_size, data_axis
+from distributed_sigmoid_loss_tpu_torch.parallel.ring_loss import ring_sigmoid_loss
 
-__all__ = ["make_per_shard_loss", "world_size", "DISTRIBUTED_ROADMAP_ROW"]
+__all__ = [
+    "make_per_shard_loss",
+    "make_sharded_loss_fn",
+    "average_gradients",
+    "all_reduce_mean_",
+    "SOFTMAX_ROADMAP_ROW",
+]
 
-DISTRIBUTED_ROADMAP_ROW = (
-    "ROADMAP.md queue A item 3 (the reference capability over "
-    "torch.distributed: parallel/collectives.py, ring_loss.py and "
-    "allgather_loss.py at W > 1, DDP gradient averaging)"
-)
 SOFTMAX_ROADMAP_ROW = (
-    "ROADMAP.md queue A item 3 (ops/softmax_loss.py and parallel/contrastive.py)"
+    "ROADMAP.md queue A item 4 (ops/softmax_loss.py and parallel/contrastive.py)"
 )
-
-
-def world_size() -> int:
-    """Processes in the default ``torch.distributed`` group (1 when it is
-    not initialised)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
 
 
 def make_per_shard_loss(
     *,
     family: Literal["sigmoid", "softmax"] = "sigmoid",
     variant: Literal["all_gather", "ring"] = "all_gather",
-    axis_name: str = "dp",
+    axis_name: str = data_axis,
     bidir: bool = True,
     precision: str = "highest",
     use_pallas: bool = False,
     loss_impl: Literal["fused", "chunked"] = "fused",
     ring_overlap: bool = False,
     quant: str = "",
+    group=None,
 ) -> Callable:
     """The family/variant dispatch shared with the JAX package: returns
-    ``per_shard(zimg, ztxt, t_prime, bias)``, the loss of this process's
-    (local_b, d) embeddings normalized by the local batch. The JAX refusals
-    of flag/variant mismatches are kept word for word; paths not ported
-    raise ``NotImplementedError`` naming their ROADMAP rows, here for the
-    softmax family and the streaming kernels, and at call time when
-    ``torch.distributed`` runs more than one process.
+    ``per_shard(zimg, ztxt, t_prime, bias)``, this rank's loss of its
+    (local_b, d) embeddings normalized by the local batch, over ``group``
+    (default: the world group; one process without ``torch.distributed``).
+
+    ``use_pallas`` makes the streaming loss kernel (K4-K6) the block body of
+    every composition: the fused all-gather block, each chunk of the chunked
+    scan, each ring hop. The JAX refusals of flag/variant mismatches are kept
+    word for word; the softmax family and ``quant="int8"`` raise
+    ``NotImplementedError`` naming their ROADMAP rows.
     """
     if family not in ("sigmoid", "softmax"):
         raise ValueError(f"unknown family: {family!r}")
@@ -101,22 +104,94 @@ def make_per_shard_loss(
         raise NotImplementedError(
             f"the softmax (CLIP/InfoNCE) loss family is not ported yet: {SOFTMAX_ROADMAP_ROW}"
         )
-    if use_pallas:
-        raise NotImplementedError(
-            f"use_pallas: the streaming loss kernels are not ported yet: {LOSS_KERNELS_ROADMAP_ROW}"
+    if quant:
+        raise NotImplementedError(f"quant='int8' for the loss is not ported yet: {INT8_ROADMAP_ROW}")
+
+    if variant == "all_gather":
+        return partial(
+            allgather_sigmoid_loss,
+            axis_name=axis_name, group=group, precision=precision, use_pallas=use_pallas,
+            loss_impl=loss_impl,
         )
+    return partial(
+        ring_sigmoid_loss,
+        axis_name=axis_name, group=group, bidir=bidir, precision=precision,
+        use_pallas=use_pallas, overlap=ring_overlap,
+    )
 
-    def per_shard(zimg, ztxt, t_prime, bias):
-        w = world_size()
-        if w > 1:
-            raise NotImplementedError(
-                f"the {variant} sigmoid loss at world size {w} is not ported yet: "
-                f"{DISTRIBUTED_ROADMAP_ROW}"
-            )
-        if loss_impl == "chunked":
-            return sigmoid_loss_chunk_scan(zimg, ztxt[None], t_prime, bias, positive_chunk=0,
-                                           precision=precision)
-        return sigmoid_loss_block(zimg, ztxt, t_prime, bias, negative_only=False,
-                                  precision=precision)
 
-    return per_shard
+class _ReportMean(torch.autograd.Function):
+    """Value: the mean of ``x`` over the ranks (JAX's ``pmean``); gradient:
+    that of this rank's ``x``, passed through unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out / axis_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def make_sharded_loss_fn(
+    group=None,
+    *,
+    variant: Literal["all_gather", "ring"] = "all_gather",
+    family: Literal["sigmoid", "softmax"] = "sigmoid",
+    axis_name: str = data_axis,
+    bidir: bool = True,
+    precision: str = "highest",
+    use_pallas: bool = False,
+    loss_impl: Literal["fused", "chunked"] = "fused",
+    ring_overlap: bool = False,
+    quant: str = "",
+) -> Callable:
+    """Build ``loss_fn(params, zimg, ztxt) -> scalar``, called by every rank
+    of ``group`` on its own (local_b, d) rows; ``params`` holds ``t_prime``
+    and ``bias``.
+
+    The returned scalar's value is the mean over the ranks of the per-rank
+    losses (JAX's ``pmean``, the same number on every rank); its gradient is
+    that of this rank's loss. Average the parameters' gradients over the
+    ranks afterwards (:func:`average_gradients`) to get JAX's gradient.
+    """
+    per_shard = make_per_shard_loss(
+        family=family, variant=variant, axis_name=axis_name, bidir=bidir,
+        precision=precision, use_pallas=use_pallas, loss_impl=loss_impl,
+        ring_overlap=ring_overlap, quant=quant, group=group,
+    )
+    group = axis_group(axis_name, group)
+
+    def loss_fn(params, zimg, ztxt):
+        loss = per_shard(zimg, ztxt, params["t_prime"], params["bias"])
+        if axis_size(group) == 1:
+            return loss
+        return _ReportMean.apply(loss, group)
+
+    return loss_fn
+
+
+def all_reduce_mean_(tensors, group=None) -> None:
+    """Replace each tensor by its mean over the ranks, in place: one
+    ``all_reduce(SUM)`` over a flat buffer per dtype, then ``/ W``. A no-op
+    at world size 1."""
+    group = axis_group(data_axis, group)
+    w = axis_size(group)
+    if w == 1:
+        return
+
+    def mean_(flat):
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat /= w
+
+    flat_collective_(tensors, mean_)
+
+
+@torch.no_grad()
+def average_gradients(params, group=None) -> None:
+    """DDP's gradient averaging: each parameter's ``.grad`` becomes its mean
+    over the ranks (``all_reduce(SUM) / W``), issued as one collective per
+    dtype over a flat buffer, not one per tensor."""
+    all_reduce_mean_([p.grad for p in params if p.grad is not None], group)

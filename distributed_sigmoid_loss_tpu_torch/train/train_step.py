@@ -1,7 +1,15 @@
-"""The single-GPU SigLIP train step, ported from the JAX package's
+"""The SigLIP train step, ported from the JAX package's
 ``train/train_step.py``: AdamW with global-norm clipping and the three
 learning-rate schedules, gradient accumulation over microbatches with the
-bf16-accumulator contract, and the step's metrics.
+bf16-accumulator contract, data parallelism over ``torch.distributed``, and
+the step's metrics.
+
+Data parallelism follows DDP: every rank holds the same parameters
+(:func:`create_train_state` broadcasts rank 0's), runs its own rows, and the
+gradients are averaged over the ranks once per step, after accumulation
+(DDP's ``no_sync`` over the microbatches), in one collective over a flat
+buffer. Clipping and AdamW then run on the averaged gradients, identically
+on every rank.
 
 The optimizer is plain tensor code that follows optax's
 ``chain(clip_by_global_norm(1.0), adamw(...))`` operation by operation, not
@@ -23,7 +31,7 @@ tensor at a time, where JAX builds new arrays.
 Paths of the JAX step that are not ported raise ``NotImplementedError``
 naming their ROADMAP rows: GradCache (``accum_negatives="global"``), EMA,
 the MoE aux loss, pipeline microbatches, update sharding, lion and
-adafactor, and (in the loss) world size > 1.
+adafactor.
 """
 
 from __future__ import annotations
@@ -33,9 +41,12 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
+from distributed_sigmoid_loss_tpu_torch.parallel.api import all_reduce_mean_, make_per_shard_loss
+from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_size
 from distributed_sigmoid_loss_tpu_torch.parallel.microbatch import microbatch_split
 from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
 
@@ -312,7 +323,11 @@ class TrainState:
 
 def create_train_state(model: nn.Module, tx: AdamW) -> TrainState:
     """A train state over ``model``'s parameters (already initialized, on
-    its device), with zeroed optimizer moments."""
+    its device), with zeroed optimizer moments. When ``torch.distributed``
+    runs more than one process, every rank first takes rank 0's parameters
+    (one broadcast per dtype), so all start equal, as under DDP."""
+    if axis_size() > 1:
+        flat_collective_(model.parameters(), lambda flat: dist.broadcast(flat, src=0))
     return TrainState(model=model, tx=tx, opt_state=tx.init(model.parameters()))
 
 
@@ -329,20 +344,28 @@ def make_train_step(
     gradcache_embed_dtype: str | None = None,
     update_sharding: str = "",
 ):
-    """Build ``step(state, batch) -> (state, metrics)``.
+    """Build ``step(state, batch) -> (state, metrics)``, run by every rank of
+    the default process group (one process without ``torch.distributed``).
 
-    ``batch`` holds ``images`` (b, H, W, 3) and ``tokens`` (b, L) tensors; they
-    are moved to the model's device. ``accum_steps > 1`` splits the batch into
-    that many microbatches (rows ``[i·c, (i+1)·c)``), runs forward and backward
-    on each, sums their gradients into an accumulator of ``accum_dtype``
-    (default: the params' f32) by :func:`accum_add`, and applies their mean
-    once. Each microbatch contrasts only against its own texts (local
-    negatives), as the JAX step does.
+    ``batch`` holds this rank's ``images`` (b, H, W, 3) and ``tokens`` (b, L)
+    tensors, its share of the global batch; they are moved to the model's
+    device. ``accum_steps > 1`` splits them into that many microbatches (rows
+    ``[i·c, (i+1)·c)``, JAX's dp-interleaved split), runs forward and
+    backward on each, sums their gradients into an accumulator of
+    ``accum_dtype`` (default: the params' f32) by :func:`accum_add`, and
+    applies their mean once. Each microbatch contrasts only against its own
+    texts over the ranks (local negatives), as the JAX step does. The
+    gradients are averaged over the ranks once, after accumulation.
 
-    ``metrics``: ``loss`` (mean over microbatches), ``t`` (= exp(t_prime))
-    and ``bias`` before the update, ``grad_norm`` (before clipping),
-    ``param_norm`` after the update and ``update_ratio`` (norm of the change
-    over ``param_norm``), as 0-d f32 tensors on the model's device.
+    With a bf16 accumulator the sum differs from JAX's by rounding only: JAX
+    accumulates gradients already averaged over the ranks, the port each
+    rank's own gradients (W times the size of its share) and averages after.
+
+    ``metrics``: ``loss`` (mean over microbatches and ranks), ``t`` (=
+    exp(t_prime)) and ``bias`` before the update, ``grad_norm`` (of the
+    averaged gradients, before clipping), ``param_norm`` after the update and
+    ``update_ratio`` (norm of the change over ``param_norm``), as 0-d f32
+    tensors on the model's device.
     """
     cached_accum, acc_dt = validate_step_args(
         accum_steps=accum_steps,
@@ -414,6 +437,10 @@ def make_train_step(
                 del grads
             grads = accum_finish(acc, params, scale=accum_steps)
             loss = loss_sum / accum_steps
+        # DDP: one average over the ranks per step, the loss riding along.
+        loss = loss.reshape(1)
+        all_reduce_mean_([*grads, loss])
+        loss = loss[0]
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state)
         state.step += 1
         param_norm = global_norm(p.detach() for p in params)

@@ -1,0 +1,183 @@
+"""The port's streaming sigmoid-loss block (K4 forward, K5 and K6 backward)
+vs the JAX package's Pallas kernel in interpret mode, as
+``tests/test_pallas_loss.py`` runs it on the CPU. On CPU tensors the port
+runs the kernels' plain versions.
+
+Shapes meet the TPU kernel's tiling (d % 128 == 0, tiles of 8 rows), so the
+JAX side runs its kernel, not its XLA fallback (``traced_loss_kernels``).
+Inputs come from numpy seeds and go through both packages.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_sigmoid_loss_tpu.ops import pallas_sigmoid_loss as jpl
+from distributed_sigmoid_loss_tpu_torch.ops import streaming_sigmoid_loss as ssl
+from distributed_sigmoid_loss_tpu_torch.ops.sigmoid_loss import sigmoid_loss_chunk_scan
+from distributed_sigmoid_loss_tpu_torch.parallel import api
+
+jsl = importlib.import_module("distributed_sigmoid_loss_tpu.ops.sigmoid_loss")
+
+LOSS_RTOL = 1e-5
+# Gradients: sums over up to 512 products of order-0.1 terms in another
+# order; f32 round-off near zero needs an absolute floor (observed ≤ 1e-6).
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+# bf16 inputs: both sides compute in f32 on the same bf16 values and round
+# each gradient to bf16 at the end, so they may differ by one bf16 ulp
+# (2^-8 relative) of the largest entry.
+BF16_GRAD_RTOL_OF_MAX = 2.0 ** -7
+
+
+def unit_rows(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def inputs(b, n, d, seed):
+    rng = np.random.default_rng(seed)
+    # Positive pairs alike, as trained embeddings are, so the positive
+    # terms are not all saturated.
+    zi, zt = unit_rows(rng, b, d), unit_rows(rng, n, d)
+    return zi, zt, np.float32(np.log(10.0) + 0.2), np.float32(-9.5)
+
+
+def jax_block(zi, zt, tp, bias, off, dtype=jnp.float32):
+    jpl.reset_traced_loss_kernels()
+    fn = lambda a, b, c, e: jpl.streaming_block_loss_or_none(a, b, c, e, jnp.float32(off),
+                                                             normalize=False)
+    args = (jnp.asarray(zi, dtype), jnp.asarray(zt, dtype), jnp.asarray(tp), jnp.asarray(bias))
+    loss, grads = jax.value_and_grad(fn, argnums=(0, 1, 2, 3))(*args)
+    assert jpl.traced_loss_kernels() == ("streaming",)
+    return float(loss), [np.asarray(g, np.float32) for g in grads]
+
+
+def port_block(zi, zt, tp, bias, off, dtype=torch.float32):
+    args = [torch.tensor(zi).to(dtype).requires_grad_(), torch.tensor(zt).to(dtype).requires_grad_(),
+            torch.tensor(tp, requires_grad=True), torch.tensor(bias, requires_grad=True)]
+    loss = ssl.streaming_block_loss_sum(*args, off)
+    grads = torch.autograd.grad(loss, args)
+    for g, a in zip(grads, args):
+        assert g.dtype == a.dtype and g.shape == a.shape
+    return loss.item(), [g.float().numpy() for g in grads]
+
+
+# (b, n, d, pos_offset): one tile; a rank's view of the fused all-gather
+# block at W = 4 (offset r·b, r = 2); a negatives-only block; a 2-D grid of
+# default-size tiles where both operands stream.
+BLOCKS = {
+    "positive": (8, 8, 128, 0),
+    "allgather_rank2_of_4": (8, 32, 128, 16),
+    "negative_only": (16, 64, 128, ssl.NEGATIVE_ONLY_OFFSET),
+    "grid_2x2": (256, 512, 128, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKS))
+def test_plain_kernels_match_pallas_f32(case):
+    b, n, d, off = BLOCKS[case]
+    zi, zt, tp, bias = inputs(b, n, d, seed=sorted(BLOCKS).index(case))
+    ref_loss, ref_grads = jax_block(zi, zt, tp, bias, off)
+    loss, grads = port_block(zi, zt, tp, bias, off)
+    np.testing.assert_allclose(loss, ref_loss, rtol=LOSS_RTOL)
+    for name, g, r in zip(("dzimg", "dztxt", "dt_prime", "dbias"), grads, ref_grads):
+        np.testing.assert_allclose(g, r, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
+
+
+def test_plain_kernels_match_pallas_bf16():
+    zi, zt, tp, bias = inputs(8, 32, 128, seed=7)
+    ref_loss, ref_grads = jax_block(zi, zt, tp, bias, 8, jnp.bfloat16)
+    loss, grads = port_block(zi, zt, tp, bias, 8, torch.bfloat16)
+    np.testing.assert_allclose(loss, ref_loss, rtol=LOSS_RTOL)
+    for name, g, r in zip(("dzimg", "dztxt", "dt_prime", "dbias"), grads, ref_grads):
+        np.testing.assert_allclose(g, r, rtol=0, atol=BF16_GRAD_RTOL_OF_MAX * np.abs(r).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("pass_", ["fwd", "bwd_img", "bwd_txt"])
+def test_each_plain_pass_is_its_part_of_the_vjp(pass_):
+    """K4, K5 and K6's plain versions alone: the loss, (dzimg, dt′, dbias)
+    and dztxt of JAX's VJP at an upstream gradient g ≠ 1."""
+    zi, zt, tp, bias = inputs(8, 16, 128, seed=11)
+    g = np.float32(0.37)
+    fn = lambda a, b, c, e: jpl.streaming_block_loss_or_none(a, b, c, e, jnp.float32(3),
+                                                             normalize=False)
+    args = (jnp.asarray(zi), jnp.asarray(zt), jnp.asarray(tp), jnp.asarray(bias))
+    loss, vjp = jax.vjp(fn, *args)
+    ref = vjp(jnp.float32(g))
+    t = [torch.tensor(x) for x in (zi, zt, tp, bias)]
+    if pass_ == "fwd":
+        np.testing.assert_allclose(ssl.streaming_loss_fwd_plain(*t, 3).item(), float(loss),
+                                   rtol=LOSS_RTOL)
+    elif pass_ == "bwd_img":
+        got = ssl.streaming_loss_bwd_img_plain(*t, 3, torch.tensor(g))
+        for x, r in zip(got, (ref[0], ref[2], ref[3])):
+            np.testing.assert_allclose(x.numpy(), np.asarray(r), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    else:
+        got = ssl.streaming_loss_bwd_txt_plain(*t, 3, torch.tensor(g))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref[1]), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("positive_chunk", [0, 2])
+def test_chunk_scan_use_pallas_matches_jax(positive_chunk):
+    zi, zt, tp, bias = inputs(8, 24, 128, seed=3 + positive_chunk)
+    chunks = zt.reshape(3, 8, 128)
+    jpl.reset_traced_loss_kernels()
+    fn = lambda a, b, c, e: jsl.sigmoid_loss_chunk_scan(a, b, c, e, positive_chunk=positive_chunk,
+                                                        use_pallas=True)
+    ref, ref_g = jax.value_and_grad(fn, argnums=(0, 1, 2, 3))(
+        jnp.asarray(zi), jnp.asarray(chunks), jnp.asarray(tp), jnp.asarray(bias))
+    assert jpl.traced_loss_kernels() == ("streaming",)
+    ssl.reset_traced_loss_kernels()
+    args = [torch.tensor(x, requires_grad=True) for x in (zi, chunks, tp, bias)]
+    got = sigmoid_loss_chunk_scan(*args, positive_chunk=positive_chunk, use_pallas=True)
+    got_g = torch.autograd.grad(got, args)
+    assert ssl.traced_loss_kernels() == ("streaming",)
+    np.testing.assert_allclose(got.item(), float(ref), rtol=LOSS_RTOL)
+    for g, r in zip(got_g, ref_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    # ... and the port's chunk scan without the kernel.
+    plain = [torch.tensor(x, requires_grad=True) for x in (zi, chunks, tp, bias)]
+    want = sigmoid_loss_chunk_scan(*plain, positive_chunk=positive_chunk)
+    np.testing.assert_allclose(got.item(), want.item(), rtol=LOSS_RTOL)
+    for g, r in zip(got_g, torch.autograd.grad(want, plain)):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_cpu_tensors_launch_nothing():
+    """Plain-version calls on CPU tensors are not launches."""
+    ssl.reset_launches()
+    zi, zt, tp, bias = inputs(8, 8, 128, seed=0)
+    port_block(zi, zt, tp, bias, 0)
+    assert ssl.launches() == {"fwd": 0, "bwd_img": 0, "bwd_txt": 0}
+
+
+def test_shape_mirrors():
+    """The Python mirrors of the kernels' scratch and shared-memory sizes
+    (held against the library's own on the card by chip_smoke.py)."""
+    assert ssl.fwd_partials(100, 300) == 2 * 5
+    # 32 owned rows × (slice + 4) f32 accumulators beside the staged tiles:
+    # d = 1152 (So400m) in one slice, still under Hopper's 227 KB.
+    assert ssl.bwd_smem_bytes(512) == 92672
+    assert ssl.bwd_smem_bytes(1152) == 174592 <= 227 * 1024
+    assert ssl.bwd_smem_bytes(2000) == 158208  # two slices of 1024
+
+
+def test_int8_refused_naming_its_row():
+    zi, zt, tp, bias = (torch.tensor(x) for x in inputs(8, 8, 128, seed=0))
+    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
+        ssl.streaming_block_loss_sum(zi, zt, tp, bias, 0, quant="int8")
+    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
+        ssl.streaming_block_loss_or_none(zi, zt, tp, bias, 0, quant="int8")
+    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
+        sigmoid_loss_chunk_scan(zi, zt[None], tp, bias, positive_chunk=0, use_pallas=True,
+                                quant="int8")
+    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
+        api.make_per_shard_loss(use_pallas=True, quant="int8")
+    with pytest.raises(ValueError, match="unknown loss quant"):
+        ssl.streaming_block_loss_sum(zi, zt, tp, bias, 0, quant="int4")

@@ -374,19 +374,19 @@ def test_per_shard_loss_refusals_match_jax(kwargs):
     assert str(perr.value) == str(jerr.value)
 
 
-def test_unported_loss_paths_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="K4-K6"):
-        api.make_per_shard_loss(use_pallas=True)
+def test_unported_loss_paths_raise():
+    # The streaming loss kernel is ported (K4-K6); its int8 variant and the
+    # softmax family are not.
+    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
+        api.make_per_shard_loss(use_pallas=True, quant="int8")
     with pytest.raises(NotImplementedError, match="softmax_loss"):
         api.make_per_shard_loss(family="softmax")
     z = torch.nn.functional.normalize(torch.randn(4, 8), dim=-1)
     for variant in ("ring", "all_gather"):
-        per_shard = api.make_per_shard_loss(variant=variant)
-        assert torch.isfinite(per_shard(z, z, torch.tensor(2.3), torch.tensor(-10.0)))
-        monkeypatch.setattr(api, "world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="world size 2.*queue A item 3"):
-            per_shard(z, z, torch.tensor(2.3), torch.tensor(-10.0))
-        monkeypatch.undo()
+        values = [api.make_per_shard_loss(variant=variant, use_pallas=up)(
+            z, z, torch.tensor(2.3), torch.tensor(-10.0)) for up in (False, True)]
+        assert all(torch.isfinite(v) for v in values)
+        torch.testing.assert_close(values[1], values[0], rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("kwargs", [
