@@ -11,10 +11,11 @@ and nothing is caught:
 1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``);
 2. build every kernel from ``distributed_sigmoid_loss_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together);
-3. hold each kernel (K1, the attention forward; K2, its backward) against
-   its plain PyTorch version on the card at the shapes the main paths give
-   it, and time kernel, plain version and the PyTorch library call beside
-   the work's least time on this card;
+3. hold each kernel (K1, the attention forward; K2, its backward; K3, the
+   head-batched backward, also against K2 and run twice for bitwise
+   repeatability) against its plain PyTorch version on the card at the
+   shapes the main paths give it, and time kernel, plain version and the
+   PyTorch library call beside the work's least time on this card;
 4. the serving path: SigLIP-B/16 at full width and depth in bf16, seeded
    random weights, ``InferenceEngine`` + ``EmbeddingService`` serving a
    256-image corpus and 64 mixed requests from 8 threads, with the kernel
@@ -38,7 +39,13 @@ and nothing is caught:
 7. the headline step with ``LossConfig(use_pallas=True)`` for 2 steps, with
    the launch counts read around them, and the gradient through the whole
    model with the loss kernels against their plain versions;
-8. a JSON line of the kernels' numbers and, last, the device record.
+8. the training recipes (``[train_recipes]``): the headline step with the
+   head-batched backward K3, the softmax (InfoNCE) ring loss, GradCache's
+   exact global negatives over 16 × 128 with a bf16 stash and the EMA, for
+   2 steps with Lion and 2 with Adafactor, with the launch counts read
+   around them; then GradCache at 4 × 128 against one 512-pair batch and
+   K3 against K2, each by the cosine of the whole model's gradient;
+9. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -69,6 +76,15 @@ K1_ATOL = 1.6e-2
 # gradient to bf16; 2^-6 of a gradient's largest magnitude is at least two
 # bf16 ulps there.
 K2_RTOL_OF_MAX = 2.0 ** -6
+# K3 vs its plain version and vs K2 in bf16: the same roundings, held to one
+# bf16 ulp at the gradient's largest magnitude, 2^(floor(log2 max) - 7).
+K3_ULPS = 1
+# The training recipes: 2 steps with Lion, then 2 with Adafactor; GradCache
+# checked at 4 × 128 against one batch of 512 pairs.
+RECIPE_STEPS = 2
+GRADCACHE_CHECK = (4, 128)
+GRADCACHE_MIN_COSINE = 0.999
+K3_VS_K2_MIN_COSINE = 0.99999
 # FP32 outside the tensor cores (NVIDIA data sheet, H100 SXM): the loss
 # kernels' IEEE f32 FMAs.
 FP32_FLOP_PER_S = 67e12
@@ -183,6 +199,7 @@ def attention_bound_ms(b, s, h, dh, causal=False, tensors=4, products=2) -> tupl
 
 
 KERNEL_GROUPS = (
+    ("short_attention_bwd_batched", "short_attention_bwd_batched"),
     ("short_attention_bwd", "short_attention_bwd"),
     ("short_attention", "short_attention_fwd"),
 )
@@ -190,7 +207,7 @@ KERNEL_GROUPS = (
 
 def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
     """Device time of one call of ``fn`` by kernel (torch.profiler), grouped
-    into K1, K2, matrix products and the rest, with the device's idle share
+    into K1, K2, K3, matrix products and the rest, with the device's idle share
     against ``wall_ms`` (the call's time unprofiled). ``host_ops=False``
     traces the device alone, for calls of ~10^5 kernels."""
     from torch.autograd import DeviceType
@@ -203,7 +220,8 @@ def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise AssertionError("the profiler saw no kernel on the device")
-    groups = {"short_attention_fwd": 0.0, "short_attention_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"short_attention_fwd": 0.0, "short_attention_bwd": 0.0,
+              "short_attention_bwd_batched": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         group = next((g for key, g in KERNEL_GROUPS if key in name), None)
@@ -303,6 +321,77 @@ def check_short_attention_bwd(sa, gen) -> dict:
         log("kernel_bwd", **row)
         if not finite or any(errs[n] > tols[n] for n in errs):
             raise AssertionError(f"short_attention_bwd disagrees with its plain version: {row}")
+        if name == "vision":
+            record = row
+    return record
+
+
+def bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the largest magnitude of ``x`` (8 significant bits)."""
+    return 2.0 ** (float(np.floor(np.log2(x.float().abs().max().item()))) - 7)
+
+
+def check_short_attention_bwd_batched(sa, gen) -> dict:
+    """K3 against its plain version and against K2 at the same cases as K1
+    and K2 (a shape K3 does not take must be refused with ValueError), run
+    twice for bitwise repeatability; times K3 beside K2, the plain version
+    and SDPA's backward at the vision and text shapes. Returns the JSON
+    record of the vision shape."""
+    import torch.nn.functional as F
+
+    lib = sa._library("short_attention_bwd_batched")
+    record = None
+    for name, (b, s, h, dh, causal) in ATTENTION_CASES.items():
+        if not sa.short_attention_bwd_batched_fits(s, h * dh, h, 2):
+            q = torch.zeros(b, s, h, dh, device="cuda", dtype=torch.bfloat16)
+            try:
+                sa.short_self_attention_bwd(q, q, q, q, causal, batch_heads=True)
+            except ValueError as e:
+                log("kernel_bwd_batched", case=name, shape=[b, s, h, dh], refused=str(e))
+                continue
+            raise AssertionError(f"K3 took {name}, which its fit predicate refuses")
+        q, k, v, do = (
+            torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(4)
+        )
+        got = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True)
+        again = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True)
+        torch.cuda.synchronize()
+        repeatable = all(torch.equal(a, c) for a, c in zip(got, again))
+        ref = sa.short_self_attention_bwd_batched_plain(q, k, v, do, causal)
+        k2 = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=False)
+        names = ("dq", "dk", "dv")
+        errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(names, got, ref)}
+        errs_k2 = {n: (g.float() - c.float()).abs().max().item() for n, g, c in zip(names, got, k2)}
+        tols = {n: K3_ULPS * bf16_ulp(r) for n, r in zip(names, ref)}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=errs,
+                   max_abs_err_vs_k2=errs_k2, atol=tols, finite=finite, repeatable=repeatable,
+                   blocks_per_sm=lib.short_attention_bwd_batched_occupancy(s, dh),
+                   smem_bytes=sa.short_attention_bwd_batched_smem_bytes(s, dh))
+        if name in ("vision", "text"):
+            row["ms"] = time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal,
+                                                                     batch_heads=True))
+            row["k2_ms"] = time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal,
+                                                                        batch_heads=False))
+            row["plain_ms"] = time_ms(
+                lambda: sa.short_self_attention_bwd_batched_plain(q, k, v, do, causal))
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            dout = do.transpose(1, 2)
+            row["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            )
+            row["device_ms"] = device_ms(
+                lambda: sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True))
+            row["k2_device_ms"] = device_ms(
+                lambda: sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=False))
+            row["bound_ms"], row["bound_by"] = attention_bound_ms(b, s, h, dh, causal, 7, 5)
+            del out, leaves
+        log("kernel_bwd_batched", **row)
+        if not (finite and repeatable) or any(errs[n] > tols[n] or errs_k2[n] > tols[n]
+                                              for n in names):
+            raise AssertionError(f"short_attention_bwd_batched disagrees: {row}")
         if name == "vision":
             record = row
     return record
@@ -412,6 +501,7 @@ def read_counts(sa, ssl) -> dict:
     """Launches of every kernel since :func:`reset_counts`."""
     loss = ssl.launches()
     return {"short_attention_fwd": sa.launches(), "short_attention_bwd": sa.bwd_launches(),
+            "short_attention_bwd_batched": sa.bwd_batched_launches(),
             "sigmoid_loss_fwd": loss["fwd"], "sigmoid_loss_bwd_img": loss["bwd_img"],
             "sigmoid_loss_bwd_txt": loss["bwd_txt"]}
 
@@ -874,6 +964,163 @@ def run_train_pallas_path(args, sa, ssl) -> dict:
     return counts
 
 
+def flat_grads(model) -> torch.Tensor:
+    """The whole model's gradient as one f32 vector (parameters the loss did
+    not reach count as zeros), cleared after."""
+    g = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).float().flatten()
+                   for p in model.parameters()])
+    model.zero_grad(set_to_none=True)
+    return g
+
+
+def run_train_recipes_path(args, sa, ssl) -> dict:
+    """The headline step with the item-4 recipes: K3 as the attention
+    backward (``set_bwd_batch_heads(True)``), the softmax ring loss,
+    GradCache over 16 × 128 with a bf16 stash, the EMA at 0.9999, and
+    RECIPE_STEPS steps with Lion, then as many with Adafactor, between two
+    reads of the counts. Then GradCache at 4 × 128 against one 512-pair
+    batch, and one microbatch's gradient with K3 against K2."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        run_gradcache,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
+
+    cfg = headline_config()
+    cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, family="softmax"))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    model = SigLIP(cfg, device="cuda", generator=gen)
+    step = make_train_step(model, cfg.loss, accum_steps=ACCUM, accum_dtype="bfloat16",
+                           accum_negatives="global", gradcache_embed_dtype="bfloat16",
+                           ema_decay=0.9999)
+    batches = [random_batch(cfg, ACCUM * MICRO, gen) for _ in range(2 * RECIPE_STEPS)]
+    schedule = dict(warmup_steps=100, total_steps=100_000)
+    optimizers = {"lion": TrainConfig(optimizer="lion", adam_mu_dtype="bfloat16", **schedule),
+                  "adafactor": TrainConfig(optimizer="adafactor", **schedule)}
+    torch.cuda.synchronize()
+    log("train_recipes", config="SigLIP-B/16", remat_policy=cfg.vision.remat_policy,
+        attention_backward="K3 (set_bwd_batch_heads(True))",
+        loss="LossConfig(family='softmax', variant='ring', precision='default'), W = 1",
+        accum_steps=ACCUM, microbatch=MICRO, accum_negatives="global",
+        gradcache_embed_dtype="bfloat16", accum_dtype="bfloat16", ema_decay=0.9999,
+        steps={k: RECIPE_STEPS for k in optimizers},
+        train_config="TrainConfig(warmup_steps=100, total_steps=100_000); lion: "
+                     "adam_mu_dtype='bfloat16'")
+
+    # -- the recipes path, between the two reads of the launch counts -------
+    sa.set_bwd_batch_heads(True)
+    sa.reset_traced_bwd_batch_heads()
+    reset_counts(sa, ssl)
+    rows, ema_moved, peaks, state = [], {}, {}, None
+    for i, (opt, train_cfg) in enumerate(optimizers.items()):
+        del state  # the previous optimizer's state and EMA
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(model, make_optimizer(train_cfg), ema=True)
+        start = [p.detach().clone() for p in state.params]
+        for batch in batches[i * RECIPE_STEPS:(i + 1) * RECIPE_STEPS]:
+            t0 = time.monotonic()
+            state, m = step(state, batch)
+            m = {k: v.item() for k, v in m.items()}
+            torch.cuda.synchronize()
+            rows.append(dict(optimizer=opt, step_ms=1e3 * (time.monotonic() - t0), **m))
+        # The EMA left its start (the parameters before the first step)
+        # toward the parameters: |ema − θ| < |θ_start − θ|.
+        to_params = global_norm_of(e - p for e, p in zip(state.ema, state.params))
+        start_to_params = global_norm_of(s0 - p for s0, p in zip(start, state.params))
+        ema_moved[opt] = dict(ema_to_params=to_params, start_to_params=start_to_params)
+        peaks[opt] = torch.cuda.max_memory_allocated() / 2**30
+        del start
+    counts = read_counts(sa, ssl)
+    traced = sa.traced_bwd_batch_heads()
+    # -- end of the recipes path --------------------------------------------
+    steps = 2 * RECIPE_STEPS
+    depth = cfg.vision.depth + cfg.text.depth
+    expect = {"short_attention_fwd": 2 * depth * ACCUM * steps,
+              "short_attention_bwd_batched": depth * ACCUM * steps,
+              "short_attention_bwd": 0, "sigmoid_loss_fwd": 0, "sigmoid_loss_bwd_img": 0,
+              "sigmoid_loss_bwd_txt": 0}
+    for row in rows:
+        log("train_recipes", **row, pairs_per_s=ACCUM * MICRO / (row["step_ms"] / 1e3))
+    log("train_recipes", launches=counts, expected=expect, per_step={
+        k: v / steps for k, v in counts.items()}, traced_bwd_batch_heads=traced,
+        ema=ema_moved, max_memory_allocated_gib=peaks)
+    if not all(np.isfinite(v) for row in rows for k, v in row.items() if k != "optimizer"):
+        raise AssertionError(f"non-finite train_recipes metrics: {rows}")
+    if counts != expect:
+        raise AssertionError(f"train_recipes launches {counts} != {expect}: per step K1 = "
+                             f"{2 * depth * ACCUM} (two forwards), K3 = {depth * ACCUM}")
+    if traced != (True,):
+        raise AssertionError(f"traced_bwd_batch_heads() = {traced}, expected (True,)")
+    for opt, e in ema_moved.items():
+        if not 0 < e["ema_to_params"] < e["start_to_params"]:
+            raise AssertionError(f"the EMA did not move toward the parameters ({opt}): {e}")
+
+    # Outside the counted run: one whole recipes step (Adafactor, the state
+    # the path ended with) on the device by kernel group, then each
+    # optimizer's update alone.
+    recipe_ms = float(np.mean([r["step_ms"] for r in rows if r["optimizer"] == "adafactor"]))
+    log("profile", path="train_recipes step (Adafactor)", accum_steps=ACCUM, batch=ACCUM * MICRO,
+        **device_breakdown(lambda: step(state, batches[0]), recipe_ms, host_ops=False))
+    del state
+    zero_grads = [torch.zeros_like(p) for p in model.parameters()]
+    update_ms = {}
+    for opt, train_cfg in optimizers.items():
+        st = create_train_state(model, make_optimizer(train_cfg))
+        update_ms[opt] = time_ms(lambda: st.tx.apply(st.params, zero_grads, st.opt_state),
+                                 iters=3, warmup=1)
+        del st
+    log("train_recipes", optimizer_update_ms=update_ms, params=len(zero_grads))
+    del zero_grads
+
+    # GradCache at 4 × 128 against one batch of 512 pairs: the whole model's
+    # gradient of the same loss (bf16 stash vs f32 embeddings).
+    per_shard = make_per_shard_loss(family="softmax", variant="ring",
+                                    precision=cfg.loss.precision)
+    m, mb = GRADCACHE_CHECK
+    big = {k: v[:m * mb] for k, v in batches[0].items()}
+    _, _, gc_grads = run_gradcache(
+        model, big["images"].reshape(m, mb, *big["images"].shape[1:]),
+        big["tokens"].reshape(m, mb, *big["tokens"].shape[1:]),
+        lambda zis, zts, tp, b: per_shard(zis.flatten(0, 1), zts.flatten(0, 1), tp, b),
+        m, embed_dtype="bfloat16")
+    gc = torch.cat([g.float().flatten() for g in gc_grads])
+    del gc_grads
+    zimg, ztxt, lp = model(big["images"], big["tokens"])
+    per_shard(zimg, ztxt, lp["t_prime"], lp["bias"]).backward()
+    del zimg, ztxt
+    one = flat_grads(model)
+    cos_gc = float(torch.nn.functional.cosine_similarity(gc, one, dim=0))
+    del gc, one
+    # One microbatch's gradient, K3 against K2.
+    micro = {k: v[:MICRO] for k, v in batches[0].items()}
+    grads = {}
+    for batch_heads in (True, False):
+        sa.set_bwd_batch_heads(batch_heads)
+        zimg, ztxt, lp = model(micro["images"], micro["tokens"])
+        per_shard(zimg, ztxt, lp["t_prime"], lp["bias"]).backward()
+        grads[batch_heads] = flat_grads(model)
+    sa.set_bwd_batch_heads(False)
+    cos_k3 = float(torch.nn.functional.cosine_similarity(grads[True], grads[False], dim=0))
+    log("train_recipes", gradcache_vs_one_batch=dict(microbatches=m, microbatch=mb,
+                                                      cosine=cos_gc, min=GRADCACHE_MIN_COSINE),
+        k3_vs_k2_grad=dict(batch=MICRO, cosine=cos_k3, min=K3_VS_K2_MIN_COSINE))
+    if not cos_gc >= GRADCACHE_MIN_COSINE:
+        raise AssertionError(f"GradCache vs one batch: gradient cosine {cos_gc}")
+    if not cos_k3 >= K3_VS_K2_MIN_COSINE:
+        raise AssertionError(f"K3 vs K2 through the model: gradient cosine {cos_k3}")
+    del grads, batches, step, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def global_norm_of(tensors) -> float:
+    return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -904,7 +1151,8 @@ def main() -> int:
         log("build", library=lib, seconds=info["seconds"], ptxas=ptxas_usage(info["log"]))
     log("build", seconds=time.monotonic() - t0, built=sorted(built))
     for lib, mirror in (("short_attention", sa.short_attention_smem_bytes),
-                        ("short_attention_bwd", sa.short_attention_bwd_smem_bytes)):
+                        ("short_attention_bwd", sa.short_attention_bwd_smem_bytes),
+                        ("short_attention_bwd_batched", sa.short_attention_bwd_batched_smem_bytes)):
         smem = getattr(sa._library(lib), f"{lib}_smem_bytes")(196, 64)
         if smem != mirror(196, 64):
             raise AssertionError(f"{lib} smem {smem} != python mirror {mirror(196, 64)}")
@@ -919,20 +1167,22 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_short_attention(sa, gen)
     k2 = check_short_attention_bwd(sa, gen)
+    k3 = check_short_attention_bwd_batched(sa, gen)
     loss_recs = check_loss_kernels(ssl, gen)
 
-    # Phases 4-7: the main paths, each between two reads of the counts.
+    # Phases 4-8: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_main_path(args, sa, ssl)),
                       ("train", lambda: run_train_path(args, sa, ssl)),
                       ("rank_view", lambda: run_rank_view(ssl, sa, gen)),
-                      ("train_pallas", lambda: run_train_pallas_path(args, sa, ssl))):
+                      ("train_pallas", lambda: run_train_pallas_path(args, sa, ssl)),
+                      ("train_recipes", lambda: run_train_recipes_path(args, sa, ssl))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 8: the records.
+    # Phase 9: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"
@@ -955,6 +1205,11 @@ def main() -> int:
          "source": source + "short_attention_bwd.cu", "replaces": attn + "278",
          **launches("short_attention_bwd"), "max_abs_err": max(k2["max_abs_err"].values()),
          **timed(k2), "shape": attn_shape},
+        {"name": "short_attention_bwd_batched", "route": "cuda",
+         "source": source + "short_attention_bwd_batched.cu", "replaces": attn + "185",
+         **launches("short_attention_bwd_batched"), "max_abs_err": max(k3["max_abs_err"].values()),
+         **timed(k3), "k2_ms": k3["k2_ms"], "device_ms": k3["device_ms"],
+         "k2_device_ms": k3["k2_device_ms"], "shape": attn_shape},
     ]
     for kernel, which, line in (("sigmoid_loss_fwd", "fwd", "429"),
                                 ("sigmoid_loss_bwd_img", "bwd_img", "462"),

@@ -12,10 +12,19 @@ are read:
 Renames: a Dense ``kernel`` (in, out) becomes ``weight`` (out, in); a
 LayerNorm ``scale`` becomes ``weight``; the token table ``embedding`` becomes
 the ``token_embed`` parameter itself. The patch kernel keeps its HWIO shape.
+
+The same mapping, run the other way, is :func:`jax_leaves`: which of the
+port's tensors make up each leaf of the JAX tree. Adafactor's factoring and
+block-RMS clipping are per leaf, and under ``scan_layers=True`` one leaf
+stacks every layer of a tower, so the port's Adafactor works on the leaves
+that list describes. Trees shaped like ``params`` (the EMA, Lion's moment)
+come over through :func:`params_from_jax`; Adafactor's statistics, held by
+the port in the JAX leaf layout, through :func:`adafactor_stats_from_jax`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Mapping
 
@@ -24,7 +33,8 @@ import torch
 
 from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "param_list_from_jax", "JaxLeaf", "jax_leaves",
+           "adafactor_stats_from_jax"]
 
 _BLOCK = re.compile(r"block(\d+)")
 
@@ -84,4 +94,83 @@ def params_from_jax(params, cfg: SigLIPConfig) -> dict[str, torch.Tensor]:
             f"unexpected {extra[:5]}, shape mismatches "
             f"{[(k, got[k], expected[k]) for k in shapes[:5]]}"
         )
+    return out
+
+
+def param_list_from_jax(tree, model) -> list[torch.Tensor]:
+    """A tree shaped like the JAX params (the EMA, Lion's moment)
+    as f32 CPU tensors in ``model.parameters()`` order, through
+    :func:`params_from_jax`."""
+    state = params_from_jax(tree, model.cfg)
+    return [state[name] for name, _ in model.named_parameters()]
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """One leaf of the JAX params tree as port tensors: ``members`` index
+    ``model.parameters()``; with ``stacked`` they are the leaf's layers, in
+    depth order, along a new leading axis; with ``transposed`` each is the
+    transpose of the JAX layout (a Dense ``weight`` of a ``kernel``)."""
+
+    path: str
+    members: tuple[int, ...]
+    stacked: bool
+    transposed: bool
+
+    def gather(self, tensors) -> torch.Tensor:
+        """The leaf in the JAX layout from the port's ``tensors`` (a list in
+        ``model.parameters()`` order); a copy when stacked, else a view."""
+        parts = [tensors[i].T if self.transposed else tensors[i] for i in self.members]
+        return torch.stack(parts) if self.stacked else parts[0]
+
+    def scatter_(self, tensors, leaf: torch.Tensor) -> None:
+        """Copy ``leaf`` (JAX layout) back into the port's ``tensors``."""
+        for depth, i in enumerate(self.members):
+            part = leaf[depth] if self.stacked else leaf
+            tensors[i].copy_(part.T if self.transposed else part)
+
+
+def _jax_path(parts: list[str], ndim: int, scanned: bool) -> tuple[str, int | None]:
+    """The JAX path of one port parameter and its depth in a stacked leaf."""
+    *mods, leaf = parts
+    if leaf == "weight":
+        leaf = "kernel" if ndim == 2 else "scale"
+    elif leaf == "token_embed":
+        mods, leaf = parts, "embedding"
+    depth = None
+    if "blocks" in mods:
+        j = mods.index("blocks")
+        depth = int(mods[j + 1])
+        mods = mods[:j] + (["blocks", "block"] if scanned else [f"block{depth}"]) + mods[j + 2:]
+    return "/".join((*mods, leaf)), (depth if scanned else None)
+
+
+def jax_leaves(model) -> list[JaxLeaf]:
+    """The leaves of the JAX params tree of ``model`` (a port ``SigLIP``),
+    in the order of their first member: a tower's blocks form one stacked
+    leaf per parameter name when its config has ``scan_layers=True``, one
+    leaf per layer otherwise."""
+    scan = {"visual": model.cfg.vision.scan_layers, "textual": model.cfg.text.scan_layers}
+    groups: dict[str, list[tuple[int | None, int, bool]]] = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        parts = name.split(".")
+        path, depth = _jax_path(parts, p.ndim, scan.get(parts[0], False))
+        groups.setdefault(path, []).append((depth, i, parts[-1] == "weight" and p.ndim == 2))
+    leaves = []
+    for path, entries in groups.items():
+        entries.sort(key=lambda e: -1 if e[0] is None else e[0])
+        leaves.append(JaxLeaf(path=path, members=tuple(i for _, i, _ in entries),
+                              stacked=entries[0][0] is not None, transposed=entries[0][2]))
+    return leaves
+
+
+def adafactor_stats_from_jax(factored_state, leaves) -> dict[str, list[torch.Tensor]]:
+    """optax's ``FactoredState`` trees (``v_row``, ``v_col``, ``v``) as f32
+    CPU tensors per leaf of ``leaves`` (:func:`jax_leaves`), in the JAX
+    layout the port's Adafactor keeps them in."""
+    out = {}
+    for field in ("v_row", "v_col", "v"):
+        flat = {"/".join(path): arr for path, arr in _flatten(getattr(factored_state, field))}
+        out[field] = [torch.from_numpy(np.array(flat[leaf.path], dtype=np.float32, order="C"))
+                      for leaf in leaves]
     return out

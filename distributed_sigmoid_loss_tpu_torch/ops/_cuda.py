@@ -30,6 +30,7 @@ BUILD_DIR = _PACKAGE.parent / "build"
 SOURCES = {
     "short_attention": "short_attention.cu",
     "short_attention_bwd": "short_attention_bwd.cu",
+    "short_attention_bwd_batched": "short_attention_bwd_batched.cu",
     "sigmoid_loss": "sigmoid_loss.cu",
 }
 

@@ -1,6 +1,6 @@
-"""Fused short-sequence multi-head self-attention, forward (K1) and backward
-(K2): CUDA kernels for the towers, with their plain PyTorch versions beside
-them, joined by one ``torch.autograd.Function``.
+"""Fused short-sequence multi-head self-attention, forward (K1) and its two
+backwards (K2, K3): CUDA kernels for the towers, with their plain PyTorch
+versions beside them, joined by one ``torch.autograd.Function``.
 
 Replaces the Pallas TPU kernels of
 ``distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py``:
@@ -14,11 +14,18 @@ Replaces the Pallas TPU kernels of
   recompute from the saved (q, k, v), as the JAX ``custom_vjp`` saves them:
   f32 ``p``, ``dv = bf16(p)ᵀ·do``, f32 ``dp = do·vᵀ``,
   ``ds = bf16(p ⊙ (dp − rowsum(dp ⊙ p)) · scale)``, ``dq = ds·k``,
-  ``dk = dsᵀ·q``. Kernel: ``csrc/short_attention_bwd.cu``.
+  ``dk = dsᵀ·q``. Kernel: ``csrc/short_attention_bwd.cu`` (two launches; the
+  second recomputes the logits and dp).
+- K3, the same call with the body ``_bwd_kernel_batched``: K2's function at
+  K2's rounding points, the chain computed once and each of the five products
+  issued once. Kernel: ``csrc/short_attention_bwd_batched.cu``, one launch
+  per backward call, one block per (batch row, head). Selected by
+  :func:`set_bwd_batch_heads` (default off, as in JAX) or ``batch_heads=``;
+  it takes s <= 208 (:func:`short_attention_bwd_batched_fits`) and raises
+  ``ValueError`` beyond, with no fallback to K2.
 
-Both are memory-bound on an H100 (the sources' header notes give the
-reckoning). Only the head-batched backward (K3) and the long-sequence flash
-kernel (K7) remain to be ported.
+All three are memory-bound on an H100 (the sources' header notes give the
+reckoning). Only the long-sequence flash kernel (K7) remains to be ported.
 
 The forward is registered as the custom op ``dsl_torch_port::short_attention_fwd``
 (:data:`ATTN_CORE_OP`), so selective activation checkpointing can recognise
@@ -44,11 +51,14 @@ __all__ = [
     "short_self_attention_plain",
     "short_self_attention_bwd",
     "short_self_attention_bwd_plain",
+    "short_self_attention_bwd_batched_plain",
     "ShortSelfAttention",
     "ATTN_CORE_OP",
     "short_attention_fits",
     "short_attention_smem_bytes",
     "short_attention_bwd_smem_bytes",
+    "short_attention_bwd_batched_smem_bytes",
+    "short_attention_bwd_batched_fits",
     "set_bwd_batch_heads",
     "traced_bwd_batch_heads",
     "reset_traced_bwd_batch_heads",
@@ -56,6 +66,7 @@ __all__ = [
     "MAX_HEAD_DIM",
     "launches",
     "bwd_launches",
+    "bwd_batched_launches",
     "reset_launches",
 ]
 
@@ -67,18 +78,17 @@ SMEM_BUDGET_BYTES = 227 * 1024
 MAX_HEAD_DIM = 128
 
 _WARPS, _ROWS_PER_WARP = 4, 16
-
-# Named in the refusal of the head-batched backward.
-K3_ROADMAP_ROW = (
-    "ROADMAP.md queue A item 4 and queue B, K3 (the head-batched "
-    "short-attention backward _bwd_kernel_batched)"
-)
+# K3 keeps the logits of a warp's 16 query rows in registers: 13 key tiles.
+K3_MAX_SEQ = 208
 
 _count_lock = threading.Lock()
-_launches = {"fwd": 0, "bwd": 0}
+_launches = {"fwd": 0, "bwd": 0, "bwd_batched": 0}
 
-# Every backward choice that actually ran in this process (False = the
-# per-head backward K2; the head-batched K3 is not ported).
+# The process default for ``batch_heads=None`` call sites (the towers):
+# False = the per-head backward K2, True = the head-batched K3.
+_DEFAULT_BATCH_HEADS = False
+
+# Every backward choice that actually ran in this process.
 _TRACED_BWD_BATCH_HEADS: set[bool] = set()
 
 
@@ -94,9 +104,14 @@ def bwd_launches() -> int:
     return _launches["bwd"]
 
 
+def bwd_batched_launches() -> int:
+    """K3 kernel launches since the last :func:`reset_launches`."""
+    return _launches["bwd_batched"]
+
+
 def reset_launches() -> None:
     with _count_lock:
-        _launches.update(fwd=0, bwd=0)
+        _launches.update(fwd=0, bwd=0, bwd_batched=0)
 
 
 def _count(kernel: str) -> None:
@@ -105,18 +120,19 @@ def _count(kernel: str) -> None:
 
 
 def set_bwd_batch_heads(enabled: bool) -> None:
-    """The JAX package's switch to the head-batched backward (K3). Only the
-    per-head backward (K2) is ported: ``True`` raises."""
-    if enabled:
-        raise NotImplementedError(
-            f"the head-batched short-attention backward is not ported yet: {K3_ROADMAP_ROW}"
-        )
+    """Set the process default for ``batch_heads=None`` call sites (the
+    towers), as the JAX package's switch does: ``True`` selects the
+    head-batched backward K3, ``False`` the per-head K2. Read when a backward
+    runs; :func:`traced_bwd_batch_heads` reports what actually did."""
+    global _DEFAULT_BATCH_HEADS
+    _DEFAULT_BATCH_HEADS = bool(enabled)
 
 
 def traced_bwd_batch_heads() -> tuple[bool, ...]:
     """Distinct backward choices that ran so far, sorted: ``()`` when no
-    fused short-attention backward has run in this process, ``(False,)`` when
-    every one was the per-head backward."""
+    fused short-attention backward has run in this process, ``(False,)`` /
+    ``(True,)`` when every one was the per-head / the head-batched backward,
+    ``(False, True)`` when both ran."""
     return tuple(sorted(_TRACED_BWD_BATCH_HEADS))
 
 
@@ -152,6 +168,33 @@ def short_attention_bwd_smem_bytes(s: int, head_dim: int) -> int:
     out = _ROWS_PER_WARP * (dh_pad + 4) * 4
     warp = _round_up(max(staged, scratch, out), 128)
     return 2 * s_pad * ld_kv * 2 + _WARPS * warp + 3 * s_pad * 4
+
+
+def short_attention_bwd_batched_smem_bytes(s: int, head_dim: int) -> int:
+    """Dynamic shared memory of one K3 block: bf16(p) and ds of the head,
+    (s_pad × s_pad) bf16 each, and two of its (s_pad × head_dim_pad) operands
+    in bf16 (rows padded to 16). Mirrors ``geometry()`` in
+    ``short_attention_bwd_batched.cu``."""
+    s_pad, dh_pad = _round_up(s, 16), _round_up(head_dim, 16)
+    return 2 * s_pad * s_pad * 2 + 2 * s_pad * dh_pad * 2
+
+
+def short_attention_bwd_batched_fits(s: int, width: int, num_heads: int,
+                                     dtype_bytes: int) -> bool:
+    """Whether K3 takes this shape: head_dim at most :data:`MAX_HEAD_DIM`,
+    s at most :data:`K3_MAX_SEQ` and one block within the 227 KB Hopper
+    budget. The kernel holds its operands in bf16 whatever the caller's
+    dtype, so ``dtype_bytes`` (kept for the JAX signature) does not enter;
+    a CUDA tensor of another dtype is refused by the kernels' dtype check.
+    B/16 fits (s=196 and 64 at dh=64: 226,304 and 32,768 bytes); L/14's
+    s=256 does not."""
+    del dtype_bytes
+    head_dim = width // num_heads
+    return (
+        head_dim <= MAX_HEAD_DIM
+        and s <= K3_MAX_SEQ
+        and short_attention_bwd_batched_smem_bytes(s, head_dim) <= SMEM_BUDGET_BYTES
+    )
 
 
 def short_attention_fits(s: int, width: int, dtype_bytes: int, num_heads: int) -> bool:
@@ -215,6 +258,36 @@ def short_self_attention_bwd_plain(q, k, v, do, causal: bool = False,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def short_self_attention_bwd_batched_plain(q, k, v, do, causal: bool = False,
+                                           scale: float | None = None):
+    """K3's function in plain PyTorch, as ``_bwd_kernel_batched`` writes it:
+    the heads as a batch dimension, (b, h, s, dh), and each of the five
+    products one batched matmul, at K2's rounding points (f32 logits,
+    softmax and chain; ``p`` and ``ds`` rounded to the activation dtype
+    before their products; outputs in q's dtype).
+    q/k/v/do: (b, s, h, dh) → (dq, dk, dv), each (b, s, h, dh)."""
+    scale = _resolve_scale(q, scale)
+    acc = torch.promote_types(q.dtype, torch.float32)
+
+    def heads(t):  # (b, s, h, dh) -> (b, h, s, dh)
+        return t.transpose(1, 2).to(acc)
+
+    qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(do.to(v.dtype))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale  # (b, h, s_q, s_k)
+    if causal:
+        s = q.shape[1]
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    p_lo = p.to(v.dtype).to(acc)
+    dv = torch.matmul(p_lo.transpose(-1, -2), doh)  # pᵀ @ do
+    dp = torch.matmul(doh, vh.transpose(-1, -2))  # do @ vᵀ
+    ds = ((p * (dp - (dp * p).sum(dim=-1, keepdim=True))) * scale).to(q.dtype).to(acc)
+    dq = torch.matmul(ds, kh)  # ds @ k
+    dk = torch.matmul(ds.transpose(-1, -2), qh)  # dsᵀ @ q
+    return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
+
+
 def _library(name: str) -> ctypes.CDLL:
     lib = _cuda.load(name)
     if getattr(lib, "_typed", False):
@@ -229,6 +302,15 @@ def _library(name: str) -> ctypes.CDLL:
         lib.short_attention_occupancy.restype = i
         lib.short_attention_error_string.argtypes = [i]
         lib.short_attention_error_string.restype = ctypes.c_char_p
+    elif name == "short_attention_bwd_batched":
+        lib.short_attention_bwd_batched.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, i, i, p]
+        lib.short_attention_bwd_batched.restype = i
+        lib.short_attention_bwd_batched_smem_bytes.argtypes = [i, i]
+        lib.short_attention_bwd_batched_smem_bytes.restype = ctypes.c_longlong
+        lib.short_attention_bwd_batched_occupancy.argtypes = [i, i]
+        lib.short_attention_bwd_batched_occupancy.restype = i
+        lib.short_attention_bwd_batched_error_string.argtypes = [i]
+        lib.short_attention_bwd_batched_error_string.restype = ctypes.c_char_p
     else:
         lib.short_attention_bwd.argtypes = [p] * 8 + [i, i, i, i, ctypes.c_float, i, i, p]
         lib.short_attention_bwd.restype = i
@@ -308,6 +390,26 @@ def _launch_bwd(q, k, v, do, causal: bool, scale: float):
     return dq, dk, dv
 
 
+def _launch_bwd_batched(q, k, v, do, causal: bool, scale: float):
+    """Launch K3 on checked CUDA tensors; returns new (dq, dk, dv)."""
+    b, s, h, dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    vec = _vec(dh, h * dh, (q, k, v, do, dq, dk, dv))
+    lib = _library("short_attention_bwd_batched")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.short_attention_bwd_batched(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, dh, float(scale), int(bool(causal)), vec, stream,
+        )
+    if err != 0:
+        msg = lib.short_attention_bwd_batched_error_string(err).decode()
+        raise RuntimeError(f"short_attention_bwd_batched launch failed: CUDA error {err} ({msg})")
+    _count("bwd_batched")
+    return dq, dk, dv
+
+
 def _forward(q, k, v, causal: bool, scale: float):
     # The module attributes are looked up per call, so a caller may swap the
     # plain version in for a kernel-vs-plain comparison on the card.
@@ -327,46 +429,65 @@ def _short_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 ATTN_CORE_OP = torch.ops.dsl_torch_port.short_attention_fwd.default
 
 
-def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | None = None):
-    """K2: the gradients (dq, dk, dv) of :func:`short_self_attention` at
-    output gradient ``do``, all (b, s, h, dh).
+def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | None = None,
+                             batch_heads: bool | None = None):
+    """The gradients (dq, dk, dv) of :func:`short_self_attention` at output
+    gradient ``do``, all (b, s, h, dh): by K2 (per head), or by K3 (head
+    batched) when ``batch_heads`` is true (None: the process default of
+    :func:`set_bwd_batch_heads`). Records the choice in
+    :func:`traced_bwd_batch_heads`; K3 raises ``ValueError`` where
+    :func:`short_attention_bwd_batched_fits` is false, as JAX does.
 
-    CPU tensors run :func:`short_self_attention_bwd_plain`. CUDA tensors must
+    CPU tensors run the plain version of the chosen kernel. CUDA tensors must
     be bf16 of one shape that :func:`short_attention_fits`; they run the
-    kernel, or this raises. Records the per-head choice in
-    :func:`traced_bwd_batch_heads`.
+    kernel, or this raises.
     """
     scale = _resolve_scale(q, scale)
-    _TRACED_BWD_BATCH_HEADS.add(False)
+    batch_heads = _DEFAULT_BATCH_HEADS if batch_heads is None else bool(batch_heads)
+    _TRACED_BWD_BATCH_HEADS.add(batch_heads)
+    b, s, h, dh = q.shape
+    if batch_heads and not short_attention_bwd_batched_fits(s, h * dh, h, q.element_size()):
+        raise ValueError(
+            f"batch_heads backward does not fit shared memory at s={s}, "
+            f"width={h * dh}, h={h}; use the per-head loop"
+        )
     if q.device.type == "cpu":
+        if batch_heads:
+            return short_self_attention_bwd_batched_plain(q, k, v, do, causal, scale)
         return short_self_attention_bwd_plain(q, k, v, do, causal, scale)
     do = do.contiguous()
     _check_cuda("short_self_attention_bwd", q, (("k", k), ("v", v), ("do", do)))
+    if batch_heads:
+        return _launch_bwd_batched(q, k, v, do, causal, scale)
     return _launch_bwd(q, k, v, do, causal, scale)
 
 
 class ShortSelfAttention(torch.autograd.Function):
-    """K1 forward and K2 backward as one autograd node. The forward saves
-    (q, k, v), as the JAX ``custom_vjp`` does; the backward recomputes the
-    probabilities from them."""
+    """K1 forward and the K2 or K3 backward as one autograd node. The
+    forward saves (q, k, v), as the JAX ``custom_vjp`` does; the backward
+    recomputes the probabilities from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
+    def forward(ctx, q, k, v, causal: bool, scale: float, batch_heads: bool | None):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.batch_heads = causal, scale, batch_heads
         return _short_attention_fwd_op(q, k, v, causal, scale)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = short_self_attention_bwd(q, k, v, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = short_self_attention_bwd(q, k, v, do, ctx.causal, ctx.scale,
+                                              ctx.batch_heads)
+        return dq, dk, dv, None, None, None
 
 
-def short_self_attention(q, k, v, causal: bool = False, scale: float | None = None):
+def short_self_attention(q, k, v, causal: bool = False, scale: float | None = None,
+                         batch_heads: bool | None = None):
     """Fused self-attention for short sequences: (b, s, h, dh) → same, with
-    the K2 backward under autograd.
+    the K2 backward under autograd, or K3 when ``batch_heads`` is true (None:
+    the process default of :func:`set_bwd_batch_heads`, read when the
+    backward runs).
 
     CPU tensors run :func:`short_self_attention_plain` (and, backward,
     :func:`short_self_attention_bwd_plain`). CUDA tensors must be contiguous
@@ -377,5 +498,5 @@ def short_self_attention(q, k, v, causal: bool = False, scale: float | None = No
     """
     scale = _resolve_scale(q, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return ShortSelfAttention.apply(q, k, v, bool(causal), scale)
+        return ShortSelfAttention.apply(q, k, v, bool(causal), scale, batch_heads)
     return _forward(q, k, v, bool(causal), scale)

@@ -43,6 +43,7 @@ from distributed_sigmoid_loss_tpu_torch.ops.streaming_sigmoid_loss import (
 __all__ = [
     "init_loss_params",
     "pairwise_logits",
+    "scaled_products",
     "sigmoid_xent",
     "sigmoid_loss_block",
     "sigmoid_loss_chunk_scan",
@@ -83,9 +84,21 @@ def _matmul(a, b, precision: str):
     return a @ b
 
 
+def scaled_products(zimg, ztxt, t_prime, *, precision: str = "highest"):
+    """``exp(t_prime) * zimg @ ztxt.T`` as the jitted JAX step computes it:
+    bf16 embeddings are multiplied in f32 (their products are exact in f32)
+    and the f32 sums are not rounded back to bf16, because XLA keeps the dot's
+    f32 result under jit (excess precision) before the f32 ``exp(t_prime)``
+    scales it. The result is f32 for f32 or bf16 embeddings."""
+    acc = torch.promote_types(zimg.dtype, t_prime.dtype)
+    return torch.exp(t_prime) * _matmul(zimg.to(acc), ztxt.to(acc).T, precision)
+
+
 def pairwise_logits(zimg, ztxt, t_prime, bias, *, precision: str = "highest"):
-    """``exp(t_prime) * zimg @ ztxt.T + bias``: the (n_img, n_txt) logit block."""
-    return _matmul(zimg, ztxt.T, precision) * torch.exp(t_prime) + bias
+    """``exp(t_prime) * zimg @ ztxt.T + bias``: the (n_img, n_txt) logit
+    block, f32 for bf16 embeddings as in the jitted JAX step
+    (:func:`scaled_products`)."""
+    return scaled_products(zimg, ztxt, t_prime, precision=precision) + bias
 
 
 def sigmoid_xent(logits, labels):

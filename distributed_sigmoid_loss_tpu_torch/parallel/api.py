@@ -9,9 +9,8 @@ that of this rank's loss, so, as the reference does under DDP
 the ranks afterwards with :func:`average_gradients`. A rank's gradient with
 respect to its own embeddings is W × JAX's gradient of the ``pmean``'d loss
 with respect to those rows; the average over ranks of the parameters'
-gradients equals JAX's.
-
-The softmax family is not ported: it raises, naming its ROADMAP row.
+gradients equals JAX's. The same holds for both families: the sigmoid
+(SigLIP) and the softmax (CLIP/InfoNCE, ``parallel/contrastive.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +24,10 @@ import torch.distributed as dist
 from distributed_sigmoid_loss_tpu_torch.ops.streaming_sigmoid_loss import INT8_ROADMAP_ROW
 from distributed_sigmoid_loss_tpu_torch.parallel.allgather_loss import allgather_sigmoid_loss
 from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
+from distributed_sigmoid_loss_tpu_torch.parallel.contrastive import (
+    allgather_contrastive_loss,
+    ring_contrastive_loss,
+)
 from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_group, axis_size, data_axis
 from distributed_sigmoid_loss_tpu_torch.parallel.ring_loss import ring_sigmoid_loss
 
@@ -33,12 +36,7 @@ __all__ = [
     "make_sharded_loss_fn",
     "average_gradients",
     "all_reduce_mean_",
-    "SOFTMAX_ROADMAP_ROW",
 ]
-
-SOFTMAX_ROADMAP_ROW = (
-    "ROADMAP.md queue A item 4 (ops/softmax_loss.py and parallel/contrastive.py)"
-)
 
 
 def make_per_shard_loss(
@@ -61,9 +59,11 @@ def make_per_shard_loss(
 
     ``use_pallas`` makes the streaming loss kernel (K4-K6) the block body of
     every composition: the fused all-gather block, each chunk of the chunked
-    scan, each ring hop. The JAX refusals of flag/variant mismatches are kept
-    word for word; the softmax family and ``quant="int8"`` raise
-    ``NotImplementedError`` naming their ROADMAP rows.
+    scan, each ring hop. ``family="softmax"`` takes the contrastive pair of
+    ``parallel/contrastive.py``; its ``per_shard`` ignores ``bias``, which
+    then gets no gradient (InfoNCE has no bias). The JAX refusals of
+    flag/variant mismatches are kept word for word; ``quant="int8"`` raises
+    ``NotImplementedError`` naming its ROADMAP row.
     """
     if family not in ("sigmoid", "softmax"):
         raise ValueError(f"unknown family: {family!r}")
@@ -101,9 +101,13 @@ def make_per_shard_loss(
     if family == "softmax":
         if use_pallas:
             raise ValueError("use_pallas applies to the sigmoid family only")
-        raise NotImplementedError(
-            f"the softmax (CLIP/InfoNCE) loss family is not ported yet: {SOFTMAX_ROADMAP_ROW}"
-        )
+        fn = {"all_gather": allgather_contrastive_loss, "ring": ring_contrastive_loss}[variant]
+
+        def per_shard(zimg, ztxt, t_prime, bias=None):
+            del bias  # InfoNCE has no bias term
+            return fn(zimg, ztxt, t_prime, axis_name=axis_name, group=group, precision=precision)
+
+        return per_shard
     if quant:
         raise NotImplementedError(f"quant='int8' for the loss is not ported yet: {INT8_ROADMAP_ROW}")
 

@@ -1,5 +1,12 @@
+from distributed_sigmoid_loss_tpu_torch.train.ema import (  # noqa: F401
+    ema_decay_schedule,
+    init_ema,
+    update_ema,
+)
 from distributed_sigmoid_loss_tpu_torch.train.train_step import (  # noqa: F401
+    Adafactor,
     AdamW,
+    Lion,
     TrainState,
     accum_add,
     accum_finish,
@@ -8,6 +15,7 @@ from distributed_sigmoid_loss_tpu_torch.train.train_step import (  # noqa: F401
     make_optimizer,
     make_schedule,
     make_train_step,
+    run_gradcache,
     validate_accum_args,
     validate_step_args,
 )

@@ -1,19 +1,21 @@
 """The SigLIP train step, ported from the JAX package's
-``train/train_step.py``: AdamW with global-norm clipping and the three
-learning-rate schedules, gradient accumulation over microbatches with the
-bf16-accumulator contract, data parallelism over ``torch.distributed``, and
-the step's metrics.
+``train/train_step.py``: AdamW, Lion and Adafactor with global-norm clipping
+and the three learning-rate schedules, gradient accumulation over
+microbatches with the bf16-accumulator contract, GradCache (exact global
+negatives under accumulation), the parameters' EMA, data parallelism over
+``torch.distributed``, and the step's metrics.
 
 Data parallelism follows DDP: every rank holds the same parameters
 (:func:`create_train_state` broadcasts rank 0's), runs its own rows, and the
 gradients are averaged over the ranks once per step, after accumulation
 (DDP's ``no_sync`` over the microbatches), in one collective over a flat
-buffer. Clipping and AdamW then run on the averaged gradients, identically
-on every rank.
+buffer. Clipping and the optimizer then run on the averaged gradients,
+identically on every rank.
 
-The optimizer is plain tensor code that follows optax's
-``chain(clip_by_global_norm(1.0), adamw(...))`` operation by operation, not
-``torch.optim.AdamW``, whose clipping, weight decay and moment rounding differ:
+The optimizers are plain tensor code that follows optax's
+``chain(clip_by_global_norm(1.0), adamw(...) | lion(...) | adafactor(...))``
+operation by operation, not ``torch.optim``, whose clipping, weight decay and
+moment rounding differ. For AdamW:
 
 - the schedule is read at the update count *before* the update, so with
   warmup the first update is zero;
@@ -25,13 +27,16 @@ The optimizer is plain tensor code that follows optax's
   moment; only the stored moment is rounded (and its decay term is taken in
   bf16, as JAX computes ``b1 * mu`` in mu's dtype).
 
-It updates the parameters, moments and gradient accumulator in place, one
-tensor at a time, where JAX builds new arrays.
+Lion and Adafactor: see :class:`Lion` and :class:`Adafactor`; Adafactor
+works on the JAX tree's leaves (``models.convert.jax_leaves``), which under
+``scan_layers=True`` stack a tower's layers.
+
+It updates the parameters, optimizer state, EMA and gradient accumulator in
+place, one tensor at a time, where JAX builds new arrays.
 
 Paths of the JAX step that are not ported raise ``NotImplementedError``
-naming their ROADMAP rows: GradCache (``accum_negatives="global"``), EMA,
-the MoE aux loss, pipeline microbatches, update sharding, lion and
-adafactor.
+naming their ROADMAP rows: the MoE aux loss, pipeline microbatches and
+update sharding.
 """
 
 from __future__ import annotations
@@ -40,19 +45,33 @@ import dataclasses
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from distributed_sigmoid_loss_tpu_torch.models.convert import (
+    JaxLeaf,
+    adafactor_stats_from_jax,
+    jax_leaves,
+    param_list_from_jax,
+)
 from distributed_sigmoid_loss_tpu_torch.parallel.api import all_reduce_mean_, make_per_shard_loss
 from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
 from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_size
 from distributed_sigmoid_loss_tpu_torch.parallel.microbatch import microbatch_split
+from distributed_sigmoid_loss_tpu_torch.train.ema import init_ema, update_ema
 from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
 
 __all__ = [
     "AdamW",
     "AdamWState",
+    "Lion",
+    "LionState",
+    "Adafactor",
+    "AdafactorState",
+    "run_gradcache",
+    "opt_state_from_optax",
     "TrainState",
     "make_optimizer",
     "make_schedule",
@@ -69,9 +88,6 @@ __all__ = [
 
 UPDATE_SHARDING_MODES = ("off", "zero1", "full")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# Named in the refusals of the JAX step's paths that are not ported.
-LATER_ROADMAP_ROW = "ROADMAP.md queue A item 4"
 
 
 def _f32(x) -> torch.Tensor:
@@ -183,18 +199,215 @@ class AdamW:
         return g_norm, torch.sqrt(update_sq)
 
 
-def make_optimizer(cfg: TrainConfig) -> AdamW:
-    """AdamW + global-norm clipping at 1.0, learning rate per
-    ``cfg.schedule`` (see :func:`make_schedule`)."""
+def _clip(grads, g_norm: torch.Tensor, max_norm: float):
+    """optax ``clip_by_global_norm``: the gradients unchanged below
+    ``max_norm``, else each divided by the global norm and scaled by it."""
+    if bool(g_norm < max_norm):
+        return grads
+    return [(g / g_norm.to(g.dtype)) * max_norm for g in grads]
+
+
+@dataclasses.dataclass
+class LionState:
+    """optax's ``ScaleByLionState``: the update count and the moment, one
+    tensor per parameter in ``mu_dtype``."""
+
+    count: int
+    mu: list[torch.Tensor]
+
+
+class Lion:
+    """``optax.chain(optax.clip_by_global_norm(1.0), optax.lion(schedule,
+    b1, b2, weight_decay=..., mu_dtype=...))`` over a list of f32
+    parameters, updated in place: ``u = sign((1−b1)·g + b1·μ)`` from the old
+    moment, ``μ ← (1−b2)·g + b2·μ`` stored in ``mu_dtype``, decoupled weight
+    decay ``u + wd·p``, then ``−lr(count)·u``. As in JAX, ``b1·μ`` and
+    ``b2·μ`` are taken in μ's dtype, b1 and b2 rounded to it first (JAX's
+    weakly typed Python scalars)."""
+
+    def __init__(self, schedule, *, b1: float, b2: float, weight_decay: float,
+                 mu_dtype: str | None = None):
+        self.schedule, self.b1, self.b2 = schedule, b1, b2
+        self.weight_decay = weight_decay
+        self.mu_dtype = None if mu_dtype is None else _DTYPES[mu_dtype]
+
+    def init(self, params) -> LionState:
+        return LionState(count=0, mu=[torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                                      for p in params])
+
+    @torch.no_grad()
+    def apply(self, params, grads, state: LionState) -> tuple[torch.Tensor, torch.Tensor]:
+        """One update in place; returns the gradients' global norm (before
+        clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`."""
+        params, grads = list(params), list(grads)
+        g_norm = global_norm(grads)
+        step = -self.schedule(state.count)
+        update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
+        betas = {}  # (dtype, device) -> (b1, b2) as 0-d tensors of that dtype
+        for p, g, mu in zip(params, _clip(grads, g_norm, 1.0), state.mu):
+            key = (mu.dtype, mu.device)
+            if key not in betas:
+                betas[key] = tuple(torch.tensor(b, dtype=mu.dtype, device=mu.device)
+                                   for b in (self.b1, self.b2))
+            b1, b2 = betas[key]
+            u = torch.sign((1.0 - self.b1) * g + b1 * mu)
+            mu.copy_((1.0 - self.b2) * g + b2 * mu)
+            new = p + (u + self.weight_decay * p) * step
+            update_sq += (new - p).square().sum()
+            p.copy_(new)
+        state.count += 1
+        return g_norm, torch.sqrt(update_sq)
+
+
+@dataclasses.dataclass
+class AdafactorState:
+    """optax's ``FactoredState`` per leaf of the JAX tree (``leaves``):
+    factored row and column statistics where the leaf's two largest
+    dimensions are both at least 128, else the full second moment (the
+    unused slots are ``(1,)`` zeros, as in optax), in the JAX layout."""
+
+    count: int
+    leaves: list[JaxLeaf]
+    v_row: list[torch.Tensor]
+    v_col: list[torch.Tensor]
+    v: list[torch.Tensor]
+
+
+class Adafactor:
+    """``optax.chain(optax.clip_by_global_norm(1.0),
+    optax.adafactor(schedule, multiply_by_parameter_scale=False,
+    weight_decay_rate=weight_decay))`` over a list of f32 parameters,
+    updated in place, with optax's other defaults. Per leaf of the JAX tree,
+    in optax's order:
+
+    - the factored RMS scaling (``scale_by_factored_rms``): decay
+      ``1 − (count+1)^−0.8``, ``ε₁ = 1e−30`` added to ``g²``; factored over
+      the leaf's two largest dimensions (the later one on ties, as
+      ``np.argsort`` orders them) when both are at least 128;
+    - ``clip_by_block_rms(1.0)``: the update divided by ``max(1, rms)`` of
+      the leaf;
+    - the learning rate ``lr(count)``;
+    - weight decay ``+ wd·p`` added after the learning-rate scaling, so it is
+      ``wd·p`` per step whatever the rate;
+    - the sign flip of descent.
+
+    The leaves come from :meth:`init`: ``leaves=models.convert.jax_leaves(
+    model)`` groups the port's per-layer tensors as the JAX tree stacks them
+    under ``scan_layers=True`` (what :func:`create_train_state` passes); by
+    default each tensor is a leaf of its own.
+    """
+
+    DECAY_RATE = 0.8
+    MIN_DIM_SIZE_TO_FACTOR = 128
+    EPS = 1e-30
+
+    def __init__(self, schedule, *, weight_decay: float):
+        self.schedule, self.weight_decay = schedule, weight_decay
+
+    def factored_dims(self, shape) -> tuple[int, int] | None:
+        """optax ``_factored_dims``: the two largest axes, ``(d1, d0)``, or
+        None."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < self.MIN_DIM_SIZE_TO_FACTOR:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    def init(self, params, leaves: list[JaxLeaf] | None = None) -> AdafactorState:
+        params = list(params)
+        if leaves is None:
+            leaves = [JaxLeaf(path=str(i), members=(i,), stacked=False, transposed=False)
+                      for i in range(len(params))]
+        state = AdafactorState(count=0, leaves=list(leaves), v_row=[], v_col=[], v=[])
+        for leaf in state.leaves:
+            p = leaf.gather(params)
+            one = torch.zeros((1,), dtype=p.dtype, device=p.device)
+            dims = self.factored_dims(tuple(p.shape))
+            if dims is None:
+                state.v_row.append(one)
+                state.v_col.append(one.clone())
+                state.v.append(torch.zeros_like(p, memory_format=torch.contiguous_format))
+            else:
+                d1, d0 = dims
+                state.v_row.append(torch.zeros_like(p.sum(dim=d0)))
+                state.v_col.append(torch.zeros_like(p.sum(dim=d1)))
+                state.v.append(one.clone())
+        return state
+
+    @torch.no_grad()
+    def apply(self, params, grads, state: AdafactorState) -> tuple[torch.Tensor, torch.Tensor]:
+        """One update in place; returns the gradients' global norm (before
+        clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`."""
+        params, grads = list(params), list(grads)
+        g_norm = global_norm(grads)
+        grads = _clip(grads, g_norm, 1.0)
+        t = _f32(state.count + 1)
+        decay = 1.0 - t ** (-self.DECAY_RATE)
+        lr = _f32(self.schedule(state.count))
+        update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
+        for i, leaf in enumerate(state.leaves):
+            g, p = leaf.gather(grads), leaf.gather(params)
+            d = decay.to(g.device)
+            grad_sqr = g * g + self.EPS
+            dims = self.factored_dims(tuple(g.shape))
+            if dims is None:
+                v = d * state.v[i] + (1.0 - d) * grad_sqr
+                state.v[i] = v
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                v_row = d * state.v_row[i] + (1.0 - d) * grad_sqr.mean(dim=d0)
+                v_col = d * state.v_col[i] + (1.0 - d) * grad_sqr.mean(dim=d1)
+                state.v_row[i], state.v_col[i] = v_row, v_col
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+            u = u / torch.clamp(torch.sqrt(u.square().mean()), min=1.0)  # block RMS at 1.0
+            u = lr.to(u.device) * u
+            u = -(u + self.weight_decay * p)
+            new = p + u
+            update_sq += (new - p).square().sum()
+            leaf.scatter_(params, new)
+        state.count += 1
+        return g_norm, torch.sqrt(update_sq)
+
+
+def make_optimizer(cfg: TrainConfig) -> AdamW | Lion | Adafactor:
+    """``cfg.optimizer`` (AdamW, Lion or Adafactor) after global-norm
+    clipping at 1.0, learning rate per ``cfg.schedule`` (see
+    :func:`make_schedule`), as the JAX package's ``make_optimizer``."""
     schedule = make_schedule(cfg)
-    if cfg.optimizer != "adamw":
-        if cfg.optimizer not in ("lion", "adafactor"):
-            raise ValueError(f"unknown optimizer: {cfg.optimizer!r}")
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (adamw is): {LATER_ROADMAP_ROW}"
-        )
-    return AdamW(schedule, b1=cfg.b1, b2=cfg.b2, weight_decay=cfg.weight_decay,
-                 mu_dtype=cfg.adam_mu_dtype)
+    if cfg.optimizer == "adamw":
+        return AdamW(schedule, b1=cfg.b1, b2=cfg.b2, weight_decay=cfg.weight_decay,
+                     mu_dtype=cfg.adam_mu_dtype)
+    if cfg.optimizer == "lion":
+        return Lion(schedule, b1=cfg.b1, b2=cfg.b2, weight_decay=cfg.weight_decay,
+                    mu_dtype=cfg.adam_mu_dtype)
+    if cfg.optimizer == "adafactor":
+        return Adafactor(schedule, weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer: {cfg.optimizer!r}")
+
+
+def opt_state_from_optax(opt_state, tx, model: nn.Module) -> LionState | AdafactorState:
+    """The port's state of a Lion or Adafactor ``tx`` (built by
+    :func:`make_optimizer`) from the JAX package's optax state of the same
+    optimizer over the same model's params, ``chain(clip_by_global_norm,
+    lion | adafactor)``, so both packages can continue from one state at a
+    step > 0. Reads the optax state's fields (``count``, ``mu``, ``v_row``,
+    ``v_col``, ``v``); the tensors land on the model's device."""
+    inner = opt_state[1][0]
+    device = next(model.parameters()).device
+    if isinstance(tx, Lion):
+        mu = [t.to(device=device, dtype=tx.mu_dtype or p.dtype)
+              for t, p in zip(param_list_from_jax(inner.mu, model), model.parameters())]
+        return LionState(count=int(inner.count), mu=mu)
+    if not isinstance(tx, Adafactor):
+        raise TypeError(f"opt_state_from_optax takes Lion or Adafactor, got {type(tx).__name__}")
+    leaves = jax_leaves(model)
+    stats = adafactor_stats_from_jax(inner, leaves)
+    return AdafactorState(count=int(inner.count), leaves=leaves,
+                          **{k: [t.to(device) for t in v] for k, v in stats.items()})
 
 
 def resolve_update_sharding(update_sharding: str = "", zero1: bool = False) -> str:
@@ -309,26 +522,92 @@ def accum_finish(acc, params, scale=None):
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are the trained state), the optimizer and
-    its state, and the number of updates applied."""
+    its state, the number of updates applied, and the parameters' EMA
+    (``None`` = disabled; one tensor per parameter, ``train/ema.py``)."""
 
     model: nn.Module
-    tx: AdamW
-    opt_state: AdamWState
+    tx: AdamW | Lion | Adafactor
+    opt_state: AdamWState | LionState | AdafactorState
     step: int = 0
+    ema: list[torch.Tensor] | None = None
 
     @property
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
 
 
-def create_train_state(model: nn.Module, tx: AdamW) -> TrainState:
+def create_train_state(model: nn.Module, tx, ema: bool = False) -> TrainState:
     """A train state over ``model``'s parameters (already initialized, on
-    its device), with zeroed optimizer moments. When ``torch.distributed``
-    runs more than one process, every rank first takes rank 0's parameters
-    (one broadcast per dtype), so all start equal, as under DDP."""
+    its device), with zeroed optimizer state, and with ``ema=True`` an EMA
+    copy of the parameters (pair with ``ema_decay`` on
+    :func:`make_train_step`). When ``torch.distributed`` runs more than one
+    process, every rank first takes rank 0's parameters (one broadcast per
+    dtype), so all start equal, as under DDP. Adafactor gets the JAX tree's
+    leaves of ``model`` (``models.convert.jax_leaves``)."""
     if axis_size() > 1:
         flat_collective_(model.parameters(), lambda flat: dist.broadcast(flat, src=0))
-    return TrainState(model=model, tx=tx, opt_state=tx.init(model.parameters()))
+    params = list(model.parameters())
+    opt_state = (tx.init(params, leaves=jax_leaves(model)) if isinstance(tx, Adafactor)
+                 else tx.init(params))
+    return TrainState(model=model, tx=tx, opt_state=opt_state,
+                      ema=init_ema(params) if ema else None)
+
+
+def _grads_of(params) -> list[torch.Tensor]:
+    """Each parameter's ``.grad`` (zeros where the loss did not reach it:
+    ``bias`` under the softmax family, as JAX's zero gradient), cleared."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    for p in params:
+        p.grad = None
+    return grads
+
+
+def run_gradcache(model: nn.Module, micro_images, micro_tokens, island, accum_steps: int,
+                  acc_dt=None, embed_dtype: str | None = None):
+    """The GradCache recipe (Gao et al. 2021), ported from the JAX
+    package's ``run_gradcache``: returns ``(loss, lp, grads)``, this rank's
+    loss of the whole (M·mb) table, the loss scalars of the last microbatch
+    and the gradients of that loss (f32, in ``model.parameters()`` order).
+
+    ``micro_images`` / ``micro_tokens``: (M, mb, ...) microbatches.
+    ``island(zis, zts, t_prime, bias)`` is the loss of the stacked (M, mb, d)
+    tables (the per-shard loss and its collectives, on the flattened rows).
+
+    Pass 1 embeds every microbatch under ``torch.no_grad()`` (one
+    microbatch's activations live at a time), stored in ``embed_dtype``
+    when given. The island runs once: the loss, dL/dZ and the direct
+    t_prime/bias gradients. It reads a bf16 stash upcast to f32, so the
+    loss carries the embeddings' bf16 rounding while dL/dZ stays f32, as in
+    the jitted JAX step (XLA elides the bf16 round trip of the cotangents). Pass 2 re-runs each microbatch with the surrogate
+    ``⟨z_m, dL/dz_m⟩`` plus the loss-parameter terms over M, whose
+    gradients, summed into an ``acc_dt`` accumulator, are the gradients of
+    the whole-table loss.
+    """
+    params = list(model.parameters())
+    with torch.no_grad():
+        outs = [model(micro_images[i], micro_tokens[i]) for i in range(accum_steps)]
+    zis = torch.stack([zi for zi, _, _ in outs])
+    zts = torch.stack([zt for _, zt, _ in outs])
+    if embed_dtype is not None:
+        zis, zts = zis.to(_DTYPES[embed_dtype]), zts.to(_DTYPES[embed_dtype])
+    lp = {k: v.detach().clone() for k, v in outs[-1][2].items()}
+    del outs
+    acc = torch.promote_types(zis.dtype, torch.float32)
+    leaves = [zis.to(acc).requires_grad_(), zts.to(acc).requires_grad_(),
+              lp["t_prime"].clone().requires_grad_(), lp["bias"].clone().requires_grad_()]
+    loss = island(*leaves)
+    g_zis, g_zts, g_tp, g_bias = (
+        torch.zeros_like(x) if g is None else g
+        for x, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))
+    )
+    acc = accum_zeros(params, acc_dt)
+    for i in range(accum_steps):
+        zi, zt, lp_ = model(micro_images[i], micro_tokens[i])
+        surrogate = (zi * g_zis[i].to(zi.dtype)).sum() + (zt * g_zts[i].to(zt.dtype)).sum()
+        surrogate = surrogate + (lp_["t_prime"] * g_tp + lp_["bias"] * g_bias) / accum_steps
+        surrogate.backward()
+        accum_add(acc, _grads_of(params))
+    return loss.detach().float(), lp, accum_finish(acc, params)
 
 
 def make_train_step(
@@ -354,8 +633,17 @@ def make_train_step(
     backward on each, sums their gradients into an accumulator of
     ``accum_dtype`` (default: the params' f32) by :func:`accum_add`, and
     applies their mean once. Each microbatch contrasts only against its own
-    texts over the ranks (local negatives), as the JAX step does. The
-    gradients are averaged over the ranks once, after accumulation.
+    texts over the ranks (local negatives), as the JAX step does, unless
+    ``accum_negatives="global"``: then :func:`run_gradcache` computes the
+    exact loss of the whole batch and its gradients, every image against
+    every text of every microbatch and rank, with one extra forward per
+    microbatch (``gradcache_embed_dtype``: the dtype of its stashed
+    embedding tables). The gradients are averaged over the ranks once, after
+    accumulation.
+
+    ``ema_decay`` keeps the parameters' EMA in ``state.ema`` (decay warmed
+    up per ``train.ema.ema_decay_schedule`` at the pre-update step), updated
+    after the optimizer; create the state with ``ema=True``.
 
     With a bf16 accumulator the sum differs from JAX's by rounding only: JAX
     accumulates gradients already averaged over the ranks, the port each
@@ -377,12 +665,6 @@ def make_train_step(
         gradcache_embed_dtype=gradcache_embed_dtype,
         update_sharding=update_sharding,
     )
-    if cached_accum:
-        raise NotImplementedError(
-            f"accum_negatives='global' (GradCache) is not ported yet: {LATER_ROADMAP_ROW}"
-        )
-    if ema_decay is not None:
-        raise NotImplementedError(f"ema_decay (train/ema.py) is not ported yet: {LATER_ROADMAP_ROW}")
     if moe_aux_weight is not None:
         raise NotImplementedError(
             "moe_aux_weight: the MoE towers are not ported yet: ROADMAP.md queue A item 6.4"
@@ -411,10 +693,12 @@ def make_train_step(
         zimg, ztxt, lp = model(images, tokens)
         loss = per_shard(zimg, ztxt, lp["t_prime"], lp["bias"])
         loss.backward()
-        grads = [p.grad for p in params]
-        for p in params:
-            p.grad = None
-        return loss.detach().float(), {k: v.detach().clone() for k, v in lp.items()}, grads
+        return (loss.detach().float(), {k: v.detach().clone() for k, v in lp.items()},
+                _grads_of(params))
+
+    def island(zis, zts, t_prime, bias):
+        """The loss of the stacked (M, mb, d) tables, on the flattened rows."""
+        return per_shard(zis.flatten(0, 1), zts.flatten(0, 1), t_prime, bias)
 
     def step(state: TrainState, batch: dict):
         params = state.params
@@ -428,20 +712,31 @@ def make_train_step(
                                             what="accum_steps")
             micro_tokens = microbatch_split(tokens, accum_steps, loss_cfg.axis_name,
                                             what="accum_steps")
-            loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-            acc = accum_zeros(params, acc_dt)
-            for i in range(accum_steps):
-                loss, lp, grads = loss_and_grads(params, micro_images[i], micro_tokens[i])
-                loss_sum = loss_sum + loss
-                accum_add(acc, grads)
-                del grads
-            grads = accum_finish(acc, params, scale=accum_steps)
-            loss = loss_sum / accum_steps
+            if cached_accum:
+                loss, lp, grads = run_gradcache(model, micro_images, micro_tokens, island,
+                                                accum_steps, acc_dt, gradcache_embed_dtype)
+            else:
+                loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+                acc = accum_zeros(params, acc_dt)
+                for i in range(accum_steps):
+                    loss, lp, grads = loss_and_grads(params, micro_images[i], micro_tokens[i])
+                    loss_sum = loss_sum + loss
+                    accum_add(acc, grads)
+                    del grads
+                grads = accum_finish(acc, params, scale=accum_steps)
+                loss = loss_sum / accum_steps
         # DDP: one average over the ranks per step, the loss riding along.
         loss = loss.reshape(1)
         all_reduce_mean_([*grads, loss])
         loss = loss[0]
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state)
+        if ema_decay is not None:
+            if state.ema is None:
+                raise ValueError(
+                    "ema_decay is set but state.ema is None — create the train "
+                    "state with create_train_state(..., ema=True)"
+                )
+            update_ema(state.ema, params, step=state.step, decay=ema_decay)
         state.step += 1
         param_norm = global_norm(p.detach() for p in params)
         metrics = {

@@ -4,8 +4,9 @@
 field so one config means the same model and run in both packages.
 
 ``remat`` and ``remat_policy`` shape the backward (``models/transformer.py``);
-``scan_layers`` only names the JAX parameter layout, which
-``models.convert.params_from_jax`` reads either way. Fields whose paths are
+``scan_layers`` names the JAX parameter layout, which
+``models.convert.params_from_jax`` reads either way; Adafactor's per-leaf
+statistics follow it (``models.convert.jax_leaves``). Fields whose paths are
 not ported yet are refused by :func:`check_supported` and, for training, by
 ``train.make_optimizer`` / ``train.make_train_step``.
 """
@@ -31,7 +32,7 @@ class LossConfig:
     # pass with f32 accumulation (ops/sigmoid_loss.py).
     precision: str = "highest"
     # Streaming 2-D loss kernel for every logits block (fused gather, chunked
-    # scan body, ring hop). The loss kernels are not ported yet (K4-K6).
+    # scan body, ring hop): K4-K6, ops/streaming_sigmoid_loss.py.
     use_pallas: bool = False
     # "chunked" (all_gather sigmoid only): stream the gathered negatives
     # chunk by chunk instead of one fused (local_b, W*local_b) product.
@@ -225,8 +226,8 @@ class TrainConfig:
     # Dtype of Adam's first moment (None = param dtype, f32). "bfloat16" halves
     # the larger moment buffer; the second moment stays f32.
     adam_mu_dtype: str | None = None
-    # Optimizer family: "adamw" (ported); "lion" and "adafactor" are not
-    # ported yet (train.make_optimizer refuses them).
+    # Optimizer family: "adamw", "lion" (one momentum slot in adam_mu_dtype)
+    # or "adafactor" (factored second moments, optax's defaults).
     optimizer: Literal["adamw", "lion", "adafactor"] = "adamw"
 
 

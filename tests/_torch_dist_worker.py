@@ -73,7 +73,7 @@ def _tower_pipeline(loss_fn, img, txt, wi_np, wt_np):
     loss = loss_fn({"t_prime": tp, "bias": bias}, zimg, ztxt)
     loss.backward()
     params = [wi, wt, tp, bias]
-    local = [p.grad.clone() for p in params]
+    local = [None if p.grad is None else p.grad.clone() for p in params]
     average_gradients(params)
     return {"loss": loss.detach(), "wi": wi.grad, "wt": wt.grad, "t_prime": tp.grad,
             "bias": bias.grad, "local": local}
@@ -126,6 +126,23 @@ def loss_worker(rank, world, init_file, out_dir, img_np, txt_np, wi_np, wt_np):
         dist.destroy_process_group()
 
 
+def contrastive_worker(rank, world, init_file, out_dir, img_np, txt_np, wi_np, wt_np):
+    """The softmax (CLIP/InfoNCE) family through the parity pipeline on this
+    rank's rows, under both variants."""
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_sharded_loss_fn
+
+    _init(rank, world, init_file)
+    try:
+        local_b = img_np.shape[0] // world
+        rows = slice(rank * local_b, (rank + 1) * local_b)
+        out = {variant: _tower_pipeline(make_sharded_loss_fn(variant=variant, family="softmax"),
+                                        img_np[rows], txt_np[rows], wi_np, wt_np)
+               for variant in ("all_gather", "ring")}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
 def train_worker(rank, world, init_file, out_dir, state_dict, cfg, batch, train_cfg, steps,
                  accum_steps):
     """``steps`` data-parallel train steps of the port on this rank's rows,
@@ -149,5 +166,34 @@ def train_worker(rank, world, init_file, out_dir, state_dict, cfg, batch, train_
             metrics.append({k: float(v) for k, v in m.items()})
         torch.save({"metrics": metrics, "params": model.state_dict()},
                    os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def gradcache_worker(rank, world, init_file, out_dir, state_dict, cfg, batch, train_cfg,
+                     accum_steps):
+    """Two data-parallel steps of the port on this rank's rows from
+    ``state_dict``, twice: with GradCache over ``accum_steps`` microbatches
+    (``accum_negatives="global"``) and unaccumulated."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.train import train_step as pts
+
+    _init(rank, world, init_file)
+    try:
+        n = batch["images"].shape[0] // world
+        local = {k: torch.from_numpy(v[rank * n:(rank + 1) * n]) for k, v in batch.items()}
+        out = {}
+        for run, kw in (("gradcache", dict(accum_steps=accum_steps, accum_negatives="global")),
+                        ("unaccumulated", {})):
+            model = SigLIP(cfg, device="cpu")
+            model.load_state_dict(state_dict, strict=True)
+            state = pts.create_train_state(model, pts.make_optimizer(train_cfg))
+            step = pts.make_train_step(model, cfg.loss, **kw)
+            metrics = []
+            for _ in range(2):
+                state, m = step(state, local)
+                metrics.append({k: float(v) for k, v in m.items()})
+            out[run] = {"metrics": metrics, "params": model.state_dict()}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -89,17 +89,6 @@ def test_autograd_backward_is_the_plain_bwd_not_autograd_of_the_forward():
         assert torch.equal(g, r)
 
 
-def test_set_bwd_batch_heads_true_raises_and_the_record_shows_the_backward_that_ran():
-    with pytest.raises(NotImplementedError, match="K3"):
-        sa.set_bwd_batch_heads(True)
-    sa.set_bwd_batch_heads(False)
-    sa.reset_traced_bwd_batch_heads()
-    assert sa.traced_bwd_batch_heads() == ()
-    q = torch.zeros(1, 4, 1, 8, requires_grad=True)
-    sa.short_self_attention(q, q, q).sum().backward()
-    assert sa.traced_bwd_batch_heads() == (False,)
-
-
 def test_bwd_launch_counter_stays_zero_on_cpu():
     sa.reset_launches()
     leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()

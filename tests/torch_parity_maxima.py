@@ -1,10 +1,13 @@
-"""Print the largest errors the port's distributed-loss parity tests allow for, against
-the JAX package, on the CPU: the plain K4-K6 vs the Pallas kernel in
-interpret mode (f32 and bf16), the distributed loss at W in {2, 3, 4} over
-gloo, and the W = 2 train step. The tests assert tolerances; this reports
-the observed maxima behind them.
+"""Print the largest errors the port's parity tests allow for, against the
+JAX package, on the CPU: the plain K4-K6 vs the Pallas kernel in interpret
+mode (f32 and bf16), the distributed loss at W in {2, 3, 4} over gloo, the
+W = 2 train step; then the training recipes: the plain K3 vs the Pallas
+``_bwd_kernel_batched`` and vs the plain K2, the softmax family (one device
+and W in {2, 3, 4}), Lion and Adafactor vs optax, and the whole-step cases
+of ``tests/test_torch_train_recipes.py``. The tests assert tolerances; this
+reports the observed maxima behind them.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_maxima.py    # ~3 min
+    JAX_PLATFORMS=cpu python tests/torch_parity_maxima.py    # ~6 min
 """
 
 import os
@@ -21,8 +24,12 @@ import torch  # noqa: E402
 
 import _torch_dist_worker as worker  # noqa: E402
 import test_torch_distributed_loss as tdl  # noqa: E402
+import test_torch_short_attention_bwd_batched as tk3  # noqa: E402
+import test_torch_softmax_loss as tsm  # noqa: E402
 import test_torch_streaming_loss as tsl  # noqa: E402
+import test_torch_train_recipes as trc  # noqa: E402
 import test_torch_train_step_dp as tdp  # noqa: E402
+from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa  # noqa: E402
 from distributed_sigmoid_loss_tpu_torch.models import params_from_jax  # noqa: E402
 from distributed_sigmoid_loss_tpu_torch.utils import config as pc  # noqa: E402
 
@@ -77,7 +84,80 @@ def train_step():
               f"parameters outside rtol 1e-4: {outside} of {total}")
 
 
+def k3():
+    f32 = bf16 = vs_k2 = 0.0
+    for case in tk3.CASES:
+        b, s, h, dh, causal = case
+        arrays = tk3._inputs(0, (b, s, h, dh))
+        ref = tk3._jax_batched_bwd(*arrays, causal, jnp.float32)
+        got = tk3._port(sa.short_self_attention_bwd_batched_plain, arrays, causal)
+        f32 = max(f32, max(float(np.abs(g.numpy() - r).max()) for g, r in zip(got, ref)))
+        arrays = tk3._inputs(1, (b, s, h, dh))
+        ref = tk3._jax_batched_bwd(*arrays, causal, jnp.bfloat16)
+        got = tk3._port(sa.short_self_attention_bwd_batched_plain, arrays, causal, torch.bfloat16)
+        bf16 = max(bf16, max(float(np.abs(g.float().numpy() - r).max()) / tk3._bf16_ulp(r)
+                             for g, r in zip(got, ref)))
+        arrays = tk3._inputs(2, (b, s, h, dh))
+        a = tk3._port(sa.short_self_attention_bwd_batched_plain, arrays, causal)
+        c = tk3._port(sa.short_self_attention_bwd_plain, arrays, causal)
+        vs_k2 = max(vs_k2, max(float((x - y).abs().max()) for x, y in zip(a, c)))
+    print(f"K3 plain vs Pallas _bwd_kernel_batched: f32 abs {f32:.2e}, bf16 {bf16:.2f} ulp; "
+          f"vs plain K2 abs {vs_k2:.2e}")
+
+
+def softmax():
+    loss_rel = grad_abs = agree = 0.0
+    for world in tdl.WORLDS:
+        ranks = worker.spawn(worker.contrastive_worker, world, tdl._data(world),
+                             Path(tempfile.mkdtemp()))
+        for variant in tsm.VARIANTS:
+            ref = tsm._jax_result(world, variant)
+            for res in ranks:
+                got = res[variant]
+                loss_rel = max(loss_rel, abs(got["loss"].item() - ref["loss"]) / abs(ref["loss"]))
+                for k in ("wi", "wt", "t_prime"):
+                    grad_abs = max(grad_abs, float(np.abs(got[k].numpy() - ref[k]).max()))
+        for res in ranks:
+            agree = max(agree, max(float((res["all_gather"][k] - res["ring"][k]).abs().max())
+                                   for k in ("wi", "wt", "t_prime")))
+    print(f"softmax W {tdl.WORLDS}: loss rel {loss_rel:.2e}, gradients abs {grad_abs:.2e}; "
+          f"all-gather vs ring gradients abs {agree:.2e}")
+
+
+def optimizers():
+    for cfg in (trc.jc.TrainConfig(optimizer="lion", learning_rate=1e-2, weight_decay=0.05,
+                                   warmup_steps=2, total_steps=8),
+                trc.jc.TrainConfig(optimizer="adafactor", learning_rate=1e-2, weight_decay=0.05,
+                                   warmup_steps=2, total_steps=8)):
+        names, pparams, _, params, _ = trc._run_optimizer(cfg)
+        rel = max(float(np.abs(p.numpy() - np.asarray(params[k])).max()
+                        / np.abs(np.asarray(params[k])).max()) for k, p in zip(names, pparams))
+        print(f"{cfg.optimizer} vs optax, 5 updates: parameters {rel:.2e} of the largest")
+
+
+def recipes():
+    for case in sorted(trc.STEP_CASES):
+        kw = dict(trc.STEP_CASES[case])
+        loss = {k: kw.pop(k) for k in ("family", "variant") if k in kw}
+        jcfg = trc.tiny(scan_layers=kw.pop("scan_layers", False))
+        jcfg = trc.dataclasses.replace(jcfg, loss=trc.dataclasses.replace(jcfg.loss, **loss))
+        jm, pm, jfinal, state = trc._run_both(jcfg, **kw)
+        rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(pm, jm) if b[k] != 0)
+               for k in trc.METRICS}
+        ref = params_from_jax(jfinal.params, tdp.port_config(jcfg))
+        got = state.model.state_dict()
+        outside = sum(int((np.abs(got[k].numpy() - ref[k].numpy())
+                           > 1e-6 + 1e-4 * np.abs(ref[k].numpy())).sum()) for k in ref)
+        worst = max(rel, key=rel.get)
+        print(f"step {case}: metrics rel ≤ {rel[worst]:.2e} ({worst}; loss {rel['loss']:.2e}), "
+              f"parameters outside rtol 1e-4: {outside} of {sum(v.numel() for v in ref.values())}")
+
+
 if __name__ == "__main__":
     blocks()
     distributed()
     train_step()
+    k3()
+    softmax()
+    optimizers()
+    recipes()
