@@ -16,21 +16,23 @@ and nothing is caught:
    repeatability) against its plain PyTorch version on the card at the
    shapes the main paths give it, and time kernel, plain version and the
    PyTorch library call beside the work's least time on this card;
-4. the serving path: SigLIP-B/16 at full width and depth in bf16, seeded
-   random weights, ``InferenceEngine`` + ``EmbeddingService`` serving a
-   256-image corpus and 64 mixed requests from 8 threads, with the kernel
-   launch counts read around that run, then the towers' device time by
-   kernel at the largest bucket (torch.profiler);
+4. the serving path (``run_serve_path`` with ``SERVE``): SigLIP-B/16 at
+   full width and depth in bf16, seeded random weights,
+   ``InferenceEngine`` + ``EmbeddingService`` serving a 256-image corpus and
+   64 mixed requests from 8 threads, with the kernel launch counts read
+   around that run, then the towers against their plain attention and their
+   device time by kernel at the largest bucket (torch.profiler);
    Then the loss kernels (K4, the streaming loss forward; K5 and K6, its
    backward) against their plain versions in seven cases (the headline
    block, a fused all-gather rank view, a ring hop at 32k global over 8
    ranks with and without positives, bf16, ragged, So400m width), timed at
    the ring hop beside cuBLAS's f32 product ("product only");
-5. the training path: the headline train step (B/16, 16 accumulated
+5. the training path (``run_train_path`` with ``TRAIN``): the headline
+   train step (B/16, 16 accumulated
    microbatches of 128 pairs, ``save_hot`` remat, bf16 accumulator and Adam
    first moment, ring loss at precision "default") for 3 steps, with the
-   launch counts read around them; then one microbatch's device time by
-   kernel, the gradient through the whole model with the kernels against
+   launch counts read around them; then one step's and one microbatch's
+   device time by kernel, the gradient through the whole model with the kernels against
    both plain versions, and a 10-step fit of one fixed batch;
 6. the rank view: what rank 3 of an 8-GPU chunked all-gather run at 32k
    global computes after its gather (``sigmoid_loss_chunk_scan`` with
@@ -45,7 +47,21 @@ and nothing is caught:
    2 steps with Lion and 2 with Adafactor, with the launch counts read
    around them; then GradCache at 4 × 128 against one 512-pair batch and
    K3 against K2, each by the cosine of the whole model's gradient;
-9. a JSON line of the kernels' numbers and, last, the device record.
+9. the flash attention kernel K7 (``[kernel_flash]``, run with phase 3):
+   forward, dK/dV and dQ against their plain versions at the kernels' own
+   key block in five cases (B/16 at 512 px, So400m-384's dh=72 at s=729,
+   causal at s=1000, s=196, the context block's s=4,096), bitwise
+   repeatable, timed beside SDPA; then SigLIP-B/16 at 512 px (1,024
+   patches, K7 in every vision layer) served by ``run_serve_path`` with
+   ``SERVE_512`` (``[serve_512]``: a 64-image corpus, 16 mixed requests,
+   search == oracle, 12 K7 forwards per image tower call) and trained by
+   ``run_train_path`` with ``TRAIN_512`` (``[train_512]``: 2 steps of 4 ×
+   32 pairs under ``save_hot``, 48 launches of each K7 kernel per step, the
+   gradient against the plain versions);
+10. the context block (``[context]``, the JAX bench's ``--context``): one
+   width-768 block, forward and backward, at s=1,024 and 4,096, dense
+   attention against K7, ms per layer and peak memory;
+11. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -53,6 +69,7 @@ Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -107,11 +124,8 @@ LOSS_TIMED = "ring_hop_32k_positive"
 LOSS_RTOL = 1e-5
 LOSS_GRAD_RTOL_OF_MAX = 1e-4
 BF16_GRAD_RTOL_OF_MAX = 2.0 ** -7
-BUCKETS = (1, 8, 32, 128)
-CORPUS, REQUESTS, CLIENTS = 256, 64, 8
 # The headline train step (bench.py's no-argument run): 16 microbatches of 128.
-ACCUM, MICRO, TRAIN_STEPS = 16, 128, 3
-FIT_STEPS = 10
+ACCUM, MICRO = 16, 128
 # The rank view of the chunked all-gather at 32k global over 8 ranks:
 # (local_b, W, d, rank), and the steps of the headline with use_pallas.
 RANK_VIEW = (4096, 8, 512, 3)
@@ -124,6 +138,71 @@ ATTENTION_CASES = {
     "head_dim_72": (2, 256, 16, 72, False),  # so400m head width, L/14 length
     "scalar_path": (2, 50, 3, 20, True),  # width 60: element-wise loads and stores
 }
+# K7 cases: (b, s, h, dh, causal).
+FLASH_CASES = {
+    "b16_512": (32, 1024, 12, 64, False),  # the B/16-512 vision shape, microbatch 32
+    "so400m_384": (8, 729, 16, 72, False),  # So400m-384's head: width 1152, 16 heads
+    "causal_1000": (4, 1000, 12, 64, True),
+    "s196": (32, 196, 12, 64, False),
+    "context_4096": (4, 4096, 12, 64, False),  # the [context] block's longest shape
+}
+FLASH_TIMED = "b16_512"
+# K7 vs its plain version at the kernels' own key block: both round p (and
+# ds) to bf16 after f32 sums in other orders; the output within one bf16 ulp
+# of its largest magnitude, each gradient within two, and every cosine
+# above 0.999.
+K7_OUT_ULPS, K7_GRAD_ULPS, K7_MIN_COSINE = 1, 2, 0.999
+
+
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    """One serving run: its log tag, the configuration's name (see
+    ``siglip_config``), the engine's buckets, the corpus images, the requests
+    and client threads, the seed's offset, and the launch counter of the
+    image tower's attention kernel (the text tower's is always K1's)."""
+
+    phase: str
+    config: str
+    buckets: tuple[int, ...]
+    corpus: int
+    requests: int
+    clients: int
+    seed_offset: int
+    vision_kernel: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Training:
+    """One training run: its log tag, the configuration's name, microbatches
+    per step, pairs per microbatch, steps, the seed's offset, the Adam first
+    moment's and the accumulator's dtypes (None: f32), the launch counters of
+    the vision tower's attention kernels (the text tower runs K1 and K2), and
+    the steps of the fixed-batch fit after it (0: none)."""
+
+    phase: str
+    config: str
+    accum: int
+    micro: int
+    steps: int
+    seed_offset: int
+    adam_mu_dtype: str | None
+    accum_dtype: str | None
+    vision_kernels: tuple[str, ...]
+    fit_steps: int
+
+
+K1_K2 = ("short_attention_fwd", "short_attention_bwd")
+K7 = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+# B/16 at 224 px: 256 images and 64 requests from 8 threads; the headline
+# step, 3 steps, then a 10-step fit. B/16 at 512 px: buckets to 32 (a 512 px
+# batch of 128 is 400 MB of f32 pixels), 64 images and 16 requests from 4
+# threads; 2 steps of 4 × 32 pairs.
+SERVE = Serving("main", "b16", (1, 8, 32, 128), 256, 64, 8, 0, "short_attention_fwd")
+SERVE_512 = Serving("serve_512", "b16_512", (1, 8, 32), 64, 16, 4, 3, "flash_attention_fwd")
+TRAIN = Training("train", "headline", ACCUM, MICRO, 3, 0, "bfloat16", "bfloat16", K1_K2, 10)
+TRAIN_512 = Training("train_512", "b16_512", 4, 32, 2, 4, None, None, K7, 0)
+# The context block: (s, b), the JAX bench's "--context" shapes.
+CONTEXT_CASES = ((1024, 16), (4096, 4))
 
 
 def log(phase: str, **fields) -> None:
@@ -138,7 +217,8 @@ def ptxas_usage(build_log: str) -> dict:
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
-            short = re.search(r"((?:short_attention|sigmoid_loss)_\w*?kernel)(?:IL[ib](\d+)E)?", name)
+            short = re.search(r"((?:short_attention|sigmoid_loss|flash_attention)_\w*?kernel)"
+                              r"(?:IL[ib](\d+)E)?", name)
             if short:
                 kernel = short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
             else:
@@ -199,6 +279,7 @@ def attention_bound_ms(b, s, h, dh, causal=False, tensors=4, products=2) -> tupl
 
 
 KERNEL_GROUPS = (
+    ("flash_attention", "flash_attention"),  # K7: fwd, di, dkv and dq
     ("short_attention_bwd_batched", "short_attention_bwd_batched"),
     ("short_attention_bwd", "short_attention_bwd"),
     ("short_attention", "short_attention_fwd"),
@@ -207,7 +288,7 @@ KERNEL_GROUPS = (
 
 def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
     """Device time of one call of ``fn`` by kernel (torch.profiler), grouped
-    into K1, K2, K3, matrix products and the rest, with the device's idle share
+    into K1, K2, K3, K7, matrix products and the rest, with the device's idle share
     against ``wall_ms`` (the call's time unprofiled). ``host_ops=False``
     traces the device alone, for calls of ~10^5 kernels."""
     from torch.autograd import DeviceType
@@ -221,7 +302,8 @@ def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
     if not kernels:
         raise AssertionError("the profiler saw no kernel on the device")
     groups = {"short_attention_fwd": 0.0, "short_attention_bwd": 0.0,
-              "short_attention_bwd_batched": 0.0, "matmul": 0.0, "other": 0.0}
+              "short_attention_bwd_batched": 0.0, "flash_attention": 0.0, "matmul": 0.0,
+              "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         group = next((g for key, g in KERNEL_GROUPS if key in name), None)
@@ -493,20 +575,34 @@ def check_loss_kernels(ssl, gen) -> dict:
 
 
 def reset_counts(sa, ssl) -> None:
+    from distributed_sigmoid_loss_tpu_torch.ops import flash_attention as fa
+
     sa.reset_launches()
     ssl.reset_launches()
+    fa.reset_launches()
 
 
 def read_counts(sa, ssl) -> dict:
     """Launches of every kernel since :func:`reset_counts`."""
-    loss = ssl.launches()
+    from distributed_sigmoid_loss_tpu_torch.ops import flash_attention as fa
+
+    loss, flash = ssl.launches(), fa.launches()
     return {"short_attention_fwd": sa.launches(), "short_attention_bwd": sa.bwd_launches(),
             "short_attention_bwd_batched": sa.bwd_batched_launches(),
             "sigmoid_loss_fwd": loss["fwd"], "sigmoid_loss_bwd_img": loss["bwd_img"],
-            "sigmoid_loss_bwd_txt": loss["bwd_txt"]}
+            "sigmoid_loss_bwd_txt": loss["bwd_txt"], "flash_attention_fwd": flash["fwd"],
+            "flash_attention_bwd_dkv": flash["bwd_dkv"], "flash_attention_bwd_dq": flash["bwd_dq"]}
 
 
-def run_main_path(args, sa, ssl) -> dict:
+def run_serve_path(args, sa, ssl, fa, run: Serving) -> dict:
+    """One serving run through the service: the engine warmed, a random
+    corpus encoded and indexed, and mixed requests (texts, some repeated
+    captions that hit the cache, images, searches) from ``run.clients``
+    threads, between two reads of the counts (12 launches of the vision
+    tower's attention kernel per image tower call, 12 of K1 per text call,
+    nothing else). Then the towers with every attention kernel against its
+    plain version, and their times and device breakdowns at the largest
+    bucket."""
     from distributed_sigmoid_loss_tpu_torch.eval.retrieval import topk_ids
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
     from distributed_sigmoid_loss_tpu_torch.serve import (
@@ -514,21 +610,22 @@ def run_main_path(args, sa, ssl) -> dict:
         EmbeddingService,
         InferenceEngine,
     )
-    from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
 
-    cfg = SigLIPConfig.b16()
+    cfg = siglip_config(run.config)
+    seed = args.seed + run.seed_offset
     t0 = time.monotonic()
     model = SigLIP(cfg, device="cuda",
-                   generator=torch.Generator(device="cuda").manual_seed(args.seed)).eval()
-    engine = InferenceEngine.from_model(model, batch_buckets=BUCKETS)
+                   generator=torch.Generator(device="cuda").manual_seed(seed)).eval()
+    engine = InferenceEngine.from_model(model, batch_buckets=run.buckets)
     torch.cuda.synchronize()
-    log("main", config="SigLIP-B/16", dtype=cfg.vision.dtype, depth=cfg.vision.depth,
-        width=cfg.vision.width, params=sum(p.numel() for p in model.parameters()),
-        init_s=time.monotonic() - t0)
-    rng = np.random.default_rng(args.seed)
     hw, ctx, vocab = cfg.vision.image_size, cfg.text.context_length, cfg.text.vocab_size
+    log(run.phase, config=run.config, image_size=hw, patches=(hw // cfg.vision.patch_size) ** 2,
+        dtype=cfg.vision.dtype, depth=cfg.vision.depth, width=cfg.vision.width,
+        params=sum(p.numel() for p in model.parameters()), buckets=run.buckets,
+        init_s=time.monotonic() - t0)
+    rng = np.random.default_rng(seed)
 
-    # -- the main path, between the two reads of the launch counts ----------
+    # -- the serving path, between the two reads of the launch counts -------
     reset_counts(sa, ssl)
     engine.calls.clear()
     t0 = time.monotonic()
@@ -536,14 +633,14 @@ def run_main_path(args, sa, ssl) -> dict:
     t_warm = time.monotonic() - t0
     svc = EmbeddingService(engine, cache=EmbeddingCache(4096), max_wait_ms=5.0,
                            default_timeout=120.0)
-    corpus = rng.random((CORPUS, hw, hw, 3), dtype=np.float32)
+    corpus = rng.random((run.corpus, hw, hw, 3), dtype=np.float32)
     t0 = time.monotonic()
     corpus_emb = svc.encode_image(corpus)
     t_corpus = time.monotonic() - t0
     svc.index.add(corpus_emb)
     pool = rng.integers(1, vocab, (16, ctx)).astype(np.int32)  # repeated captions hit the cache
     plans = []
-    for i in range(REQUESTS):
+    for i in range(run.requests):
         kind = ("text", "image", "search")[i % 3]
         if kind == "text":
             n = int(rng.integers(1, 5))
@@ -557,7 +654,7 @@ def run_main_path(args, sa, ssl) -> dict:
 
     def client(worker: int):
         try:
-            for i in range(worker, len(plans), CLIENTS):
+            for i in range(worker, len(plans), run.clients):
                 kind, x = plans[i]
                 t = time.monotonic()
                 if kind == "search":
@@ -569,7 +666,7 @@ def run_main_path(args, sa, ssl) -> dict:
             errors.append(e)
 
     t0 = time.monotonic()
-    threads = [threading.Thread(target=client, args=(w,)) for w in range(CLIENTS)]
+    threads = [threading.Thread(target=client, args=(w,)) for w in range(run.clients)]
     for t in threads:
         t.start()
     for t in threads:
@@ -577,9 +674,8 @@ def run_main_path(args, sa, ssl) -> dict:
     t_requests = time.monotonic() - t0
     torch.cuda.synchronize()
     counts = read_counts(sa, ssl)
-    launches, bwd_launches = counts["short_attention_fwd"], counts["short_attention_bwd"]
     tower_calls = dict(engine.calls)
-    # -- end of the main path ----------------------------------------------
+    # -- end of the serving path --------------------------------------------
     if errors:
         raise errors[0]
     stats = svc.stats()
@@ -591,63 +687,62 @@ def run_main_path(args, sa, ssl) -> dict:
             q = svc.encode_text(x)  # a cache hit: the very row the search used
             oracle = topk_ids(q @ corpus_emb.T, 10)
             if not np.array_equal(ids, oracle):
-                raise AssertionError(f"search ids {ids} != topk_ids oracle {oracle}")
+                raise AssertionError(f"{run.phase}: search ids {ids} != topk_ids oracle {oracle}")
             checked += 1
             continue
         if not np.all(np.isfinite(res)):
-            raise AssertionError(f"non-finite {kind} embedding")
+            raise AssertionError(f"{run.phase}: non-finite {kind} embedding")
         norms = np.linalg.norm(res, axis=-1)
         if np.abs(norms - 1).max() > 1e-3:
-            raise AssertionError(f"{kind} embeddings not unit-norm: {norms}")
+            raise AssertionError(f"{run.phase}: {kind} embeddings not unit-norm: {norms}")
     if not np.all(np.isfinite(corpus_emb)) or np.abs(np.linalg.norm(corpus_emb, axis=-1) - 1).max() > 1e-3:
-        raise AssertionError("corpus embeddings not finite and unit-norm")
+        raise AssertionError(f"{run.phase}: corpus embeddings not finite and unit-norm")
     if warmed != engine.bucket_space or engine.compile_count != engine.bucket_space:
         raise AssertionError(f"compile_count {engine.compile_count} != bucket_space {engine.bucket_space}")
-    expected = cfg.vision.depth * tower_calls.get("image", 0) + cfg.text.depth * tower_calls.get("text", 0)
-    if launches != expected or launches == 0:
-        raise AssertionError(f"short_attention launches {launches} != 12 per tower call ({expected})")
-    if bwd_launches != 0:
-        raise AssertionError(f"serving launched the attention backward {bwd_launches} times")
+    expect = dict.fromkeys(counts, 0)
+    expect[run.vision_kernel] += cfg.vision.depth * tower_calls.get("image", 0)
+    expect["short_attention_fwd"] += cfg.text.depth * tower_calls.get("text", 0)
     svc.close()
     lat_ms = sorted(1e3 * x for x in lat)
-    log("main", warmup_s=t_warm, compile_count=engine.compile_count,
+    log(run.phase, warmup_s=t_warm, compile_count=engine.compile_count,
         bucket_space=engine.bucket_space, corpus=len(corpus), corpus_s=t_corpus,
-        corpus_images_per_s=len(corpus) / t_corpus, requests=len(plans), clients=CLIENTS,
+        corpus_images_per_s=len(corpus) / t_corpus, requests=len(plans), clients=run.clients,
         requests_s=t_requests,
         request_p50_ms=lat_ms[int(np.ceil(0.50 * len(lat_ms))) - 1],
         request_p95_ms=lat_ms[int(np.ceil(0.95 * len(lat_ms))) - 1],
-        searches_checked=checked, tower_calls=tower_calls, short_attention_launches=launches)
-    log("main", service_stats=stats)
+        searches_checked=checked, tower_calls=tower_calls, launches=counts, expected=expect)
+    log(run.phase, service_stats=stats)
+    if counts != expect or not expect[run.vision_kernel]:
+        raise AssertionError(
+            f"{run.phase} launches {counts} != {expect}: 12 of {run.vision_kernel} per image "
+            "tower call, 12 of short_attention_fwd per text call, no backward")
 
-    # Outside the counted run: the model with the kernel vs with the plain
+    # Outside the counted run: the model with the kernels vs with the plain
     # attention on one batch, and the tower times at the largest bucket.
+    b = run.buckets[-1]
     imgs = torch.from_numpy(rng.random((8, hw, hw, 3), dtype=np.float32)).cuda()
     toks = torch.from_numpy(rng.integers(1, vocab, (8, ctx))).cuda()
     with torch.inference_mode():
         kernel_out = (model.encode_image(imgs), model.encode_text(toks))
-        real = sa.short_self_attention
-        sa.short_self_attention = sa.short_self_attention_plain
-        try:
+        with plain_attention(sa, fa):
             plain_out = (model.encode_image(imgs), model.encode_text(toks))
-        finally:
-            sa.short_self_attention = real
-        cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
-               for a, b in zip(kernel_out, plain_out)]
-        big_img = torch.from_numpy(rng.random((128, hw, hw, 3), dtype=np.float32)).cuda()
-        big_tok = torch.from_numpy(rng.integers(1, vocab, (128, ctx))).cuda()
+        cos = [float(torch.nn.functional.cosine_similarity(a, c, dim=-1).min())
+               for a, c in zip(kernel_out, plain_out)]
+        big_img = torch.from_numpy(rng.random((b, hw, hw, 3), dtype=np.float32)).cuda()
+        big_tok = torch.from_numpy(rng.integers(1, vocab, (b, ctx))).cuda()
         image_ms = time_ms(lambda: model.encode_image(big_img), iters=5, warmup=2)
         text_ms = time_ms(lambda: model.encode_text(big_tok), iters=5, warmup=2)
         breakdown = {
             "image": device_breakdown(lambda: model.encode_image(big_img), image_ms),
             "text": device_breakdown(lambda: model.encode_text(big_tok), text_ms),
         }
-    log("main", min_cosine_kernel_vs_plain={"image": cos[0], "text": cos[1]},
-        tower_ms_b128={"image": image_ms, "text": text_ms},
-        images_per_s_b128=128 / image_ms * 1e3, texts_per_s_b128=128 / text_ms * 1e3)
+    log(run.phase, min_cosine_kernel_vs_plain={"image": cos[0], "text": cos[1]},
+        **{f"tower_ms_b{b}": {"image": image_ms, "text": text_ms},
+           f"images_per_s_b{b}": b / image_ms * 1e3, f"texts_per_s_b{b}": b / text_ms * 1e3})
     for tower, row in breakdown.items():
-        log("profile", tower=tower, batch=128, **row)
+        log("profile", tower=tower, config=run.config, batch=b, **row)
     if min(cos) <= 0.999:
-        raise AssertionError(f"kernel vs plain attention through the model: cosine {cos}")
+        raise AssertionError(f"{run.phase}: kernels vs plain attention through the model, cosine {cos}")
     del model, engine, svc
     torch.cuda.empty_cache()
     return counts
@@ -712,7 +807,33 @@ def tower_grads(model, per_shard, batch) -> dict:
     return out
 
 
-def run_train_path(args, sa, ssl) -> dict:
+def siglip_config(name: str):
+    """The smoke's SigLIP-B/16 configurations by name: ``"b16"``
+    (``SigLIPConfig.b16()``, 224 px), ``"headline"`` (:func:`headline_config`)
+    and ``"b16_512"``, the published widths of google/siglip-base-patch16-512
+    (ViT-B/16 at 512 px, 1,024 patches; text 64 tokens; 512-d embeddings)
+    with ``save_hot`` remat in both towers."""
+    from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig, TextConfig, ViTConfig
+
+    if name == "headline":
+        return headline_config()
+    if name == "b16_512":
+        return SigLIPConfig(vision=ViTConfig(image_size=512, remat_policy="save_hot"),
+                            text=TextConfig(remat_policy="save_hot"))
+    return SigLIPConfig.b16()
+
+
+
+def run_train_path(args, sa, ssl, fa, run: Training) -> dict:
+    """``run.steps`` train steps of ``run.accum`` microbatches of
+    ``run.micro`` pairs under ``save_hot``, between two reads of the counts
+    (one launch of each of ``run.vision_kernels`` per vision layer and
+    microbatch, one of K1 and K2 per text layer, so never an attention
+    forward again). Then one step on the device by kernel group, the
+    optimizer update alone, one microbatch's forward and backward by kernel
+    group, the gradient through the whole model with every attention kernel
+    against its plain version, and ``run.fit_steps`` steps on one fixed
+    batch."""
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
     from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
     from distributed_sigmoid_loss_tpu_torch.train import (
@@ -722,19 +843,20 @@ def run_train_path(args, sa, ssl) -> dict:
     )
     from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
 
-    cfg = headline_config()
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    cfg = siglip_config(run.config)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + run.seed_offset)
     model = SigLIP(cfg, device="cuda", generator=gen)
     tx = make_optimizer(TrainConfig(warmup_steps=100, total_steps=100_000,
-                                    adam_mu_dtype="bfloat16"))
+                                    adam_mu_dtype=run.adam_mu_dtype))
     state = create_train_state(model, tx)
-    step = make_train_step(model, cfg.loss, accum_steps=ACCUM, accum_dtype="bfloat16")
-    batches = [random_batch(cfg, ACCUM * MICRO, gen) for _ in range(TRAIN_STEPS)]
+    step = make_train_step(model, cfg.loss, accum_steps=run.accum, accum_dtype=run.accum_dtype)
+    n = run.accum * run.micro
+    batches = [random_batch(cfg, n, gen) for _ in range(run.steps)]
     torch.cuda.synchronize()
-    log("train", config="SigLIP-B/16", remat_policy=cfg.vision.remat_policy,
-        accum_steps=ACCUM, microbatch=MICRO, accum_dtype="bfloat16", adam_mu_dtype="bfloat16",
+    log(run.phase, config=run.config, image_size=cfg.vision.image_size,
+        remat_policy=cfg.vision.remat_policy, accum_steps=run.accum, microbatch=run.micro,
+        steps=run.steps, accum_dtype=run.accum_dtype, adam_mu_dtype=run.adam_mu_dtype,
         loss_variant=cfg.loss.variant, loss_precision=cfg.loss.precision,
-        loss_precision_meaning="embeddings rounded to bf16, products summed in f32 (one bf16 pass)",
         train_config="TrainConfig(warmup_steps=100, total_steps=100_000)")
 
     # -- the training path, between the two reads of the launch counts -----
@@ -749,40 +871,42 @@ def run_train_path(args, sa, ssl) -> dict:
         step_s.append(time.monotonic() - t0)
         metrics.append(m)
     counts = read_counts(sa, ssl)
-    launches, bwd_launches = counts["short_attention_fwd"], counts["short_attention_bwd"]
     # -- end of the training path ------------------------------------------
     peak = torch.cuda.max_memory_allocated()
-    expected = (cfg.vision.depth + cfg.text.depth) * ACCUM * TRAIN_STEPS
+    expect = dict.fromkeys(counts, 0)
+    for kernel in run.vision_kernels:
+        expect[kernel] += cfg.vision.depth * run.accum * run.steps
+    for kernel in ("short_attention_fwd", "short_attention_bwd"):
+        expect[kernel] += cfg.text.depth * run.accum * run.steps
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    pairs_per_s = ACCUM * MICRO / steady
+    pairs_per_s = n / steady
     flops = 3.0 * forward_flops_per_pair(cfg)
     for i, (m, t) in enumerate(zip(metrics, step_s)):
-        log("train", step=i, step_ms=1e3 * t, **m)
-    log("train", steady_step_ms=1e3 * steady, pairs_per_s=pairs_per_s,
+        log(run.phase, step=i, step_ms=1e3 * t, pairs_per_s=n / t, **m)
+    log(run.phase, steady_step_ms=1e3 * steady, pairs_per_s=pairs_per_s,
         model_tflops_per_pair_basis=flops / 1e12,
         mfu=flops * pairs_per_s / BF16_FLOP_PER_S, max_memory_allocated_gib=peak / 2**30,
-        short_attention_fwd_launches=launches, short_attention_bwd_launches=bwd_launches,
-        expected_each=expected, traced_bwd_batch_heads=sa.traced_bwd_batch_heads())
+        launches=counts, expected=expect,
+        launches_per_step={k: v / run.steps for k, v in counts.items()},
+        traced_bwd_batch_heads=sa.traced_bwd_batch_heads())
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
-        raise AssertionError(f"non-finite train metrics: {metrics}")
-    if launches != expected or bwd_launches != expected:
+        raise AssertionError(f"non-finite {run.phase} metrics: {metrics}")
+    if counts != expect:
         raise AssertionError(
-            f"attention launches fwd {launches} / bwd {bwd_launches} != 24 per microbatch "
-            f"({expected}); a forward count of 48 per microbatch means the remat policy "
-            "re-ran the attention forward"
-        )
+            f"{run.phase} launches {counts} != {expect}: one launch of each attention kernel "
+            "per layer and microbatch; twice the forwards means the remat policy re-ran them")
 
     # Outside the counted run: one whole step, the optimizer update alone,
     # and one microbatch's forward+backward, on the device by kernel group.
-    log("profile", path="train step", accum_steps=ACCUM, batch=ACCUM * MICRO,
+    log("profile", path=f"{run.phase} step", accum_steps=run.accum, batch=n,
         **device_breakdown(lambda: step(state, batches[0]), 1e3 * steady, host_ops=False))
     zero_grads = [torch.zeros_like(p) for p in state.params]
     update_ms = time_ms(lambda: state.tx.apply(state.params, zero_grads, state.opt_state),
                         iters=3, warmup=1)
-    log("train", optimizer_update_ms=update_ms, params=len(zero_grads))
+    log(run.phase, optimizer_update_ms=update_ms, params=len(zero_grads))
     del zero_grads
     per_shard = make_per_shard_loss(variant=cfg.loss.variant, precision=cfg.loss.precision)
-    micro = {k: v[:MICRO] for k, v in batches[0].items()}
+    micro = {k: v[:run.micro] for k, v in batches[0].items()}
 
     def microstep():
         zimg, ztxt, lp = model(micro["images"], micro["tokens"])
@@ -790,43 +914,42 @@ def run_train_path(args, sa, ssl) -> dict:
         model.zero_grad(set_to_none=True)
 
     micro_ms = time_ms(microstep, iters=5, warmup=2)
-    log("profile", path="train microbatch fwd+bwd", batch=MICRO, **device_breakdown(microstep, micro_ms))
+    log("profile", path=f"{run.phase} microbatch fwd+bwd", batch=run.micro,
+        **device_breakdown(microstep, micro_ms))
 
-    # The gradient through the whole model, kernels vs both plain versions.
+    # The gradient through the whole model, the kernels vs their plain versions.
     small = {k: v[:8] for k, v in batches[0].items()}
     kernel_grads = tower_grads(model, per_shard, small)
-    launch_fwd, launch_bwd = sa._launch_fwd, sa._launch_bwd
-    sa._launch_fwd = lambda q, k, v, c, sc: sa.short_self_attention_plain(q, k, v, c, sc)
-    sa._launch_bwd = lambda q, k, v, do, c, sc: sa.short_self_attention_bwd_plain(q, k, v, do, c, sc)
-    try:
+    with plain_attention(sa, fa):
         plain_grads = tower_grads(model, per_shard, small)
-    finally:
-        sa._launch_fwd, sa._launch_bwd = launch_fwd, launch_bwd
     cos = {t: float(torch.nn.functional.cosine_similarity(kernel_grads[t], plain_grads[t], dim=0))
            for t in kernel_grads}
-    log("train", grad_cosine_kernel_vs_plain_b8=cos)
+    log(run.phase, grad_cosine_kernel_vs_plain_b8=cos)
     if min(cos.values()) <= 0.999:
-        raise AssertionError(f"kernel vs plain gradient through the model: cosine {cos}")
+        raise AssertionError(f"{run.phase}: kernel vs plain gradient through the model, cosine {cos}")
     del state, step, batches, kernel_grads, plain_grads
     torch.cuda.empty_cache()
 
-    # A short fit: FIT_STEPS steps on one fixed batch at a constant rate.
-    # Adam's first steps are about lr·sign(g) on each of 210M parameters, a
-    # first-order change of the loss of about lr·‖g‖₁ (‖g‖₂ ≈ 55 here): at
-    # 1e-5 that is several nats and the loss jumps about; at 1e-6 it descends.
-    fit_tx = make_optimizer(TrainConfig(learning_rate=1e-6, warmup_steps=0,
-                                        schedule="constant", adam_mu_dtype="bfloat16"))
-    fit_state = create_train_state(model, fit_tx)
-    fit_step = make_train_step(model, cfg.loss)
-    fixed = random_batch(cfg, MICRO, gen)
-    losses = []
-    for _ in range(FIT_STEPS):
-        fit_state, m = fit_step(fit_state, fixed)
-        losses.append(m["loss"].item())
-    log("train", fit_losses=losses)
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
-    del fit_state, fit_step, model
+    if run.fit_steps:
+        # A short fit: steps on one fixed batch at a constant rate. Adam's
+        # first steps are about lr·sign(g) on each of 210M parameters, a
+        # first-order change of the loss of about lr·‖g‖₁ (‖g‖₂ ≈ 55 at B/16
+        # 224 px): at 1e-5 that is several nats and the loss jumps about; at
+        # 1e-6 it descends.
+        fit_tx = make_optimizer(TrainConfig(learning_rate=1e-6, warmup_steps=0,
+                                            schedule="constant", adam_mu_dtype=run.adam_mu_dtype))
+        fit_state = create_train_state(model, fit_tx)
+        fit_step = make_train_step(model, cfg.loss)
+        fixed = random_batch(cfg, run.micro, gen)
+        losses = []
+        for _ in range(run.fit_steps):
+            fit_state, m = fit_step(fit_state, fixed)
+            losses.append(m["loss"].item())
+        log(run.phase, fit_losses=losses)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+        del fit_state, fit_step
+    del model
     torch.cuda.empty_cache()
     return counts
 
@@ -1042,7 +1165,8 @@ def run_train_recipes_path(args, sa, ssl) -> dict:
     expect = {"short_attention_fwd": 2 * depth * ACCUM * steps,
               "short_attention_bwd_batched": depth * ACCUM * steps,
               "short_attention_bwd": 0, "sigmoid_loss_fwd": 0, "sigmoid_loss_bwd_img": 0,
-              "sigmoid_loss_bwd_txt": 0}
+              "sigmoid_loss_bwd_txt": 0, "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
+              "flash_attention_bwd_dq": 0}
     for row in rows:
         log("train_recipes", **row, pairs_per_s=ACCUM * MICRO / (row["step_ms"] / 1e3))
     log("train_recipes", launches=counts, expected=expect, per_step={
@@ -1117,6 +1241,208 @@ def run_train_recipes_path(args, sa, ssl) -> dict:
     return counts
 
 
+def check_flash_attention(fa, gen) -> dict:
+    """K7 fwd, dkv and dq against their plain versions at the kernels' own
+    key block (``fa.BLOCK_K``) in every case of FLASH_CASES, each kernel run
+    twice for bitwise repeatability; the backward kernels take the forward
+    kernel's own (out, stats), so each is held alone. Times the three at
+    FLASH_TIMED beside the plain versions and SDPA; the element-wise path
+    must match the vectorised one bitwise, and a head dim past 128 must be
+    refused. Returns ``{kernel: record}`` for the JSON line."""
+    import torch.nn.functional as F
+
+    lib_f, lib_b = fa._library("flash_attention"), fa._library("flash_attention_bwd")
+    records = {}
+
+    def run(q, k, v, do, causal, scale):
+        out, stats = fa._launch_fwd(q, k, v, causal, scale)
+        dk, dv, di = fa._launch_bwd_dkv(q, k, v, out, do, stats, causal, scale)
+        return out, stats, dk, dv, di, fa._launch_bwd_dq(q, k, v, do, stats, di, causal, scale)
+
+    for name, (b, s, h, dh, causal) in FLASH_CASES.items():
+        scale = dh ** -0.5
+        q, k, v, do = (
+            torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(4)
+        )
+        first, again = run(q, k, v, do, causal, scale), run(q, k, v, do, causal, scale)
+        torch.cuda.synchronize()
+        repeatable = all(torch.equal(a, c) for a, c in zip(first, again))
+        out, stats, dk, dv, di, dq = first
+        pout, pstats = fa.flash_self_attention_plain(q, k, v, causal, scale, fa.BLOCK_K)
+        pdk, pdv, pdi = fa.flash_attention_bwd_dkv_plain(q, k, v, out, do, stats, causal, scale,
+                                                         fa.BLOCK_K)
+        pdq = fa.flash_attention_bwd_dq_plain(q, k, v, do, stats, pdi, causal, scale, fa.BLOCK_K)
+        pairs = {"out": (out, pout), "dk": (dk, pdk), "dv": (dv, pdv), "dq": (dq, pdq)}
+        errs = {n: (g.float() - r.float()).abs().max().item() for n, (g, r) in pairs.items()}
+        tols = {n: (K7_OUT_ULPS if n == "out" else K7_GRAD_ULPS) * bf16_ulp(r)
+                for n, (_, r) in pairs.items()}
+        cos = {n: float(F.cosine_similarity(g.float().flatten(), r.float().flatten(), dim=0))
+               for n, (g, r) in pairs.items()}
+        stat_errs = {"m": (stats[:, :, 0] - pstats[:, :, 0]).abs().max().item(),
+                     "l_rel": ((stats[:, :, 1] - pstats[:, :, 1]).abs()
+                               / pstats[:, :, 1]).max().item(),
+                     "di": (di - pdi).abs().max().item()}
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, stats, dk, dv, dq))
+        row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=errs, atol=tols,
+                   cosine=cos, stats_err=stat_errs, finite=finite, repeatable=repeatable,
+                   blocks_per_sm={"fwd": lib_f.flash_attention_fwd_occupancy(dh),
+                                  "dkv": lib_b.flash_attention_bwd_occupancy(dh, 0),
+                                  "dq": lib_b.flash_attention_bwd_occupancy(dh, 1)})
+        log("kernel_flash", **row)
+        if not (finite and repeatable) or any(errs[n] > tols[n] or cos[n] <= K7_MIN_COSINE
+                                              for n in errs):
+            raise AssertionError(f"flash attention kernels disagree with their plain versions: {row}")
+        if name != FLASH_TIMED:
+            continue
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        dout = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)
+
+        calls = {
+            "fwd": (lambda: fa._launch_fwd(q, k, v, causal, scale),
+                    lambda: fa.flash_self_attention_plain(q, k, v, causal, scale, fa.BLOCK_K),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                    "SDPA forward", (4, 2)),
+            "bwd_dkv": (lambda: fa._launch_bwd_dkv(q, k, v, out, do, stats, causal, scale),
+                        lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, out, do, stats, causal,
+                                                                 scale, fa.BLOCK_K),
+                        sdpa_bwd, "SDPA backward (dq, dk and dv in one call)", (7, 4)),
+            "bwd_dq": (lambda: fa._launch_bwd_dq(q, k, v, do, stats, di, causal, scale),
+                       lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, stats, di, causal,
+                                                               scale, fa.BLOCK_K),
+                       sdpa_bwd, "SDPA backward (dq, dk and dv in one call)", (5, 3)),
+        }
+        err_of = {"fwd": errs["out"], "bwd_dkv": max(errs["dk"], errs["dv"]), "bwd_dq": errs["dq"]}
+        for which, (kernel, plain, library, library_call, (tensors, products)) in calls.items():
+            rec = dict(case=name, shape=[b, s, h, dh], max_abs_err=err_of[which],
+                       ms=time_ms(kernel, iters=10), device_ms=device_ms(kernel),
+                       plain_ms=time_ms(plain, iters=3, warmup=1),
+                       library_ms=time_ms(library, iters=10), library_device_ms=device_ms(library),
+                       library_call=library_call)
+            # dkv: q, k, v, out, do read and dk, dv written, four products
+            # (sᵀ, dv, dpᵀ, dk); dq: q, k, v, do read and dq written, three.
+            # The two kernels' bounds add the two products the split
+            # recomputes (sᵀ and dpᵀ again); the backward's own least time is
+            # the pair's: 7 tensors and 5 products.
+            rec["bound_ms"], rec["bound_by"] = attention_bound_ms(b, s, h, dh, causal, tensors,
+                                                                  products)
+            if which != "fwd":
+                rec["pair_bound_ms"], rec["pair_bound_by"] = attention_bound_ms(
+                    b, s, h, dh, causal, 7, 5)
+            log("kernel_flash_time", kernel=which, **rec)
+            records[which] = rec
+        log("kernel_flash_time", kernel="bwd pair (dkv + dq)",
+            ms=records["bwd_dkv"]["ms"] + records["bwd_dq"]["ms"],
+            bound_ms=records["bwd_dq"]["pair_bound_ms"],
+            library_ms=records["bwd_dq"]["library_ms"])
+        del leaves, lib_out
+    # The element-wise path (copies and stores without 16-byte vectors): the
+    # same inputs two bytes off alignment give bitwise the aligned results.
+    shape = (2, 100, 2, 64)
+    aligned = [torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(4)]
+    shifted = []
+    for t in aligned:
+        buf = torch.empty(t.numel() + 1, device="cuda", dtype=t.dtype)
+        shifted.append(buf[1:].view(shape).copy_(t))
+    same = all(torch.equal(a, c) for a, c in zip(run(*aligned, True, 0.125),
+                                                 run(*shifted, True, 0.125)))
+    log("kernel_flash", case="element-wise path", shape=list(shape), causal=True,
+        bitwise_equal_to_aligned=same)
+    if not same:
+        raise AssertionError("K7 on 2-byte-offset inputs differs from the aligned run")
+    q = torch.zeros(1, 64, 2, 136, device="cuda", dtype=torch.bfloat16)
+    try:
+        fa.flash_self_attention(q, q, q)
+    except ValueError as e:
+        log("kernel_flash", shape=[1, 64, 2, 136], refused=str(e))
+    else:
+        raise AssertionError("K7 took head_dim=136")
+    torch.cuda.empty_cache()
+    return records
+
+
+@contextlib.contextmanager
+def plain_attention(sa, fa):
+    """Every attention kernel's launch (K1, K2, K7 fwd, dkv and dq) replaced
+    by its plain version (K7's at the kernels' key block) inside the block:
+    the model run through it is the kernel-free reference."""
+    real = (sa._launch_fwd, sa._launch_bwd, fa._launch_fwd, fa._launch_bwd_dkv, fa._launch_bwd_dq)
+    sa._launch_fwd = lambda q, k, v, c, sc: sa.short_self_attention_plain(q, k, v, c, sc)
+    sa._launch_bwd = lambda q, k, v, do, c, sc: sa.short_self_attention_bwd_plain(q, k, v, do, c, sc)
+    fa._launch_fwd = lambda q, k, v, c, sc: fa.flash_self_attention_plain(q, k, v, c, sc, fa.BLOCK_K)
+    fa._launch_bwd_dkv = lambda q, k, v, o, do, st, c, sc: fa.flash_attention_bwd_dkv_plain(
+        q, k, v, o, do, st, c, sc, fa.BLOCK_K)
+    fa._launch_bwd_dq = lambda q, k, v, do, st, di, c, sc: fa.flash_attention_bwd_dq_plain(
+        q, k, v, do, st, di, c, sc, fa.BLOCK_K)
+    try:
+        yield
+    finally:
+        (sa._launch_fwd, sa._launch_bwd, fa._launch_fwd, fa._launch_bwd_dkv,
+         fa._launch_bwd_dq) = real
+
+
+
+def run_context(sa, ssl, fa) -> dict:
+    """The counterpart of the JAX bench's ``--context`` run: one transformer
+    block of width 768 with 12 heads in bf16, forward and backward of
+    ``sum(out²)``, at each (s, b) of CONTEXT_CASES, dense attention against
+    K7; ms per layer and peak memory. The K7 runs are counted."""
+    from distributed_sigmoid_loss_tpu_torch.models.transformer import Block
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    blocks = {impl: Block(768, 12, 4, torch.bfloat16, attn_impl=impl, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(6))
+              for impl in ("dense", "flash")}
+    xs = {s: torch.randn(b, s, 768, device="cuda", generator=gen).to(torch.bfloat16)
+          for s, b in CONTEXT_CASES}
+
+    def fwd_bwd(impl, x):
+        block = blocks[impl]
+        block.zero_grad(set_to_none=True)
+        out = block(x)
+        out.float().square().sum().backward()
+        return out
+
+    # -- the context path (K7 runs), between the two reads of the counts ---
+    reset_counts(sa, ssl)
+    outs = {s: fwd_bwd("flash", x).detach() for s, x in xs.items()}
+    torch.cuda.synchronize()
+    counts = read_counts(sa, ssl)
+    # -- end of the context path --------------------------------------------
+    n = len(CONTEXT_CASES)
+    if any(counts[k] != n for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                                    "flash_attention_bwd_dq")):
+        raise AssertionError(f"context launches {counts}: expected {n} of each K7 kernel")
+    for s, b in CONTEXT_CASES:
+        x = xs[s]
+        row = {"s": s, "b": b}
+        for impl in ("dense", "flash"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fwd_bwd(impl, x)
+            torch.cuda.synchronize()
+            row[f"{impl}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            row[f"{impl}_ms_per_layer"] = time_ms(lambda: fwd_bwd(impl, x), iters=5, warmup=1)
+            if impl == "dense":
+                dense_out = out.detach()
+        row["cosine_flash_vs_dense"] = float(torch.nn.functional.cosine_similarity(
+            outs[s].float().flatten(), dense_out.float().flatten(), dim=0))
+        row["finite"] = bool(torch.isfinite(outs[s]).all())
+        log("context", **row)
+        if not row["finite"] or row["cosine_flash_vs_dense"] <= 0.999:
+            raise AssertionError(f"context block at s={s}: K7 vs dense {row}")
+        del out, dense_out
+    del blocks, xs, outs
+    torch.cuda.empty_cache()
+    return counts
+
 def global_norm_of(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
@@ -1129,6 +1455,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from distributed_sigmoid_loss_tpu_torch.ops import _cuda
+    from distributed_sigmoid_loss_tpu_torch.ops import flash_attention as fa
     from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa
     from distributed_sigmoid_loss_tpu_torch.ops import streaming_sigmoid_loss as ssl
 
@@ -1156,6 +1483,12 @@ def main() -> int:
         smem = getattr(sa._library(lib), f"{lib}_smem_bytes")(196, 64)
         if smem != mirror(196, 64):
             raise AssertionError(f"{lib} smem {smem} != python mirror {mirror(196, 64)}")
+    for dh in (64, 72, 128):
+        if fa._library("flash_attention").flash_attention_fwd_smem_bytes(dh) != \
+                fa.flash_attention_smem_bytes(dh) or \
+                fa._library("flash_attention_bwd").flash_attention_bwd_smem_bytes(dh) != \
+                fa.flash_attention_bwd_smem_bytes(dh):
+            raise AssertionError(f"flash_attention smem at dh={dh} != python mirror")
     loss_lib = ssl._library()
     for d in (200, 512, 1152, 2000):
         if loss_lib.sigmoid_loss_bwd_smem_bytes(d) != ssl.bwd_smem_bytes(d):
@@ -1169,20 +1502,24 @@ def main() -> int:
     k2 = check_short_attention_bwd(sa, gen)
     k3 = check_short_attention_bwd_batched(sa, gen)
     loss_recs = check_loss_kernels(ssl, gen)
+    flash_recs = check_flash_attention(fa, gen)
 
-    # Phases 4-8: the main paths, each between two reads of the counts.
+    # Phases 4-11: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
-    for path, run in (("serve", lambda: run_main_path(args, sa, ssl)),
-                      ("train", lambda: run_train_path(args, sa, ssl)),
+    for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
+                      ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
                       ("rank_view", lambda: run_rank_view(ssl, sa, gen)),
                       ("train_pallas", lambda: run_train_pallas_path(args, sa, ssl)),
-                      ("train_recipes", lambda: run_train_recipes_path(args, sa, ssl))):
+                      ("train_recipes", lambda: run_train_recipes_path(args, sa, ssl)),
+                      ("serve_512", lambda: run_serve_path(args, sa, ssl, fa, SERVE_512)),
+                      ("train_512", lambda: run_train_path(args, sa, ssl, fa, TRAIN_512)),
+                      ("context", lambda: run_context(sa, ssl, fa))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 9: the records.
+    # Phase 12: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"
@@ -1220,6 +1557,19 @@ def main() -> int:
                         "max_abs_err": rec["max_abs_err"], **timed(rec),
                         "device_ms": rec["device_ms"], "library_call": rec["library_call"],
                         "shape": loss_shape})
+    b, s, h, dh = FLASH_CASES[FLASH_TIMED][:4]
+    flash = "distributed_sigmoid_loss_tpu/ops/flash_attention.py:110"
+    for kernel, which, src in (("flash_attention_fwd", "fwd", "flash_attention.cu"),
+                               ("flash_attention_bwd_dkv", "bwd_dkv", "flash_attention_bwd.cu"),
+                               ("flash_attention_bwd_dq", "bwd_dq", "flash_attention_bwd.cu")):
+        rec = flash_recs[which]
+        kernels.append({"name": kernel, "route": "cuda", "source": source + src,
+                        "replaces": flash, **launches(kernel), "max_abs_err": rec["max_abs_err"],
+                        **timed(rec), "device_ms": rec["device_ms"],
+                        "library_device_ms": rec["library_device_ms"],
+                        "library_call": rec["library_call"],
+                        **({"pair_bound_ms": rec["pair_bound_ms"]} if which != "fwd" else {}),
+                        "shape": f"b={b} s={s} h={h} dh={dh} bf16"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
-// Helpers shared by the short-attention forward (short_attention.cu) and
-// backward (short_attention_bwd.cu) kernels: warp reductions, 16-byte
-// asynchronous copies and the tile loader for one head's (s, dh) slice of a
-// (b, s, heads·dh) tensor.
+// Helpers shared by the attention kernels (short_attention*.cu, K1-K3, and
+// flash_attention*.cu, K7): warp reductions, 16-byte asynchronous copies,
+// the tile loader for one head's (s, dh) slice of a (b, s, heads·dh) tensor,
+// and the mma.sync m16n8k16 bf16 product with its ldmatrix operand loads and
+// fragment-layout helpers.
 
 #pragma once
 
@@ -33,6 +34,14 @@ __device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
 
 __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy rows [row0, row0 + rows) of one head's (s, dh) slice, whose rows lie
@@ -77,5 +86,74 @@ __device__ inline void store_rows(__nv_bfloat16* dst, const float* src, int row0
     }
   }
 }
+
+__device__ inline unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ inline void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a · b: one m16n8k16 bf16 product with f32 accumulation. a: rows g
+// and g+8 at columns 2t, 2t+8; b: rows 2t, 2t+8 at column g; d: rows g, g+8
+// at columns 2t, 2t+1 (g = lane / 4, t = lane % 4).
+__device__ inline void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline unsigned pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+__device__ inline float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ inline float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Two bf16 of one head's row `row` (columns col, col+1), zero outside the
+// (s, dh) slice; src is the head's slice, rows at stride width.
+__device__ inline unsigned load_pair(const __nv_bfloat16* src, int row, int col, int s, int width, int dh,
+                                     bool vec) {
+  if (row >= s) return 0u;
+  const __nv_bfloat16* p = src + (size_t)row * width;
+  if (vec) return col < dh ? *reinterpret_cast<const unsigned*>(p + col) : 0u;
+  const unsigned lo = col < dh ? __bfloat16_as_ushort(p[col]) : 0u;
+  const unsigned hi = col + 1 < dh ? __bfloat16_as_ushort(p[col + 1]) : 0u;
+  return lo | (hi << 16);
+}
+
+__device__ inline void store_pair(__nv_bfloat16* dst, int row, int col, float x, float y, int s, int width,
+                                  int dh, bool vec) {
+  if (row >= s) return;
+  __nv_bfloat16* p = dst + (size_t)row * width;
+  if (vec) {
+    if (col < dh) *reinterpret_cast<__nv_bfloat162*>(p + col) = __floats2bfloat162_rn(x, y);
+    return;
+  }
+  if (col < dh) p[col] = __float2bfloat16(x);
+  if (col + 1 < dh) p[col + 1] = __float2bfloat16(y);
+}
+
 
 }  // namespace short_attention

@@ -11,7 +11,6 @@ from distributed_sigmoid_loss_tpu_torch.models.transformer import (
     Dense,
     Encoder,
     MapHead,
-    check_attention_fits,
     dtype_of,
 )
 from distributed_sigmoid_loss_tpu_torch.utils.config import TextConfig, check_supported
@@ -27,7 +26,6 @@ class TextTransformer(nn.Module):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
-        check_attention_fits(cfg, cfg.context_length)
         self.cfg = cfg
         dtype = self.dtype = dtype_of(cfg.dtype)
         kw = dict(device=device, generator=generator)

@@ -6,9 +6,9 @@
 - ``LayerNorm`` takes its statistics in f32 with eps 1e-6 and flax's fast
   variance ``E[x²] − E[x]²``, then casts back to the activation dtype.
 - The MLP uses the tanh approximation of GELU.
-- ``Attention`` keeps the JAX dispatch: the fused short-attention kernel for
-  bf16 self-attention on a CUDA device when it fits, dense attention for f32
-  and for cross-attention.
+- ``Attention`` keeps the JAX dispatch: for bf16 self-attention on a CUDA
+  device the fused short-attention kernel (K1) where it fits and the flash
+  kernel (K7) otherwise; dense attention for f32 and for cross-attention.
 - ``remat`` recomputes each block in the backward
   (``torch.utils.checkpoint``, non-reentrant), with the JAX package's
   ``remat_policy`` as a selective-checkpoint policy: ``"nothing"`` recomputes
@@ -16,9 +16,10 @@
   ``"save_all_hot"`` also keeps ``q_proj``/``k_proj``/``v_proj``;
   ``"save_mlp"`` keeps ``mlp_hidden`` only. PyTorch's selective checkpointing
   chooses by op, not by name, so a name is an op it can recognise:
-  ``attn_core`` is the fused kernel's custom op
-  (``short_attention.ATTN_CORE_OP``; the dense core of the f32 towers is
-  recomputed), and the other names tag the ops run inside
+  ``attn_core`` is either fused kernel's custom op
+  (``short_attention.ATTN_CORE_OP``, ``flash_attention.FLASH_CORE_OP``, whose
+  output and row statistics are both kept; the dense core of the f32 towers
+  is recomputed), and the other names tag the ops run inside
   :func:`checkpoint_name`. Under ``save_hot`` the backward never launches the
   attention forward again.
 
@@ -47,13 +48,10 @@ from distributed_sigmoid_loss_tpu_torch.parallel import ring_attention
 
 __all__ = [
     "Dense", "LayerNorm", "Mlp", "Attention", "Block", "Encoder", "MapHead",
-    "check_attention_fits", "checkpoint_name", "dtype_of", "REMAT_POLICIES",
+    "checkpoint_name", "dtype_of", "REMAT_POLICIES",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# Named in the error for bf16 self-attention beyond the short kernel's fit.
-FLASH_ROADMAP_ROW = "ROADMAP.md queue B, K7 (ops/flash_attention.py long-sequence flash kernel)"
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -83,26 +81,16 @@ def checkpoint_name(name: str):
         _CHECKPOINT_NAME.reset(token)
 
 
+# The fused attention forwards, each a custom op the policy can recognise.
+_ATTN_CORE_OPS = (short_attention.ATTN_CORE_OP, flash_attention.FLASH_CORE_OP)
+
+
 def _policy(saved: tuple[str, ...]):
     def policy(ctx, op, *args, **kwargs):
-        name = "attn_core" if op == short_attention.ATTN_CORE_OP else _CHECKPOINT_NAME.get()
+        name = "attn_core" if op in _ATTN_CORE_OPS else _CHECKPOINT_NAME.get()
         return CheckpointPolicy.MUST_SAVE if name in saved else CheckpointPolicy.PREFER_RECOMPUTE
 
     return policy
-
-
-def check_attention_fits(cfg, seq_len: int) -> None:
-    """``attn_impl="flash"`` forces the fused kernel: refuse a tower whose
-    sequence the short kernel cannot take, since the flash kernel is not
-    ported."""
-    if cfg.attn_impl == "flash" and not short_attention.short_attention_fits(
-        seq_len, cfg.width, dtype_of(cfg.dtype).itemsize, cfg.num_heads
-    ):
-        raise NotImplementedError(
-            f"attn_impl='flash' at s={seq_len}, width={cfg.width}, "
-            f"heads={cfg.num_heads}, {cfg.dtype} does not fit the short kernel "
-            f"and needs the flash kernel, not ported yet: {FLASH_ROADMAP_ROW}"
-        )
 
 
 def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
@@ -177,10 +165,10 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with separate q/k/v projections.
 
-    ``attn_impl``: "dense", "flash" (the fused kernel, CUDA tensors only) or
-    "auto" (the fused kernel for bf16 self-attention on CUDA, dense
-    otherwise). bf16 self-attention that does not fit the short kernel would
-    need the flash kernel, which is not ported: that raises.
+    ``attn_impl``: "dense", "flash" (the fused kernels, CUDA tensors only) or
+    "auto" (the fused kernels for bf16 self-attention on CUDA, dense
+    otherwise). The fused path takes the short kernel (K1) where
+    ``short_attention_fits`` and the flash kernel (K7) otherwise, as JAX does.
     """
 
     def __init__(self, width: int, num_heads: int, dtype, *, attn_impl: str = "auto",
@@ -230,11 +218,7 @@ class Attention(nn.Module):
         ):
             out = short_attention.short_self_attention(q, k, v, self.causal)
         elif use_fused:
-            raise NotImplementedError(
-                f"self-attention at s={q.shape[1]}, width={self.width}, "
-                f"heads={self.num_heads}, {self.dtype} does not fit the short "
-                f"kernel and needs the flash kernel, not ported yet: {FLASH_ROADMAP_ROW}"
-            )
+            out = flash_attention.flash_self_attention(q, k, v, causal=self.causal)
         else:
             out = ring_attention.dense_attention(q, k, v, causal=self.causal)
         out = out.to(self.dtype)

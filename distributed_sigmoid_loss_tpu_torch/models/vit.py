@@ -9,7 +9,6 @@ from distributed_sigmoid_loss_tpu_torch.models.transformer import (
     Dense,
     Encoder,
     MapHead,
-    check_attention_fits,
     dtype_of,
     lecun_normal_,
 )
@@ -57,7 +56,6 @@ class ViT(nn.Module):
         self.cfg = cfg
         dtype = self.dtype = dtype_of(cfg.dtype)
         n = (cfg.image_size // cfg.patch_size) ** 2
-        check_attention_fits(cfg, n)
         if not cfg.use_proj and cfg.embed_dim != cfg.width:
             raise ValueError(
                 f"use_proj=False (HF-format) requires embed_dim == width, got "

@@ -32,6 +32,8 @@ SOURCES = {
     "short_attention_bwd": "short_attention_bwd.cu",
     "short_attention_bwd_batched": "short_attention_bwd_batched.cu",
     "sigmoid_loss": "sigmoid_loss.cu",
+    "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 _NVCC_FLAGS = [

@@ -25,7 +25,8 @@ Replaces the Pallas TPU kernels of
   ``ValueError`` beyond, with no fallback to K2.
 
 All three are memory-bound on an H100 (the sources' header notes give the
-reckoning). Only the long-sequence flash kernel (K7) remains to be ported.
+reckoning). Self-attention too long for them goes to the flash kernel, K7
+(``ops/flash_attention.py``).
 
 The forward is registered as the custom op ``dsl_torch_port::short_attention_fwd``
 (:data:`ATTN_CORE_OP`), so selective activation checkpointing can recognise

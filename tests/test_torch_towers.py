@@ -22,7 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from jax.experimental.pallas import tpu as pltpu
+
 from distributed_sigmoid_loss_tpu.models.siglip import SigLIP as JaxSigLIP
+from distributed_sigmoid_loss_tpu.ops import flash_attention as jax_flash_module
+from distributed_sigmoid_loss_tpu.ops import pallas_short_attention as jax_short_module
 from distributed_sigmoid_loss_tpu.ops.sigmoid_loss import init_loss_params
 from distributed_sigmoid_loss_tpu.utils.config import SigLIPConfig as JaxSigLIPConfig
 from distributed_sigmoid_loss_tpu_torch.models import SigLIP, params_from_jax
@@ -178,13 +182,96 @@ def test_params_from_jax_layouts_agree():
         ({"moe_experts": 2}, "moe_experts"),
         ({"quant": "int8"}, "quant"),
         ({"quant_train": "int8"}, "quant"),
-        ({"v_attn_impl": "flash", "v_image_size": 256, "v_patch_size": 8,
-          "v_width": 128, "v_num_heads": 2, "dtype": "bfloat16"}, "K7"),
     ],
 )
 def test_unsupported_configs_raise(overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         SigLIP(port_config(tiny(**overrides)), device="cpu")
+
+
+def test_flash_impl_at_a_long_sequence_builds_and_runs_k7(monkeypatch):
+    """``attn_impl="flash"`` beyond the short kernel's fit (1,024 patches at
+    dh=64, bf16) builds and runs the flash kernel, K7 (its plain version on
+    CPU tensors), in every vision layer."""
+    cfg = port_config(tiny(v_attn_impl="flash", v_image_size=256, v_patch_size=8, v_width=128,
+                           v_num_heads=2, dtype="bfloat16"))
+    model = SigLIP(cfg, device="cpu")
+    assert not short_attention.short_attention_fits(1024, 128, 2, 2)
+    monkeypatch.setattr(flash_attention, "flash_attention_available", lambda x: True)
+    calls = []
+    real = flash_attention.flash_self_attention
+
+    def counted(q, *a, **kw):
+        calls.append(tuple(q.shape))
+        return real(q, *a, **kw)
+
+    monkeypatch.setattr(flash_attention, "flash_self_attention", counted)
+    images = np.random.default_rng(0).standard_normal((1, 256, 256, 3)).astype(np.float32)
+    with torch.inference_mode():
+        z = model.encode_image(torch.from_numpy(images))
+    assert calls == [(1, 1024, 2, 64)] * cfg.vision.depth
+    assert torch.isfinite(z).all() and abs(float(z.norm()) - 1) < 1e-5
+
+
+def test_params_from_jax_takes_a_longer_patch_sequence():
+    """A vision tower at a larger image size (256 patches of a tiny width):
+    the position embedding carries over at its length and the towers agree."""
+    jcfg = tiny(v_image_size=128)
+    (zimg, ztxt), port, (images, tokens) = both_towers(jcfg)
+    assert port.visual.pos_embed.shape == (1, 256, 32)
+    pimg, ptxt = port_embed(port, images, tokens)
+    np.testing.assert_allclose(pimg, zimg, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(ptxt, ztxt, rtol=1e-4, atol=1e-5)
+
+
+# 19² = 361 patches: JAX's flash kernel takes three 128-key blocks, the last ragged.
+K7_IMAGE_SIZE = 152
+
+
+def force_vision_onto_k7(monkeypatch, text_len: int) -> None:
+    """In both packages: the fused kernels available on the CPU, and the
+    short kernel's fit true only for the text tower's length, so the vision
+    tower takes the flash kernel (JAX's in the Pallas interpreter under
+    ``pltpu.force_tpu_interpret_mode``, the port's plain version)."""
+    def fits_text_only(s, *args):
+        return s <= text_len
+
+    for module in (jax_flash_module, flash_attention):
+        monkeypatch.setattr(module, "flash_attention_available", lambda *a: True)
+    monkeypatch.setattr(jax_short_module, "short_attention_fits", fits_text_only)
+    monkeypatch.setattr(short_attention, "short_attention_fits", fits_text_only)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_towers_on_k7_match_jax(monkeypatch, dtype):
+    """The slice at a tiny width: the vision tower's self-attention on K7 in
+    both packages (f32 through ``attn_impl="flash"``, bf16 through
+    ``"auto"``); the text tower on dense (f32) or K1 (bf16)."""
+    jcfg = tiny(v_image_size=K7_IMAGE_SIZE, dtype=dtype,
+                v_attn_impl="flash" if dtype == "float32" else "auto")
+    force_vision_onto_k7(monkeypatch, jcfg.text.context_length)
+    calls = []
+    real = flash_attention.flash_self_attention
+
+    def counted(q, *a, **kw):
+        calls.append(q.shape[1])
+        return real(q, *a, **kw)
+
+    monkeypatch.setattr(flash_attention, "flash_self_attention", counted)
+    with pltpu.force_tpu_interpret_mode():
+        (zimg, ztxt), port, (images, tokens) = both_towers(jcfg)
+    pimg, ptxt = port_embed(port, images, tokens)
+    assert calls == [361] * jcfg.vision.depth
+    if dtype == "float32":
+        # Observed: 3e-7.
+        np.testing.assert_allclose(pimg, zimg, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(ptxt, ztxt, rtol=1e-4, atol=1e-5)
+    else:
+        # The bf16 towers' grade (test_bf16_towers_take_short_attention_and_match_jax):
+        # the attention cores round alike, the unfused bias adds and GELU
+        # do not (observed 6e-3).
+        np.testing.assert_allclose(pimg, zimg, atol=1.5e-2)
+        np.testing.assert_allclose(ptxt, ztxt, atol=1.5e-2)
 
 
 def test_flash_impl_refuses_cpu_tensor_and_cross_attention():

@@ -17,6 +17,10 @@ import optax
 import pytest
 import torch
 
+import flax.linen as nn
+from jax.experimental.pallas import tpu as pltpu
+from test_torch_towers import K7_IMAGE_SIZE, force_vision_onto_k7
+
 from distributed_sigmoid_loss_tpu.models.siglip import SigLIP as JaxSigLIP
 from distributed_sigmoid_loss_tpu.parallel.api import make_per_shard_loss as jax_make_per_shard_loss
 from distributed_sigmoid_loss_tpu.parallel.mesh import make_mesh
@@ -347,6 +351,87 @@ def test_whole_step_bf16_fused_path_matches_jax(monkeypatch):
     for k in jp:
         np.testing.assert_allclose(pp[k].numpy(), jp[k].numpy(), atol=4 * TRAIN_CFG["learning_rate"],
                                    err_msg=k)
+
+
+# --- the slice on K7 ----------------------------------------------------------
+
+def _k7_config(dtype):
+    """tiny_test with a one-layer 361-patch vision tower in ``dtype`` whose
+    attention takes the fused path (``attn_impl="flash"`` in f32, ``"auto"``
+    in bf16). One layer keeps the Pallas interpreter's compile short."""
+    cfg = tiny(dtype=dtype)
+    return dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, image_size=K7_IMAGE_SIZE, depth=1,
+        attn_impl="flash" if dtype == "float32" else "auto"))
+
+
+def _loss_grads_both(jcfg, n=4):
+    """The sigmoid loss's gradient over every parameter, JAX (its flash
+    kernel in the Pallas interpreter) and the port, from the same weights and
+    batch: (jax state dict, port state dict) of gradients."""
+    batch = batch_np(jcfg, n)
+    jmodel = JaxSigLIP(jcfg)
+    params = jax.jit(jmodel.init)(jax.random.key(0), batch["images"], batch["tokens"])["params"]
+    params = jax.tree.map(np.asarray, nn.meta.unbox(params))
+
+    def loss(p):
+        zi, zt, lp = jmodel.apply({"params": p}, batch["images"], batch["tokens"])
+        return jsl.sigmoid_loss(zi, zt, lp["t_prime"], lp["bias"])
+
+    with pltpu.force_tpu_interpret_mode():
+        jgrads = jax.jit(jax.grad(loss))(params)
+    pcfg = port_config(jcfg)
+    model = SigLIP(pcfg, device="cpu")
+    model.load_state_dict(params_from_jax(params, pcfg), strict=True)
+    zi, zt, lp = model(torch.from_numpy(batch["images"]), torch.from_numpy(batch["tokens"]))
+    psl.sigmoid_loss(zi, zt, lp["t_prime"], lp["bias"]).backward()
+    ref = params_from_jax(jax.tree.map(np.asarray, jgrads), pcfg)
+    return ref, {k: p.grad for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whole_step_on_k7_matches_jax(monkeypatch, dtype):
+    """One accumulated ``make_train_step`` step and the loss's gradient with
+    the vision tower's self-attention on K7 in both packages (JAX's kernel in
+    the Pallas interpreter, the port's plain versions). f32: metrics and
+    gradients at rtol 1e-4; bf16: the grade of the bf16 step above."""
+    jcfg = _k7_config(dtype)
+    force_vision_onto_k7(monkeypatch, jcfg.text.context_length)
+    flash_calls = []
+    real = flash_attention.flash_self_attention_bwd
+
+    def counted(*a, **kw):
+        flash_calls.append(a[0].shape[1])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(flash_attention, "flash_self_attention_bwd", counted)
+    with pltpu.force_tpu_interpret_mode():
+        jm, _, pm, _ = _run_both(jcfg, steps=1)
+    # 2 microbatches, 1 vision layer: one K7 backward each.
+    assert flash_calls == [361] * 2
+    ref, got = _loss_grads_both(jcfg)
+    assert ref.keys() == got.keys()
+    if dtype == "float32":
+        for k in METRICS:
+            np.testing.assert_allclose(pm[0][k], jm[0][k], rtol=1e-4, atol=1e-9, err_msg=k)
+        for k in ref:
+            # Each entry at rtol 1e-4 over a floor of 1e-5 of the tensor's
+            # largest magnitude, for entries that are sums of cancelling
+            # terms: the token table's rows (a token's gradient sums over its
+            # occurrences) and the k-projection biases, whose gradient is
+            # zero in exact arithmetic (the softmax is shift-invariant).
+            r = ref[k].numpy()
+            np.testing.assert_allclose(got[k].numpy(), r, rtol=1e-4,
+                                       atol=max(1e-5 * np.abs(r).max(), 1e-6), err_msg=k)
+    else:
+        for k in METRICS:
+            np.testing.assert_allclose(pm[0][k], jm[0][k], rtol=2e-2, atol=1e-6, err_msg=k)
+        g = torch.cat([got[k].flatten() for k in ref])
+        r = torch.cat([ref[k].flatten() for k in ref])
+        # The bf16 grade of the port's whole-model gradient checks
+        # (chip_smoke.py): cosine at least 0.999 (observed 0.99988; the
+        # relative norm of the difference 1.7e-2).
+        assert float(torch.nn.functional.cosine_similarity(g, r, dim=0)) >= 0.999
 
 
 # --- refusals ---------------------------------------------------------------

@@ -4,10 +4,15 @@ mode (f32 and bf16), the distributed loss at W in {2, 3, 4} over gloo, the
 W = 2 train step; then the training recipes: the plain K3 vs the Pallas
 ``_bwd_kernel_batched`` and vs the plain K2, the softmax family (one device
 and W in {2, 3, 4}), Lion and Adafactor vs optax, and the whole-step cases
-of ``tests/test_torch_train_recipes.py``. The tests assert tolerances; this
-reports the observed maxima behind them.
+of ``tests/test_torch_train_recipes.py``; then the flash kernel K7: its
+plain forward and backward vs the upstream Pallas kernel in the interpreter,
+and the tiny towers and one train step with the vision tower on K7
+(``tests/test_torch_flash_attention.py``, ``test_torch_towers.py``,
+``test_torch_train_step.py``). The tests assert tolerances; this reports the
+observed maxima behind them.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_maxima.py    # ~6 min
+    JAX_PLATFORMS=cpu python tests/torch_parity_maxima.py    # ~8 min
+    JAX_PLATFORMS=cpu python tests/torch_parity_maxima.py k7   # one part
 """
 
 import os
@@ -20,15 +25,21 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import conftest  # noqa: E402,F401  (8 virtual CPU devices, the repo on sys.path)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import pytest  # noqa: E402
 import torch  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 import _torch_dist_worker as worker  # noqa: E402
 import test_torch_distributed_loss as tdl  # noqa: E402
+import test_torch_flash_attention as tfa  # noqa: E402
 import test_torch_short_attention_bwd_batched as tk3  # noqa: E402
 import test_torch_softmax_loss as tsm  # noqa: E402
 import test_torch_streaming_loss as tsl  # noqa: E402
+import test_torch_towers as ttw  # noqa: E402
 import test_torch_train_recipes as trc  # noqa: E402
+import test_torch_train_step as tts  # noqa: E402
 import test_torch_train_step_dp as tdp  # noqa: E402
+from distributed_sigmoid_loss_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa  # noqa: E402
 from distributed_sigmoid_loss_tpu_torch.models import params_from_jax  # noqa: E402
 from distributed_sigmoid_loss_tpu_torch.utils import config as pc  # noqa: E402
@@ -153,11 +164,63 @@ def recipes():
               f"parameters outside rtol 1e-4: {outside} of {sum(v.numel() for v in ref.values())}")
 
 
+def k7():
+    f32 = bf16 = 0.0
+    for case in tfa.CASES:
+        _, _, causal, dtype = case
+        q, k, v, do = tfa._port_tensors(case)
+        out, stats = fa.flash_self_attention_plain(q, k, v, causal, tfa._scale(case))
+        grads = fa.flash_self_attention_bwd_plain(q, k, v, out, do, stats, causal, tfa._scale(case))
+        for g, r in zip((out, *grads), tfa._jax_result(case)):
+            err = float(np.abs(g.float().numpy() - r).max())
+            if dtype == "float32":
+                f32 = max(f32, err / float(np.abs(r).max()))
+            else:
+                bf16 = max(bf16, err / tfa._bf16_ulp(r))
+    print(f"K7 plain vs the Pallas flash kernel: f32 {f32:.2e} of the largest, bf16 {bf16:.2f} ulp")
+    worst = {}
+    for case in tfa.CASES:
+        _, _, causal, _ = case
+        q, k, v, do = tfa._port_tensors(case, "bfloat16")
+        out, stats = fa.flash_self_attention_plain(q, k, v, causal, tfa._scale(case), fa.BLOCK_K)
+        grads = fa.flash_self_attention_bwd_plain(q, k, v, out, do, stats, causal,
+                                                  tfa._scale(case), fa.BLOCK_K)
+        for name, g, r in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                              tfa._jax_result(case, "bfloat16")):
+            ulps = float(np.abs(g.float().numpy() - r).max()) / tfa._bf16_ulp(r)
+            worst[name] = max(worst.get(name, 0.0), ulps)
+    print("K7 plain at the kernels' block vs the Pallas flash kernel, bf16 ulps: "
+          + ", ".join(f"{n} {u:.2f}" for n, u in worst.items()))
+    for dtype in ("float32", "bfloat16"):
+        jcfg = ttw.tiny(v_image_size=ttw.K7_IMAGE_SIZE, dtype=dtype,
+                        v_attn_impl="flash" if dtype == "float32" else "auto")
+        with pytest.MonkeyPatch.context() as mp:
+            ttw.force_vision_onto_k7(mp, jcfg.text.context_length)
+            with pltpu.force_tpu_interpret_mode():
+                (zimg, ztxt), port, (images, tokens) = ttw.both_towers(jcfg)
+            pimg, ptxt = ttw.port_embed(port, images, tokens)
+        print(f"towers on K7 {dtype}: image abs {np.abs(pimg - zimg).max():.2e}, "
+              f"text abs {np.abs(ptxt - ztxt).max():.2e}")
+        jcfg = tts._k7_config(dtype)
+        with pytest.MonkeyPatch.context() as mp:
+            ttw.force_vision_onto_k7(mp, jcfg.text.context_length)
+            with pltpu.force_tpu_interpret_mode():
+                jm, _, pm, _ = tts._run_both(jcfg, steps=1)
+            ref, got = tts._loss_grads_both(jcfg)
+        rel = max(abs(pm[0][k] - jm[0][k]) / abs(jm[0][k]) for k in tts.METRICS if jm[0][k] != 0)
+        g = torch.cat([got[k].flatten() for k in ref])
+        r = torch.cat([ref[k].flatten() for k in ref])
+        worst = max(float((got[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref
+                    if "attn.k.bias" not in k)
+        print(f"step on K7 {dtype}: metrics rel {rel:.2e}; gradient rel norm "
+              f"{float((g - r).norm() / r.norm()):.2e}, cosine "
+              f"{float(torch.nn.functional.cosine_similarity(g, r, dim=0)):.6f}, worst tensor "
+              f"(k biases aside) {worst:.2e} of its largest")
+
+
+PARTS = {"blocks": blocks, "distributed": distributed, "train_step": train_step, "k3": k3,
+         "softmax": softmax, "optimizers": optimizers, "recipes": recipes, "k7": k7}
+
 if __name__ == "__main__":
-    blocks()
-    distributed()
-    train_step()
-    k3()
-    softmax()
-    optimizers()
-    recipes()
+    for part in sys.argv[1:] or PARTS:
+        PARTS[part]()
