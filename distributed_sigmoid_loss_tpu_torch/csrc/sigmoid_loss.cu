@@ -43,6 +43,24 @@
 // recomputing the logits for its slice of the gradient columns. t′, bias and
 // the upstream gradient g are read from device memory: no host sync.
 // Tensor-core (3xTF32 or wgmma) products and pipelined loads are later work.
+//
+// int8 mode (K4 int8: the int8 tile product _tile_raw_int8 of the same TPU
+// kernels, reached under quant="int8"). The caller quantizes each embedding
+// row once (symmetric int8, per-row f32 scale, ops/quant.py), and the logit
+// tile is raw = (f32(Σ ziq·ztq) · zis) · zts: an exact int32 sum by __dp4a
+// (four int8 products a thread instruction), converted once and dequantized
+// by two separately rounded multiplies in JAX's order, image scale first.
+// Everything after raw is the f32 mode's epilogue. K5/K6 recompute dlogits at
+// the int8 raw (and dt′ sums dl·raw at it), but their gradient products read
+// the full-precision f32 rows of the other operand: the straight-through
+// contract of JAX's kernel. The int8 mode takes d % 16 == 0 and 16-byte
+// aligned operands (the dispatch hands it d % 128 == 0 only); rows are masked
+// as in the f32 mode. Bound at the 4096 × 4096 × 512 ring hop: the forward's
+// 17.2 G int8 operations are 8.7 µs at 1,979 TOP/s and its epilogue's ~0.2
+// G f32 operations 3 µs at 67 TFLOP/s, so bytes (4.2 MB, 1.3 µs) do not bind;
+// K5/K6 keep one f32 gradient product each, half of the f32 mode's work.
+// __dp4a runs on the CUDA cores, not the tensor cores: this simple kernel
+// reads far above that bound (mma.sync s8 tiles are later work).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -181,18 +199,124 @@ __device__ inline void tile_product(float (&acc)[TM][kTN], const float* __restri
   }
 }
 
+// Four int8 words (16 int8 values) of row `row` at word column `col` of a
+// row-major (rows × cols) int matrix, cols % 4 == 0 and a 16-byte aligned
+// base; zeros outside it.
+__device__ inline int4 load4i(const int* __restrict__ base, int row, int rows, int col,
+                              int cols) {
+  if (row >= rows || col >= cols) return make_int4(0, 0, 0, 0);
+  return __ldg(reinterpret_cast<const int4*>(base + (size_t)row * cols + col));
+}
+
+// The int8 mode's tile_product: acc[i][j] = Σ_k own[r][k]·other[c][k] over
+// int8 rows packed four to an int32 word (dw words a row), exact in int32.
+// As and Bs stage kBK words (64 int8 values) of each operand, transposed.
+template <int TM>
+__device__ inline void tile_product_int8(int (&acc)[TM][kTN], const int* __restrict__ own, int r0,
+                                         int n_own, const int* __restrict__ other, int c0,
+                                         int n_other, int dw, int* As, int* Bs) {
+  constexpr int BM = 16 * TM, lda = BM + kPad, ldb = kBN + kPad;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
+  for (int k0 = 0; k0 < dw; k0 += kBK) {
+    for (int s = tid; s < BM * (kBK / 4); s += kThreads) {
+      const int row = s / (kBK / 4), kq = (s % (kBK / 4)) * 4;
+      const int4 v = load4i(own, r0 + row, n_own, k0 + kq, dw);
+      As[(kq + 0) * lda + row] = v.x;
+      As[(kq + 1) * lda + row] = v.y;
+      As[(kq + 2) * lda + row] = v.z;
+      As[(kq + 3) * lda + row] = v.w;
+    }
+    for (int s = tid; s < kBN * (kBK / 4); s += kThreads) {
+      const int row = s / (kBK / 4), kq = (s % (kBK / 4)) * 4;
+      const int4 v = load4i(other, c0 + row, n_other, k0 + kq, dw);
+      Bs[(kq + 0) * ldb + row] = v.x;
+      Bs[(kq + 1) * ldb + row] = v.y;
+      Bs[(kq + 2) * ldb + row] = v.z;
+      Bs[(kq + 3) * ldb + row] = v.w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      int a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[k * lda + ty * TM + i];
+      const int4 bv = *reinterpret_cast<const int4*>(Bs + k * ldb + tx * kTN);
+      const int b[kTN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// What the kernels read. f32 mode: own and other are the f32 rows of the
+// logit product. int8 mode: own_q/other_q are the int8 rows (four a word)
+// with their per-row scales own_s/other_s; `other` stays the f32 rows of
+// the gradient product (K5/K6) and `own` is unused.
+struct Operands {
+  const float* own;
+  const float* other;
+  const int* own_q;
+  const int* other_q;
+  const float* own_s;
+  const float* other_s;
+};
+
+// The block's (16·TM × 64) tile of raw = own·otherᵀ at rows r0, columns c0:
+// the f32 product, or (Q) the dequantized int8 product
+// (f32(acc) · image scale) · text scale, each multiply rounded on its own
+// (TXT: own is the text side).
+template <int TM, bool Q, bool TXT>
+__device__ inline void raw_tile(float (&raw)[TM][kTN], const Operands& op, int r0, int n_own,
+                                int c0, int n_other, int d, bool vec, float* As, float* Bs) {
+  if constexpr (!Q) {
+    tile_product<TM>(raw, op.own, r0, n_own, op.other, c0, n_other, d, vec, As, Bs);
+  } else {
+    int acc[TM][kTN];
+    tile_product_int8<TM>(acc, op.own_q, r0, n_own, op.other_q, c0, n_other, d / 4,
+                          reinterpret_cast<int*>(As), reinterpret_cast<int*>(Bs));
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float so[TM], sc[kTN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = r0 + ty * TM + i;
+      so[i] = r < n_own ? __ldg(op.own_s + r) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int c = c0 + tx * kTN + j;
+      sc[j] = c < n_other ? __ldg(op.other_s + c) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const float f = __int2float_rn(acc[i][j]);
+        raw[i][j] = TXT ? __fmul_rn(__fmul_rn(f, sc[j]), so[i])
+                        : __fmul_rn(__fmul_rn(f, so[i]), sc[j]);
+      }
+  }
+}
+
 // K4: one block per 64 × 64 tile; partials[tile] = Σ softplus(−label·logit).
+template <bool Q>
 __global__ void __launch_bounds__(kThreads)
-sigmoid_loss_fwd_kernel(const float* __restrict__ zimg, const float* __restrict__ ztxt,
-                        const float* __restrict__ t_prime, const float* __restrict__ bias,
-                        int b, int n, int d, int off, int vec, float* __restrict__ partials) {
+sigmoid_loss_fwd_kernel(const Operands op, const float* __restrict__ t_prime,
+                        const float* __restrict__ bias, int b, int n, int d, int off, int vec,
+                        float* __restrict__ partials) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);
   float* Bs = As + kBK * (16 * kFwdTM + kPad);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int r0 = blockIdx.x * 16 * kFwdTM, c0 = blockIdx.y * kBN;
   float acc[kFwdTM][kTN];
-  tile_product<kFwdTM>(acc, zimg, r0, b, ztxt, c0, n, d, vec, As, Bs);
+  raw_tile<kFwdTM, Q, false>(acc, op, r0, b, c0, n, d, vec, As, Bs);
   const float t = expf(__ldg(t_prime)), bb = __ldg(bias);
   float sum = 0.f;
 #pragma unroll
@@ -216,10 +340,10 @@ sigmoid_loss_fwd_kernel(const float* __restrict__ zimg, const float* __restrict_
 // dpart[split] (the caller sums the splits). K5's blocks of slice 0 also
 // write partials of dt′ and dbias: partials[i] and partials[count + i], with
 // i = blockIdx.z·gridDim.x + blockIdx.x and count = gridDim.x·gridDim.z.
-template <bool TXT>
+template <bool TXT, bool Q>
 __global__ void __launch_bounds__(kThreads)
-sigmoid_loss_bwd_kernel(const float* __restrict__ own, const float* __restrict__ other,
-                        const float* __restrict__ t_prime, const float* __restrict__ bias,
+sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
+                        const float* __restrict__ bias,
                         const float* __restrict__ g, int n_own, int n_other, int d, int off,
                         int vec, int split_tiles, float* __restrict__ dout,
                         float* __restrict__ dpart, float* __restrict__ partials) {
@@ -231,6 +355,7 @@ sigmoid_loss_bwd_kernel(const float* __restrict__ own, const float* __restrict__
   float* Xs = As;  // the other operand's gradient chunk, after the product is done
   float* Gt = As + bwd_stage_floats();  // dlogits, transposed: Gt[col][row]
   float* Acc = Gt + kBN * ldg_;         // gradient rows: Acc[row][col - d0]
+  const float* __restrict__ other = op.other;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int r0 = blockIdx.x * BM, d0 = blockIdx.y * slice;
   const int width = min(slice, d - d0);
@@ -243,7 +368,7 @@ sigmoid_loss_bwd_kernel(const float* __restrict__ own, const float* __restrict__
   const int c_end = min(n_other, c_begin + split_tiles * kBN);
   for (int c0 = c_begin; c0 < c_end; c0 += kBN) {
     float acc[TM][kTN];
-    tile_product<TM>(acc, own, r0, n_own, other, c0, n_other, d, vec, As, Bs);
+    raw_tile<TM, Q, TXT>(acc, op, r0, n_own, c0, n_other, d, vec, As, Bs);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -350,16 +475,17 @@ bool bad_shape(int b, int n, int d) {
 
 // Splits of the other operand's tiles over grid.z: enough blocks for
 // kWavesPerSplit resident waves on this card, each split at least one tile.
-// Returns the tiles per split through `split_tiles`.
+// Returns the tiles per split through `split_tiles`. Both modes take the
+// f32 kernel's occupancy, so a call's scratch size does not depend on them.
 int bwd_splits(int n_own, int n_other, int d, int* split_tiles) {
   const int tiles = ceil_div(n_other, kBN);
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const size_t smem = bwd_smem_floats(d) * sizeof(float);
-  if (configure(sigmoid_loss_bwd_kernel<false>, smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sigmoid_loss_bwd_kernel<false>,
-                                                    kThreads, smem) != cudaSuccess)
+  if (configure(sigmoid_loss_bwd_kernel<false, false>, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sigmoid_loss_bwd_kernel<false, false>, kThreads, smem) != cudaSuccess)
     per_sm = 1;
   const int blocks = ceil_div(n_own, kBwdRows) * ceil_div(d, bwd_slice(d));
   int splits = ceil_div(kWavesPerSplit * (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1), blocks);
@@ -368,12 +494,12 @@ int bwd_splits(int n_own, int n_other, int d, int* split_tiles) {
   return ceil_div(tiles, *split_tiles);  // no empty split
 }
 
-template <bool TXT>
-cudaError_t launch_bwd(const float* own, const float* other, const float* t_prime,
-                       const float* bias, const float* g, int n_own, int n_other, int d, int off,
-                       int vec, float* dout, float* scratch, cudaStream_t stream) {
+template <bool TXT, bool Q>
+cudaError_t launch_bwd(const Operands& op, const float* t_prime, const float* bias,
+                       const float* g, int n_own, int n_other, int d, int off, int vec,
+                       float* dout, float* scratch, cudaStream_t stream) {
   const size_t smem = bwd_smem_floats(d) * sizeof(float);
-  cudaError_t err = configure(sigmoid_loss_bwd_kernel<TXT>, smem);
+  cudaError_t err = configure(sigmoid_loss_bwd_kernel<TXT, Q>, smem);
   if (err != cudaSuccess) return err;
   int split_tiles = 0;
   const int splits = bwd_splits(n_own, n_other, d, &split_tiles);
@@ -383,15 +509,83 @@ cudaError_t launch_bwd(const float* own, const float* other, const float* t_prim
   const size_t count = (size_t)n_own * d;
   float* dpart = splits > 1 ? scratch : nullptr;
   float* partials = scratch + (splits > 1 ? (size_t)splits * count : 0);
-  sigmoid_loss_bwd_kernel<TXT><<<grid, kThreads, smem, stream>>>(
-      own, other, t_prime, bias, g, n_own, n_other, d, off, vec, split_tiles, dout, dpart,
-      partials);
+  sigmoid_loss_bwd_kernel<TXT, Q><<<grid, kThreads, smem, stream>>>(
+      op, t_prime, bias, g, n_own, n_other, d, off, vec, split_tiles, dout, dpart, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int blocks = (int)((count + kReduceThreads - 1) / kReduceThreads);
   sigmoid_loss_sum_splits_kernel<<<blocks < 65535 ? blocks : 65535, kReduceThreads, 0, stream>>>(
       dpart, splits, count, t_prime, dout);
   return cudaGetLastError();
+}
+
+template <bool Q>
+int launch_fwd(const Operands& op, const void* t_prime, const void* bias, int b, int n, int d,
+               int off, int vec, void* partials, void* out, void* stream) {
+  if (bad_shape(b, n, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = fwd_smem_floats() * sizeof(float);
+  cudaError_t err = configure(sigmoid_loss_fwd_kernel<Q>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(ceil_div(b, 16 * kFwdTM), ceil_div(n, kBN));
+  sigmoid_loss_fwd_kernel<Q><<<grid, kThreads, smem, st>>>(
+      op, static_cast<const float*>(t_prime), static_cast<const float*>(bias), b, n, d, off, vec,
+      static_cast<float*>(partials));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sigmoid_loss_reduce_kernel<<<1, kReduceThreads, 0, st>>>(
+      static_cast<const float*>(partials), (int)ceil_div(b, 16 * kFwdTM) * ceil_div(n, kBN),
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <bool Q>
+int launch_bwd_img(const Operands& op, const void* t_prime, const void* bias, const void* g,
+                   int b, int n, int d, int off, int vec, void* dzimg, void* scratch, void* out2,
+                   void* stream) {
+  if (bad_shape(b, n, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  cudaError_t err = launch_bwd<false, Q>(
+      op, static_cast<const float*>(t_prime), static_cast<const float*>(bias),
+      static_cast<const float*>(g), b, n, d, off, vec, static_cast<float*>(dzimg), sc, st);
+  if (err != cudaSuccess) return (int)err;
+  int split_tiles = 0;
+  const int splits = bwd_splits(b, n, d, &split_tiles);
+  const float* partials = sc + (splits > 1 ? (size_t)splits * b * d : 0);
+  sigmoid_loss_reduce_kernel<<<2, kReduceThreads, 0, st>>>(
+      partials, ceil_div(b, kBwdRows) * splits, static_cast<float*>(out2));
+  return (int)cudaGetLastError();
+}
+
+template <bool Q>
+int launch_bwd_txt(const Operands& op, const void* t_prime, const void* bias, const void* g,
+                   int b, int n, int d, int off, int vec, void* dztxt, void* scratch,
+                   void* stream) {
+  if (bad_shape(n, b, d)) return (int)cudaErrorInvalidValue;
+  return (int)launch_bwd<true, Q>(
+      op, static_cast<const float*>(t_prime), static_cast<const float*>(bias),
+      static_cast<const float*>(g), n, b, d, off, vec, static_cast<float*>(dztxt),
+      static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));
+}
+
+Operands f32_operands(const void* own, const void* other) {
+  return Operands{static_cast<const float*>(own), static_cast<const float*>(other), nullptr,
+                  nullptr, nullptr, nullptr};
+}
+
+// own_q/own_s and other_q/other_s: the int8 rows and scales of the logit
+// product; other: the f32 rows of K5/K6's gradient product (null for K4).
+Operands int8_operands(const void* own_q, const void* own_s, const void* other_q,
+                       const void* other_s, const void* other) {
+  return Operands{nullptr, static_cast<const float*>(other), static_cast<const int*>(own_q),
+                  static_cast<const int*>(other_q), static_cast<const float*>(own_s),
+                  static_cast<const float*>(other_s)};
+}
+
+bool bad_int8(int d, const void* a, const void* b) {
+  return d % 16 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+         reinterpret_cast<uintptr_t>(b) % 16 != 0;
 }
 
 }  // namespace
@@ -405,7 +599,8 @@ long long sigmoid_loss_fwd_partials(int b, int n) {
 
 // Scratch floats of a K5 (img = 1) or K6 (img = 0) call on the current
 // device: the splits' partial gradients when the text (K6: image) tiles are
-// split over several blocks, then K5's partials of dt′ and dbias.
+// split over several blocks, then K5's partials of dt′ and dbias. The same
+// in both modes.
 long long sigmoid_loss_bwd_scratch_floats(int n_own, int n_other, int d, int img) {
   if (n_own < 1 || n_other < 1 || d < 1) return 0;
   int split_tiles = 0;
@@ -434,22 +629,8 @@ long long sigmoid_loss_bwd_smem_bytes(int d) {
 int sigmoid_loss_fwd(const void* zimg, const void* ztxt, const void* t_prime, const void* bias,
                      int b, int n, int d, int off, int vec, void* partials, void* out,
                      void* stream) {
-  if (bad_shape(b, n, d)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = fwd_smem_floats() * sizeof(float);
-  cudaError_t err = configure(sigmoid_loss_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(ceil_div(b, 16 * kFwdTM), ceil_div(n, kBN));
-  sigmoid_loss_fwd_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(zimg), static_cast<const float*>(ztxt),
-      static_cast<const float*>(t_prime), static_cast<const float*>(bias), b, n, d, off, vec,
-      static_cast<float*>(partials));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sigmoid_loss_reduce_kernel<<<1, kReduceThreads, 0, st>>>(
-      static_cast<const float*>(partials), (int)sigmoid_loss_fwd_partials(b, n),
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(f32_operands(zimg, ztxt), t_prime, bias, b, n, d, off, vec, partials,
+                           out, stream);
 }
 
 // K5: dzimg (b, d) f32; g: the upstream gradient, one f32 on the device;
@@ -458,32 +639,47 @@ int sigmoid_loss_fwd(const void* zimg, const void* ztxt, const void* t_prime, co
 int sigmoid_loss_bwd_img(const void* zimg, const void* ztxt, const void* t_prime,
                          const void* bias, const void* g, int b, int n, int d, int off, int vec,
                          void* dzimg, void* scratch, void* out2, void* stream) {
-  if (bad_shape(b, n, d)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* sc = static_cast<float*>(scratch);
-  cudaError_t err = launch_bwd<false>(
-      static_cast<const float*>(zimg), static_cast<const float*>(ztxt),
-      static_cast<const float*>(t_prime), static_cast<const float*>(bias),
-      static_cast<const float*>(g), b, n, d, off, vec, static_cast<float*>(dzimg), sc, st);
-  if (err != cudaSuccess) return (int)err;
-  int split_tiles = 0;
-  const int splits = bwd_splits(b, n, d, &split_tiles);
-  const float* partials = sc + (splits > 1 ? (size_t)splits * b * d : 0);
-  sigmoid_loss_reduce_kernel<<<2, kReduceThreads, 0, st>>>(
-      partials, ceil_div(b, kBwdRows) * splits, static_cast<float*>(out2));
-  return (int)cudaGetLastError();
+  return launch_bwd_img<false>(f32_operands(zimg, ztxt), t_prime, bias, g, b, n, d, off, vec,
+                               dzimg, scratch, out2, stream);
 }
 
 // K6: dztxt (n, d) f32; scratch: sigmoid_loss_bwd_scratch_floats(n, b, d, 0) f32.
 int sigmoid_loss_bwd_txt(const void* zimg, const void* ztxt, const void* t_prime,
                          const void* bias, const void* g, int b, int n, int d, int off, int vec,
                          void* dztxt, void* scratch, void* stream) {
-  if (bad_shape(n, b, d)) return (int)cudaErrorInvalidValue;
-  return (int)launch_bwd<true>(
-      static_cast<const float*>(ztxt), static_cast<const float*>(zimg),
-      static_cast<const float*>(t_prime), static_cast<const float*>(bias),
-      static_cast<const float*>(g), n, b, d, off, vec, static_cast<float*>(dztxt),
-      static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));
+  return launch_bwd_txt<false>(f32_operands(ztxt, zimg), t_prime, bias, g, b, n, d, off, vec,
+                               dztxt, scratch, stream);
+}
+
+// The int8 mode of K4, K5 and K6. ziq (b, d) and ztq (n, d) int8 and zis (b),
+// zts (n) f32 scales, contiguous, d % 16 == 0, 16-byte aligned int8 rows;
+// K5 also takes the f32 text rows ztxt (n, d) and K6 the f32 image rows zimg
+// (b, d) of its gradient product. Outputs, scratch and errors as in the f32
+// mode (cudaErrorInvalidValue for a d or alignment the mode does not take).
+int sigmoid_loss_fwd_int8(const void* ziq, const void* zis, const void* ztq, const void* zts,
+                          const void* t_prime, const void* bias, int b, int n, int d, int off,
+                          void* partials, void* out, void* stream) {
+  if (bad_int8(d, ziq, ztq)) return (int)cudaErrorInvalidValue;
+  return launch_fwd<true>(int8_operands(ziq, zis, ztq, zts, nullptr), t_prime, bias, b, n, d,
+                          off, 1, partials, out, stream);
+}
+
+int sigmoid_loss_bwd_img_int8(const void* ziq, const void* zis, const void* ztq, const void* zts,
+                              const void* ztxt, const void* t_prime, const void* bias,
+                              const void* g, int b, int n, int d, int off, int vec, void* dzimg,
+                              void* scratch, void* out2, void* stream) {
+  if (bad_int8(d, ziq, ztq)) return (int)cudaErrorInvalidValue;
+  return launch_bwd_img<true>(int8_operands(ziq, zis, ztq, zts, ztxt), t_prime, bias, g, b, n,
+                              d, off, vec, dzimg, scratch, out2, stream);
+}
+
+int sigmoid_loss_bwd_txt_int8(const void* ziq, const void* zis, const void* ztq, const void* zts,
+                              const void* zimg, const void* t_prime, const void* bias,
+                              const void* g, int b, int n, int d, int off, int vec, void* dztxt,
+                              void* scratch, void* stream) {
+  if (bad_int8(d, ziq, ztq)) return (int)cudaErrorInvalidValue;
+  return launch_bwd_txt<true>(int8_operands(ztq, zts, ziq, zis, zimg), t_prime, bias, g, b, n,
+                              d, off, vec, dztxt, scratch, stream);
 }
 
 // Resident blocks per SM of K4 (which = 0) or K5/K6 (which = 1) at width d
@@ -494,16 +690,16 @@ int sigmoid_loss_occupancy(int d, int which) {
   cudaError_t err;
   if (which == 0) {
     const size_t smem = fwd_smem_floats() * sizeof(float);
-    err = configure(sigmoid_loss_fwd_kernel, smem);
+    err = configure(sigmoid_loss_fwd_kernel<false>, smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sigmoid_loss_fwd_kernel,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sigmoid_loss_fwd_kernel<false>,
                                                           kThreads, smem);
   } else {
     const size_t smem = bwd_smem_floats(d) * sizeof(float);
-    err = configure(sigmoid_loss_bwd_kernel<false>, smem);
+    err = configure(sigmoid_loss_bwd_kernel<false, false>, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, sigmoid_loss_bwd_kernel<false>, kThreads, smem);
+          &blocks, sigmoid_loss_bwd_kernel<false, false>, kThreads, smem);
   }
   return err == cudaSuccess ? blocks : 0;
 }

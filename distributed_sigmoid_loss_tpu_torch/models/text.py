@@ -13,7 +13,11 @@ from distributed_sigmoid_loss_tpu_torch.models.transformer import (
     MapHead,
     dtype_of,
 )
-from distributed_sigmoid_loss_tpu_torch.utils.config import TextConfig, check_supported
+from distributed_sigmoid_loss_tpu_torch.utils.config import (
+    TextConfig,
+    check_supported,
+    tower_quant_mode,
+)
 from distributed_sigmoid_loss_tpu_torch.utils.device import resolve_device
 
 __all__ = ["TextTransformer"]
@@ -37,7 +41,8 @@ class TextTransformer(nn.Module):
             self.pos_embed.data.normal_(0.0, 0.02, generator=generator)
         self.encoder = Encoder(cfg.width, cfg.depth, cfg.num_heads, cfg.mlp_ratio, dtype,
                                attn_impl=cfg.attn_impl, causal=cfg.causal, remat=cfg.remat,
-                               remat_policy=cfg.remat_policy, **kw)
+                               remat_policy=cfg.remat_policy, quant=tower_quant_mode(cfg),
+                               **kw)
         if cfg.pool == "map":
             self.map_head = MapHead(cfg.width, cfg.num_heads, cfg.mlp_ratio, dtype, **kw)
         self.proj = Dense(cfg.width, cfg.embed_dim, dtype, init="lecun", **kw)

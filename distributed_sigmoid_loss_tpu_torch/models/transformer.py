@@ -6,6 +6,13 @@
 - ``LayerNorm`` takes its statistics in f32 with eps 1e-6 and flax's fast
   variance ``E[x²] − E[x]²``, then casts back to the activation dtype.
 - The MLP uses the tanh approximation of GELU.
+- ``quant`` (from ``utils.config.tower_quant_mode``) swaps the dot of the
+  blocks' projections (attention q, k, v, out and MLP wi, wo; not the MAP
+  head's nor the towers' ``proj``, as in JAX) for the dynamic int8 product of
+  ``ops/quant.py``: ``"int8"`` for inference, ``"int8_ste"`` for training
+  through the straight-through estimator. As flax's ``Dense`` casts the
+  kernel to the layer dtype before its dot, the int8 path quantizes the cast
+  weight and adds the bias after the cast to the output dtype.
 - ``Attention`` keeps the JAX dispatch: for bf16 self-attention on a CUDA
   device the fused short-attention kernel (K1) where it fits and the flash
   kernel (K7) otherwise; dense attention for f32 and for cross-attention.
@@ -21,7 +28,9 @@
   output and row statistics are both kept; the dense core of the f32 towers
   is recomputed), and the other names tag the ops run inside
   :func:`checkpoint_name`. Under ``save_hot`` the backward never launches the
-  attention forward again.
+  attention forward again. An int8 projection is one custom op
+  (``quant.int8_linear``), so ``mlp_hidden`` keeps wi's output, as JAX's
+  policy does, and not its quantization intermediates.
 
 ``scan_layers`` only shapes the JAX parameter layout; the port always runs a
 plain loop over ``blocks``.
@@ -43,7 +52,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from distributed_sigmoid_loss_tpu_torch.ops import flash_attention, short_attention
+from distributed_sigmoid_loss_tpu_torch.ops import flash_attention, quant, short_attention
 from distributed_sigmoid_loss_tpu_torch.parallel import ring_attention
 
 __all__ = [
@@ -108,14 +117,19 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator) -> None:
 
 class Dense(nn.Module):
     """``y = x @ Wᵀ + b`` with f32 parameters cast to ``dtype`` per call.
-    ``weight`` is (out, in), the transpose of a flax kernel. Here and in the
-    other modules, ``generator=None`` leaves the weights uninitialized, for a
-    state dict to be loaded or the ``meta`` device."""
+    ``weight`` is (out, in), the transpose of a flax kernel. ``quant``:
+    ``""`` (full precision), ``"int8"`` or ``"int8_ste"`` (the int8 product
+    of ``ops/quant.py``, for inference or through the straight-through
+    estimator). Here and in the other modules, ``generator=None`` leaves the
+    weights uninitialized, for a state dict to be loaded or the ``meta``
+    device."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, *, init: str = "xavier",
-                 device=None, generator=None):
+                 quant: str = "", device=None, generator=None):
         super().__init__()
-        self.dtype = dtype
+        if quant not in ("", "int8", "int8_ste"):
+            raise ValueError(f"unknown quant mode: {quant!r}")
+        self.dtype, self.quant = dtype, quant
         self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device))
         if generator is not None:
@@ -126,7 +140,12 @@ class Dense(nn.Module):
                 lecun_normal_(w, d_in, generator)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+        x, w, b = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.quant == "int8_ste":
+            return quant.Int8DenseSTE.apply(x, w, b)
+        if self.quant:
+            return quant.int8_linear(x, w, b)
+        return F.linear(x, w, b)
 
 
 class LayerNorm(nn.Module):
@@ -149,12 +168,14 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, width: int, mlp_ratio, dtype, *, device=None, generator=None):
+    def __init__(self, width: int, mlp_ratio, dtype, *, quant: str = "", device=None,
+                 generator=None):
         super().__init__()
         # A fractional ratio (HF so400m: 4304/1152) rounds back to the integer.
         hidden = int(round(width * mlp_ratio))
-        self.wi = Dense(width, hidden, dtype, device=device, generator=generator)
-        self.wo = Dense(hidden, width, dtype, device=device, generator=generator)
+        kw = dict(quant=quant, device=device, generator=generator)
+        self.wi = Dense(width, hidden, dtype, **kw)
+        self.wo = Dense(hidden, width, dtype, **kw)
 
     def forward(self, x):
         with checkpoint_name("mlp_hidden"):
@@ -172,11 +193,11 @@ class Attention(nn.Module):
     """
 
     def __init__(self, width: int, num_heads: int, dtype, *, attn_impl: str = "auto",
-                 causal: bool = False, device=None, generator=None):
+                 causal: bool = False, quant: str = "", device=None, generator=None):
         super().__init__()
         self.width, self.num_heads, self.dtype = width, num_heads, dtype
         self.attn_impl, self.causal = attn_impl, causal
-        kw = dict(device=device, generator=generator)
+        kw = dict(quant=quant, device=device, generator=generator)
         self.q = Dense(width, width, dtype, **kw)
         self.k = Dense(width, width, dtype, **kw)
         self.v = Dense(width, width, dtype, **kw)
@@ -229,9 +250,9 @@ class Block(nn.Module):
     """Pre-LN transformer block."""
 
     def __init__(self, width: int, num_heads: int, mlp_ratio, dtype, *, attn_impl="auto",
-                 causal=False, device=None, generator=None):
+                 causal=False, quant: str = "", device=None, generator=None):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(quant=quant, device=device, generator=generator)
         self.ln1 = LayerNorm(width, dtype, device=device)
         self.attn = Attention(width, num_heads, dtype, attn_impl=attn_impl, causal=causal, **kw)
         self.ln2 = LayerNorm(width, dtype, device=device)
@@ -249,7 +270,7 @@ class Encoder(nn.Module):
 
     def __init__(self, width: int, depth: int, num_heads: int, mlp_ratio, dtype, *,
                  attn_impl="auto", causal=False, remat: bool = False,
-                 remat_policy: str = "nothing", device=None, generator=None):
+                 remat_policy: str = "nothing", quant: str = "", device=None, generator=None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy: {remat_policy!r}")
@@ -262,7 +283,7 @@ class Encoder(nn.Module):
             )
         self.blocks = nn.ModuleList(
             Block(width, num_heads, mlp_ratio, dtype, attn_impl=attn_impl, causal=causal,
-                  device=device, generator=generator)
+                  quant=quant, device=device, generator=generator)
             for _ in range(depth)
         )
         self.ln_final = LayerNorm(width, dtype, device=device)

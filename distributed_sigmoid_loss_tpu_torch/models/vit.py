@@ -12,7 +12,11 @@ from distributed_sigmoid_loss_tpu_torch.models.transformer import (
     dtype_of,
     lecun_normal_,
 )
-from distributed_sigmoid_loss_tpu_torch.utils.config import ViTConfig, check_supported
+from distributed_sigmoid_loss_tpu_torch.utils.config import (
+    ViTConfig,
+    check_supported,
+    tower_quant_mode,
+)
 from distributed_sigmoid_loss_tpu_torch.utils.device import resolve_device
 
 __all__ = ["PatchEmbed", "ViT"]
@@ -68,7 +72,8 @@ class ViT(nn.Module):
             self.pos_embed.data.normal_(0.0, 0.02, generator=generator)
         self.encoder = Encoder(cfg.width, cfg.depth, cfg.num_heads, cfg.mlp_ratio, dtype,
                                attn_impl=cfg.attn_impl, remat=cfg.remat,
-                               remat_policy=cfg.remat_policy, **kw)
+                               remat_policy=cfg.remat_policy, quant=tower_quant_mode(cfg),
+                               **kw)
         if cfg.pool == "map":
             self.map_head = MapHead(cfg.width, cfg.num_heads, cfg.mlp_ratio, dtype, **kw)
         if cfg.use_proj:

@@ -34,6 +34,7 @@ SOURCES = {
     "sigmoid_loss": "sigmoid_loss.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "attention_f32": "attention_f32.cu",
 }
 
 _NVCC_FLAGS = [

@@ -1,0 +1,158 @@
+"""The f32 attention kernels (``csrc/attention_f32.cu``): one forward and one
+two-pass backward in IEEE f32 that play, for f32 activations, the roles of
+K1, K2, K3 and K7.
+
+In f32 nothing is rounded to a narrower type between the products, so JAX's
+K1 and K7 compute one function and K2, K3 and K7's backward another (the
+source's header gives both). ``ops/short_attention.py`` and
+``ops/flash_attention.py`` call these launchers for f32 CUDA tensors where
+JAX runs those kernels in f32, and count each call under the role it
+plays there; the plain version of each role is that module's own plain
+function run in f32. :func:`launches` counts each kernel here at its own
+launch, whatever the role: the K2/K3 role runs the forward again (for the
+output and statistics it did not save) before its two passes. Nothing here
+falls back: a tensor the kernels do not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from distributed_sigmoid_loss_tpu_torch.ops import _cuda
+
+__all__ = ["launch_fwd", "launch_bwd_dkv", "launch_bwd_dq", "check_cuda", "smem_bytes",
+           "launches", "reset_launches", "MAX_HEAD_DIM"]
+
+MAX_HEAD_DIM = 128
+
+_count_lock = threading.Lock()
+_launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+
+
+def launches() -> dict[str, int]:
+    """Launches of each f32 kernel since :func:`reset_launches`: ``fwd``,
+    ``bwd_dkv`` (the di pass and the dK/dV kernel, one call) and ``bwd_dq``."""
+    with _count_lock:
+        return dict(_launches)
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        _launches.update(fwd=0, bwd_dkv=0, bwd_dq=0)
+
+
+def _count(kernel: str) -> None:
+    with _count_lock:
+        _launches[kernel] += 1
+
+
+def _library() -> ctypes.CDLL:
+    lib = _cuda.load("attention_f32")
+    if getattr(lib, "_typed", False):
+        return lib
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.attention_f32_fwd.argtypes = [p] * 5 + [i, i, i, i, f, i, p]
+    lib.attention_f32_fwd.restype = i
+    lib.attention_f32_bwd_dkv.argtypes = [p] * 9 + [i, i, i, i, f, i, p]
+    lib.attention_f32_bwd_dkv.restype = i
+    lib.attention_f32_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, f, i, p]
+    lib.attention_f32_bwd_dq.restype = i
+    lib.attention_f32_smem_bytes.argtypes = [i, i]
+    lib.attention_f32_smem_bytes.restype = ctypes.c_longlong
+    lib.attention_f32_error_string.argtypes = [i]
+    lib.attention_f32_error_string.restype = ctypes.c_char_p
+    lib._typed = True
+    return lib
+
+
+def smem_bytes(head_dim: int, which: int) -> int:
+    """Dynamic shared memory of one block of the forward (``which`` 0),
+    dK/dV (1) or dQ (2): transposed 64-row f32 tiles at row stride 65, each
+    ``round16(head_dim)`` columns. Mirrors ``attention_f32_smem_bytes``."""
+    tile = -(-head_dim // 16) * 16 * 65
+    floats = (3 * tile + 64 * 65, 4 * tile + 2 * 64 * 65 + 3 * 64, 4 * tile + 64 * 65)[which]
+    return 4 * floats
+
+
+def check_cuda(fn: str, q, others) -> None:
+    """What the kernels take: CUDA f32 tensors of one shape and device,
+    contiguous, head dim at most :data:`MAX_HEAD_DIM`."""
+    for name, t in others:
+        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(
+                f"{fn}: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                f"differs from q {tuple(q.shape)} {q.dtype} on {q.device}"
+            )
+    if not q.is_cuda or q.dtype != torch.float32:
+        raise ValueError(f"{fn}: the f32 kernels take float32 CUDA tensors, got {q.dtype} "
+                         f"on {q.device}")
+    if not q.is_contiguous() or not all(t.is_contiguous() for _, t in others):
+        raise ValueError(f"{fn} kernel takes contiguous tensors")
+    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+        raise ValueError(f"{fn}: head_dim={q.shape[-1]}; the f32 kernels take 1 to "
+                         f"{MAX_HEAD_DIM}")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.attention_f32_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_fwd(q, k, v, causal: bool, scale: float, with_stats: bool):
+    """The forward on checked tensors → ``(out, stats)``: out (b, s, h, dh);
+    stats (b, h, 2, s) f32, the row maxima then the row sums, or None."""
+    b, s, h, dh = q.shape
+    out = torch.empty_like(q)
+    stats = torch.empty((b, h, 2, s), dtype=torch.float32, device=q.device) if with_stats \
+        else None
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.attention_f32_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            stats.data_ptr() if with_stats else None, b, s, h, dh, float(scale),
+            int(bool(causal)), _stream(q),
+        )
+    _raise_on(lib, err, "attention_f32_fwd")
+    _count("fwd")
+    return out, stats
+
+
+def launch_bwd_dkv(q, k, v, out, do, stats, causal: bool, scale: float):
+    """The di pass and the dK/dV kernel → ``(dk, dv, di)``."""
+    b, s, h, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.attention_f32_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            stats.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, dh, float(scale), int(bool(causal)), _stream(q),
+        )
+    _raise_on(lib, err, "attention_f32_bwd_dkv")
+    _count("bwd_dkv")
+    return dk, dv, di
+
+
+def launch_bwd_dq(q, k, v, do, stats, di, causal: bool, scale: float):
+    """The dQ kernel → dq."""
+    b, s, h, dh = q.shape
+    dq = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.attention_f32_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), b, s, h, dh, float(scale), int(bool(causal)),
+            _stream(q),
+        )
+    _raise_on(lib, err, "attention_f32_bwd_dq")
+    _count("bwd_dq")
+    return dq

@@ -44,7 +44,10 @@ JAX does. Selective checkpointing keeps both outputs under ``save_hot``
 On CPU tensors :func:`flash_self_attention` runs the plain forward and, in
 the backward, the plain backward. On CUDA tensors it launches the kernels
 or raises: bf16, contiguous, a head dim that is a multiple of 8 up to
-:data:`MAX_HEAD_DIM` (``ValueError`` otherwise, on either device).
+:data:`MAX_HEAD_DIM` (``ValueError`` otherwise, on either device). f32 CUDA
+tensors run the f32 kernels of ``ops/attention_f32.py`` in K7's role (their
+forward with the row statistics, then their dK/dV and dQ passes), counted
+by :func:`launches` as K7's.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ import threading
 
 import torch
 
-from distributed_sigmoid_loss_tpu_torch.ops import _cuda
+from distributed_sigmoid_loss_tpu_torch.ops import _cuda, attention_f32
 from distributed_sigmoid_loss_tpu_torch.ops.short_attention import _resolve_scale, _vec
 
 __all__ = [
@@ -306,8 +309,13 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _check_cuda(fn: str, q, others) -> None:
-    """What the kernels take: CUDA, one shape, device and dtype (bf16),
-    contiguous, a head dim that is a multiple of 8 up to 128."""
+    """What the kernels take: CUDA, one shape, device and dtype (bf16; f32
+    goes to ``attention_f32``), contiguous, a head dim that is a multiple of
+    8 up to 128."""
+    if q.dtype == torch.float32:
+        attention_f32.check_cuda(fn, q, others)
+        _check_head_dim(fn, q.shape[-1])
+        return
     if not q.is_cuda:
         raise ValueError(f"{fn}: unsupported device {q.device}")
     for name, t in others:
@@ -397,6 +405,10 @@ def _forward(q, k, v, causal: bool, scale: float):
     if q.device.type == "cpu":
         return flash_self_attention_plain(q, k, v, causal, scale)
     _check_cuda("flash_self_attention", q, (("k", k), ("v", v)))
+    if q.dtype == torch.float32:
+        out, stats = attention_f32.launch_fwd(q, k, v, causal, scale, with_stats=True)
+        _count("fwd")
+        return out, stats
     return _launch_fwd(q, k, v, causal, scale)
 
 
@@ -422,6 +434,12 @@ def flash_self_attention_bwd(q, k, v, out, do, stats, causal: bool = False,
     do = do.contiguous()
     _check_cuda("flash_self_attention_bwd", q, (("k", k), ("v", v), ("out", out), ("do", do)))
     _check_stats("flash_self_attention_bwd", q, stats)
+    if q.dtype == torch.float32:
+        dk, dv, di = attention_f32.launch_bwd_dkv(q, k, v, out, do, stats, causal, scale)
+        _count("bwd_dkv")
+        dq = attention_f32.launch_bwd_dq(q, k, v, do, stats, di, causal, scale)
+        _count("bwd_dq")
+        return dq, dk, dv
     dk, dv, di = _launch_bwd_dkv(q, k, v, out, do, stats, causal, scale)
     dq = _launch_bwd_dq(q, k, v, do, stats, di, causal, scale)
     return dq, dk, dv
@@ -453,8 +471,8 @@ def flash_self_attention(q, k, v, *, causal: bool = False, scale: float | None =
     under autograd.
 
     CPU tensors run :func:`flash_self_attention_plain` at JAX's blocks. CUDA
-    tensors must be contiguous bf16 of one shape; they run the kernels, or
-    this raises. A head dim that is not a multiple of 8 up to
+    tensors must be contiguous bf16 or f32 of one shape; they run the
+    kernels, or this raises. A head dim that is not a multiple of 8 up to
     :data:`MAX_HEAD_DIM` raises ``ValueError`` on either device. A call that
     needs no gradient (serving) skips the autograd node and the custom op's
     dispatch.

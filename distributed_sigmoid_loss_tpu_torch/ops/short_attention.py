@@ -21,12 +21,22 @@ Replaces the Pallas TPU kernels of
   issued once. Kernel: ``csrc/short_attention_bwd_batched.cu``, one launch
   per backward call, one block per (batch row, head). Selected by
   :func:`set_bwd_batch_heads` (default off, as in JAX) or ``batch_heads=``;
-  it takes s <= 208 (:func:`short_attention_bwd_batched_fits`) and raises
-  ``ValueError`` beyond, with no fallback to K2.
+  it takes what JAX's K3 takes where the card's shared memory holds it
+  (:func:`short_attention_bwd_batched_fits`: s <= 250 at width 768 / 12
+  heads, 212 at 1,024 / 16, 208 at 1,152 / 16) and raises ``ValueError``
+  beyond, with no fallback to K2.
 
 All three are memory-bound on an H100 (the sources' header notes give the
 reckoning). Self-attention too long for them goes to the flash kernel, K7
 (``ops/flash_attention.py``).
+
+f32 activations take JAX's f32 fit (:func:`short_attention_fits` and
+:func:`short_attention_bwd_batched_fits` at ``dtype_bytes=4``) and, on the
+card, the f32 kernels of ``ops/attention_f32.py``: their forward in the K1
+role, their backward in the K2 or K3 role (after a forward for the output
+and row statistics, since this autograd node saves only q, k and v), counted
+by :func:`launches`, :func:`bwd_launches` and :func:`bwd_batched_launches`
+as those roles.
 
 The forward is registered as the custom op ``dsl_torch_port::short_attention_fwd``
 (:data:`ATTN_CORE_OP`), so selective activation checkpointing can recognise
@@ -45,7 +55,7 @@ import threading
 
 import torch
 
-from distributed_sigmoid_loss_tpu_torch.ops import _cuda
+from distributed_sigmoid_loss_tpu_torch.ops import _cuda, attention_f32
 
 __all__ = [
     "short_self_attention",
@@ -64,6 +74,7 @@ __all__ = [
     "traced_bwd_batch_heads",
     "reset_traced_bwd_batch_heads",
     "SMEM_BUDGET_BYTES",
+    "SHORT_ATTENTION_MAX_SEQ",
     "MAX_HEAD_DIM",
     "launches",
     "bwd_launches",
@@ -79,11 +90,14 @@ SMEM_BUDGET_BYTES = 227 * 1024
 MAX_HEAD_DIM = 128
 
 _WARPS, _ROWS_PER_WARP = 4, 16
-# K3 keeps the logits of a warp's 16 query rows in registers: 13 key tiles.
-K3_MAX_SEQ = 208
+
+# JAX's fit of the fused kernels (ops/pallas_short_attention.py): a sequence
+# envelope and a VMEM budget, 70% of 16 MiB.
+SHORT_ATTENTION_MAX_SEQ = 1024
+_VMEM_BUDGET_BYTES = 16 * 1024 * 1024 * 0.7
 
 _count_lock = threading.Lock()
-_launches = {"fwd": 0, "bwd": 0, "bwd_batched": 0}
+_launches = {"fwd": 0, "bwd": 0, "bwd_batched": 0, "bwd_batched_in_place": 0}
 
 # The process default for ``batch_heads=None`` call sites (the towers):
 # False = the per-head backward K2, True = the head-batched K3.
@@ -110,9 +124,15 @@ def bwd_batched_launches() -> int:
     return _launches["bwd_batched"]
 
 
+def bwd_batched_in_place_launches() -> int:
+    """Those of the K3 launches since the last :func:`reset_launches` that
+    ran its in-place kernel (s_pad > 208, see :func:`_k3_variant`)."""
+    return _launches["bwd_batched_in_place"]
+
+
 def reset_launches() -> None:
     with _count_lock:
-        _launches.update(fwd=0, bwd=0, bwd_batched=0)
+        _launches.update(fwd=0, bwd=0, bwd_batched=0, bwd_batched_in_place=0)
 
 
 def _count(kernel: str) -> None:
@@ -171,39 +191,64 @@ def short_attention_bwd_smem_bytes(s: int, head_dim: int) -> int:
     return 2 * s_pad * ld_kv * 2 + _WARPS * warp + 3 * s_pad * 4
 
 
-def short_attention_bwd_batched_smem_bytes(s: int, head_dim: int) -> int:
-    """Dynamic shared memory of one K3 block: bf16(p) and ds of the head,
-    (s_pad × s_pad) bf16 each, and two of its (s_pad × head_dim_pad) operands
-    in bf16 (rows padded to 16). Mirrors ``geometry()`` in
-    ``short_attention_bwd_batched.cu``."""
+def _k3_variant(s: int, head_dim: int) -> tuple[int, int]:
+    """(variant, bytes) of the K3 kernel this bf16 shape takes, mirroring
+    ``variant()`` in ``short_attention_bwd_batched.cu``: 1 = the two-array
+    kernel (s_pad <= 208: bf16(p) and ds, (s_pad × s_pad) each, and two
+    (s_pad × dh_pad) operands), 2 = the in-place kernel (s_pad in [144,
+    256]: one (s_pad × s_pad) array, three operands and three f32 row
+    statistics), 0 = none; bytes of dynamic shared memory, 0 for none."""
+    if s < 1 or not 1 <= head_dim <= MAX_HEAD_DIM:
+        return 0, 0
     s_pad, dh_pad = _round_up(s, 16), _round_up(head_dim, 16)
-    return 2 * s_pad * s_pad * 2 + 2 * s_pad * dh_pad * 2
+    two = 2 * s_pad * s_pad * 2 + 2 * s_pad * dh_pad * 2
+    if s_pad <= 208 and two <= SMEM_BUDGET_BYTES:
+        return 1, two
+    one = s_pad * s_pad * 2 + 3 * s_pad * dh_pad * 2 + 3 * s_pad * 4
+    if 144 <= s_pad <= 256 and one <= SMEM_BUDGET_BYTES:
+        return 2, one
+    return 0, 0
+
+
+def short_attention_bwd_batched_smem_bytes(s: int, head_dim: int) -> int:
+    """Dynamic shared memory of one K3 block at this bf16 shape (0 where no
+    variant of the kernel takes it). Mirrors
+    ``short_attention_bwd_batched_smem_bytes`` in the source."""
+    return _k3_variant(s, head_dim)[1]
 
 
 def short_attention_bwd_batched_fits(s: int, width: int, num_heads: int,
                                      dtype_bytes: int) -> bool:
-    """Whether K3 takes this shape: head_dim at most :data:`MAX_HEAD_DIM`,
-    s at most :data:`K3_MAX_SEQ` and one block within the 227 KB Hopper
-    budget. The kernel holds its operands in bf16 whatever the caller's
-    dtype, so ``dtype_bytes`` (kept for the JAX signature) does not enter;
-    a CUDA tensor of another dtype is refused by the kernels' dtype check.
-    B/16 fits (s=196 and 64 at dh=64: 226,304 and 32,768 bytes); L/14's
-    s=256 does not."""
-    del dtype_bytes
+    """Whether K3 takes this shape: JAX's VMEM predicate (the seven (s,
+    width) blocks in ``dtype_bytes`` plus three f32 (s, s) chains per head
+    within 70% of 16 MiB) and the card's own fit: in bf16 a variant of the
+    K3 kernel (:func:`short_attention_bwd_batched_smem_bytes`), in f32 the
+    f32 kernels' head dim. JAX's predicate decides at B/16 and at the three
+    widths of JAX's limits (s <= 250 at 768 / 12 heads, 212 at 1,024 / 16,
+    208 at 1,152 / 16); L/14's s = 256 is refused by both."""
     head_dim = width // num_heads
-    return (
-        head_dim <= MAX_HEAD_DIM
-        and s <= K3_MAX_SEQ
-        and short_attention_bwd_batched_smem_bytes(s, head_dim) <= SMEM_BUDGET_BYTES
-    )
+    jax_fits = (7 * s * width * dtype_bytes + 3 * num_heads * s * s * 4
+                <= _VMEM_BUDGET_BYTES)
+    if dtype_bytes == 4:
+        return jax_fits and 1 <= head_dim <= attention_f32.MAX_HEAD_DIM
+    return jax_fits and _k3_variant(s, head_dim)[0] != 0
 
 
 def short_attention_fits(s: int, width: int, dtype_bytes: int, num_heads: int) -> bool:
-    """True when the kernels take this shape: bf16 activations, head_dim at
-    most :data:`MAX_HEAD_DIM`, and one block of the forward and of the
-    backward within the 227 KB Hopper budget. B/16 (s=196 and 64, dh=64) and
-    L/14 (s=256) fit; s=1024 at dh=64 does not."""
+    """True when the fused short kernel takes this shape. bf16: head_dim at
+    most :data:`MAX_HEAD_DIM` and one block of K1 and of K2 within the 227
+    KB Hopper budget (B/16's s=196 and 64 and L/14's s=256 fit; s=1024 at
+    dh=64 does not: K7 takes it). f32: JAX's own predicate (s <= 1,024 and
+    the backward's seven (s, width) blocks plus three f32 (s, s) chains
+    within its VMEM budget), since the f32 kernels tile the sequence and take
+    every length; head_dim at most 128."""
     head_dim = width // num_heads
+    if dtype_bytes == 4:
+        return (
+            s <= SHORT_ATTENTION_MAX_SEQ
+            and 7 * s * width * 4 + 3 * s * s * 4 <= _VMEM_BUDGET_BYTES
+            and 1 <= head_dim <= attention_f32.MAX_HEAD_DIM
+        )
     return (
         dtype_bytes == 2
         and head_dim <= MAX_HEAD_DIM
@@ -308,6 +353,8 @@ def _library(name: str) -> ctypes.CDLL:
         lib.short_attention_bwd_batched.restype = i
         lib.short_attention_bwd_batched_smem_bytes.argtypes = [i, i]
         lib.short_attention_bwd_batched_smem_bytes.restype = ctypes.c_longlong
+        lib.short_attention_bwd_batched_variant.argtypes = [i, i]
+        lib.short_attention_bwd_batched_variant.restype = i
         lib.short_attention_bwd_batched_occupancy.argtypes = [i, i]
         lib.short_attention_bwd_batched_occupancy.restype = i
         lib.short_attention_bwd_batched_error_string.argtypes = [i]
@@ -326,8 +373,15 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _check_cuda(fn: str, q, others) -> None:
-    """What the kernels take: CUDA, one shape, device and dtype (bf16),
-    contiguous, a shape that :func:`short_attention_fits`."""
+    """What the kernels take: CUDA, one shape, device and dtype (bf16; f32
+    goes to ``attention_f32``), contiguous, a shape that
+    :func:`short_attention_fits`."""
+    if q.dtype == torch.float32:
+        attention_f32.check_cuda(fn, q, others)
+        b, s, h, dh = q.shape
+        if not short_attention_fits(s, h * dh, 4, h):
+            raise ValueError(f"{fn}: s={s}, h={h}, dh={dh} does not fit the kernel in f32")
+        return
     if not q.is_cuda:
         raise ValueError(f"{fn}: unsupported device {q.device}")
     for name, t in others:
@@ -408,6 +462,8 @@ def _launch_bwd_batched(q, k, v, do, causal: bool, scale: float):
         msg = lib.short_attention_bwd_batched_error_string(err).decode()
         raise RuntimeError(f"short_attention_bwd_batched launch failed: CUDA error {err} ({msg})")
     _count("bwd_batched")
+    if _k3_variant(s, dh)[0] == 2:
+        _count("bwd_batched_in_place")
     return dq, dk, dv
 
 
@@ -417,6 +473,10 @@ def _forward(q, k, v, causal: bool, scale: float):
     if q.device.type == "cpu":
         return short_self_attention_plain(q, k, v, causal, scale)
     _check_cuda("short_self_attention", q, (("k", k), ("v", v)))
+    if q.dtype == torch.float32:
+        out, _ = attention_f32.launch_fwd(q, k, v, causal, scale, with_stats=False)
+        _count("fwd")
+        return out
     return _launch_fwd(q, k, v, causal, scale)
 
 
@@ -440,8 +500,8 @@ def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | N
     :func:`short_attention_bwd_batched_fits` is false, as JAX does.
 
     CPU tensors run the plain version of the chosen kernel. CUDA tensors must
-    be bf16 of one shape that :func:`short_attention_fits`; they run the
-    kernel, or this raises.
+    be bf16 or f32 of one shape that :func:`short_attention_fits`; they run
+    the kernel (f32: the f32 backward in the chosen role), or this raises.
     """
     scale = _resolve_scale(q, scale)
     batch_heads = _DEFAULT_BATCH_HEADS if batch_heads is None else bool(batch_heads)
@@ -458,6 +518,14 @@ def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | N
         return short_self_attention_bwd_plain(q, k, v, do, causal, scale)
     do = do.contiguous()
     _check_cuda("short_self_attention_bwd", q, (("k", k), ("v", v), ("do", do)))
+    if q.dtype == torch.float32:
+        # The f32 backward reads the output and row statistics, which this
+        # node did not save: one forward for them, then the two passes.
+        out, stats = attention_f32.launch_fwd(q, k, v, causal, scale, with_stats=True)
+        dk, dv, di = attention_f32.launch_bwd_dkv(q, k, v, out, do, stats, causal, scale)
+        dq = attention_f32.launch_bwd_dq(q, k, v, do, stats, di, causal, scale)
+        _count("bwd_batched" if batch_heads else "bwd")
+        return dq, dk, dv
     if batch_heads:
         return _launch_bwd_batched(q, k, v, do, causal, scale)
     return _launch_bwd(q, k, v, do, causal, scale)
@@ -492,7 +560,7 @@ def short_self_attention(q, k, v, causal: bool = False, scale: float | None = No
 
     CPU tensors run :func:`short_self_attention_plain` (and, backward,
     :func:`short_self_attention_bwd_plain`). CUDA tensors must be contiguous
-    bf16 of one shape that :func:`short_attention_fits`; they run the
+    bf16 or f32 of one shape that :func:`short_attention_fits`; they run the
     kernels, or this raises. A call that needs no gradient (serving) skips
     the autograd node and the custom op's dispatch, whose host time would
     exceed K1's own at the text tower's shape.

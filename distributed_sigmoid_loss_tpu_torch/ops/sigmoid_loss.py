@@ -35,7 +35,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from distributed_sigmoid_loss_tpu_torch.ops.streaming_sigmoid_loss import (
-    INT8_ROADMAP_ROW,
     NEGATIVE_ONLY_OFFSET,
     streaming_block_loss_or_none,
 )
@@ -139,23 +138,15 @@ def sigmoid_loss_chunk_scan(zimg, txt_chunks, t_prime, bias, *, positive_chunk,
     by ``n_img``.
 
     ``use_pallas=True`` makes the streaming loss kernel the chunk body, at
-    offset 0 on ``positive_chunk`` and ``NEGATIVE_ONLY_OFFSET`` elsewhere. It
-    holds no logits and its backward recomputes them, so the body is not
-    checkpointed: one K4, K5 and K6 call per chunk. ``quant="int8"`` (the
-    int8 kernel) is not ported and raises.
+    offset 0 on ``positive_chunk`` and ``NEGATIVE_ONLY_OFFSET`` elsewhere, in
+    f32 or (``quant="int8"``) the int8 mode. It holds no logits and its
+    backward recomputes them, so the body is not checkpointed: one K4, K5 and
+    K6 call per chunk. A chunk the kernel's dispatch refuses
+    (``pallas_compatible``) takes the plain checkpointed body at
+    ``precision``, as in JAX.
     """
-    if quant:
-        raise NotImplementedError(f"quant={quant!r} in the chunk scan: {INT8_ROADMAP_ROW}")
     n_img = zimg.shape[0]
     positive_chunk = int(positive_chunk)
-    if use_pallas:
-        acc = torch.zeros((), dtype=torch.float32, device=zimg.device)
-        for k in range(txt_chunks.shape[0]):
-            off = 0 if k == positive_chunk else NEGATIVE_ONLY_OFFSET
-            total = streaming_block_loss_or_none(zimg, txt_chunks[k], t_prime, bias, off,
-                                                 normalize=False)
-            acc = acc + total.float()
-        return acc / n_img
 
     def body(chunk, k: int):
         logits = pairwise_logits(zimg, chunk, t_prime, bias, precision=precision)
@@ -167,6 +158,13 @@ def sigmoid_loss_chunk_scan(zimg, txt_chunks, t_prime, bias, *, positive_chunk,
 
     acc = torch.zeros((), dtype=torch.float32, device=zimg.device)
     for k in range(txt_chunks.shape[0]):
+        if use_pallas:
+            off = 0 if k == positive_chunk else NEGATIVE_ONLY_OFFSET
+            total = streaming_block_loss_or_none(zimg, txt_chunks[k], t_prime, bias, off,
+                                                 quant=quant, normalize=False)
+            if total is not None:
+                acc = acc + total.float()
+                continue
         acc = acc + checkpoint(body, txt_chunks[k], k, use_reentrant=False)
     return acc / n_img
 

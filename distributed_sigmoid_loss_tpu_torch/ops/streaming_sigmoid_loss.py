@@ -16,12 +16,24 @@ exp(t′)``, ``raw = zimg·ztxtᵀ`` and ``logit = raw·t + bias``, labels +1 wh
 Kernels: ``csrc/sigmoid_loss.cu``. As in the JAX kernel the product is f32
 on the f32-cast embeddings whatever ``precision`` the caller's loss names,
 the backward recomputes every logit tile from the saved embeddings, and the
-gradients come back in the inputs' dtypes. The int8 variant
-(``_tile_raw_int8``) is not ported: ``quant="int8"`` raises naming its row.
+gradients come back in the inputs' dtypes.
+
+``quant="int8"`` is the int8 mode (JAX ``_tile_raw_int8``, K4 int8): each
+embedding row is quantized once per call (``ops/quant.quantize_int8``,
+axis 1) and ``raw = (f32(ziq·ztqᵀ) · zis) · zts``, the exact int32 product
+dequantized by two separately rounded multiplies. K5/K6 recompute dlogits at
+that raw (dt′ sums ``dl·raw`` at it too), but dzimg and dztxt are the
+full-precision products ``t·dl·ztxt`` and ``t·dlᵀ·zimg``: the
+straight-through contract. Its launches are counted apart from the f32 ones.
 
 On CPU tensors the functions run the plain versions. On CUDA tensors they
-launch the kernels or raise; every shape is taken (the kernels mask ragged
-b, n and d), so unlike the JAX dispatch nothing falls back to another path.
+launch the kernels or raise. :func:`streaming_block_loss_sum` takes every
+shape in f32 (the kernels mask ragged b, n and d). The dispatch the
+distributed variants call, :func:`streaming_block_loss_or_none`, is JAX's:
+a block that fails :func:`pallas_compatible` (the TPU kernel's tiling) gets
+``None`` and ``"xla"`` in :func:`traced_loss_kernels`, and the caller
+computes it with its plain block at the loss's ``precision``, as JAX's
+callers do.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from distributed_sigmoid_loss_tpu_torch.ops import _cuda
+from distributed_sigmoid_loss_tpu_torch.ops.quant import int8_product, quantize_int8
 
 __all__ = [
     "streaming_block_loss_sum",
@@ -40,6 +53,7 @@ __all__ = [
     "streaming_loss_fwd_plain",
     "streaming_loss_bwd_img_plain",
     "streaming_loss_bwd_txt_plain",
+    "pallas_compatible",
     "StreamingBlockLossSum",
     "traced_loss_kernels",
     "reset_traced_loss_kernels",
@@ -48,17 +62,18 @@ __all__ = [
     "fwd_partials",
     "bwd_smem_bytes",
     "NEGATIVE_ONLY_OFFSET",
-    "INT8_ROADMAP_ROW",
+    "DEFAULT_TILE_B",
+    "DEFAULT_TILE_N",
 ]
 
 # Positive-diagonal offset that matches no column: every label is -1 (ring
 # hops after the first, the non-positive chunks of the chunk scan).
 NEGATIVE_ONLY_OFFSET = -(2 ** 24)
 
-INT8_ROADMAP_ROW = (
-    "ROADMAP.md queue A item 6.2 (the int8 variant of the streaming loss "
-    "kernel, ops/pallas_sigmoid_loss.py:_tile_raw_int8, with ops/quant.py)"
-)
+# The TPU kernel's default tiles (JAX ops/pallas_sigmoid_loss.py), which its
+# dispatch checks a block against.
+DEFAULT_TILE_B = 128
+DEFAULT_TILE_N = 256
 
 # Mirrors of the kernels' tiling (csrc/sigmoid_loss.cu): K4's 64 × 64 tiles,
 # K5/K6's 32 owned rows, the widest slice of gradient columns one block keeps.
@@ -67,25 +82,28 @@ INT8_ROADMAP_ROW = (
 _FWD_TILE, _BWD_ROWS, _BWD_CHUNK, _MAX_SLICE, _PAD = 64, 32, 64, 1152, 4
 
 _count_lock = threading.Lock()
-_launches = {"fwd": 0, "bwd_img": 0, "bwd_txt": 0}
+_KERNELS = ("fwd", "bwd_img", "bwd_txt", "fwd_int8", "bwd_img_int8", "bwd_txt_int8")
+_launches = dict.fromkeys(_KERNELS, 0)
 
-# Every loss-kernel choice made in this process ("streaming" = the streaming
-# block ran; the port has no other choice to record).
+# Every loss-kernel choice the dispatch made in this process, as JAX records
+# them: "streaming" / "streaming_int8" when a block took the kernel, "xla"
+# when a block failed pallas_compatible and went to the caller's plain path.
 _TRACED_LOSS_KERNELS: set[str] = set()
 
 
 def launches() -> dict:
     """Kernel calls since the last :func:`reset_launches`: ``{"fwd": K4,
-    "bwd_img": K5, "bwd_txt": K6}``. One call is the kernel and the fixed-order
-    sum of its partials, counted once; plain-version calls on CPU tensors are
-    not launches."""
+    "bwd_img": K5, "bwd_txt": K6}`` in f32 and ``"fwd_int8"``,
+    ``"bwd_img_int8"``, ``"bwd_txt_int8"`` in the int8 mode. One call is the
+    kernel and the fixed-order sum of its partials, counted once;
+    plain-version calls on CPU tensors are not launches."""
     with _count_lock:
         return dict(_launches)
 
 
 def reset_launches() -> None:
     with _count_lock:
-        _launches.update(fwd=0, bwd_img=0, bwd_txt=0)
+        _launches.update(dict.fromkeys(_KERNELS, 0))
 
 
 def _count(kernel: str) -> None:
@@ -95,7 +113,9 @@ def _count(kernel: str) -> None:
 
 def traced_loss_kernels() -> tuple[str, ...]:
     """Distinct loss-kernel choices made so far, sorted: ``()`` when no
-    streaming block has run in this process, ``("streaming",)`` after."""
+    block went through :func:`streaming_block_loss_or_none`;
+    ``("streaming",)`` / ``("streaming_int8",)`` when every one took the
+    kernel; a tuple holding ``"xla"`` when a block's shape fell back."""
     return tuple(sorted(_TRACED_LOSS_KERNELS))
 
 
@@ -106,6 +126,16 @@ def reset_traced_loss_kernels() -> None:
 
 def _ceil_div(x: int, m: int) -> int:
     return -(-x // m)
+
+
+def pallas_compatible(b: int, n: int, d: int, tile_b: int = DEFAULT_TILE_B,
+                      tile_n: int = DEFAULT_TILE_N, quant: bool = False) -> bool:
+    """The TPU kernel's tiling constraints (JAX ``pallas_compatible``): tiles
+    clamped to the block must divide it, ``d % 128 == 0``, and the tiles be
+    a multiple of 8 rows in f32, 32 in int8."""
+    tb, tn = min(tile_b, b), min(tile_n, n)
+    sub = 32 if quant else 8
+    return b % tb == 0 and n % tn == 0 and d % 128 == 0 and tb % sub == 0 and tn % sub == 0
 
 
 def fwd_partials(b: int, n: int) -> int:
@@ -135,11 +165,22 @@ def _check_ieee(t: torch.Tensor) -> None:
         )
 
 
-def _logits(zimg, ztxt, t_prime, bias):
-    """(raw, logits, t): the f32 product of the f32-cast embeddings, then
-    ``raw·t + bias`` rounded as JAX rounds it."""
+def _raw(zimg, ztxt, quant: str):
+    """The logit block's product: f32 on the f32-cast embeddings, or in the
+    int8 mode ``(f32(ziq·ztqᵀ) · zis) · zts``, the exact int32 product of the
+    rows quantized once, dequantized image scale first (``int8_product``)."""
+    if quant:
+        ziq, zis = quantize_int8(zimg, axis=1)
+        ztq, zts = quantize_int8(ztxt, axis=1)
+        return int8_product(ziq, zis, ztq, zts, torch.float32)
     _check_ieee(zimg)
-    raw = zimg.float() @ ztxt.float().T
+    return zimg.float() @ ztxt.float().T
+
+
+def _logits(zimg, ztxt, t_prime, bias, quant: str = ""):
+    """(raw, logits, t): the f32 product of the f32-cast embeddings (or the
+    int8 mode's raw), then ``raw·t + bias`` rounded as JAX rounds it."""
+    raw = _raw(zimg, ztxt, quant)
     t = torch.exp(t_prime.float())
     return raw, raw * t + bias.float(), t
 
@@ -155,29 +196,38 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g):
-    raw, logits, t = _logits(zimg, ztxt, t_prime, bias)
+def _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g, quant=""):
+    raw, logits, t = _logits(zimg, ztxt, t_prime, bias, quant)
     labels = _labels(raw.shape[0], raw.shape[1], pos_offset, raw.device)
     x = labels * logits
     return g.float() * (-labels * torch.sigmoid(-x)), raw, t
 
 
-def streaming_loss_fwd_plain(zimg, ztxt, t_prime, bias, pos_offset: int = 0) -> torch.Tensor:
-    """K4's function: the f32 sum of ``softplus(−label·logit)`` over the block."""
-    _, logits, _ = _logits(zimg, ztxt, t_prime, bias)
+def streaming_loss_fwd_plain(zimg, ztxt, t_prime, bias, pos_offset: int = 0,
+                             quant: str = "") -> torch.Tensor:
+    """K4's function: the f32 sum of ``softplus(−label·logit)`` over the
+    block (``quant="int8"``: at the int8 mode's raw)."""
+    _, logits, _ = _logits(zimg, ztxt, t_prime, bias, quant)
     labels = _labels(logits.shape[0], logits.shape[1], pos_offset, logits.device)
     return _softplus(-labels * logits).sum()
 
 
-def streaming_loss_bwd_img_plain(zimg, ztxt, t_prime, bias, pos_offset: int, g):
-    """K5's function at upstream gradient ``g``: ``(dzimg, dt′, dbias)`` in f32."""
-    dl, raw, t = _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g)
+def streaming_loss_bwd_img_plain(zimg, ztxt, t_prime, bias, pos_offset: int, g,
+                                 quant: str = ""):
+    """K5's function at upstream gradient ``g``: ``(dzimg, dt′, dbias)`` in
+    f32. In the int8 mode dl and dt′ are at the int8 raw and dzimg is the
+    product with the full-precision ztxt."""
+    dl, raw, t = _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g, quant)
+    _check_ieee(zimg)
     return (dl @ ztxt.float()) * t, (dl * raw).sum() * t, dl.sum()
 
 
-def streaming_loss_bwd_txt_plain(zimg, ztxt, t_prime, bias, pos_offset: int, g):
-    """K6's function at upstream gradient ``g``: ``dztxt`` in f32."""
-    dl, _, t = _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g)
+def streaming_loss_bwd_txt_plain(zimg, ztxt, t_prime, bias, pos_offset: int, g,
+                                 quant: str = ""):
+    """K6's function at upstream gradient ``g``: ``dztxt`` in f32 (in the
+    int8 mode, dl at the int8 raw against the full-precision zimg)."""
+    dl, _, t = _dlogits(zimg, ztxt, t_prime, bias, pos_offset, g, quant)
+    _check_ieee(zimg)
     return (dl.T @ zimg.float()) * t
 
 
@@ -195,6 +245,12 @@ def _library() -> ctypes.CDLL:
     lib.sigmoid_loss_bwd_img.restype = i
     lib.sigmoid_loss_bwd_txt.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p]
     lib.sigmoid_loss_bwd_txt.restype = i
+    lib.sigmoid_loss_fwd_int8.argtypes = [p] * 6 + [i, i, i, i, p, p, p]
+    lib.sigmoid_loss_fwd_int8.restype = i
+    lib.sigmoid_loss_bwd_img_int8.argtypes = [p] * 8 + [i, i, i, i, i, p, p, p, p]
+    lib.sigmoid_loss_bwd_img_int8.restype = i
+    lib.sigmoid_loss_bwd_txt_int8.argtypes = [p] * 8 + [i, i, i, i, i, p, p, p]
+    lib.sigmoid_loss_bwd_txt_int8.restype = i
     lib.sigmoid_loss_fwd_partials.argtypes = [i, i]
     lib.sigmoid_loss_fwd_partials.restype = ctypes.c_longlong
     lib.sigmoid_loss_bwd_scratch_floats.argtypes = [i, i, i, i]
@@ -304,82 +360,164 @@ def _launch_bwd_txt(zimg, ztxt, t_prime, bias, pos_offset: int, g):
     return dztxt
 
 
+def _int8_operands(fn: str, zimg, ztxt):
+    """The int8 mode's operands on the card: each embedding row quantized
+    once (contiguous int8 rows, f32 scales), d a multiple of 16."""
+    if zimg.shape[1] % 16:
+        raise ValueError(f"{fn}: the int8 mode takes d % 16 == 0, got d={zimg.shape[1]}")
+    ziq, zis = quantize_int8(zimg, axis=1)
+    ztq, zts = quantize_int8(ztxt, axis=1)
+    return ziq.contiguous(), zis.contiguous(), ztq.contiguous(), zts.contiguous()
+
+
+def _launch_fwd_int8(zimg, ztxt, t_prime, bias, pos_offset: int) -> torch.Tensor:
+    zimg, ztxt, t_prime, bias = _cuda_args("streaming_loss_fwd_int8", zimg, ztxt, t_prime, bias)
+    ziq, zis, ztq, zts = _int8_operands("streaming_loss_fwd_int8", zimg, ztxt)
+    (b, d), n = zimg.shape, ztxt.shape[0]
+    partials = torch.empty(fwd_partials(b, n), dtype=torch.float32, device=zimg.device)
+    out = torch.empty((), dtype=torch.float32, device=zimg.device)
+    lib = _library()
+    with torch.cuda.device(zimg.device):
+        err = lib.sigmoid_loss_fwd_int8(
+            ziq.data_ptr(), zis.data_ptr(), ztq.data_ptr(), zts.data_ptr(), t_prime.data_ptr(),
+            bias.data_ptr(), b, n, d, int(pos_offset), partials.data_ptr(), out.data_ptr(),
+            _stream(zimg.device),
+        )
+    _raise(lib, "sigmoid_loss_fwd_int8", err)
+    _count("fwd_int8")
+    return out
+
+
+def _launch_bwd_img_int8(zimg, ztxt, t_prime, bias, pos_offset: int, g, quantized):
+    """K5 in the int8 mode on checked f32 tensors and their quantized rows
+    (:func:`_int8_operands`) → ``(dzimg, dt′, dbias)``."""
+    (b, d), n = zimg.shape, ztxt.shape[0]
+    dzimg = torch.empty((b, d), dtype=torch.float32, device=zimg.device)
+    out2 = torch.empty(2, dtype=torch.float32, device=zimg.device)
+    lib = _library()
+    with torch.cuda.device(zimg.device):
+        scratch = torch.empty(lib.sigmoid_loss_bwd_scratch_floats(b, n, d, 1),
+                              dtype=torch.float32, device=zimg.device)
+        err = lib.sigmoid_loss_bwd_img_int8(
+            *(t.data_ptr() for t in quantized), ztxt.data_ptr(), t_prime.data_ptr(),
+            bias.data_ptr(), g.data_ptr(), b, n, d, int(pos_offset), _vec(ztxt, dzimg),
+            dzimg.data_ptr(), scratch.data_ptr(), out2.data_ptr(), _stream(zimg.device),
+        )
+    _raise(lib, "sigmoid_loss_bwd_img_int8", err)
+    _count("bwd_img_int8")
+    return dzimg, out2[0], out2[1]
+
+
+def _launch_bwd_txt_int8(zimg, ztxt, t_prime, bias, pos_offset: int, g, quantized):
+    """K6 in the int8 mode on checked f32 tensors and their quantized rows
+    → dztxt."""
+    (b, d), n = zimg.shape, ztxt.shape[0]
+    dztxt = torch.empty((n, d), dtype=torch.float32, device=zimg.device)
+    lib = _library()
+    with torch.cuda.device(zimg.device):
+        scratch = torch.empty(lib.sigmoid_loss_bwd_scratch_floats(n, b, d, 0),
+                              dtype=torch.float32, device=zimg.device)
+        err = lib.sigmoid_loss_bwd_txt_int8(
+            *(t.data_ptr() for t in quantized), zimg.data_ptr(), t_prime.data_ptr(),
+            bias.data_ptr(), g.data_ptr(), b, n, d, int(pos_offset), _vec(zimg, dztxt),
+            dztxt.data_ptr(), scratch.data_ptr(), _stream(zimg.device),
+        )
+    _raise(lib, "sigmoid_loss_bwd_txt_int8", err)
+    _count("bwd_txt_int8")
+    return dztxt
+
+
+def _launch_bwd_int8(zimg, ztxt, t_prime, bias, pos_offset: int, g):
+    """K5 then K6 in the int8 mode, sharing one quantization of the rows:
+    ``(dzimg, dt′, dbias, dztxt)`` in f32."""
+    zimg, ztxt, t_prime, bias, g = _cuda_args("streaming_loss_bwd_int8", zimg, ztxt,
+                                              t_prime, bias, g)
+    quantized = _int8_operands("streaming_loss_bwd_int8", zimg, ztxt)
+    dzimg, dtp, dbias = _launch_bwd_img_int8(zimg, ztxt, t_prime, bias, pos_offset, g, quantized)
+    return dzimg, dtp, dbias, _launch_bwd_txt_int8(zimg, ztxt, t_prime, bias, pos_offset, g,
+                                                   quantized)
+
+
 # The module attributes are looked up per call, so a caller may swap a plain
 # version in for a kernel-vs-plain comparison on the card.
-def _fwd(zimg, ztxt, t_prime, bias, pos_offset):
+def _fwd(zimg, ztxt, t_prime, bias, pos_offset, quant=""):
     if zimg.device.type == "cpu":
-        return streaming_loss_fwd_plain(zimg, ztxt, t_prime, bias, pos_offset)
+        return streaming_loss_fwd_plain(zimg, ztxt, t_prime, bias, pos_offset, quant)
+    if quant:
+        return _launch_fwd_int8(zimg, ztxt, t_prime, bias, pos_offset)
     return _launch_fwd(zimg, ztxt, t_prime, bias, pos_offset)
 
 
-def _bwd_img(zimg, ztxt, t_prime, bias, pos_offset, g):
+def _bwd(zimg, ztxt, t_prime, bias, pos_offset, g, quant=""):
+    """K5 and K6 → ``(dzimg, dt′, dbias, dztxt)`` in f32."""
     if zimg.device.type == "cpu":
-        return streaming_loss_bwd_img_plain(zimg, ztxt, t_prime, bias, pos_offset, g)
-    return _launch_bwd_img(zimg, ztxt, t_prime, bias, pos_offset, g)
-
-
-def _bwd_txt(zimg, ztxt, t_prime, bias, pos_offset, g):
-    if zimg.device.type == "cpu":
-        return streaming_loss_bwd_txt_plain(zimg, ztxt, t_prime, bias, pos_offset, g)
-    return _launch_bwd_txt(zimg, ztxt, t_prime, bias, pos_offset, g)
+        dzimg, dtp, dbias = streaming_loss_bwd_img_plain(zimg, ztxt, t_prime, bias,
+                                                         pos_offset, g, quant)
+        dztxt = streaming_loss_bwd_txt_plain(zimg, ztxt, t_prime, bias, pos_offset, g, quant)
+        return dzimg, dtp, dbias, dztxt
+    if quant:
+        return _launch_bwd_int8(zimg, ztxt, t_prime, bias, pos_offset, g)
+    dzimg, dtp, dbias = _launch_bwd_img(zimg, ztxt, t_prime, bias, pos_offset, g)
+    return dzimg, dtp, dbias, _launch_bwd_txt(zimg, ztxt, t_prime, bias, pos_offset, g)
 
 
 class StreamingBlockLossSum(torch.autograd.Function):
-    """K4 forward, K5 then K6 backward, as one autograd node. The forward
-    saves only the embeddings and the scalars, as the JAX ``custom_vjp``
-    does; the backward recomputes the logits from them."""
+    """K4 forward, K5 then K6 backward, as one autograd node, in f32 or the
+    int8 mode. The forward saves only the embeddings and the scalars, as the
+    JAX ``custom_vjp`` does; the backward recomputes the logits from them."""
 
     @staticmethod
-    def forward(ctx, zimg, ztxt, t_prime, bias, pos_offset: int):
+    def forward(ctx, zimg, ztxt, t_prime, bias, pos_offset: int, quant: str = ""):
         ctx.save_for_backward(zimg, ztxt, t_prime, bias)
-        ctx.pos_offset = pos_offset
-        return _fwd(zimg, ztxt, t_prime, bias, pos_offset)
+        ctx.pos_offset, ctx.quant = pos_offset, quant
+        return _fwd(zimg, ztxt, t_prime, bias, pos_offset, quant)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         zimg, ztxt, t_prime, bias = ctx.saved_tensors
-        off = ctx.pos_offset
-        dzimg, dtp, dbias = _bwd_img(zimg, ztxt, t_prime, bias, off, g)
-        dztxt = _bwd_txt(zimg, ztxt, t_prime, bias, off, g)
+        dzimg, dtp, dbias, dztxt = _bwd(zimg, ztxt, t_prime, bias, ctx.pos_offset, g, ctx.quant)
         return (
             dzimg.to(zimg.dtype),
             dztxt.to(ztxt.dtype),
             dtp.reshape(t_prime.shape).to(t_prime.dtype),
             dbias.reshape(bias.shape).to(bias.dtype),
             None,
+            None,
         )
 
 
-def _refuse_quant(quant: str) -> None:
+def _check_quant(quant: str) -> None:
     if quant not in ("", "int8"):
         raise ValueError(f"unknown loss quant: {quant!r}")
-    if quant:
-        raise NotImplementedError(
-            f"quant='int8' in the streaming loss kernel is not ported yet: {INT8_ROADMAP_ROW}"
-        )
 
 
 def streaming_block_loss_sum(zimg, ztxt, t_prime, bias, pos_offset: int = 0, quant: str = ""):
     """SUM of ``-log_sigmoid(labels · (exp(t_prime)·raw + bias))`` over the
     (b × n) block, positives on ``col == row + pos_offset`` (pass
     :data:`NEGATIVE_ONLY_OFFSET` for an all-negatives block), as an f32 0-d
-    tensor; ``raw`` is the f32 product of the f32-cast embeddings.
-    Unnormalized: divide by the local batch outside. Differentiable in the
-    embeddings, ``t_prime`` and ``bias`` (K5, K6)."""
-    _refuse_quant(quant)
-    return StreamingBlockLossSum.apply(zimg, ztxt, t_prime, bias, int(pos_offset))
+    tensor; ``raw`` is the f32 product of the f32-cast embeddings, or the
+    int8 mode's (``quant="int8"``). Unnormalized: divide by the local batch
+    outside. Differentiable in the embeddings, ``t_prime`` and ``bias`` (K5,
+    K6). Takes any shape in f32; the int8 kernels take d % 16 == 0."""
+    _check_quant(quant)
+    return StreamingBlockLossSum.apply(zimg, ztxt, t_prime, bias, int(pos_offset), quant)
 
 
 def streaming_block_loss_or_none(zimg, ztxt, t_prime, bias, pos_offset, *, quant: str = "",
                                  normalize: bool = True):
-    """The streaming block loss as the distributed variants call it: the
-    per-image-normalized block loss (``normalize=True``, the fused and ring
-    call sites) or the raw block sum (``normalize=False``, what the chunk
-    scan accumulates). Records ``"streaming"`` in :func:`traced_loss_kernels`.
-    Keeps the JAX name, but never returns None: the kernels take every shape,
-    where the TPU kernel falls back to XLA for shapes it cannot tile."""
-    _refuse_quant(quant)
-    _TRACED_LOSS_KERNELS.add("streaming")
-    total = streaming_block_loss_sum(zimg, ztxt, t_prime, bias, pos_offset)
-    return total / zimg.shape[0] if normalize else total
+    """JAX's dispatch for the distributed variants: the streaming block loss
+    when the block passes :func:`pallas_compatible` (recorded as
+    ``"streaming"`` or ``"streaming_int8"``), else ``None`` (recorded as
+    ``"xla"``) for the caller to compute its plain block at the loss's
+    ``precision``. ``normalize=True`` returns the per-image-normalized block
+    loss (the fused and ring call sites), ``normalize=False`` the raw block
+    sum (what the chunk scan accumulates)."""
+    _check_quant(quant)
+    (b, d), n = zimg.shape, ztxt.shape[0]
+    if not pallas_compatible(b, n, d, quant=bool(quant)):
+        _TRACED_LOSS_KERNELS.add("xla")
+        return None
+    _TRACED_LOSS_KERNELS.add("streaming_int8" if quant else "streaming")
+    total = streaming_block_loss_sum(zimg, ztxt, t_prime, bias, pos_offset, quant)
+    return total / b if normalize else total

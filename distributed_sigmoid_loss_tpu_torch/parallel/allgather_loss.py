@@ -51,8 +51,10 @@ def allgather_sigmoid_loss(
     ``"chunked"`` runs :func:`sigmoid_loss_chunk_scan` over the W gathered
     chunks, the positive diagonal on chunk ``rank``, so only one
     (local_b × local_b) block is live at a time. ``use_pallas`` makes the
-    streaming loss kernel (K4-K6) the block body of either: the fused block
-    at offset ``rank·local_b``, or each chunk.
+    streaming loss kernel (K4-K6, or its int8 mode under ``quant="int8"``)
+    the block body of either: the fused block at offset ``rank·local_b``, or
+    each chunk; a block its dispatch refuses takes the plain path at
+    ``precision``, as in JAX.
     """
     group = axis_group(axis_name, group)
     local_b, d = zimg.shape
@@ -67,8 +69,10 @@ def allgather_sigmoid_loss(
 
     all_txt = gathered.reshape(w * local_b, d)
     if use_pallas:
-        return streaming_block_loss_or_none(zimg, all_txt, t_prime, bias, idx * local_b,
-                                            quant=quant)
+        fused = streaming_block_loss_or_none(zimg, all_txt, t_prime, bias, idx * local_b,
+                                             quant=quant)
+        if fused is not None:
+            return fused
 
     logits = pairwise_logits(zimg, all_txt, t_prime, bias, precision=precision)
     rows = torch.arange(local_b, device=logits.device)[:, None]

@@ -21,7 +21,6 @@ from typing import Callable, Literal
 import torch
 import torch.distributed as dist
 
-from distributed_sigmoid_loss_tpu_torch.ops.streaming_sigmoid_loss import INT8_ROADMAP_ROW
 from distributed_sigmoid_loss_tpu_torch.parallel.allgather_loss import allgather_sigmoid_loss
 from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
 from distributed_sigmoid_loss_tpu_torch.parallel.contrastive import (
@@ -62,8 +61,9 @@ def make_per_shard_loss(
     scan, each ring hop. ``family="softmax"`` takes the contrastive pair of
     ``parallel/contrastive.py``; its ``per_shard`` ignores ``bias``, which
     then gets no gradient (InfoNCE has no bias). The JAX refusals of
-    flag/variant mismatches are kept word for word; ``quant="int8"`` raises
-    ``NotImplementedError`` naming its ROADMAP row.
+    flag/variant mismatches are kept word for word. ``quant="int8"`` (with
+    ``use_pallas``, sigmoid family) runs the kernel's int8 mode in every
+    block its dispatch takes.
     """
     if family not in ("sigmoid", "softmax"):
         raise ValueError(f"unknown family: {family!r}")
@@ -108,19 +108,17 @@ def make_per_shard_loss(
             return fn(zimg, ztxt, t_prime, axis_name=axis_name, group=group, precision=precision)
 
         return per_shard
-    if quant:
-        raise NotImplementedError(f"quant='int8' for the loss is not ported yet: {INT8_ROADMAP_ROW}")
 
     if variant == "all_gather":
         return partial(
             allgather_sigmoid_loss,
             axis_name=axis_name, group=group, precision=precision, use_pallas=use_pallas,
-            loss_impl=loss_impl,
+            loss_impl=loss_impl, quant=quant,
         )
     return partial(
         ring_sigmoid_loss,
         axis_name=axis_name, group=group, bidir=bidir, precision=precision,
-        use_pallas=use_pallas, overlap=ring_overlap,
+        use_pallas=use_pallas, overlap=ring_overlap, quant=quant,
     )
 
 

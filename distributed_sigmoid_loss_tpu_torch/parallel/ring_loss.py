@@ -56,15 +56,19 @@ def ring_sigmoid_loss(
     (:func:`~distributed_sigmoid_loss_tpu_torch.parallel.collectives.double_buffered_scan`)
     with the accumulation order unchanged, so the overlapped ring is bitwise
     equal to the serial one. ``use_pallas=True`` makes the streaming loss
-    kernel (K4-K6) every hop's block body.
+    kernel (K4-K6; ``quant="int8"``: its int8 mode) every hop's block body
+    where the block passes the kernel's dispatch, the plain block at
+    ``precision`` elsewhere, as in JAX.
     """
     group = axis_group(axis_name, group)
 
     def block(ztxt_chunk, negative_only):
         if use_pallas:
             offset = NEGATIVE_ONLY_OFFSET if negative_only else 0
-            return streaming_block_loss_or_none(zimg, ztxt_chunk, t_prime, bias, offset,
-                                                quant=quant)
+            fused = streaming_block_loss_or_none(zimg, ztxt_chunk, t_prime, bias, offset,
+                                                 quant=quant)
+            if fused is not None:
+                return fused
         return sigmoid_loss_block(zimg, ztxt_chunk, t_prime, bias,
                                   negative_only=negative_only, precision=precision)
 

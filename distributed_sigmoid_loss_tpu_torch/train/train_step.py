@@ -61,7 +61,11 @@ from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collect
 from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_size
 from distributed_sigmoid_loss_tpu_torch.parallel.microbatch import microbatch_split
 from distributed_sigmoid_loss_tpu_torch.train.ema import init_ema, update_ema
-from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
+from distributed_sigmoid_loss_tpu_torch.utils.config import (
+    LossConfig,
+    TrainConfig,
+    tower_quant_mode,
+)
 
 __all__ = [
     "AdamW",
@@ -77,6 +81,8 @@ __all__ = [
     "make_schedule",
     "create_train_state",
     "make_train_step",
+    "resolve_loss_quant",
+    "validate_trainable_quant",
     "validate_accum_args",
     "validate_step_args",
     "resolve_update_sharding",
@@ -410,6 +416,42 @@ def opt_state_from_optax(opt_state, tx, model: nn.Module) -> LionState | Adafact
                           **{k: [t.to(device) for t in v] for k, v in stats.items()})
 
 
+def resolve_loss_quant(model: nn.Module, loss_cfg) -> str:
+    """The loss's block-product quantization (JAX ``resolve_loss_quant``):
+    ``"int8"`` when a tower trains through the int8 STE
+    (``quant_train="int8"``) AND the streaming loss kernel is on, so
+    ``quant_train`` reaches the loss's product with the same contract as
+    every other STE dot; ``""`` otherwise (the plain loss has no int8 block
+    product)."""
+    if not getattr(loss_cfg, "use_pallas", False):
+        return ""
+    cfg = getattr(model, "cfg", None)
+    modes = {
+        tower_quant_mode(tcfg)
+        for tcfg in (getattr(cfg, "vision", None), getattr(cfg, "text", None))
+        if tcfg is not None
+    }
+    return "int8" if "int8_ste" in modes else ""
+
+
+def validate_trainable_quant(model: nn.Module) -> None:
+    """Refuse inference-quantized towers in training (JAX
+    ``validate_trainable_quant``): ``quant="int8"`` rounds the projections'
+    operands, whose gradient is zero almost everywhere, so such a tower
+    would train to a standstill silently. ``quant_train="int8"`` (the STE:
+    int8 forward, full-precision backward) passes."""
+    cfg = getattr(model, "cfg", None)
+    for tower in ("vision", "text"):
+        tcfg = getattr(cfg, tower, None)
+        if getattr(tcfg, "quant", ""):
+            raise ValueError(
+                f"{tower} tower has quant={tcfg.quant!r}: int8 quantization "
+                "is inference-only (zero gradients through round); train "
+                "with quant_train='int8' (STE: int8 forward, full-precision "
+                "backward) or quant='' and quantize at eval/export time"
+            )
+
+
 def resolve_update_sharding(update_sharding: str = "", zero1: bool = False) -> str:
     """The mode from the flag and the deprecated ``zero1`` alias, with the
     JAX package's refusals (``parallel/update_shard.py``)."""
@@ -654,7 +696,13 @@ def make_train_step(
     averaged gradients, before clipping), ``param_norm`` after the update and
     ``update_ratio`` (norm of the change over ``param_norm``), as 0-d f32
     tensors on the model's device.
+
+    Towers with ``quant_train="int8"`` train through the int8 STE, and with
+    ``loss_cfg.use_pallas`` the loss's blocks take the kernel's int8 mode
+    (:func:`resolve_loss_quant`); ``quant="int8"`` towers are refused
+    (:func:`validate_trainable_quant`).
     """
+    validate_trainable_quant(model)
     cached_accum, acc_dt = validate_step_args(
         accum_steps=accum_steps,
         accum_dtype=accum_dtype,
@@ -682,7 +730,7 @@ def make_train_step(
         family=loss_cfg.family, variant=loss_cfg.variant, axis_name=loss_cfg.axis_name,
         bidir=loss_cfg.bidir, precision=loss_cfg.precision,
         use_pallas=loss_cfg.use_pallas, loss_impl=loss_cfg.loss_impl,
-        ring_overlap=loss_cfg.ring_overlap,
+        ring_overlap=loss_cfg.ring_overlap, quant=resolve_loss_quant(model, loss_cfg),
     )
 
     def loss_and_grads(params, images, tokens):

@@ -61,8 +61,10 @@ class ViTConfig:
     dtype: str = "bfloat16"  # activation dtype; params stay fp32
     remat: bool = True  # training only: recompute each block in backward
     scan_layers: bool = True  # parameter layout: one stacked set over depth
-    # "auto" = the fused short-attention kernel for bf16 self-attention on a
-    # CUDA device (f32 keeps the dense path), dense attention elsewhere.
+    # "auto" = a fused kernel for bf16 self-attention on a CUDA device: the
+    # short-attention kernel (K1) where it fits, the flash kernel (K7)
+    # otherwise; f32 and cross-attention keep the dense path, as does any
+    # tower off the GPU. "flash" = the fused kernels in bf16 or f32.
     attn_impl: Literal["auto", "dense", "flash"] = "auto"
     # "nothing" = full remat; "save_hot" = save attention-core + MLP-hidden
     # activations across backward (recompute only projections/elementwise).
@@ -79,10 +81,10 @@ class ViTConfig:
     # Routing group size (GShard groups): capacity is per-group.
     moe_group_size: int = 512
     # "int8": run the block projection matmuls (q/k/v/out/wi/wo) in dynamic
-    # symmetric int8, inference only. Not ported yet.
+    # symmetric int8, inference only (ops/quant.py).
     quant: Literal["", "int8"] = ""
     # "int8": trainable int8 through the straight-through estimator.
-    # Mutually exclusive with `quant` (see tower_quant_mode). Not ported yet.
+    # Mutually exclusive with `quant` (see tower_quant_mode).
     quant_train: Literal["", "int8"] = ""
 
     @classmethod
@@ -133,7 +135,7 @@ class TextConfig:
     moe_capacity_factor: float = 1.25
     moe_group_size: int = 512
     # "int8": run the block projection matmuls (q/k/v/out/wi/wo) in dynamic
-    # symmetric int8, inference only. Not ported yet.
+    # symmetric int8, inference only (ops/quant.py).
     quant: Literal["", "int8"] = ""
     # "int8": trainable int8 via the straight-through estimator — see
     # ViTConfig.quant_train (same contract, text tower).
@@ -233,14 +235,12 @@ class TrainConfig:
 
 def check_supported(cfg: "ViTConfig | TextConfig") -> None:
     """Raise ``NotImplementedError`` for tower fields whose paths the port
-    does not have yet (see ROADMAP.md, queue A)."""
+    does not have yet (see ROADMAP.md, queue A), and ``ValueError`` for
+    ``quant`` and ``quant_train`` set together."""
     if cfg.sequence_parallel_axis is not None:
         raise NotImplementedError(
             "sequence_parallel_axis: sequence-parallel attention is not ported yet"
         )
     if cfg.moe_experts > 0:
         raise NotImplementedError("moe_experts > 0: the MoE MLP is not ported yet")
-    if tower_quant_mode(cfg):
-        raise NotImplementedError(
-            "quant / quant_train: the int8 projections are not ported yet"
-        )
+    tower_quant_mode(cfg)  # quant and quant_train together raise

@@ -205,8 +205,10 @@ def _spy(monkeypatch):
     ("auto", torch.bfloat16, 1024, True, "dense"),  # cross-attention
     ("auto", torch.float32, 1024, False, "dense"),  # f32 under "auto"
     ("flash", torch.bfloat16, 1024, False, "K7"),
-    ("flash", torch.float32, 300, False, "K7"),     # f32 never fits K1
-], ids=["bf16-long", "bf16-short", "cross", "f32-auto", "flash-long", "flash-f32"])
+    ("flash", torch.float32, 300, False, "K1"),     # within JAX's f32 fit of K1
+    ("flash", torch.float32, 1100, False, "K7"),    # past it (s > 1,024)
+], ids=["bf16-long", "bf16-short", "cross", "f32-auto", "flash-long", "flash-f32",
+        "flash-f32-long"])
 def test_attention_dispatch(monkeypatch, impl, dtype, s, cross, expect):
     monkeypatch.setattr(fa, "flash_attention_available", lambda x: True)
     taken = _spy(monkeypatch)

@@ -12,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_sigmoid_loss_tpu.ops import pallas_short_attention as jsa
 from distributed_sigmoid_loss_tpu.ops.pallas_short_attention import (
     short_self_attention as jax_short_self_attention,
 )
 from distributed_sigmoid_loss_tpu.parallel.ring_attention import (
     dense_attention as jax_dense_attention,
 )
+from distributed_sigmoid_loss_tpu_torch.ops import attention_f32
 from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa
 from distributed_sigmoid_loss_tpu_torch.parallel.ring_attention import dense_attention
 
@@ -75,11 +77,13 @@ def test_short_attention_fits_hopper_budget():
     assert sa.short_attention_fits(64, 768, 2, 12)
     assert sa.short_attention_fits(256, 1024, 2, 16)
     assert sa.short_attention_fits(256, 1152, 2, 16)
-    # s=1024 at dh=64 does not; nor does an f32 activation (bf16-only kernel)
-    # or a head dim past the kernel's 128.
+    # s=1024 at dh=64 does not, nor does a head dim past the kernel's 128.
     assert not sa.short_attention_fits(1024, 768, 2, 12)
-    assert not sa.short_attention_fits(196, 768, 4, 12)
     assert not sa.short_attention_fits(64, 1024, 2, 4)
+    # f32 takes JAX's own fit (the f32 kernels tile the sequence): B/16
+    # vision fits, s=512 at width 768 is past JAX's VMEM budget.
+    assert sa.short_attention_fits(196, 768, 4, 12)
+    assert not sa.short_attention_fits(512, 768, 4, 12)
     # One block's footprint at B/16 vision: K, V (208 rows × 72, bf16) and
     # four 16 × 212 f32 strips.
     assert sa.short_attention_smem_bytes(196, 64) == 2 * 208 * 72 * 2 + 4 * 16 * 212 * 4
@@ -94,6 +98,18 @@ def test_launch_counter_stays_zero_on_cpu():
     assert sa.launches() == 0
 
 
+def test_f32_kernel_counters_stay_zero_on_cpu():
+    """f32 CPU tensors take the plain versions: neither the roles' counters
+    nor the f32 kernels' own count a launch, forward or backward."""
+    sa.reset_launches()
+    attention_f32.reset_launches()
+    leaves = [torch.from_numpy(x).requires_grad_() for x in _qkv(3, (1, 16, 2, 8))]
+    for batch_heads in (False, True):
+        sa.short_self_attention(*leaves, batch_heads=batch_heads).sum().backward()
+    assert sa.launches() == sa.bwd_launches() == sa.bwd_batched_launches() == 0
+    assert attention_f32.launches() == {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+
+
 @pytest.mark.parametrize("s_q,s_k,causal", [(16, 16, False), (16, 16, True), (1, 12, False), (5, 12, True)])
 def test_dense_attention_matches_jax(s_q, s_k, causal):
     rng = np.random.default_rng(3)
@@ -102,3 +118,48 @@ def test_dense_attention_matches_jax(s_q, s_k, causal):
     ref = jax_dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
     out = dense_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+# --- f32: JAX's fit and dispatch ---------------------------------------------------
+
+@pytest.mark.parametrize("s,width,heads", [
+    (64, 768, 12), (196, 768, 12), (300, 768, 12), (400, 768, 12), (576, 768, 12),
+    (1024, 768, 12), (256, 1024, 16), (729, 1152, 16), (1024, 128, 2), (1100, 128, 2),
+])
+def test_f32_fit_is_jaxs(s, width, heads):
+    """f32 takes JAX's own K1 fit (s <= 1,024 and its VMEM budget): the f32
+    kernels tile the sequence, so the card takes every length JAX does."""
+    assert sa.short_attention_fits(s, width, 4, heads) == jsa.short_attention_fits(s, width, 4)
+
+
+@pytest.mark.parametrize("s,expect", [(196, "K1"), (512, "K7")])
+@pytest.mark.parametrize("batch_heads", [False, True])
+def test_f32_flash_dispatch_follows_jaxs_choice(monkeypatch, s, expect, batch_heads):
+    """An f32 layer with ``attn_impl="flash"`` at width 768 / 12 heads takes
+    K1 where JAX's f32 fit holds (s = 196) and K7 past it (s = 512), with
+    K2 or K3 as K1's backward by the switch, as JAX's dispatch does."""
+    from distributed_sigmoid_loss_tpu_torch.models import transformer
+    from distributed_sigmoid_loss_tpu_torch.ops import flash_attention as fa
+
+    assert jsa.short_attention_fits(s, 768, 4) == (expect == "K1")
+    monkeypatch.setattr(fa, "flash_attention_available", lambda x: True)
+    taken = []
+    for module, name, tag in ((sa, "short_self_attention_bwd", "K3" if batch_heads else "K2"),
+                              (sa, "short_self_attention", "K1"),
+                              (fa, "flash_self_attention", "K7")):
+        real = getattr(module, name)
+
+        def spy(*a, _real=real, _tag=tag, **kw):
+            taken.append(_tag)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(module, name, spy)
+    sa.set_bwd_batch_heads(batch_heads)
+    try:
+        attn = transformer.Attention(768, 12, torch.float32, attn_impl="flash", device="cpu",
+                                     generator=torch.Generator().manual_seed(0))
+        x = torch.randn(1, s, 768, generator=torch.Generator().manual_seed(1), requires_grad=True)
+        attn(x).sum().backward()
+    finally:
+        sa.set_bwd_batch_heads(False)
+    assert taken == ([expect, "K3" if batch_heads else "K2"] if expect == "K1" else ["K7"])

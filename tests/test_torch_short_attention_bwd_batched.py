@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_sigmoid_loss_tpu.ops import pallas_short_attention as jsa
 from distributed_sigmoid_loss_tpu.ops.pallas_short_attention import _short_attention_bwd
 from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa
 
@@ -135,10 +136,13 @@ def test_k3_fits_b16_and_refuses_beyond_its_shared_memory():
     assert sa.short_attention_bwd_batched_smem_bytes(64, 64) == 32_768
     assert sa.short_attention_bwd_batched_fits(196, 768, 12, 2)
     assert sa.short_attention_bwd_batched_fits(64, 768, 12, 2)
-    assert not sa.short_attention_bwd_batched_fits(256, 768, 12, 2)  # L/14: s > 208
-    assert not sa.short_attention_bwd_batched_fits(196, 1536, 12, 2)  # dh 128 at s=196
+    assert not sa.short_attention_bwd_batched_fits(256, 768, 12, 2)  # L/14: JAX refuses too
+    # dh 128 at s=196: JAX's VMEM takes it, the card's shared memory does not.
+    assert not sa.short_attention_bwd_batched_fits(196, 1536, 12, 2)
     assert not sa.short_attention_bwd_batched_fits(1024, 1024, 16, 2)
-    q = torch.zeros(1, 256, 2, 8, requires_grad=True)
+    # bf16 s = 272 is past the in-place kernel's 256 rows, whatever JAX's
+    # budget (f32 follows JAX's own fit: its kernels tile the sequence).
+    q = torch.zeros(1, 272, 2, 8, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(ValueError, match="batch_heads backward does not fit"):
         sa.short_self_attention(q, q, q, batch_heads=True).sum().backward()
     # Nothing falls back to K2: the refusal is the record's only entry.
@@ -151,3 +155,49 @@ def test_k3_launch_counter_stays_zero_on_cpu():
               for x in _inputs(4, (1, 16, 2, 8))[:3]]
     sa.short_self_attention(*leaves, batch_heads=True).float().sum().backward()
     assert sa.launches() == sa.bwd_launches() == sa.bwd_batched_launches() == 0
+    assert sa.bwd_batched_in_place_launches() == 0
+
+
+# --- K3 at JAX's lengths -------------------------------------------------------
+
+@pytest.mark.parametrize("width,heads,limit", [(768, 12, 250), (1024, 16, 212), (1152, 16, 208)])
+def test_k3_fit_equals_jaxs_at_its_longest_lengths(width, heads, limit):
+    """In bf16, the port's K3 takes exactly what JAX's takes at the three
+    widths of JAX's limits, s in [190, 260]: JAX's VMEM predicate decides,
+    and the card's shared memory (the two-array kernel to s_pad = 208, the
+    in-place one beyond) holds every length it takes."""
+    for s in range(190, 261):
+        want = jsa.short_attention_bwd_batched_fits(s, width, heads, 2)
+        assert sa.short_attention_bwd_batched_fits(s, width, heads, 2) == want, s
+        assert want == (s <= limit), s
+    dh = width // heads
+    assert sa.short_attention_bwd_batched_smem_bytes(limit, dh) <= sa.SMEM_BUDGET_BYTES
+    # B/16's s = 196 keeps the two-array kernel; s = 225 and 250 the in-place one.
+    assert sa._k3_variant(196, 64)[0] == 1 and sa._k3_variant(225, 64)[0] == 2
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_plain_k3_at_s250_matches_pallas_batched_kernel(dtype):
+    arrays = _inputs(5, (1, 250, 2, 16))
+    jdtype, tdtype = (jnp.float32, torch.float32) if dtype == np.float32 else \
+        (jnp.bfloat16, torch.bfloat16)
+    ref = _jax_batched_bwd(*arrays, False, jdtype)
+    got = _port(sa.short_self_attention_bwd_batched_plain, arrays, False, tdtype)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        atol = 5e-4 if dtype == np.float32 else _bf16_ulp(r)
+        np.testing.assert_allclose(g.float().numpy(), r, rtol=0, atol=atol, err_msg=name)
+
+
+def test_f32_k3_fit_is_jaxs():
+    """In f32 the port's K3 role runs the f32 kernels, which tile the
+    sequence: the fit is JAX's own, B/16's s = 196 in (9.7 MB of JAX's 11.7)
+    and s = 230 at width 768 out."""
+    for s in (64, 196, 212, 220, 230, 256):
+        for width, heads in ((768, 12), (1024, 16), (1152, 16)):
+            assert sa.short_attention_bwd_batched_fits(s, width, heads, 4) == \
+                jsa.short_attention_bwd_batched_fits(s, width, heads, 4), (s, width)
+    assert sa.short_attention_bwd_batched_fits(196, 768, 12, 4)
+    assert not sa.short_attention_bwd_batched_fits(230, 768, 12, 4)
+    q = torch.zeros(1, 230, 12, 64, requires_grad=True)
+    with pytest.raises(ValueError, match="batch_heads backward does not fit"):
+        sa.short_self_attention(q, q, q, batch_heads=True).sum().backward()

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from distributed_sigmoid_loss_tpu.ops import pallas_sigmoid_loss as jpl
+from distributed_sigmoid_loss_tpu_torch.ops import quant
 from distributed_sigmoid_loss_tpu_torch.ops import streaming_sigmoid_loss as ssl
 from distributed_sigmoid_loss_tpu_torch.ops.sigmoid_loss import sigmoid_loss_chunk_scan
 from distributed_sigmoid_loss_tpu_torch.parallel import api
@@ -154,7 +155,10 @@ def test_cpu_tensors_launch_nothing():
     ssl.reset_launches()
     zi, zt, tp, bias = inputs(8, 8, 128, seed=0)
     port_block(zi, zt, tp, bias, 0)
-    assert ssl.launches() == {"fwd": 0, "bwd_img": 0, "bwd_txt": 0}
+    ssl.streaming_block_loss_sum(*(torch.tensor(x) for x in (zi, zt, tp, bias)), 0,
+                                 quant="int8")
+    assert ssl.launches() == {"fwd": 0, "bwd_img": 0, "bwd_txt": 0,
+                              "fwd_int8": 0, "bwd_img_int8": 0, "bwd_txt_int8": 0}
 
 
 def test_shape_mirrors():
@@ -169,15 +173,130 @@ def test_shape_mirrors():
 
 
 def test_int8_refused_naming_its_row():
-    zi, zt, tp, bias = (torch.tensor(x) for x in inputs(8, 8, 128, seed=0))
-    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
-        ssl.streaming_block_loss_sum(zi, zt, tp, bias, 0, quant="int8")
-    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
-        ssl.streaming_block_loss_or_none(zi, zt, tp, bias, 0, quant="int8")
-    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
-        sigmoid_loss_chunk_scan(zi, zt[None], tp, bias, positive_chunk=0, use_pallas=True,
-                                quant="int8")
-    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
-        api.make_per_shard_loss(use_pallas=True, quant="int8")
+    """Once refused naming its ROADMAP row (queue A item 6.2), the loss's
+    int8 mode now runs through every entry point that refused it: the block
+    sum, the dispatch (recording ``"streaming_int8"``), the chunk scan and
+    the per-shard loss, all at the plain int8 value. Unknown modes are still
+    refused."""
+    zi, zt, tp, bias = (torch.tensor(x) for x in inputs(32, 32, 128, seed=0))
+    want = ssl.streaming_loss_fwd_plain(zi, zt, tp, bias, 0, quant="int8")
+    assert want.item() != ssl.streaming_loss_fwd_plain(zi, zt, tp, bias, 0).item()
+    assert ssl.streaming_block_loss_sum(zi, zt, tp, bias, 0, quant="int8").item() == want.item()
+    ssl.reset_traced_loss_kernels()
+    got = ssl.streaming_block_loss_or_none(zi, zt, tp, bias, 0, quant="int8", normalize=False)
+    assert got.item() == want.item() and ssl.traced_loss_kernels() == ("streaming_int8",)
+    scan = sigmoid_loss_chunk_scan(zi, zt[None], tp, bias, positive_chunk=0, use_pallas=True,
+                                   quant="int8")
+    np.testing.assert_allclose(scan.item(), want.item() / 32, rtol=1e-6)
+    per_shard = api.make_per_shard_loss(use_pallas=True, quant="int8")
+    np.testing.assert_allclose(per_shard(zi, zt, tp, bias).item(), want.item() / 32, rtol=1e-6)
     with pytest.raises(ValueError, match="unknown loss quant"):
         ssl.streaming_block_loss_sum(zi, zt, tp, bias, 0, quant="int4")
+
+
+# --- the int8 mode (K4 int8) and JAX's dispatch ------------------------------
+
+def jax_block_int8(zi, zt, tp, bias, off):
+    jpl.reset_traced_loss_kernels()
+    fn = lambda a, b, c, e: jpl.streaming_block_loss_or_none(a, b, c, e, jnp.float32(off),
+                                                             quant="int8", normalize=False)
+    args = (jnp.asarray(zi), jnp.asarray(zt), jnp.asarray(tp), jnp.asarray(bias))
+    loss, grads = jax.value_and_grad(fn, argnums=(0, 1, 2, 3))(*args)
+    assert jpl.traced_loss_kernels() == ("streaming_int8",)
+    return float(loss), [np.asarray(g, np.float32) for g in grads]
+
+
+@pytest.mark.parametrize("positives", [True, False], ids=["positives", "negatives_only"])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("b", [32, 64, 128])
+def test_plain_int8_kernels_match_pallas_int8(b, d, positives):
+    """The plain K4/K5/K6 int8 against JAX's int8 kernel in the Pallas
+    interpreter at b = n: the loss and every gradient within rtol 1e-5 (of
+    each gradient's largest magnitude for the embedding gradients, whose
+    entries near zero are sums of cancelling terms). The STE contract shows
+    in dzimg and dztxt: products with the full-precision rows."""
+    off = 0 if positives else ssl.NEGATIVE_ONLY_OFFSET
+    zi, zt, tp, bias = inputs(b, b, d, seed=b + d + positives)
+    ref_loss, ref_grads = jax_block_int8(zi, zt, tp, bias, off)
+    args = [torch.tensor(x, requires_grad=True) for x in (zi, zt, tp, bias)]
+    ssl.reset_traced_loss_kernels()
+    loss = ssl.streaming_block_loss_or_none(*args, off, quant="int8", normalize=False)
+    assert ssl.traced_loss_kernels() == ("streaming_int8",)
+    grads = torch.autograd.grad(loss, args)
+    np.testing.assert_allclose(loss.item(), ref_loss, rtol=1e-5)
+    # dt′ = t·Σ dl·raw sums b² terms of both signs that cancel to ~1% of
+    # their magnitudes: its rounding is bounded by the sum of |terms|, so
+    # it is held at 1e-5 of t·Σ|dl·raw| rather than of itself.
+    dl, raw, t = ssl._dlogits(*(torch.tensor(x) for x in (zi, zt, tp, bias)), off,
+                              torch.ones(()), "int8")
+    scale = {"dt_prime": float((dl * raw).abs().sum() * t)}
+    for name, g, r in zip(("dzimg", "dztxt", "dt_prime", "dbias"), grads, ref_grads):
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-5,
+                                   atol=1e-5 * scale.get(name, np.abs(r).max()), err_msg=name)
+
+
+def test_int8_raw_is_the_exact_int32_product_dequantized_in_jaxs_order():
+    """The int8 mode's logit product is bitwise JAX's ``_tile_raw_int8`` on
+    the same quantized rows, and the rows are quantized as JAX quantizes
+    them."""
+    zi, zt, _, _ = inputs(32, 32, 128, seed=4)
+    jziq, jzis = jpl.quantize_int8(jnp.asarray(zi), axis=1)
+    jztq, jzts = jpl.quantize_int8(jnp.asarray(zt), axis=1)
+    ref = np.asarray(jpl._tile_raw_int8(jziq, jzis, jztq, jzts))
+    got = quant.int8_product(*(torch.from_numpy(np.array(a)) for a in (jziq, jzis, jztq, jzts)),
+                             torch.float32)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        ssl._raw(torch.from_numpy(zi), torch.from_numpy(zt), "int8").numpy(), ref)
+
+
+@pytest.mark.parametrize("b,n,d,quant", [(100, 100, 128, ""), (100, 100, 128, "int8"),
+                                         (64, 64, 200, ""), (64, 48, 128, "int8"),
+                                         (128, 128, 128, "")])
+def test_pallas_compatible_and_the_record_match_jax(b, n, d, quant):
+    """The dispatch returns None and records "xla" exactly where JAX's does
+    (tiles that divide the block, 8 rows in f32 or 32 in int8, d % 128)."""
+    zi, zt, tp, bias = inputs(b, n, d, seed=9)
+    want = jpl.pallas_compatible(b, n, d, quant=bool(quant))
+    assert ssl.pallas_compatible(b, n, d, quant=bool(quant)) == want
+    jpl.reset_traced_loss_kernels()
+    ssl.reset_traced_loss_kernels()
+    jout = jpl.streaming_block_loss_or_none(*(jnp.asarray(x) for x in (zi, zt, tp, bias)),
+                                            jnp.float32(0), quant=quant)
+    pout = ssl.streaming_block_loss_or_none(*(torch.tensor(x) for x in (zi, zt, tp, bias)), 0,
+                                            quant=quant)
+    assert (jout is None) == (pout is None) == (not want)
+    assert ssl.traced_loss_kernels() == jpl.traced_loss_kernels()
+    if want:
+        np.testing.assert_allclose(pout.item(), float(jout), rtol=LOSS_RTOL)
+
+
+def test_untileable_block_takes_the_plain_block_at_the_losss_precision():
+    """b = 100 fails the TPU kernel's tiling, so with ``use_pallas`` JAX
+    computes that block on its XLA path at the loss's ``precision``; at
+    "default" that is one bf16 pass on the TPU (the port's "default"). The
+    port's dispatch now gives the same None, and the per-shard loss the
+    plain block at "default": JAX's XLA block on the bf16-rounded
+    embeddings. Before the repair the port ran its f32 kernel on every shape
+    and got the f32 value, which differs."""
+    zi, zt, tp, bias = inputs(100, 100, 128, seed=12)
+    t = [torch.tensor(x) for x in (zi, zt, tp, bias)]
+    ssl.reset_traced_loss_kernels()
+    per_shard = api.make_per_shard_loss(variant="all_gather", use_pallas=True, precision="default")
+    got = per_shard(*t).item()
+    assert ssl.traced_loss_kernels() == ("xla",)
+    rounded = [jnp.asarray(x, jnp.bfloat16).astype(jnp.float32) for x in (zi, zt)]
+    ref = float(jsl.sigmoid_loss_block(*rounded, jnp.asarray(tp), jnp.asarray(bias),
+                                       precision=jax.lax.Precision.HIGHEST))
+    np.testing.assert_allclose(got, ref, rtol=LOSS_RTOL)
+    # The f32 kernel's value (what the port returned before the repair) is
+    # outside that tolerance, over ten times as far from JAX's value.
+    before = ssl.streaming_block_loss_sum(*t, 0).item() / 100
+    assert abs(before - ref) > LOSS_RTOL * abs(ref)
+    assert abs(before - ref) > 10 * abs(got - ref)
+    # The ring and the chunk scan fall back the same way.
+    ring = api.make_per_shard_loss(variant="ring", use_pallas=True, precision="default")
+    np.testing.assert_allclose(ring(*t).item(), ref, rtol=LOSS_RTOL)
+    chunked = api.make_per_shard_loss(variant="all_gather", loss_impl="chunked", use_pallas=True,
+                                      precision="default")
+    np.testing.assert_allclose(chunked(*t).item(), ref, rtol=LOSS_RTOL)

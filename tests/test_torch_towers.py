@@ -185,8 +185,23 @@ def test_params_from_jax_layouts_agree():
     ],
 )
 def test_unsupported_configs_raise(overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
-        SigLIP(port_config(tiny(**overrides)), device="cpu")
+    """Tower fields whose paths are not ported raise ``NotImplementedError``
+    naming the field. ``quant`` and ``quant_train`` (the int8 projections,
+    ported since) now build and run: finite unit embeddings, with the
+    projections' dot swapped for the int8 one."""
+    if match != "quant":
+        with pytest.raises(NotImplementedError, match=match):
+            SigLIP(port_config(tiny(**overrides)), device="cpu")
+        return
+    jcfg = tiny(**overrides)
+    model = SigLIP(port_config(jcfg), device="cpu", generator=torch.Generator().manual_seed(0))
+    mode = "int8_ste" if "quant_train" in overrides else "int8"
+    assert model.visual.encoder.blocks[0].mlp.wi.quant == mode
+    assert model.visual.proj.quant == "" and model.textual.map_head.attn.q.quant == ""
+    images, tokens = inputs(jcfg)
+    zi, zt = port_embed(model, images, tokens)
+    assert np.isfinite(zi).all() and np.isfinite(zt).all()
+    np.testing.assert_allclose(np.linalg.norm(zi, axis=-1), 1.0, atol=1e-5)
 
 
 def test_flash_impl_at_a_long_sequence_builds_and_runs_k7(monkeypatch):

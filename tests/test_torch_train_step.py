@@ -454,9 +454,15 @@ def test_per_shard_loss_refusals_match_jax(kwargs):
 
 
 def test_unported_loss_paths_raise():
-    # The streaming loss kernel is ported (K4-K6); its int8 variant is not.
-    with pytest.raises(NotImplementedError, match="queue A item 6.2"):
-        api.make_per_shard_loss(use_pallas=True, quant="int8")
+    # The streaming loss kernel is ported (K4-K6), and since queue A item 6.2
+    # its int8 mode too: quant="int8" with use_pallas builds and runs.
+    z32 = torch.nn.functional.normalize(torch.randn(32, 128), dim=-1)
+    int8 = api.make_per_shard_loss(use_pallas=True, quant="int8")(
+        z32, z32, torch.tensor(2.3), torch.tensor(-10.0))
+    full = api.make_per_shard_loss(use_pallas=True)(z32, z32, torch.tensor(2.3),
+                                                    torch.tensor(-10.0))
+    assert torch.isfinite(int8) and int8 != full
+    torch.testing.assert_close(int8, full, rtol=2e-2, atol=0)
     z = torch.nn.functional.normalize(torch.randn(4, 8), dim=-1)
     for variant in ("ring", "all_gather"):
         values = [api.make_per_shard_loss(variant=variant, use_pallas=up)(
@@ -494,3 +500,76 @@ def test_unported_step_paths_raise(kwargs, match):
     model = SigLIP(port_config(tiny()), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         pts.make_train_step(model, **kwargs)
+
+
+# --- the int8 path ---------------------------------------------------------------
+
+def _int8_config():
+    """tiny_test with both towers training through the int8 STE and the
+    streaming loss on: 128-d embeddings, so a microbatch of 32 is a block
+    JAX's int8 kernel takes (d % 128, 32-row tiles)."""
+    cfg = tiny(quant_train="int8", embed_dim=128)
+    return dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, use_pallas=True))
+
+
+def test_loss_quant_resolution_and_refusals_match_jax():
+    """``resolve_loss_quant`` gives "int8" only for STE towers with the
+    streaming loss, as JAX's; ``quant="int8"`` towers are refused in
+    training with JAX's message; ``quant_train`` towers train."""
+    for jcfg in (_int8_config(), tiny(quant_train="int8"), tiny(), tiny(quant="int8")):
+        model = SigLIP(port_config(jcfg), device="cpu")
+        assert pts.resolve_loss_quant(model, port_config(jcfg).loss) == \
+            jts.resolve_loss_quant(JaxSigLIP(jcfg), jcfg.loss)
+    jcfg = tiny(quant="int8")
+    with pytest.raises(ValueError) as jerr:
+        jts.validate_trainable_quant(JaxSigLIP(jcfg))
+    with pytest.raises(ValueError) as perr:
+        pts.make_train_step(SigLIP(port_config(jcfg), device="cpu"), port_config(jcfg).loss)
+    assert str(perr.value) == str(jerr.value)
+    pts.validate_trainable_quant(SigLIP(port_config(_int8_config()), device="cpu"))
+
+
+def test_whole_step_int8_with_the_streaming_loss_matches_jax():
+    """One accumulated step (2 microbatches of 32 pairs) with
+    ``quant_train="int8"`` and ``use_pallas=True`` in both packages: the
+    towers' int8 STE projections and the loss's int8 blocks (JAX's kernel
+    in the Pallas interpreter, the port's plain versions), both recording
+    ``"streaming_int8"``. Metrics at rtol 1e-4; then the loss's gradient
+    over every parameter through the int8 dispatch, at rtol 1e-4 over a
+    floor of 1e-5 of each tensor's largest magnitude (entries that are
+    sums of cancelling terms), as the f32 whole-step test on K7 holds it."""
+    from distributed_sigmoid_loss_tpu.ops import pallas_sigmoid_loss as jpl
+    from distributed_sigmoid_loss_tpu_torch.ops import streaming_sigmoid_loss as ssl
+
+    jcfg = _int8_config()
+    jpl.reset_traced_loss_kernels()
+    ssl.reset_traced_loss_kernels()
+    jm, _, pm, _ = _run_both(jcfg, steps=1, accum_steps=2, n=64)
+    assert jpl.traced_loss_kernels() == ssl.traced_loss_kernels() == ("streaming_int8",)
+    for k in METRICS:
+        np.testing.assert_allclose(pm[0][k], jm[0][k], rtol=1e-4, atol=1e-9, err_msg=k)
+
+    batch = batch_np(jcfg, 32)
+    jmodel = JaxSigLIP(jcfg)
+    params = jax.jit(jmodel.init)(jax.random.key(0), batch["images"], batch["tokens"])["params"]
+    params = jax.tree.map(np.asarray, nn.meta.unbox(params))
+
+    def loss(p):
+        zi, zt, lp = jmodel.apply({"params": p}, batch["images"], batch["tokens"])
+        return jpl.streaming_block_loss_or_none(zi, zt, lp["t_prime"], lp["bias"],
+                                                jnp.float32(0), quant="int8")
+
+    jgrads = jax.jit(jax.grad(loss))(params)
+    pcfg = port_config(jcfg)
+    model = SigLIP(pcfg, device="cpu")
+    model.load_state_dict(params_from_jax(params, pcfg), strict=True)
+    zi, zt, lp = model(torch.from_numpy(batch["images"]), torch.from_numpy(batch["tokens"]))
+    ssl.streaming_block_loss_or_none(zi, zt, lp["t_prime"], lp["bias"], 0,
+                                     quant="int8").backward()
+    ref = params_from_jax(jax.tree.map(np.asarray, jgrads), pcfg)
+    got = {k: p.grad for k, p in model.named_parameters()}
+    assert ref.keys() == got.keys()
+    for k in ref:
+        r = ref[k].numpy()
+        np.testing.assert_allclose(got[k].numpy(), r, rtol=1e-4,
+                                   atol=max(1e-5 * np.abs(r).max(), 1e-6), err_msg=k)
