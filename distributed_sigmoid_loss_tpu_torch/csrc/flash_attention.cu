@@ -7,12 +7,12 @@
 // upstream kernel's rounding points per key tile, at this kernel's 64-key
 // tile where JAX's is 128, 256 or 512 keys (so the bf16 roundings fall at
 // other running maxima; ops/flash_attention.py):
-//   s  = f32(q·kᵀ)·scale, keys past the ragged end (and above the diagonal,
-//        causal) masked out;
-//   per key tile: m' = max(m, rowmax(s)), p = exp(s − m') (unnormalised),
-//   α = exp(m − m'), l' = rowsum(p) + α·l, and with r = 1/l' taken once,
-//   acc = acc·(α·l·r) + (bf16(p)·v)·r;
-//   out = bf16(acc); the row statistics m and l are saved in f32 for the
+//   s = f32(q·kᵀ)·scale, keys past the ragged end (and above the diagonal,
+//       causal) masked out;
+//   per key tile: m' = max(m, rowmax(s)), p = exp(s − m') unnormalised and
+//   rounded to bf16 for p·v, l' = α·l + rowsum(p) with α = exp(m − m');
+//   out = bf16(o / l) with o the sum of the tiles' bf16(p)·v, each earlier
+//   sum rescaled by α; the row statistics m and l are saved in f32 for the
 //   backward (flash_attention_bwd.cu).
 // With a single key tile in the whole sequence (s <= 64) the upstream
 // single-step body runs instead: p = exp(s − m) / l, normalised before it is
@@ -21,30 +21,437 @@
 // Bound on this card: at SigLIP-B/16 at 512 px (b=32, s=1024, h=12, dh=64)
 // q, k, v and out are 4·32·1024·768·2 B = 201 MB, 60 µs at 3.35 TB/s, while
 // the two products are 4·32·12·1024²·64 = 103 GFLOP, 104 µs at 989 TFLOP/s:
-// the tensor cores bound it, and every byte is read once.
+// the tensor cores bound it, and only wgmma reaches their full rate.
 //
-// Design. One block of four warps per (64-row query tile, head, batch row),
-// reading the towers' native (b, s, h·dh) layout at stride width (no
-// transposes, no padded copies). Each warp owns 16 query rows whose q
-// fragments stay in registers. Key and value tiles of 64 rows stream through
-// a two-stage cp.async ring in shared memory, so the next tile's copy
-// overlaps this tile's products. The logits, p and the output accumulator
-// live in registers in mma.sync m16n8k16's documented layout: row statistics
-// are quad shuffles, and bf16(p) is the A operand of p·v as it stands.
-// Nothing O(s²) leaves the SM. The ragged tail is zero-filled in shared
-// memory and masked by index; causal blocks visit only the key tiles up to
-// their diagonal (upstream below_or_on_diag) and run heaviest first. The
-// rescaling uses explicitly rounded multiplies and adds (no FMA contraction),
-// so the kernel rounds where its plain version does. wgmma/TMA pipelining is
-// later work.
+// Two bodies, picked by shape in flash_attention_fwd:
+// - The warpgroup body (head dims 64 and 128, the towers' B/16, L/14 and
+//   context shapes): one block of three warpgroups per (128-row query tile,
+//   head, batch row). A producer warpgroup keeps a ring of 64-key K and V
+//   tiles in shared memory (8 tiles at dh=64, 4 at 128; each its own stage
+//   with a full and an empty mbarrier), filled by TMA through 3-D tensor
+//   maps over the towers' native (b, s, h·dh) layout (the head is the box's
+//   column offset; rows past s are zero-filled by TMA, never read from the
+//   next batch row) in 128-byte-swizzled 64-column panels; Q's tile is
+//   loaded once. Two consumer warpgroups own 64 query rows each, so each
+//   K/V tile is read from L2 once per 128 query rows. s = q·kᵀ is a wgmma
+//   with both operands in shared memory; p stays in registers and is the A
+//   operand of o += bf16(p)·v, a wgmma with V's descriptor transposed.
+//   setmaxnreg moves registers from the producer to the consumers. Per
+//   element the softmax is one FMA and one ex2.approx, 2^(x·scale·log2e −
+//   m·scale·log2e), with m kept, and stored, in the natural-log domain as
+//   max(x·scale); o is rescaled by α with the tile's product accumulated on
+//   top, and normalised once at the end. Tensors whose rows are not 16-byte
+//   aligned (no TMA) take the same body with the producer warpgroup writing
+//   the swizzled tiles element by element, so both round identically.
+// - The mma.sync body (every other head dim, a multiple of 8 up to 128,
+//   e.g. So400m's 72, which does not fill the 128-byte swizzle atoms): one
+//   block of four warps per (64-row query tile, head, batch row), q
+//   fragments in registers, K/V tiles through a two-stage cp.async ring,
+//   logits, p and the accumulator in mma.sync m16n8k16's register layout.
+//   It rounds where the plain version does (explicitly rounded multiplies
+//   and adds, IEEE exp, the accumulator normalised per tile).
+// Both mask the ragged tail by index, and causal blocks visit only the key
+// tiles up to their diagonal (upstream below_or_on_diag) and run heaviest
+// first. Nothing O(s²) leaves the SM.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 
 #include "short_attention_common.cuh"
+#include "wgmma.cuh"
 
 using namespace short_attention;
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// ---- the warpgroup body --------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPanel = 64;          // bf16 columns of a 128-byte swizzle panel
+constexpr int kProducerRegs = 40;
+
+template <int DH>
+struct Wg {
+  static constexpr int kPanels = DH / kPanel;
+  static constexpr int kTileBytes = 64 * DH * 2;           // one 64-row K or V tile
+  static constexpr int kConsumers = 2;                     // warpgroups of 64 query rows
+  static constexpr int kRows = 64 * kConsumers;            // query rows of a block
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // and the producer warpgroup
+  static constexpr int kQBytes = kRows * DH * 2;           // the block's Q tile
+  static constexpr int kStages = DH == 64 ? 8 : 4;         // ring entries, a K or a V tile each
+  static constexpr int kMinBlocks = DH == 64 ? 2 : 1;
+  // Consumer registers within the block's launch allocation (80 a thread at
+  // two blocks per SM, 168 at one) after the producer gives up its own.
+  static constexpr int kConsumerRegs = DH == 64 ? 96 : 232;
+  static constexpr size_t kSmem =
+      1024 + kQBytes + (size_t)kStages * kTileBytes + (2 * kStages + 1) * sizeof(uint64_t);
+};
+
+__device__ inline void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One 64 × 64 box of a (b, s, width) bf16 tensor map at (column, row,
+// batch) into shared memory, completing on the barrier.
+__device__ inline void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col, int row,
+                                int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(batch)
+      : "memory");
+}
+
+template <int DH>
+__device__ inline void wgmma_pv(float (&o)[DH / 2], const unsigned (&a)[4], uint64_t db) {
+  if constexpr (DH == 64) wgmma_rs_n64(o, a, db, 1);
+  else wgmma_rs_n128(o, a, db, 1);
+}
+
+// Element-wise fill of `rows` rows of one head's (s, DH) slice from row0 on
+// (zero past s) into 64-column 128-byte-swizzled panels, as TMA lays them
+// out: element (r, c) of panel c / 64 at byte r·128 + ((c/8 ⊕ r%8)·16) + c%8·2.
+template <int DH>
+__device__ inline void fill_swizzled(unsigned char* dst, const bf16* src, int row0, int rows, int s,
+                                     int width, int t) {
+  for (int i = t; i < rows * DH; i += 128) {
+    const int r = i / DH, c = i % DH, cc = c % kPanel;
+    const bf16 val = row0 + r < s ? src[(size_t)(row0 + r) * width + c] : __float2bfloat16(0.f);
+    *reinterpret_cast<bf16*>(dst + (c / kPanel) * rows * 128 + r * 128 +
+                             ((((cc >> 3) ^ (r & 7))) << 4) + (cc & 7) * 2) = val;
+  }
+  fence_proxy_async();  // visible to wgmma
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Wg<DH>::kThreads, Wg<DH>::kMinBlocks)
+flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                                 float* __restrict__ stats, int s, int heads, float scale,
+                                 int causal, int vec) {
+  using G = Wg<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = qs + G::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kStages * G::kTileBytes);
+  uint64_t* empty = full + G::kStages;
+  uint64_t* qbar = empty + G::kStages;
+
+  const int width = heads * DH;
+  const int n_tiles = (s + 63) / 64, n_qb = (s + G::kRows - 1) / G::kRows;
+  const int qb = causal ? n_qb - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qb * G::kRows;
+  const int n_visit = causal ? min(G::kConsumers * (qb + 1), n_tiles) : n_tiles;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const size_t slab = (size_t)b * s * width + (size_t)h * DH;
+
+  if (threadIdx.x == 0) {
+    for (int e = 0; e < G::kStages; ++e) {
+      mbar_init(&full[e], vec ? 1 : 128);
+      mbar_init(&empty[e], 4 * G::kConsumers);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, vec ? 1 : 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: Q once, then K0, V0, K1, V1, ... through the ring.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (vec) {
+      if (t != 0) return;
+      mbar_expect_tx(qbar, G::kQBytes);
+      for (int p = 0; p < G::kPanels; ++p)
+        for (int c = 0; c < G::kConsumers; ++c)
+          tma_load(qs + p * G::kRows * 128 + c * 64 * 128, &q_map, qbar, h * DH + p * kPanel,
+                   q0 + c * 64, b);
+    } else {
+      fill_swizzled<DH>(qs, q + slab, q0, G::kRows, s, width, t);
+      mbar_arrive(qbar);
+    }
+    for (int i = 0; i < 2 * n_visit; ++i) {
+      const int e = i % G::kStages, use = i / G::kStages;
+      if (use > 0) mbar_wait(&empty[e], (use - 1) & 1);
+      unsigned char* tile = ring + e * G::kTileBytes;
+      if (vec) {
+        mbar_expect_tx(&full[e], G::kTileBytes);
+        for (int p = 0; p < G::kPanels; ++p)
+          tma_load(tile + p * 64 * 128, (i & 1) ? &v_map : &k_map, &full[e], h * DH + p * kPanel,
+                   (i / 2) * 64, b);
+      } else {
+        fill_swizzled<DH>(tile, ((i & 1) ? v : k) + slab, (i / 2) * 64, 64, s, width, t);
+        mbar_arrive(&full[e]);
+      }
+    }
+  } else {
+    // Consumer c owns query rows q0 + 64c .. + 63; warp w of it rows 16w ..
+    // 16w + 15 of those, in the accumulator layout of mma.sync (rows gq and
+    // gq + 8, columns 2tq and 2tq + 1 of every 8-wide tile).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::kConsumerRegs));
+    const int c = wg - 1, w = t / 32, lane = t % 32, gq = lane >> 2, tq = lane & 3;
+    const int row_a = q0 + 64 * c + 16 * w + gq, row_b = row_a + 8;
+    const int lim_a = causal ? min(row_a + 1, s) : s;
+    const int lim_b = causal ? min(row_b + 1, s) : s;
+    const int my_visit = causal ? min(G::kConsumers * qb + c + 1, n_tiles) : n_tiles;
+    const bool single = n_tiles == 1;
+    const float sl = scale * kLog2e;
+
+    float o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // m in x units (unscaled)
+    float al_a = 0.f, al_b = 0.f;  // the latest tile's rescale factors α
+    unsigned pa[4][4];             // the latest tile's bf16(p)
+
+    // Ring entries and phases of tile j's K and V.
+    auto k_entry = [&](int j) { return (2 * j) % G::kStages; };
+    auto v_entry = [&](int j) { return (2 * j + 1) % G::kStages; };
+    auto k_phase = [&](int j) { return (unsigned)((2 * j) / G::kStages) & 1u; };
+    auto v_phase = [&](int j) { return (unsigned)((2 * j + 1) / G::kStages) & 1u; };
+    auto release = [&](int e) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[e]);
+    };
+    // s = q·kᵀ of tile j into sc, issued (uncommitted).
+    auto issue_s = [&](int j, float (&sc)[32]) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int p = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss_n64(sc, sw128_desc(qs + p * G::kRows * 128 + c * 64 * 128 + off, 16),
+                     sw128_desc(ring + k_entry(j) * G::kTileBytes + p * 64 * 128 + off, 16),
+                     kk > 0);
+      }
+    };
+    // o += bf16(p)·v of tile j, issued (uncommitted).
+    auto issue_pv = [&](int j) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<DH>(o, pa[kk],
+                     sw128_desc(ring + v_entry(j) * G::kTileBytes + kk * 2048, 64 * 128));
+    };
+    // The softmax of tile j's raw logits sc: mask, running max and sum, α,
+    // and bf16(p) packed as the A operand into pn (16-key step kk = 8-key
+    // tiles 2kk and 2kk+1; rows a: registers 4n, 4n+1; b: 4n+2, 4n+3).
+    auto softmax = [&](int j, float (&sc)[32], unsigned (&pn)[4][4]) {
+      const int k0 = j * 64;
+      if (k0 + 64 > min(lim_a, lim_b)) {  // a tile past some row's limit: mask
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = k0 + 8 * n + 2 * tq;
+          sc[4 * n] = col < lim_a ? sc[4 * n] : -INFINITY;
+          sc[4 * n + 1] = col + 1 < lim_a ? sc[4 * n + 1] : -INFINITY;
+          sc[4 * n + 2] = col < lim_b ? sc[4 * n + 2] : -INFINITY;
+          sc[4 * n + 3] = col + 1 < lim_b ? sc[4 * n + 3] : -INFINITY;
+        }
+      }
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * n], sc[4 * n + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+      }
+      // Every visited tile holds a live key for every row, so the new
+      // maxima are finite; 2^-inf = 0 on masked keys and the first α.
+      const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+      const float nm_a = -mn_a * sl, nm_b = -mn_b * sl;
+      float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        sc[4 * n] = ex2(fmaf(sc[4 * n], sl, nm_a));
+        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], sl, nm_a));
+        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], sl, nm_b));
+        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], sl, nm_b));
+        rs_a += sc[4 * n] + sc[4 * n + 1];
+        rs_b += sc[4 * n + 2] + sc[4 * n + 3];
+      }
+      rs_a = quad_sum(rs_a);
+      rs_b = quad_sum(rs_b);
+      if (single) {  // upstream single-step body: p normalised before the cast
+        l_a = rs_a;
+        l_b = rs_b;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          sc[4 * n] = __fdiv_rn(sc[4 * n], l_a);
+          sc[4 * n + 1] = __fdiv_rn(sc[4 * n + 1], l_a);
+          sc[4 * n + 2] = __fdiv_rn(sc[4 * n + 2], l_b);
+          sc[4 * n + 3] = __fdiv_rn(sc[4 * n + 3], l_b);
+        }
+      } else {
+        al_a = ex2(fmaf(m_a, sl, nm_a));
+        al_b = ex2(fmaf(m_b, sl, nm_b));
+        l_a = fmaf(l_a, al_a, rs_a);
+        l_b = fmaf(l_b, al_b, rs_b);
+      }
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pn[kk][0] = pack(sc[8 * kk], sc[8 * kk + 1]);
+        pn[kk][1] = pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pn[kk][2] = pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pn[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < my_visit; ++j) {
+      float sc[32];  // overwritten by the first product (scale_d = 0)
+      mbar_wait(&full[k_entry(j)], k_phase(j));
+      wgmma_fence();
+      issue_s(j, sc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+      release(k_entry(j));
+      softmax(j, sc, pa);
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {  // o (0 before the first tile) to the new maxima
+        o[4 * n] *= al_a;
+        o[4 * n + 1] *= al_a;
+        o[4 * n + 2] *= al_b;
+        o[4 * n + 3] *= al_b;
+      }
+      mbar_wait(&full[v_entry(j)], v_phase(j));
+      wgmma_fence();
+      issue_pv(j);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o);
+      release(v_entry(j));
+    }
+
+    const float r_a = single ? 1.f : 1.f / l_a, r_b = single ? 1.f : 1.f / l_b;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      const int col = 8 * n + 2 * tq;
+      store_pair(out + slab, row_a, col, o[4 * n] * r_a, o[4 * n + 1] * r_a, s, width, DH, vec);
+      store_pair(out + slab, row_b, col, o[4 * n + 2] * r_b, o[4 * n + 3] * r_b, s, width, DH, vec);
+    }
+    if (tq == 0) {
+      float* st = stats + ((size_t)b * heads + h) * 2 * s;  // [m | l] rows of (b, h)
+      if (row_a < s) {
+        st[row_a] = m_a * scale;
+        st[s + row_a] = l_a;
+      }
+      if (row_b < s) {
+        st[row_b] = m_b * scale;
+        st[s + row_b] = l_b;
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a (b, s, width) bf16 tensor: 64 × 64 boxes, 128-byte swizzle,
+// rows past s zero-filled.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int b, int s, int width) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)s * width * 2};
+  const cuuint32_t box[3] = {kPanel, 64, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Sets the kernel's shared memory; refuses a build whose launch allocation
+// cannot cover the registers setmaxnreg hands the consumers (the consumers
+// would wait for them forever).
+template <int DH>
+cudaError_t configure_wgmma() {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_fwd_wgmma_kernel<DH>);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * Wg<DH>::kThreads <
+      128 * kProducerRegs + 128 * Wg<DH>::kConsumers * Wg<DH>::kConsumerRegs)
+    return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(flash_attention_fwd_wgmma_kernel<DH>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Wg<DH>::kSmem);
+}
+
+template <int DH>
+int occupancy_wgmma() {
+  int blocks = 0;
+  cudaError_t err = configure_wgmma<DH>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, flash_attention_fwd_wgmma_kernel<DH>, Wg<DH>::kThreads, Wg<DH>::kSmem);
+  return err == cudaSuccess ? blocks : 0;
+}
+
+template <int DH>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, void* stats, int b,
+                         int s, int heads, float scale, int causal, int vec, cudaStream_t stream) {
+  CUtensorMap maps[3] = {};
+  cudaError_t err = configure_wgmma<DH>();
+  if (vec) {
+    const void* ptrs[3] = {q, k, v};
+    for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+      err = make_map(&maps[i], ptrs[i], b, s, heads * DH);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + Wg<DH>::kRows - 1) / Wg<DH>::kRows, heads, b);
+  flash_attention_fwd_wgmma_kernel<DH><<<grid, Wg<DH>::kThreads, Wg<DH>::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(stats), s, heads,
+      scale, causal, vec);
+  return cudaGetLastError();
+}
+
+// ---- the mma.sync body ---------------------------------------------------
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -279,13 +686,29 @@ int occupancy(const Geometry& g) {
 
 bool takes(int dh) { return dh >= 8 && dh <= kMaxHeadDim && dh % 8 == 0; }
 
+// The body a head dim takes: the warpgroup body at 64 and 128, the mma.sync
+// body at every other head dim the kernels take.
+bool warpgroup_body(int dh) { return dh == 64 || dh == 128; }
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block, bytes (mirrored by
-// ops/flash_attention.py::flash_attention_smem_bytes).
-long long flash_attention_fwd_smem_bytes(int dh) { return (long long)geometry(dh).smem; }
+// Dynamic shared memory of one block of the body this head dim takes, bytes
+// (mirrored by ops/flash_attention.py::flash_attention_smem_bytes).
+long long flash_attention_fwd_smem_bytes(int dh) {
+  if (dh == 64) return (long long)Wg<64>::kSmem;
+  if (dh == 128) return (long long)Wg<128>::kSmem;
+  return (long long)geometry(dh).smem;
+}
+
+// The body a call takes, for the records: 1 = warpgroup body fed by TMA,
+// 2 = warpgroup body with element-wise loads (rows not 16-byte aligned),
+// 0 = mma.sync body; -1 for a head dim the kernels do not take.
+int flash_attention_fwd_body(int dh, int vec) {
+  if (!takes(dh)) return -1;
+  return warpgroup_body(dh) ? (vec ? 1 : 2) : 0;
+}
 
 // q, k, v, out: (b, s, heads·dh) bf16, contiguous; stats: (b, heads, 2, s)
 // f32, the row maxima m then the row sums l. One launch; returns its
@@ -297,6 +720,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
   if (b < 1 || b > 65535 || s < 1 || heads < 1 || heads > 65535 || !takes(dh))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh == 64)
+    return (int)launch_wgmma<64>(q, k, v, out, stats, b, s, heads, scale, causal, vec, st);
+  if (dh == 128)
+    return (int)launch_wgmma<128>(q, k, v, out, stats, b, s, heads, scale, causal, vec, st);
 #define FA_LAUNCH(DT) \
   case DT:            \
     return (int)launch<DT>(q, k, v, out, stats, b, s, heads, dh, scale, causal, vec, st);
@@ -308,9 +735,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
 #undef FA_LAUNCH
 }
 
-// Resident blocks per SM at this head dim (0 with an error), for the records.
+// Resident blocks per SM of the body this head dim takes (0 with an error),
+// for the records.
 int flash_attention_fwd_occupancy(int dh) {
   if (!takes(dh)) return 0;
+  if (dh == 64) return occupancy_wgmma<64>();
+  if (dh == 128) return occupancy_wgmma<128>();
   const Geometry g = geometry(dh);
 #define FA_OCC(DT) \
   case DT:         \

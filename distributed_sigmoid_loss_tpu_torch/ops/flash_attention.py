@@ -136,9 +136,16 @@ def _round_up(x: int, m: int) -> int:
 
 
 def flash_attention_smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one forward block: the 64-row Q tile and two
+    """Dynamic shared memory of one forward block of the body this head dim
+    takes. The warpgroup body (head dims 64 and 128): 1,024 bytes of
+    alignment slack, the 128-row Q tile, a ring of 64-row K or V tiles (8 at
+    dh=64, 4 at 128) and their full and empty barriers plus Q's, 8 bytes
+    each. The mma.sync body (other head dims): the 64-row Q tile and two
     stages of 64-row K and V tiles, bf16 at row stride head_dim_pad + 8.
-    Mirrors ``geometry()`` in ``flash_attention.cu``."""
+    Mirrors ``flash_attention_fwd_smem_bytes`` in ``flash_attention.cu``."""
+    if head_dim in (64, 128):
+        stages = 8 if head_dim == 64 else 4
+        return 1024 + 128 * head_dim * 2 + stages * BLOCK_K * head_dim * 2 + (2 * stages + 1) * 8
     return (BLOCK_K + 4 * BLOCK_K) * (_round_up(head_dim, 16) + 8) * 2
 
 
@@ -291,6 +298,8 @@ def _library(name: str) -> ctypes.CDLL:
         lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_fwd_occupancy.argtypes = [i]
         lib.flash_attention_fwd_occupancy.restype = i
+        lib.flash_attention_fwd_body.argtypes = [i, i]
+        lib.flash_attention_fwd_body.restype = i
         lib.flash_attention_fwd_error_string.argtypes = [i]
         lib.flash_attention_fwd_error_string.restype = ctypes.c_char_p
     else:

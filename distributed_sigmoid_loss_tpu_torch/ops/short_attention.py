@@ -167,12 +167,33 @@ def _round_up(x: int, m: int) -> int:
 
 
 def short_attention_smem_bytes(s: int, head_dim: int) -> int:
-    """Dynamic shared memory of one K1 block: K and V of one head (bf16,
-    rows padded to 16, row stride head_dim_pad + 8) plus four warps' f32
-    16-row logits strips. Mirrors ``geometry()`` in ``short_attention.cu``."""
+    """Dynamic shared memory of one K1 block of the body a call with
+    16-byte rows takes. Head dim 64 up to s_pad = 256 (the warpgroup body):
+    1,024 bytes of alignment slack, K and V over 64, 208 or 256 rows of 128
+    bytes, and one 64-row q tile. Otherwise (the mma.sync bodies): K and V
+    of one head in bf16 at row stride head_dim_pad + 8, over every key tile
+    the body reads (64 or 208 rows for the one-pass body, s rounded up to 64
+    for the two-pass body), and four warps' 16-row q tiles at the same
+    stride. Mirrors ``geometry()`` and ``wgmma_smem_bytes()`` in
+    ``short_attention.cu``."""
     s_pad, dh_pad = _round_up(s, 16), _round_up(head_dim, 16)
-    ld_s = max(s_pad, dh_pad) + 4
-    return 2 * s_pad * (dh_pad + 8) * 2 + _WARPS * _ROWS_PER_WARP * ld_s * 4
+    if head_dim == 64 and s_pad <= 256:
+        rows = 64 if s_pad <= 64 else 208 if s_pad <= 208 else 256
+        return 1024 + (2 * rows + 64) * 128
+    rows = 64 if s_pad <= 64 else 208 if s_pad <= 208 else _round_up(s, 64)
+    return (2 * rows + _WARPS * _ROWS_PER_WARP) * (dh_pad + 8) * 2
+
+
+def _k1_dispatch_limit_bytes(s: int, head_dim: int) -> int:
+    """The K1/K7 dispatch limit for bf16, in the units it was set in: the
+    footprint of the earlier K1 design (K and V of one head plus four warps'
+    f32 16-row logits strips), which set where the towers leave K1 for K7
+    (s <= 416 at width 768 / 12 heads, 368 at 1,152 / 16). The kernel's own
+    footprint is smaller now; the boundary stays where it was until it is
+    moved on purpose (ROADMAP.md queue C, "K1 vs K7 for mid-length
+    sequences")."""
+    s_pad, dh_pad = _round_up(s, 16), _round_up(head_dim, 16)
+    return 2 * s_pad * (dh_pad + 8) * 2 + _WARPS * _ROWS_PER_WARP * (max(s_pad, dh_pad) + 4) * 4
 
 
 def short_attention_bwd_smem_bytes(s: int, head_dim: int) -> int:
@@ -236,9 +257,11 @@ def short_attention_bwd_batched_fits(s: int, width: int, num_heads: int,
 
 def short_attention_fits(s: int, width: int, dtype_bytes: int, num_heads: int) -> bool:
     """True when the fused short kernel takes this shape. bf16: head_dim at
-    most :data:`MAX_HEAD_DIM` and one block of K1 and of K2 within the 227
-    KB Hopper budget (B/16's s=196 and 64 and L/14's s=256 fit; s=1024 at
-    dh=64 does not: K7 takes it). f32: JAX's own predicate (s <= 1,024 and
+    most :data:`MAX_HEAD_DIM`, one block of K1 and of K2 within the 227 KB
+    Hopper budget, and the K1/K7 dispatch limit
+    (:func:`_k1_dispatch_limit_bytes`: s <= 416 at width 768 / 12 heads, 368
+    at 1,152 / 16; B/16's s=196 and 64 and L/14's s=256 fit; s=1024 at dh=64
+    does not: K7 takes it). f32: JAX's own predicate (s <= 1,024 and
     the backward's seven (s, width) blocks plus three f32 (s, s) chains
     within its VMEM budget), since the f32 kernels tile the sequence and take
     every length; head_dim at most 128."""
@@ -252,7 +275,8 @@ def short_attention_fits(s: int, width: int, dtype_bytes: int, num_heads: int) -
     return (
         dtype_bytes == 2
         and head_dim <= MAX_HEAD_DIM
-        and max(short_attention_smem_bytes(s, head_dim),
+        and max(_k1_dispatch_limit_bytes(s, head_dim),
+                short_attention_smem_bytes(s, head_dim),
                 short_attention_bwd_smem_bytes(s, head_dim)) <= SMEM_BUDGET_BYTES
     )
 
@@ -346,6 +370,10 @@ def _library(name: str) -> ctypes.CDLL:
         lib.short_attention_smem_bytes.restype = ctypes.c_longlong
         lib.short_attention_occupancy.argtypes = [i, i]
         lib.short_attention_occupancy.restype = i
+        lib.short_attention_row_keys.argtypes = [i, i, i]
+        lib.short_attention_row_keys.restype = i
+        lib.short_attention_body.argtypes = [i, i, i]
+        lib.short_attention_body.restype = i
         lib.short_attention_error_string.argtypes = [i]
         lib.short_attention_error_string.restype = ctypes.c_char_p
     elif name == "short_attention_bwd_batched":

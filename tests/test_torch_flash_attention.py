@@ -174,8 +174,14 @@ def test_block_sizes_and_shared_memory():
     assert [fa.default_block_k(s) for s in (64, 196, 300, 729, 1000, 1024, 4096)] == \
         [128, 256, 128, 256, 512, 512, 512]
     # One block of either pass at the head dims the kernels take stays far
-    # inside the 227 KB Hopper budget (several blocks per SM).
-    assert fa.flash_attention_smem_bytes(64) == 46_080
+    # inside the 227 KB Hopper budget. The forward's warpgroup body (dh 64
+    # and 128): alignment slack, the 128-row Q tile, a ring of 64-row K or V
+    # tiles (8 at dh=64, 4 at 128) and 2·stages + 1 barriers; two blocks per
+    # SM at dh=64. The mma.sync body (other head dims) is unchanged.
+    assert fa.flash_attention_smem_bytes(64) == 1024 + 128 * 128 + 8 * 64 * 128 + 17 * 8
+    assert 2 * fa.flash_attention_smem_bytes(64) <= sa.SMEM_BUDGET_BYTES
+    assert fa.flash_attention_smem_bytes(128) == 1024 + 128 * 256 + 4 * 64 * 256 + 9 * 8
+    assert fa.flash_attention_smem_bytes(72) == 5 * 64 * 88 * 2
     assert fa.flash_attention_bwd_smem_bytes(72) == 69_120
     assert max(fa.flash_attention_bwd_smem_bytes(128), fa.flash_attention_smem_bytes(128)) \
         <= sa.SMEM_BUDGET_BYTES // 2
@@ -252,6 +258,26 @@ def test_flash_forward_runs_once_per_layer_under_save_hot(monkeypatch, policy, f
     psl.sigmoid_loss(zi, zt, lp["t_prime"], lp["bias"]).backward()
     assert calls == {"fwd": forwards, "bwd": 4}
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.parametrize("width,heads,k1_max", [(768, 12, 416), (1152, 16, 368)],
+                         ids=["w768", "w1152"])
+def test_k1_fit_boundary_is_unchanged(monkeypatch, width, heads, k1_max):
+    """The towers' dispatch sends bf16 self-attention to K1 up to s = 416 at
+    width 768 / 12 heads and 368 at 1,152 / 16 (dh = 72), and to K7 one
+    past it, as before K1 stopped keeping its logits in shared memory: the
+    boundary is a dispatch limit now, not the kernel's own footprint."""
+    monkeypatch.setattr(fa, "flash_attention_available", lambda x: True)
+    taken = _spy(monkeypatch)
+    attn = transformer.Attention(width, heads, torch.bfloat16, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    for s in (k1_max, k1_max + 1):
+        x = torch.randn(1, s, width, generator=torch.Generator().manual_seed(s))
+        with torch.no_grad():
+            assert torch.isfinite(attn(x.to(torch.bfloat16)).float()).all()
+    assert taken == ["K1", "K7"]
+    head_dim = width // heads
+    assert sa.short_attention_smem_bytes(k1_max + 1, head_dim) < sa.SMEM_BUDGET_BYTES
 
 
 @pytest.mark.parametrize("s", [432, 576, 1024])

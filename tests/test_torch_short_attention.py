@@ -84,10 +84,18 @@ def test_short_attention_fits_hopper_budget():
     # vision fits, s=512 at width 768 is past JAX's VMEM budget.
     assert sa.short_attention_fits(196, 768, 4, 12)
     assert not sa.short_attention_fits(512, 768, 4, 12)
-    # One block's footprint at B/16 vision: K, V (208 rows × 72, bf16) and
-    # four 16 × 212 f32 strips.
-    assert sa.short_attention_smem_bytes(196, 64) == 2 * 208 * 72 * 2 + 4 * 16 * 212 * 4
-    assert sa.short_attention_smem_bytes(196, 64) <= sa.SMEM_BUDGET_BYTES
+    # One block's footprint at B/16 vision (the warpgroup body): alignment
+    # slack, K and V (208 rows of 128 bytes) and one 64-row q tile; no
+    # logits in shared memory, so three blocks fit an SM. At dh=72 (the
+    # mma.sync body): K, V (208 rows × 88, bf16) and four warps' 16-row q
+    # tiles at the same stride.
+    assert sa.short_attention_smem_bytes(196, 64) == 1024 + (2 * 208 + 64) * 128
+    assert 3 * sa.short_attention_smem_bytes(196, 64) <= sa.SMEM_BUDGET_BYTES
+    assert sa.short_attention_smem_bytes(196, 72) == (2 * 208 + 4 * 16) * 88 * 2
+    # L/14's s=256 at dh=64 is the warpgroup body's longest row (256 keys);
+    # at dh=72 it takes the two-pass body (rows rounded up to 64).
+    assert sa.short_attention_smem_bytes(256, 64) == 1024 + (2 * 256 + 64) * 128
+    assert sa.short_attention_smem_bytes(256, 72) == (2 * 256 + 4 * 16) * 88 * 2
 
 
 def test_launch_counter_stays_zero_on_cpu():
