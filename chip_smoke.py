@@ -17,9 +17,7 @@ and nothing is caught:
    shapes the main paths give it, and time kernel, plain version and the
    PyTorch library call beside the work's least time on this card (K1's
    lines name the body each case took, its registers from ``[build]`` and
-   its blocks per SM); with ``--baseline-csrc DIR``, K1 and the K7 forward
-   built from another commit's ``csrc/`` timed beside this checkout's
-   (``[baseline]``);
+   its blocks per SM);
 4. the serving path (``run_serve_path`` with ``SERVE``): SigLIP-B/16 at
    full width and depth in bf16, seeded random weights,
    ``InferenceEngine`` + ``EmbeddingService`` serving a 256-image corpus and
@@ -53,8 +51,9 @@ and nothing is caught:
    K3 against K2, each by the cosine of the whole model's gradient;
 9. the flash attention kernel K7 (``[kernel_flash]``, run with phase 3):
    forward, dK/dV and dQ against their plain versions at the kernels' own
-   key block in five cases (B/16 at 512 px, So400m-384's dh=72 at s=729,
-   causal at s=1000, s=196, the context block's s=4,096), bitwise
+   key block in eight cases (B/16 at 512 px, So400m-384's dh=72 at s=729,
+   causal at s=1000, s=196, the context block's s=4,096, dh=128 at
+   s=1,024, the single key tile at s=64 and causal at s=50), bitwise
    repeatable, timed beside SDPA, with the forward's body (wgmma fed by TMA
    at head dims 64 and 128, mma.sync otherwise), registers and blocks per
    SM; then SigLIP-B/16 at 512 px (1,024
@@ -167,6 +166,7 @@ ATTENTION_CASES = {
     "head_dim_72": (2, 256, 16, 72, False),  # so400m head width, L/14 length
     "l14": (64, 256, 16, 64, False),  # L/14 (width 1,024, 16 heads), batch 64
     "scalar_path": (2, 50, 3, 20, True),  # width 60: element-wise loads and stores
+    "s416": (4, 416, 12, 64, False),  # the K1/K7 dispatch limit at width 768 / 12: two passes
 }
 # K7 cases: (b, s, h, dh, causal).
 FLASH_CASES = {
@@ -175,6 +175,9 @@ FLASH_CASES = {
     "causal_1000": (4, 1000, 12, 64, True),
     "s196": (32, 196, 12, 64, False),
     "context_4096": (4, 4096, 12, 64, False),  # the [context] block's longest shape
+    "head_dim_128": (8, 1024, 8, 128, False),  # the warpgroup body at dh=128
+    "single_tile": (16, 64, 12, 64, False),  # one key tile: p normalised before the cast
+    "single_tile_causal": (4, 50, 12, 64, True),
 }
 FLASH_TIMED = "b16_512"
 # K7 vs its plain version at the kernels' own key block: both round p (and
@@ -1961,75 +1964,6 @@ def check_flash_attention(fa, gen) -> dict:
     return records
 
 
-def time_baseline_kernels(csrc_dir: str, sa, fa, gen) -> dict:
-    """K1 and the K7 forward built from ``csrc_dir`` (another commit's
-    ``csrc/``, with the same C entry points) by the same ``nvcc`` flags, and
-    timed beside this checkout's kernels on the same inputs, in turns
-    (baseline, this, this, baseline), at K1's vision and text shapes and
-    K7's FLASH_TIMED. Each baseline output is also held to the plain
-    version. Returns ``{case: record}``."""
-    import ctypes
-    import pathlib
-
-    from distributed_sigmoid_loss_tpu_torch.ops import _cuda
-
-    out_dir = _cuda.BUILD_DIR / "baseline"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in ("short_attention", "flash_attention"):
-        lib_path = out_dir / f"lib{name}.so"
-        cmd = [_cuda._nvcc(), *_cuda._NVCC_FLAGS, "-o", str(lib_path),
-               str(pathlib.Path(csrc_dir) / f"{name}.cu")]
-        procs[name] = (lib_path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib_path, proc) in procs.items():
-        build_log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"baseline nvcc failed for {name}:\n{build_log}")
-        log("baseline", library=name, ptxas=ptxas_usage(build_log))
-        libs[name] = ctypes.CDLL(str(lib_path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs["short_attention"].short_attention_fwd.argtypes = [p] * 4 + [i] * 4 + [f, i, i, p]
-    libs["flash_attention"].flash_attention_fwd.argtypes = [p] * 5 + [i] * 4 + [f, i, i, p]
-    records = {}
-    cases = [("K1 " + n, ATTENTION_CASES[n]) for n in ("vision", "text")]
-    cases.append(("K7 fwd " + FLASH_TIMED, FLASH_CASES[FLASH_TIMED]))
-    for case, (b, s, h, dh, causal) in cases:
-        q, k, v = (torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
-                   for _ in range(3))
-        out = torch.empty_like(q)
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        if case.startswith("K1"):
-            def baseline():
-                return libs["short_attention"].short_attention_fwd(
-                    *args, b, s, h, dh, dh ** -0.5, int(causal), 1, stream)
-            current = lambda: sa.short_self_attention(q, k, v, causal)  # noqa: E731
-            plain = lambda: sa.short_self_attention_plain(q, k, v, causal)  # noqa: E731
-        else:
-            stats = torch.empty(b, h, 2, s, device="cuda")
-
-            def baseline():
-                return libs["flash_attention"].flash_attention_fwd(
-                    *args, stats.data_ptr(), b, s, h, dh, dh ** -0.5, int(causal), 1, stream)
-            current = lambda: fa._launch_fwd(q, k, v, causal, dh ** -0.5)  # noqa: E731
-            plain = lambda: fa.flash_self_attention_plain(q, k, v, causal, dh ** -0.5,  # noqa: E731
-                                                          fa.BLOCK_K)[0]
-        if baseline() != 0:
-            raise RuntimeError(f"baseline launch failed at {case}")
-        torch.cuda.synchronize()
-        err = (out.float() - plain().float()).abs().max().item()
-        t = [time_ms(baseline), time_ms(current), time_ms(current), time_ms(baseline)]
-        rec = dict(case=case, shape=[b, s, h, dh], baseline_ms=(t[0] + t[3]) / 2,
-                   ms=(t[1] + t[2]) / 2, runs_ms=t, baseline_max_abs_err_vs_plain=err,
-                   baseline_device_ms=device_ms(baseline), device_ms=device_ms(current))
-        rec["speedup"] = rec["baseline_ms"] / rec["ms"]
-        log("baseline", **rec)
-        records[case] = rec
-    return records
-
-
 @contextlib.contextmanager
 def plain_attention(sa, fa):
     """Every attention kernel's launch (K1, K2, K7 fwd, dkv and dq, and the
@@ -2122,9 +2056,6 @@ def global_norm_of(tensors) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--baseline-csrc", default=None,
-                    help="time K1 and the K7 forward built from this directory (another "
-                         "commit's csrc/) beside this checkout's, after phase 3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2192,8 +2123,6 @@ def main() -> int:
     flash_recs = check_flash_attention(fa, gen)
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
-    if args.baseline_csrc:
-        time_baseline_kernels(args.baseline_csrc, sa, fa, gen)
 
     # Phases 4-11: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}

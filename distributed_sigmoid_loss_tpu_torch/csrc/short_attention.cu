@@ -285,7 +285,7 @@ short_attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
-// ---- the warpgroup body: head dim 64, rows 16-byte aligned, s_pad <= 208 ----
+// ---- the warpgroup body: head dim 64, rows 16-byte aligned, s_pad <= 256 ----
 
 // Copy rows [row0, row0 + rows) of one head's (s, 64) slice into 128-byte
 // rows of shared memory, 16-byte chunk c of row r at chunk c ⊕ (r % 8) (the
