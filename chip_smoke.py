@@ -51,12 +51,12 @@ and nothing is caught:
    K3 against K2, each by the cosine of the whole model's gradient;
 9. the flash attention kernel K7 (``[kernel_flash]``, run with phase 3):
    forward, dK/dV and dQ against their plain versions at the kernels' own
-   key block in eight cases (B/16 at 512 px, So400m-384's dh=72 at s=729,
+   key block in nine cases (B/16 at 512 px, So400m-384's dh=72 at s=729,
    causal at s=1000, s=196, the context block's s=4,096, dh=128 at
-   s=1,024, the single key tile at s=64 and causal at s=50), bitwise
-   repeatable, timed beside SDPA, with the forward's body (wgmma fed by TMA
-   at head dims 64 and 128, mma.sync otherwise), registers and blocks per
-   SM; then SigLIP-B/16 at 512 px (1,024
+   s=1,024, the single key tile at s=64 and causal at s=50, causal dh=128
+   at s=577), bitwise repeatable, timed beside SDPA, with each kernel's
+   body (wgmma fed by TMA at head dims 64 and 128, mma.sync otherwise),
+   registers and blocks per SM; then SigLIP-B/16 at 512 px (1,024
    patches, K7 in every vision layer) served by ``run_serve_path`` with
    ``SERVE_512`` (``[serve_512]``: a 64-image corpus, 16 mixed requests,
    search == oracle, 12 K7 forwards per image tower call) and trained by
@@ -178,6 +178,7 @@ FLASH_CASES = {
     "head_dim_128": (8, 1024, 8, 128, False),  # the warpgroup body at dh=128
     "single_tile": (16, 64, 12, 64, False),  # one key tile: p normalised before the cast
     "single_tile_causal": (4, 50, 12, 64, True),
+    "ragged_causal_128": (4, 577, 8, 128, True),  # the backward bodies' ragged, causal edges
 }
 FLASH_TIMED = "b16_512"
 # K7 vs its plain version at the kernels' own key block: both round p (and
@@ -295,6 +296,23 @@ def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
 
 
+def kernel_name(mangled: str) -> str:
+    """``kernel<template args>`` of one of the port's mangled kernel names."""
+    short = re.search(r"\d((?:short_attention|sigmoid_loss|flash_attention|attention_f32)"
+                      r"_\w*?kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
+    if not short:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", short.group(2) or "")
+    return short.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
+def wgmma_serialized(build_log: str) -> list[str]:
+    """The kernels whose wgmma products ptxas serialised (its "Potential
+    Performance Loss" notes): a body that must stay asynchronous is not."""
+    return [kernel_name(m.group(1)) for m in re.finditer(
+        r"wgmma\.mma_async instructions are serialized.*?function '(\w+)'", build_log)]
+
+
 def ptxas_usage(build_log: str) -> dict:
     """``{kernel<template args>: "N registers, S spill bytes"}`` from ``nvcc
     -Xptxas -v``."""
@@ -302,14 +320,7 @@ def ptxas_usage(build_log: str) -> dict:
     for line in build_log.splitlines():
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            name = entry.group(1)
-            short = re.search(r"\d((?:short_attention|sigmoid_loss|flash_attention|attention_f32)"
-                              r"_\w*?kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
-            if short:
-                args = re.findall(r"L[ib](\d+)E", short.group(2) or "")
-                kernel = short.group(1) + (f"<{', '.join(args)}>" if args else "")
-            else:
-                kernel = name
+            kernel = kernel_name(entry.group(1))
         elif kernel and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)
             usage[kernel] = f"spill {spill.group(1)} B" if spill else line.strip()
@@ -342,17 +353,22 @@ def short_attention_body(sa, s: int, dh: int, vec: int) -> tuple[str, str]:
     return body, registers(f"short_attention_fwd_kernel<{(dh + 15) // 16}, {keys // 8}>")
 
 
-FLASH_FWD_BODIES = {1: "wgmma, TMA producer", 2: "wgmma, element-wise producer",
-                    0: "mma.sync, two-stage cp.async"}
+FLASH_BODIES = {1: "wgmma, TMA producer", 2: "wgmma, element-wise producer",
+                0: "mma.sync, two-stage cp.async"}
 
 
-def flash_fwd_body(fa, dh: int, vec: int) -> tuple[str, str]:
-    """(body, ptxas line) of the K7 forward instantiation a call at head dim
-    dh runs."""
-    code = fa._library("flash_attention").flash_attention_fwd_body(dh, vec)
-    body = FLASH_FWD_BODIES[code] + ("" if vec or code else " (element-wise loads)")
-    kernel = (f"flash_attention_fwd_wgmma_kernel<{dh}>" if code
-              else f"flash_attention_fwd_kernel<{(dh + 15) // 16}>")
+def flash_body(fa, dh: int, vec: int, which: str = "fwd") -> tuple[str, str]:
+    """(body, ptxas line) of the K7 kernel ``which`` (``"fwd"``, ``"dkv"``
+    or ``"dq"``) that a call at head dim dh runs."""
+    if which == "fwd":
+        code = fa._library("flash_attention").flash_attention_fwd_body(dh, vec)
+        name = "flash_attention_fwd"
+    else:
+        code = fa._library("flash_attention_bwd").flash_attention_bwd_body(
+            dh, vec, ("dkv", "dq").index(which))
+        name = f"flash_attention_bwd_{which}"
+    body = FLASH_BODIES[code] + ("" if vec or code else " (element-wise loads)")
+    kernel = f"{name}_wgmma_kernel<{dh}>" if code else f"{name}_kernel<{(dh + 15) // 16}>"
     return body, registers(kernel)
 
 
@@ -370,11 +386,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 5):
+def device_ms(fn, iters: int = 5, by_kernel: bool = False):
     """Mean device time of the kernels of one call of ``fn`` over ``iters``
     calls (torch.profiler), without the host's launch gaps that a CUDA-event
     time includes; None ("not measured") when the profiler records no
-    kernel, which it has done for a whole call."""
+    kernel, which it has done for a whole call. ``by_kernel``: a dict of the
+    same by kernel name instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -387,6 +404,8 @@ def device_ms(fn, iters: int = 5):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:
         return None
+    if by_kernel:
+        return {e.key[:60]: e.self_device_time_total / 1e3 / iters for e in kernels}
     return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
 
 
@@ -1872,10 +1891,14 @@ def check_flash_attention(fa, gen) -> dict:
                                / pstats[:, :, 1]).max().item(),
                      "di": (di - pdi).abs().max().item()}
         finite = all(bool(torch.isfinite(t).all()) for t in (out, stats, dk, dv, dq))
-        fwd_body, fwd_regs = flash_fwd_body(fa, dh, sa_vec(dh, h * dh, (q, k, v, out)))
+        bodies = {which: flash_body(fa, dh, sa_vec(dh, h * dh, tensors), which)
+                  for which, tensors in (("fwd", (q, k, v, out)),
+                                         ("dkv", (q, k, v, out, do, dk, dv)),
+                                         ("dq", (q, k, v, do, dq)))}
         row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=errs, atol=tols,
                    cosine=cos, stats_err=stat_errs, finite=finite, repeatable=repeatable,
-                   fwd_body=fwd_body, fwd_registers=fwd_regs,
+                   body={which: body for which, (body, _) in bodies.items()},
+                   registers={which: regs for which, (_, regs) in bodies.items()},
                    blocks_per_sm={"fwd": lib_f.flash_attention_fwd_occupancy(dh),
                                   "dkv": lib_b.flash_attention_bwd_occupancy(dh, 0),
                                   "dq": lib_b.flash_attention_bwd_occupancy(dh, 1)})
@@ -1924,9 +1947,11 @@ def check_flash_attention(fa, gen) -> dict:
             if which != "fwd":
                 rec["pair_bound_ms"], rec["pair_bound_by"] = attention_bound_ms(
                     b, s, h, dh, causal, 7, 5)
-            else:
-                rec["body"], rec["registers"] = fwd_body, fwd_regs
-                rec["blocks_per_sm"] = row["blocks_per_sm"]["fwd"]
+            if which == "bwd_dkv":  # the di pass and the dK/dV kernel apart
+                rec["device_ms_by_kernel"] = device_ms(kernel, by_kernel=True)
+            short = which.removeprefix("bwd_")
+            rec["body"], rec["registers"] = bodies[short]
+            rec["blocks_per_sm"] = row["blocks_per_sm"][short]
             if rec["device_ms"]:
                 rec["bound_over_device"] = rec["bound_ms"] / rec["device_ms"]
             log("kernel_flash_time", kernel=which, **rec)
@@ -1949,8 +1974,10 @@ def check_flash_attention(fa, gen) -> dict:
                                                  run(*shifted, True, 0.125)))
     log("kernel_flash", case="element-wise path", shape=list(shape), causal=True,
         bitwise_equal_to_aligned=same,
-        fwd_body={"aligned": flash_fwd_body(fa, shape[-1], 1)[0],
-                  "shifted": flash_fwd_body(fa, shape[-1], sa_vec(shape[-1], 128, shifted))[0]})
+        body={which: {"aligned": flash_body(fa, shape[-1], 1, which)[0],
+                      "shifted": flash_body(fa, shape[-1], sa_vec(shape[-1], 128, shifted),
+                                            which)[0]}
+              for which in ("fwd", "dkv", "dq")})
     if not same:
         raise AssertionError("K7 on 2-byte-offset inputs differs from the aligned run")
     q = torch.zeros(1, 64, 2, 136, device="cuda", dtype=torch.bfloat16)
@@ -2082,7 +2109,8 @@ def main() -> int:
     built = _cuda.build()
     for lib, info in built.items():
         PTXAS.update(ptxas_usage(info["log"]))
-        log("build", library=lib, seconds=info["seconds"], ptxas=ptxas_usage(info["log"]))
+        log("build", library=lib, seconds=info["seconds"], ptxas=ptxas_usage(info["log"]),
+            wgmma_serialized=wgmma_serialized(info["log"]))
     log("build", seconds=time.monotonic() - t0, built=sorted(built))
     for lib, mirror in (("short_attention", sa.short_attention_smem_bytes),
                         ("short_attention_bwd", sa.short_attention_bwd_smem_bytes),
@@ -2103,9 +2131,10 @@ def main() -> int:
                 raise AssertionError(f"attention_f32 smem at dh={dh}, pass {which} != mirror")
     for dh in (64, 72, 128):
         if fa._library("flash_attention").flash_attention_fwd_smem_bytes(dh) != \
-                fa.flash_attention_smem_bytes(dh) or \
-                fa._library("flash_attention_bwd").flash_attention_bwd_smem_bytes(dh) != \
-                fa.flash_attention_bwd_smem_bytes(dh):
+                fa.flash_attention_smem_bytes(dh) or any(
+                    fa._library("flash_attention_bwd").flash_attention_bwd_smem_bytes(dh, i) !=
+                    fa.flash_attention_bwd_smem_bytes(dh, which)
+                    for i, which in enumerate(("dkv", "dq"))):
             raise AssertionError(f"flash_attention smem at dh={dh} != python mirror")
     loss_lib = ssl._library()
     for d in (200, 512, 1152, 2000):
@@ -2205,7 +2234,7 @@ def main() -> int:
                         "replaces": flash, **launches(kernel), "max_abs_err": rec["max_abs_err"],
                         **timed(rec), "device_ms": rec["device_ms"],
                         "library_device_ms": rec["library_device_ms"],
-                        "library_call": rec["library_call"],
+                        "library_call": rec["library_call"], "body": rec["body"],
                         **({"pair_bound_ms": rec["pair_bound_ms"]} if which != "fwd" else {}),
                         "shape": f"b={b} s={s} h={h} dh={dh} bf16"})
     for kernel, which, line in (("sigmoid_loss_fwd_int8", "fwd", "148 (in :429)"),

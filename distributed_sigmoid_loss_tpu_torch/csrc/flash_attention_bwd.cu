@@ -14,10 +14,10 @@
 //   dv = Σ bf16(p)ᵀ·do,  dp = do·vᵀ         f32
 //   ds = ((dp − di) ⊙ p) · scale
 //   dk = Σ bf16(ds)ᵀ·q,  dq = Σ bf16(ds)·k  f32 sums, bf16 at the end.
-// The dkv kernel owns a 64-key tile and loops over every query tile; the dq
-// kernel owns a 64-row query tile and loops over every key tile. Each output
-// element is written by one thread and there are no atomics, so the
-// gradients are bitwise repeatable.
+// p is normalised by the forward's final l, so no rounding point depends on
+// the tile: only the order of the f32 sums does. Each output element is
+// written by one thread and there are no atomics, so the gradients are
+// bitwise repeatable.
 //
 // Bound on this card: at SigLIP-B/16 at 512 px (b=32, s=1024, h=12, dh=64)
 // q, k, v, do read once and dq, dk, dv written once are 7·32·1024·768·2 B =
@@ -26,7 +26,43 @@
 // bound the pair. (The two-pass split computes q·kᵀ and do·vᵀ in both
 // kernels: seven products, the price of no atomics.)
 //
-// Design. Both kernels are four warps of 16 rows, as the forward:
+// Two bodies for each kernel, picked by shape:
+// - The warpgroup bodies (head dims 64 and 128, the towers' B/16, L/14 and
+//   context shapes): one block of three warpgroups per (128-row tile, head,
+//   batch row), one block per SM. A producer warpgroup loads the block's
+//   resident tiles once and keeps a four-stage mbarrier ring of streamed
+//   64-row tiles filled, by TMA through 3-D tensor maps over the native
+//   (b, s, h·dh) layout (rows past s zero-filled) into 128-byte-swizzled
+//   panels, or element by element when rows are not 16-byte aligned (the
+//   same consumers run on the same layout, so both round identically).
+//   setmaxnreg moves registers from the producer to two consumer
+//   warpgroups of 64 resident rows each.
+//   dkv: a block owns 128 keys; K and V stay resident, and query tiles (Q
+//   and dO by one producer thread, their rows' −m·log2e, 1/l and di by two
+//   producer warps that load the next tile's while they wait for its stage)
+//   stream. Per tile each consumer issues sᵀ = k·qᵀ and dpᵀ = v·doᵀ as wgmma
+//   with both operands in shared memory (keys as M), so pᵀ and dsᵀ lie in
+//   registers in the A-operand layout, and dv += bf16(pᵀ)·do, dk +=
+//   bf16(dsᵀ)·q follow as wgmma with A in registers and dO's or Q's tile as
+//   the transposed (MN-major) B. At dh=64 the two consumers take turns
+//   (named barriers): a turn issues the previous tile's dv and dk and this
+//   tile's sᵀ and dpᵀ, so that one consumer's softmax runs while the
+//   other's products do. At dh=128, where dk and dv hold 128 f32 registers
+//   a thread, each consumer runs the four products one after another (dpᵀ
+//   after dv) to stay within its registers. Causal blocks skip the query
+//   tiles before their keys; key block 0, the heaviest, is launched first.
+//   dq: a block owns 128 query rows; Q and dO stay resident and the rows'
+//   statistics stay in registers; K and V tiles stream. Per key tile: s =
+//   q·kᵀ and dp = do·vᵀ (the softmax starts while dp runs), then dq +=
+//   bf16(ds)·k with K's tile as MN-major B. Causal blocks stop at their
+//   diagonal and run heaviest first.
+//   Per element p is one FMA and one ex2.approx, 2^(x·scale·log2e −
+//   m·log2e) times 1/l, with 1/l taken once per row.
+//   Every sequence of products is straight-line code with nothing in
+//   flight across a loop's back edge: ptxas serialises the wgmmas of a
+//   loop that carries one, or that issues them in divergent branches.
+// - The mma.sync bodies (every other head dim, a multiple of 8 up to 128,
+//   e.g. So400m's 72): four warps of 16 rows.
 //   dkv: a warp owns 16 keys. K and V of the block's tile stay in shared
 //   memory; query tiles (Q, dO and their m, 1/l, di) stream through a
 //   two-stage cp.async ring. The warp computes sᵀ = k·qᵀ and dpᵀ = v·doᵀ
@@ -36,11 +72,15 @@
 //   dq: a warp owns 16 query rows, whose m, 1/l and di stay in registers; key
 //   and value tiles stream through the ring; bf16(ds) feeds ds·k with K
 //   through ldmatrix.trans. Causal blocks stop at their diagonal tile.
-// The ragged tail is zero-filled in shared memory and masked by index (p = 0
-// there). Rounded intrinsics keep the compiler from contracting the chain
-// into FMAs, so the kernels round where their plain versions do.
+//   The ragged tail is zero-filled in shared memory. Rounded intrinsics keep
+//   the compiler from contracting the chain into FMAs, so these bodies round
+//   where their plain versions do.
+// Every body masks the ragged tail by index (p = 0 there) and makes no
+// padded copies.
 
 #include "short_attention_common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 using namespace short_attention;
 
@@ -48,28 +88,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = kWarps * 16;  // rows of every tile: 16 per warp, 8 mma n-tiles
-constexpr int kMaxHeadDim = 128;
+// ---- the di pass -----------------------------------------------------------
+
 constexpr int kDiWarps = 8;
-
-struct Geometry {
-  int dh_pad;   // head dim padded to the 16-deep MMA step
-  int ld;       // row stride of every tile, bf16 elements (+8: conflict-free ldmatrix)
-  size_t smem;  // dynamic shared memory of one block of either kernel, bytes
-};
-
-// Layout: two resident tiles (dkv: K, V; dq: Q, dO), two stages of two
-// streamed tiles (dkv: Q, dO; dq: K, V), then two stages of the streamed
-// query tile's m, 1/l and di (dkv only), f32.
-__host__ __device__ inline Geometry geometry(int dh) {
-  Geometry g;
-  g.dh_pad = round_up(dh, 16);
-  g.ld = g.dh_pad + 8;
-  g.smem = (size_t)(2 + 2 * 2) * kTile * g.ld * sizeof(bf16) + (size_t)2 * 3 * kTile * sizeof(float);
-  return g;
-}
 
 // di[(b, h), row] = Σ_d f32(o) · f32(do) over one (b, row, h) row; one warp per row.
 __global__ void __launch_bounds__(kDiWarps * 32)
@@ -88,6 +109,670 @@ flash_attention_di_kernel(const bf16* __restrict__ out, const bf16* __restrict__
     const int h = row % heads, bs = row / heads;
     di[((size_t)(bs / s) * heads + h) * s + bs % s] = sum;
   }
+}
+
+// ---- the warpgroup bodies --------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+// The two consumer warpgroups take turns to issue their products (named
+// barriers 1 and 2, one per consumer, over both warpgroups' 256 threads), so
+// that one's softmax runs while the other's products keep the tensor cores.
+__device__ inline void wait_turn(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+}
+__device__ inline void pass_turn(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
+}
+
+template <int DH>
+struct WgBwd {
+  static constexpr int kPanels = DH / kPanel;
+  static constexpr int kConsumers = 2;                     // warpgroups of 64 resident rows
+  // Registers a thread after setmaxnreg, within the launch allocation of
+  // 168 a thread (one block per SM): the producer keeps enough not to spill
+  // at dh=64; at 128 the consumers need all but 40.
+  static constexpr int kProducerRegs = DH == 64 ? 56 : 40;
+  static constexpr int kConsumerRegs = DH == 64 ? 224 : 232;
+  static constexpr int kRows = 64 * kConsumers;            // resident rows of a block
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // and the producer warpgroup
+  static constexpr int kResBytes = kRows * DH * 2;         // one resident tile: K, V or Q, dO
+  static constexpr int kTileBytes = 64 * DH * 2;           // one streamed 64-row tile
+  static constexpr int kStageBytes = 2 * kTileBytes;       // a stage: (Q, dO) or (K, V)
+  static constexpr int kStages = 4;
+  static constexpr int kStatFloats = 3 * 64;  // dkv, per stage: −m·log2e, 1/l, di of 64 rows
+  static constexpr size_t kSmemDq =
+      1024 + 2 * kResBytes + (size_t)kStages * kStageBytes + (2 * kStages + 1) * sizeof(uint64_t);
+  static constexpr size_t kSmemDkv = kSmemDq + (size_t)kStages * kStatFloats * sizeof(float);
+};
+
+template <int DH>
+__global__ void __launch_bounds__(WgBwd<DH>::kThreads, 1)
+flash_attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     const __grid_constant__ CUtensorMap do_map,
+                                     const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                     const float* __restrict__ stats,
+                                     const float* __restrict__ di, bf16* __restrict__ dk,
+                                     bf16* __restrict__ dv, int s, int heads, float scale,
+                                     int causal, int vec) {
+  using G = WgBwd<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  unsigned char* ks = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* vs = ks + G::kResBytes;
+  unsigned char* ring = vs + G::kResBytes;  // stage e: Q at ring + e·kStageBytes, dO after
+  float* rstat = reinterpret_cast<float*>(ring + G::kStages * G::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rstat + G::kStages * G::kStatFloats);
+  uint64_t* empty = full + G::kStages;
+  uint64_t* resbar = empty + G::kStages;
+
+  const int width = heads * DH;
+  const int n_q = (s + 63) / 64;
+  const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;  // causal: kb = 0 is heaviest
+  const int k0 = kb * G::kRows;
+  const int i0 = causal ? k0 / 64 : 0;  // causal: earlier query tiles see none of the keys
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const size_t slab = (size_t)b * s * width + (size_t)h * DH;
+
+  if (threadIdx.x == 0) {
+    for (int e = 0; e < G::kStages; ++e) {
+      // TMA's thread and the 64 row-statistics threads, or every producer
+      // thread when they fill the tiles element by element.
+      mbar_init(&full[e], vec ? 65 : 128);
+      mbar_init(&empty[e], 4 * G::kConsumers);  // one arrival per consumer warp
+    }
+    mbar_init(resbar, vec ? 1 : 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: K and V once, then (Q, dO) of each query tile from thread 0
+    // (TMA) and the tile's row statistics from threads 32 .. 95, which load
+    // the next tile's while they wait for its stage.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(G::kProducerRegs));
+    const int r = t - 32;
+    const bool stats_thread = r >= 0 && r < 64;
+    if (vec && t != 0 && !stats_thread) return;
+    const float* st_m = stats + ((size_t)b * heads + h) * 2 * s;
+    const float* st_l = st_m + s;
+    const float* di_bh = di + ((size_t)b * heads + h) * s;
+    float m_next = 0.f, l_next = 1.f, di_next = 0.f;
+    auto fetch = [&](int i) {  // raw values of row 64i + r (none past s)
+      const int row = i * 64 + r;
+      if (row < s) {
+        m_next = st_m[row];
+        l_next = st_l[row];
+        di_next = di_bh[row];
+      }
+    };
+    if (stats_thread) fetch(i0);
+    if (!vec) {
+      fill_swizzled<DH>(ks, k + slab, k0, G::kRows, s, width, t);
+      fill_swizzled<DH>(vs, v + slab, k0, G::kRows, s, width, t);
+      mbar_arrive(resbar);
+    } else if (t == 0) {
+      mbar_expect_tx(resbar, 2 * G::kResBytes);
+      for (int p = 0; p < G::kPanels; ++p)
+        for (int c = 0; c < G::kConsumers; ++c) {
+          const int off = p * G::kRows * 128 + c * 64 * 128, col = h * DH + p * kPanel;
+          tma_load(ks + off, &k_map, resbar, col, k0 + c * 64, b);
+          tma_load(vs + off, &v_map, resbar, col, k0 + c * 64, b);
+        }
+    }
+    for (int i = i0; i < n_q; ++i) {
+      const int u = i - i0, e = u % G::kStages, use = u / G::kStages;
+      if (use > 0) mbar_wait(&empty[e], (use - 1) & 1);
+      unsigned char* qt = ring + e * G::kStageBytes;
+      if (vec && t == 0) {
+        mbar_expect_tx(&full[e], G::kStageBytes);  // this thread's arrival
+        for (int p = 0; p < G::kPanels; ++p) {
+          const int col = h * DH + p * kPanel;
+          tma_load(qt + p * 64 * 128, &q_map, &full[e], col, i * 64, b);
+          tma_load(qt + G::kTileBytes + p * 64 * 128, &do_map, &full[e], col, i * 64, b);
+        }
+        continue;
+      }
+      if (stats_thread) {
+        float* rs = rstat + e * G::kStatFloats;
+        const bool live = i * 64 + r < s;
+        rs[r] = live ? -m_next * kLog2e : 0.f;
+        rs[64 + r] = live ? __fdiv_rn(1.f, l_next) : 0.f;
+        rs[128 + r] = live ? di_next : 0.f;
+        if (i + 1 < n_q) fetch(i + 1);
+      }
+      if (!vec) {
+        fill_swizzled<DH>(qt, q + slab, i * 64, 64, s, width, t);
+        fill_swizzled<DH>(qt + G::kTileBytes, dout + slab, i * 64, 64, s, width, t);
+      }
+      mbar_arrive(&full[e]);
+    }
+  } else {
+    // Consumer c owns keys k0 + 64c .. + 63; warp w of it keys 16w .. 16w +
+    // 15 of those (rows a and b of the accumulator layout), against the 64
+    // query columns 8n + 2tq, 8n + 2tq + 1 of each tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::kConsumerRegs));
+    const int c = wg - 1, w = t / 32, lane = t % 32, gq = lane >> 2, tq = lane & 3;
+    const int kc0 = k0 + 64 * c;
+    const int key_a = kc0 + 16 * w + gq, key_b = key_a + 8;
+    const float sl = scale * kLog2e;
+    const unsigned char* kc = ks + c * 64 * 128;  // this consumer's rows of each panel
+    const unsigned char* vc = vs + c * 64 * 128;
+    auto live = [&](int key, int row) { return key < s && row < s && (!causal || key <= row); };
+    auto stage = [&](int i) { return (i - i0) % G::kStages; };
+    auto wait_full = [&](int i) {
+      mbar_wait(&full[stage(i)], (unsigned)((i - i0) / G::kStages) & 1u);
+    };
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage(i)]);
+    };
+
+    float dka[DH / 2], dva[DH / 2];
+#pragma unroll
+    for (int x = 0; x < DH / 2; ++x) dka[x] = dva[x] = 0.f;
+    float sc[32], dp[32];  // overwritten by their products (scale_d = 0)
+    unsigned pa[4][4], da[4][4];
+
+    // sᵀ = k·qᵀ (into sc) and dpᵀ = v·doᵀ (into dp) of query tile i, each a
+    // committed group; the key rows are M, both operands in shared memory.
+    auto issue_s = [&](int i) {
+      const unsigned char* qt = ring + stage(i) * G::kStageBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int p = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss_n64(sc, sw128_desc(kc + p * G::kRows * 128 + off, 16),
+                     sw128_desc(qt + p * 64 * 128 + off, 16), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_dp = [&](int i) {
+      const unsigned char* dot = ring + stage(i) * G::kStageBytes + G::kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int p = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss_n64(dp, sw128_desc(vc + p * G::kRows * 128 + off, 16),
+                     sw128_desc(dot + p * 64 * 128 + off, 16), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // pᵀ = 2^(sᵀ·scale·log2e − m·log2e) · (1/l) in sc, 0 on pairs that are
+    // not live, and bf16(pᵀ) as the A operand in pa (16 queries per step).
+    auto softmax = [&](int i) {
+      const float* rs = rstat + stage(i) * G::kStatFloats;
+      const int q0 = i * 64;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 nm = *reinterpret_cast<const float2*>(rs + 8 * n + 2 * tq);
+        const float2 il = *reinterpret_cast<const float2*>(rs + 64 + 8 * n + 2 * tq);
+        sc[4 * n] = ex2(fmaf(sc[4 * n], sl, nm.x)) * il.x;
+        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], sl, nm.y)) * il.y;
+        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], sl, nm.x)) * il.x;
+        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], sl, nm.y)) * il.y;
+      }
+      if (q0 + 64 > s || kc0 + 64 > s || (causal && q0 <= kc0)) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = q0 + 8 * n + 2 * tq;
+          sc[4 * n] = live(key_a, col) ? sc[4 * n] : 0.f;
+          sc[4 * n + 1] = live(key_a, col + 1) ? sc[4 * n + 1] : 0.f;
+          sc[4 * n + 2] = live(key_b, col) ? sc[4 * n + 2] : 0.f;
+          sc[4 * n + 3] = live(key_b, col + 1) ? sc[4 * n + 3] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    // dsᵀ = ((dpᵀ − di) ⊙ pᵀ) · scale, bf16 as the A operand in da.
+    auto grad = [&](int i) {
+      const float* rs = rstat + stage(i) * G::kStatFloats + 128;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 dd = *reinterpret_cast<const float2*>(rs + 8 * n + 2 * tq);
+        dp[4 * n] = (dp[4 * n] - dd.x) * sc[4 * n] * scale;
+        dp[4 * n + 1] = (dp[4 * n + 1] - dd.y) * sc[4 * n + 1] * scale;
+        dp[4 * n + 2] = (dp[4 * n + 2] - dd.x) * sc[4 * n + 2] * scale;
+        dp[4 * n + 3] = (dp[4 * n + 3] - dd.y) * sc[4 * n + 3] * scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        da[kk][0] = pack(dp[8 * kk], dp[8 * kk + 1]);
+        da[kk][1] = pack(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = pack(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = pack(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+    };
+    // dv += bf16(pᵀ)·do and dk += bf16(dsᵀ)·q, dO's and Q's tiles as
+    // MN-major B, each a committed group.
+    auto issue_dv = [&](int i) {
+      const unsigned char* dot = ring + stage(i) * G::kStageBytes + G::kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_dh<DH>(dva, pa[kk], sw128_desc(dot + kk * 2048, 64 * 128));
+      wgmma_commit();
+    };
+    auto issue_dk = [&](int i) {
+      const unsigned char* qt = ring + stage(i) * G::kStageBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_dh<DH>(dka, da[kk], sw128_desc(qt + kk * 2048, 64 * 128));
+      wgmma_commit();
+    };
+
+    mbar_wait(resbar, 0);
+    if constexpr (DH == 64) {
+      // Turns: one per query tile of the block, then one more; both
+      // consumers take n_q − i0 + 1, consumer 0 first. A turn issues the
+      // previous tile's dv and dk and this tile's sᵀ and dpᵀ; each sequence
+      // of products is straight-line code, so that ptxas keeps them async.
+      const int first = causal && c > 0 ? i0 + 1 : i0;  // this consumer's first tile
+      if (c == 1) pass_turn(1);
+      if (first > i0) {  // consumer 1's causal first turn: its tile's queries precede its keys
+        wait_full(i0);
+        wait_turn(c);
+        pass_turn(c);
+        release(i0);
+      }
+      if (first < n_q) {
+        wait_full(first);
+        wait_turn(c);
+        issue_s(first);
+        issue_dp(first);
+        pass_turn(c);
+        wgmma_wait<1>();  // sᵀ
+        fence_operands(sc);
+        softmax(first);
+        wgmma_wait<0>();  // dpᵀ
+        fence_operands(dp);
+        grad(first);
+        for (int i = first + 1; i < n_q; ++i) {
+          wait_full(i);
+          wait_turn(c);
+          issue_dv(i - 1);
+          issue_dk(i - 1);
+          issue_s(i);
+          issue_dp(i);
+          pass_turn(c);
+          wgmma_wait<1>();  // the previous tile's dv and dk, and sᵀ
+          fence_operands(pa);
+          fence_operands(da);
+          fence_operands(sc);
+          release(i - 1);
+          softmax(i);
+          wgmma_wait<0>();  // dpᵀ
+          fence_operands(dp);
+          grad(i);
+        }
+        wait_turn(c);
+        issue_dv(n_q - 1);
+        issue_dk(n_q - 1);
+        if (c == 0) pass_turn(c);  // consumer 1's last turn passes nothing
+        wgmma_wait<0>();
+        fence_operands(pa);
+        fence_operands(da);
+        release(n_q - 1);
+      } else {  // consumer 1 without a tile of its own
+        wait_turn(c);
+      }
+    } else {
+      // At dh=128 dk and dv take 128 registers a thread: one product at a
+      // time, dpᵀ after dv, so that sᵀ, dpᵀ and pa are never all live.
+      int i = i0;
+      if (causal && c > 0 && i < n_q) {  // the first tile's queries all precede these keys
+        wait_full(i);
+        release(i);
+        ++i;
+      }
+      for (; i < n_q; ++i) {
+        wait_full(i);
+        issue_s(i);
+        wgmma_wait<0>();
+        fence_operands(sc);
+        softmax(i);
+        issue_dv(i);
+        wgmma_wait<0>();
+        fence_operands(pa);
+        issue_dp(i);
+        wgmma_wait<0>();
+        fence_operands(dp);
+        grad(i);
+        issue_dk(i);
+        wgmma_wait<0>();
+        fence_operands(da);
+        release(i);
+      }
+    }
+    fence_operands(dka);
+    fence_operands(dva);
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      const int col = 8 * n + 2 * tq;
+      store_pair(dv + slab, key_a, col, dva[4 * n], dva[4 * n + 1], s, width, DH, vec);
+      store_pair(dv + slab, key_b, col, dva[4 * n + 2], dva[4 * n + 3], s, width, DH, vec);
+      store_pair(dk + slab, key_a, col, dka[4 * n], dka[4 * n + 1], s, width, DH, vec);
+      store_pair(dk + slab, key_b, col, dka[4 * n + 2], dka[4 * n + 3], s, width, DH, vec);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(WgBwd<DH>::kThreads, 1)
+flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    const __grid_constant__ CUtensorMap do_map,
+                                    const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                    const float* __restrict__ stats,
+                                    const float* __restrict__ di, bf16* __restrict__ dq, int s,
+                                    int heads, float scale, int causal, int vec) {
+  using G = WgBwd<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* dos = qs + G::kResBytes;
+  unsigned char* ring = dos + G::kResBytes;  // stage e: K at ring + e·kStageBytes, V after
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kStages * G::kStageBytes);
+  uint64_t* empty = full + G::kStages;
+  uint64_t* resbar = empty + G::kStages;
+
+  const int width = heads * DH;
+  const int n_tiles = (s + 63) / 64, n_qb = (s + G::kRows - 1) / G::kRows;
+  const int qb = causal ? n_qb - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qb * G::kRows;
+  const int n_visit = causal ? min(G::kConsumers * (qb + 1), n_tiles) : n_tiles;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const size_t slab = (size_t)b * s * width + (size_t)h * DH;
+
+  if (threadIdx.x == 0) {
+    for (int e = 0; e < G::kStages; ++e) {
+      mbar_init(&full[e], vec ? 1 : 128);
+      mbar_init(&empty[e], 4 * G::kConsumers);  // one arrival per consumer warp
+    }
+    mbar_init(resbar, vec ? 1 : 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: Q and dO once, then (K, V) of each key tile.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(G::kProducerRegs));
+    if (vec) {
+      if (t != 0) return;
+      mbar_expect_tx(resbar, 2 * G::kResBytes);
+      for (int p = 0; p < G::kPanels; ++p)
+        for (int c = 0; c < G::kConsumers; ++c) {
+          const int off = p * G::kRows * 128 + c * 64 * 128, col = h * DH + p * kPanel;
+          tma_load(qs + off, &q_map, resbar, col, q0 + c * 64, b);
+          tma_load(dos + off, &do_map, resbar, col, q0 + c * 64, b);
+        }
+    } else {
+      fill_swizzled<DH>(qs, q + slab, q0, G::kRows, s, width, t);
+      fill_swizzled<DH>(dos, dout + slab, q0, G::kRows, s, width, t);
+      mbar_arrive(resbar);
+    }
+    for (int j = 0; j < n_visit; ++j) {
+      const int e = j % G::kStages, use = j / G::kStages;
+      if (use > 0) mbar_wait(&empty[e], (use - 1) & 1);
+      unsigned char* kt = ring + e * G::kStageBytes;
+      if (vec) {
+        mbar_expect_tx(&full[e], G::kStageBytes);
+        for (int p = 0; p < G::kPanels; ++p) {
+          const int col = h * DH + p * kPanel;
+          tma_load(kt + p * 64 * 128, &k_map, &full[e], col, j * 64, b);
+          tma_load(kt + G::kTileBytes + p * 64 * 128, &v_map, &full[e], col, j * 64, b);
+        }
+      } else {
+        fill_swizzled<DH>(kt, k + slab, j * 64, 64, s, width, t);
+        fill_swizzled<DH>(kt + G::kTileBytes, v + slab, j * 64, 64, s, width, t);
+        mbar_arrive(&full[e]);
+      }
+    }
+  } else {
+    // Consumer c owns query rows q0 + 64c .. + 63; warp w of it rows 16w ..
+    // 16w + 15 of those (rows a and b of the accumulator layout).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::kConsumerRegs));
+    const int c = wg - 1, w = t / 32, lane = t % 32, gq = lane >> 2, tq = lane & 3;
+    const int qc0 = q0 + 64 * c;
+    const int row_a = qc0 + 16 * w + gq, row_b = row_a + 8;
+    const int my_visit = causal ? min(G::kConsumers * qb + c + 1, n_tiles) : n_tiles;
+    const float sl = scale * kLog2e;
+    const float* st_m = stats + ((size_t)b * heads + h) * 2 * s;
+    const float* st_l = st_m + s;
+    const float* di_bh = di + ((size_t)b * heads + h) * s;
+    const float nm_a = row_a < s ? -st_m[row_a] * kLog2e : 0.f;
+    const float nm_b = row_b < s ? -st_m[row_b] * kLog2e : 0.f;
+    const float il_a = row_a < s ? __fdiv_rn(1.f, st_l[row_a]) : 0.f;
+    const float il_b = row_b < s ? __fdiv_rn(1.f, st_l[row_b]) : 0.f;
+    const float di_a = row_a < s ? di_bh[row_a] : 0.f, di_b = row_b < s ? di_bh[row_b] : 0.f;
+    const unsigned char* qc = qs + c * 64 * 128;  // this consumer's rows of each panel
+    const unsigned char* doc = dos + c * 64 * 128;
+    auto live = [&](int row, int key) { return key < s && row < s && (!causal || key <= row); };
+    auto wait_full = [&](int j) {
+      mbar_wait(&full[j % G::kStages], (unsigned)(j / G::kStages) & 1u);
+    };
+    auto release = [&](int j) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[j % G::kStages]);
+    };
+
+    float dqa[DH / 2];
+#pragma unroll
+    for (int x = 0; x < DH / 2; ++x) dqa[x] = 0.f;
+    float sc[32], dp[32];  // overwritten by their products (scale_d = 0)
+    unsigned da[4][4];
+
+    // s = q·kᵀ (into sc) and dp = do·vᵀ (into dp) of key tile j, two
+    // committed groups; both operands in shared memory.
+    auto issue_s_dp = [&](int j) {
+      const unsigned char* kt = ring + (j % G::kStages) * G::kStageBytes;
+      const unsigned char* vt = kt + G::kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int p = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss_n64(sc, sw128_desc(qc + p * G::kRows * 128 + off, 16),
+                     sw128_desc(kt + p * 64 * 128 + off, 16), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int p = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss_n64(dp, sw128_desc(doc + p * G::kRows * 128 + off, 16),
+                     sw128_desc(vt + p * 64 * 128 + off, 16), kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    // dq += bf16(ds)·k of key tile j, K's tile as MN-major B, one committed group.
+    auto issue_dq = [&](int j) {
+      const unsigned char* kt = ring + (j % G::kStages) * G::kStageBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_dh<DH>(dqa, da[kk], sw128_desc(kt + kk * 2048, 64 * 128));
+      wgmma_commit();
+    };
+
+    // p = 2^(s·scale·log2e − m·log2e) · (1/l), 0 on pairs that are not
+    // live; then ds = ((dp − di) ⊙ p) · scale, bf16 as the A operand in da.
+    auto softmax_grad = [&](int j) {
+      const int k0 = j * 64;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        sc[4 * n] = ex2(fmaf(sc[4 * n], sl, nm_a)) * il_a;
+        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], sl, nm_a)) * il_a;
+        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], sl, nm_b)) * il_b;
+        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], sl, nm_b)) * il_b;
+      }
+      if (k0 + 64 > s || qc0 + 64 > s || (causal && k0 >= qc0)) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = k0 + 8 * n + 2 * tq;
+          sc[4 * n] = live(row_a, col) ? sc[4 * n] : 0.f;
+          sc[4 * n + 1] = live(row_a, col + 1) ? sc[4 * n + 1] : 0.f;
+          sc[4 * n + 2] = live(row_b, col) ? sc[4 * n + 2] : 0.f;
+          sc[4 * n + 3] = live(row_b, col + 1) ? sc[4 * n + 3] : 0.f;
+        }
+      }
+      wgmma_wait<0>();  // dp
+      fence_operands(dp);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        dp[4 * n] = (dp[4 * n] - di_a) * sc[4 * n] * scale;
+        dp[4 * n + 1] = (dp[4 * n + 1] - di_a) * sc[4 * n + 1] * scale;
+        dp[4 * n + 2] = (dp[4 * n + 2] - di_b) * sc[4 * n + 2] * scale;
+        dp[4 * n + 3] = (dp[4 * n + 3] - di_b) * sc[4 * n + 3] * scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        da[kk][0] = pack(dp[8 * kk], dp[8 * kk + 1]);
+        da[kk][1] = pack(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = pack(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = pack(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+    };
+
+    mbar_wait(resbar, 0);
+    for (int j = 0; j < my_visit; ++j) {
+      wait_full(j);
+      issue_s_dp(j);
+      wgmma_wait<1>();  // s (dp may still run)
+      fence_operands(sc);
+      softmax_grad(j);
+      issue_dq(j);
+      wgmma_wait<0>();
+      fence_operands(da);
+      release(j);
+    }
+    fence_operands(dqa);
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      const int col = 8 * n + 2 * tq;
+      store_pair(dq + slab, row_a, col, dqa[4 * n], dqa[4 * n + 1], s, width, DH, vec);
+      store_pair(dq + slab, row_b, col, dqa[4 * n + 2], dqa[4 * n + 3], s, width, DH, vec);
+    }
+  }
+}
+
+// Sets a warpgroup kernel's shared memory; refuses a build whose launch
+// allocation cannot cover the registers setmaxnreg hands the consumers (the
+// consumers would wait for them forever).
+template <typename G, typename Kernel>
+cudaError_t configure_wgmma(Kernel kernel, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * G::kThreads <
+      128 * G::kProducerRegs + 128 * G::kConsumers * G::kConsumerRegs)
+    return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int DH>
+cudaError_t configure_dkv_wgmma() {
+  return configure_wgmma<WgBwd<DH>>(flash_attention_bwd_dkv_wgmma_kernel<DH>, WgBwd<DH>::kSmemDkv);
+}
+
+template <int DH>
+cudaError_t configure_dq_wgmma() {
+  return configure_wgmma<WgBwd<DH>>(flash_attention_bwd_dq_wgmma_kernel<DH>, WgBwd<DH>::kSmemDq);
+}
+
+// The tensor maps of q, k, v and do when rows are 16-byte aligned (vec).
+template <int DH>
+cudaError_t make_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+                      const void* dout, int b, int s, int heads, int vec) {
+  const void* ptrs[4] = {q, k, v, dout};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && vec && err == cudaSuccess; ++i)
+    err = make_map(&maps[i], ptrs[i], b, s, heads * DH);
+  return err;
+}
+
+template <int DH>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const void* stats, const void* di, void* dk, void* dv, int b, int s,
+                             int heads, float scale, int causal, int vec, cudaStream_t stream) {
+  using G = WgBwd<DH>;
+  CUtensorMap maps[4] = {};
+  cudaError_t err = configure_dkv_wgmma<DH>();
+  if (err == cudaSuccess) err = make_maps<DH>(maps, q, k, v, dout, b, s, heads, vec);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + G::kRows - 1) / G::kRows, heads, b);
+  flash_attention_bwd_dkv_wgmma_kernel<DH><<<grid, G::kThreads, G::kSmemDkv, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(stats), static_cast<const float*>(di), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), s, heads, scale, causal, vec);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const void* stats, const void* di, void* dq, int b, int s, int heads,
+                            float scale, int causal, int vec, cudaStream_t stream) {
+  using G = WgBwd<DH>;
+  CUtensorMap maps[4] = {};
+  cudaError_t err = configure_dq_wgmma<DH>();
+  if (err == cudaSuccess) err = make_maps<DH>(maps, q, k, v, dout, b, s, heads, vec);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + G::kRows - 1) / G::kRows, heads, b);
+  flash_attention_bwd_dq_wgmma_kernel<DH><<<grid, G::kThreads, G::kSmemDq, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(stats), static_cast<const float*>(di), static_cast<bf16*>(dq), s,
+      heads, scale, causal, vec);
+  return cudaGetLastError();
+}
+
+template <int DH>
+int occupancy_wgmma(int which) {
+  int blocks = 0;
+  cudaError_t err = which == 0 ? configure_dkv_wgmma<DH>() : configure_dq_wgmma<DH>();
+  if (err == cudaSuccess)
+    err = which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &blocks, flash_attention_bwd_dkv_wgmma_kernel<DH>,
+                           WgBwd<DH>::kThreads, WgBwd<DH>::kSmemDkv)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &blocks, flash_attention_bwd_dq_wgmma_kernel<DH>,
+                           WgBwd<DH>::kThreads, WgBwd<DH>::kSmemDq);
+  return err == cudaSuccess ? blocks : 0;
+}
+
+// ---- the mma.sync bodies ---------------------------------------------------
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = kWarps * 16;  // rows of every tile: 16 per warp, 8 mma n-tiles
+constexpr int kMaxHeadDim = 128;
+
+struct Geometry {
+  int dh_pad;   // head dim padded to the 16-deep MMA step
+  int ld;       // row stride of every tile, bf16 elements (+8: conflict-free ldmatrix)
+  size_t smem;  // dynamic shared memory of one block of either kernel, bytes
+};
+
+// Layout: two resident tiles (dkv: K, V; dq: Q, dO), two stages of two
+// streamed tiles (dkv: Q, dO; dq: K, V), then two stages of the streamed
+// query tile's m, 1/l and di (dkv only), f32.
+__host__ __device__ inline Geometry geometry(int dh) {
+  Geometry g;
+  g.dh_pad = round_up(dh, 16);
+  g.ld = g.dh_pad + 8;
+  g.smem = (size_t)(2 + 2 * 2) * kTile * g.ld * sizeof(bf16) + (size_t)2 * 3 * kTile * sizeof(float);
+  return g;
 }
 
 // Copy query tile i of Q and dO into one stage, and its rows' m, 1/l and di
@@ -458,13 +1143,31 @@ bool takes(int b, int s, int heads, int dh) {
          dh <= kMaxHeadDim && dh % 8 == 0;
 }
 
+// The body a head dim takes: the warpgroup bodies at 64 and 128, the
+// mma.sync bodies at every other head dim the kernels take.
+bool warpgroup_body(int dh) { return dh == 64 || dh == 128; }
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block of either kernel, bytes (mirrored by
+// Dynamic shared memory of one block of the dkv (which = 0) or dq (1)
+// kernel of the body this head dim takes, bytes (mirrored by
 // ops/flash_attention.py::flash_attention_bwd_smem_bytes).
-long long flash_attention_bwd_smem_bytes(int dh) { return (long long)geometry(dh).smem; }
+long long flash_attention_bwd_smem_bytes(int dh, int which) {
+  if (dh == 64) return (long long)(which == 0 ? WgBwd<64>::kSmemDkv : WgBwd<64>::kSmemDq);
+  if (dh == 128) return (long long)(which == 0 ? WgBwd<128>::kSmemDkv : WgBwd<128>::kSmemDq);
+  return (long long)geometry(dh).smem;
+}
+
+// The body the dkv (which = 0) or dq (1) kernel takes, for the records: 1 =
+// warpgroup body fed by TMA, 2 = warpgroup body with element-wise loads
+// (rows not 16-byte aligned), 0 = mma.sync body; -1 for a head dim the
+// kernels do not take.
+int flash_attention_bwd_body(int dh, int vec, int which) {
+  if (!takes(1, 1, 1, dh) || (which != 0 && which != 1)) return -1;
+  return warpgroup_body(dh) ? (vec ? 1 : 2) : 0;
+}
 
 // q, k, v, out, dout, dk, dv: (b, s, heads·dh) bf16, contiguous; stats:
 // (b, heads, 2, s) f32 from flash_attention_fwd; di: (b, heads, s) f32,
@@ -482,6 +1185,12 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
       rows, s, heads, dh);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (dh == 64)
+    return (int)launch_dkv_wgmma<64>(q, k, v, dout, stats, di, dk, dv, b, s, heads, scale, causal,
+                                     vec, st);
+  if (dh == 128)
+    return (int)launch_dkv_wgmma<128>(q, k, v, dout, stats, di, dk, dv, b, s, heads, scale,
+                                      causal, vec, st);
 #define FA_DKV(DT) \
   case DT:         \
     return (int)launch_dkv<DT>(q, k, v, dout, stats, di, dk, dv, b, s, heads, dh, scale, causal, vec, st);
@@ -498,6 +1207,12 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
                            int dh, float scale, int causal, int vec, void* stream) {
   if (!takes(b, s, heads, dh)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh == 64)
+    return (int)launch_dq_wgmma<64>(q, k, v, dout, stats, di, dq, b, s, heads, scale, causal, vec,
+                                    st);
+  if (dh == 128)
+    return (int)launch_dq_wgmma<128>(q, k, v, dout, stats, di, dq, b, s, heads, scale, causal,
+                                     vec, st);
 #define FA_DQ(DT) \
   case DT:        \
     return (int)launch_dq<DT>(q, k, v, dout, stats, di, dq, b, s, heads, dh, scale, causal, vec, st);
@@ -508,10 +1223,12 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 #undef FA_DQ
 }
 
-// Resident blocks per SM of the dkv (which = 0) or dq (1) kernel at this
-// head dim (0 with an error), for the records.
+// Resident blocks per SM of the dkv (which = 0) or dq (1) kernel of the body
+// this head dim takes (0 with an error), for the records.
 int flash_attention_bwd_occupancy(int dh, int which) {
   if (!takes(1, 1, 1, dh)) return 0;
+  if (dh == 64) return occupancy_wgmma<64>(which);
+  if (dh == 128) return occupancy_wgmma<128>(which);
   const Geometry g = geometry(dh);
 #define FA_OCC(DT) \
   case DT:         \

@@ -1,8 +1,9 @@
 // Hopper warpgroup products (wgmma) for the attention kernels' bodies
-// that use them (short_attention.cu, K1 at head dim 64; flash_attention.cu,
-// K7's forward at head dims 64 and 128): shared-memory descriptors of
-// 128-byte-swizzled operands, the fence / commit / wait protocol, and the
-// products at the shapes those bodies issue. sm_90a only.
+// that use them (short_attention.cu, K1 at head dim 64; flash_attention.cu
+// and flash_attention_bwd.cu, K7's forward, dK/dV and dQ at head dims 64
+// and 128): shared-memory descriptors of 128-byte-swizzled operands, the
+// fence / commit / wait protocol, and the products at the shapes those
+// bodies issue. sm_90a only.
 
 #pragma once
 
@@ -41,6 +42,16 @@ template <int N>
 __device__ inline void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keep the compiler from reusing the registers of an A operand (bf16 pairs)
+// before the wait that retires the wgmma reading them.
+template <int N, int M>
+__device__ inline void fence_operands(unsigned (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // d (+)= a·bᵀ: m64n64k16, both operands K-major in shared memory (128-byte
@@ -182,6 +193,13 @@ __device__ inline void wgmma_rs_n128(float (&d)[64], const unsigned (&a)[4], uin
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
       "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d += a·b with N = DH (64 or 128), as wgmma_rs_n64 / wgmma_rs_n128.
+template <int DH>
+__device__ inline void wgmma_rs_dh(float (&d)[DH / 2], const unsigned (&a)[4], uint64_t db) {
+  if constexpr (DH == 64) wgmma_rs_n64(d, a, db, 1);
+  else wgmma_rs_n128(d, a, db, 1);
 }
 
 }  // namespace short_attention

@@ -79,7 +79,10 @@ __all__ = [
     "reset_launches",
 ]
 
-# The kernels' query and key tile (four warps of 16 rows).
+# The kernels' streamed tile: the forward's 64-key rounding block, and the
+# backward kernels' 64-row query (dK/dV) or key (dQ) tiles. The backward's
+# rounding points do not depend on its tiles (p is normalised by the
+# forward's final l); only the order of its f32 sums does.
 BLOCK_K = 64
 # Head dims the kernels take: multiples of 8 up to 128 (16-byte rows, and a
 # 16-row strip of q as head_dim/16 MMA steps).
@@ -149,11 +152,25 @@ def flash_attention_smem_bytes(head_dim: int) -> int:
     return (BLOCK_K + 4 * BLOCK_K) * (_round_up(head_dim, 16) + 8) * 2
 
 
-def flash_attention_bwd_smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one block of either backward kernel: two
-    resident and two stages of two streamed 64-row bf16 tiles, and two
-    stages of three f32 row statistics. Mirrors ``geometry()`` in
+def flash_attention_bwd_smem_bytes(head_dim: int, which: str) -> int:
+    """Dynamic shared memory of one block of the backward kernel ``which``
+    (``"dkv"`` or ``"dq"``) of the body this head dim takes. The warpgroup
+    bodies (head dims 64 and 128): 1,024 bytes of alignment slack, two
+    resident 128-row tiles (dkv: K, V; dq: Q, dO), four stages of two
+    streamed 64-row tiles (dkv: Q, dO; dq: K, V), dkv's four stages of three
+    f32 row statistics, and the stages' full and empty barriers plus the
+    resident tiles', 8 bytes each. The mma.sync bodies (other head dims),
+    either kernel: two resident and two stages of two streamed 64-row tiles
+    at row stride head_dim_pad + 8, and two stages of three f32 row
+    statistics. Mirrors ``flash_attention_bwd_smem_bytes`` in
     ``flash_attention_bwd.cu``."""
+    if which not in ("dkv", "dq"):
+        raise ValueError(f"which={which!r}; expected 'dkv' or 'dq'")
+    if head_dim in (64, 128):
+        stages = 4
+        tiles = 2 * 2 * BLOCK_K * head_dim * 2 + stages * 2 * BLOCK_K * head_dim * 2
+        row_stats = stages * 3 * BLOCK_K * 4 if which == "dkv" else 0
+        return 1024 + tiles + row_stats + (2 * stages + 1) * 8
     return 6 * BLOCK_K * (_round_up(head_dim, 16) + 8) * 2 + 2 * 3 * BLOCK_K * 4
 
 
@@ -307,10 +324,12 @@ def _library(name: str) -> ctypes.CDLL:
         lib.flash_attention_bwd_dkv.restype = i
         lib.flash_attention_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, f, i, i, p]
         lib.flash_attention_bwd_dq.restype = i
-        lib.flash_attention_bwd_smem_bytes.argtypes = [i]
+        lib.flash_attention_bwd_smem_bytes.argtypes = [i, i]
         lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_bwd_occupancy.argtypes = [i, i]
         lib.flash_attention_bwd_occupancy.restype = i
+        lib.flash_attention_bwd_body.argtypes = [i, i, i]
+        lib.flash_attention_bwd_body.restype = i
         lib.flash_attention_bwd_error_string.argtypes = [i]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     lib._typed = True

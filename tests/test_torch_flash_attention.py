@@ -182,9 +182,55 @@ def test_block_sizes_and_shared_memory():
     assert 2 * fa.flash_attention_smem_bytes(64) <= sa.SMEM_BUDGET_BYTES
     assert fa.flash_attention_smem_bytes(128) == 1024 + 128 * 256 + 4 * 64 * 256 + 9 * 8
     assert fa.flash_attention_smem_bytes(72) == 5 * 64 * 88 * 2
-    assert fa.flash_attention_bwd_smem_bytes(72) == 69_120
-    assert max(fa.flash_attention_bwd_smem_bytes(128), fa.flash_attention_smem_bytes(128)) \
-        <= sa.SMEM_BUDGET_BYTES // 2
+    assert fa.flash_attention_smem_bytes(128) <= sa.SMEM_BUDGET_BYTES // 2
+    # The backward's warpgroup bodies (dh 64 and 128), one block per SM:
+    # alignment slack, two resident 128-row tiles, four stages of two
+    # streamed 64-row tiles, dK/dV's four stages of three f32 row statistics
+    # (64 rows each), and 2·stages + 1 barriers. The mma.sync bodies (dh=72)
+    # keep one layout for both kernels.
+    for dh in (64, 128):
+        tiles = 2 * 128 * dh * 2 + 4 * 2 * 64 * dh * 2
+        assert fa.flash_attention_bwd_smem_bytes(dh, "dq") == 1024 + tiles + 9 * 8
+        assert fa.flash_attention_bwd_smem_bytes(dh, "dkv") == 1024 + tiles + 4 * 3 * 64 * 4 + 9 * 8
+    assert fa.flash_attention_bwd_smem_bytes(64, "dkv") == 102_472
+    assert fa.flash_attention_bwd_smem_bytes(128, "dkv") == 200_776
+    assert fa.flash_attention_bwd_smem_bytes(72, "dkv") == \
+        fa.flash_attention_bwd_smem_bytes(72, "dq") == 69_120
+    for dh in (64, 72, 128):
+        for which in ("dkv", "dq"):
+            assert fa.flash_attention_bwd_smem_bytes(dh, which) <= sa.SMEM_BUDGET_BYTES
+    with pytest.raises(ValueError, match="dkv"):
+        fa.flash_attention_bwd_smem_bytes(64, "dk")
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_plain_backward_does_not_round_by_the_block(causal, head_dim):
+    """The backward normalises p by the forward's final l, so its rounding
+    points (bf16(p), bf16(ds)) do not depend on the block: the plain dK/dV
+    and dQ passes at blocks of 64 and 128 and at JAX's (256 at s = 200, a
+    ragged last block each) differ only in the order of their f32 sums.
+    Each gradient within one bf16 ulp of its largest magnitude, di bitwise
+    (it takes no block). This is what lets the kernels tile 128 rows."""
+    rng = np.random.default_rng(200 + head_dim + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 200, 2, head_dim)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    out, stats = fa.flash_self_attention_plain(q, k, v, causal)
+    results = {}
+    for block in (fa.BLOCK_K, 2 * fa.BLOCK_K, fa.default_block_k(200)):
+        dk, dv, di = fa.flash_attention_bwd_dkv_plain(q, k, v, out, do, stats, causal,
+                                                      block_k=block)
+        dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, stats, di, causal, block_k=block)
+        results[block] = {"dk": dk, "dv": dv, "dq": dq, "di": di}
+    assert sorted(results) == [64, 128, 256]
+    ref = results[fa.BLOCK_K]
+    for block in (128, 256):
+        assert torch.equal(results[block]["di"], ref["di"]), block
+        for name in ("dk", "dv", "dq"):
+            got, want = results[block][name], ref[name]
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape, (block, name)
+            err = np.abs(got.float().numpy() - want.float().numpy()).max()
+            assert err <= _bf16_ulp(want.float().numpy()), (block, name, err)
 
 
 # --- the towers' dispatch ----------------------------------------------------
