@@ -11,13 +11,15 @@ and nothing is caught:
 1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``);
 2. build every kernel from ``distributed_sigmoid_loss_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together);
-3. hold each kernel (K1, the attention forward; K2, its backward; K3, the
-   head-batched backward, also against K2 and run twice for bitwise
-   repeatability) against its plain PyTorch version on the card at the
-   shapes the main paths give it, and time kernel, plain version and the
-   PyTorch library call beside the work's least time on this card (K1's
-   lines name the body each case took, its registers from ``[build]`` and
-   its blocks per SM);
+3. hold each kernel (K1, the attention forward; K2, its backward, within
+   one bf16 ulp, run twice for bitwise repeatability, its two kernels' p
+   and ds bit for bit equal where the warpgroup body runs; K3, the
+   head-batched backward, also against K2 and run twice) against its plain
+   PyTorch version on the card at the shapes the main paths give it, and
+   time kernel, plain version and the PyTorch library call beside the
+   work's least time on this card (K1's and K2's lines name the body each
+   case took, its registers from ``[build]`` and its blocks per SM; K2's
+   warpgroup kernels must spill nothing and keep their wgmma asynchronous);
 4. the serving path (``run_serve_path`` with ``SERVE``): SigLIP-B/16 at
    full width and depth in bf16, seeded random weights,
    ``InferenceEngine`` + ``EmbeddingService`` serving a 256-image corpus and
@@ -116,13 +118,10 @@ BF16_FLOP_PER_S = 989e12
 # different orders (a p may move one bf16 ulp) and round the output to bf16
 # (|out| < 2 here, one ulp <= 2^-7): two output ulps.
 K1_ATOL = 1.6e-2
-# K2 vs its plain version in bf16: both round p and ds to bf16 after f32 sums
-# taken in different orders (a p or ds may move one bf16 ulp) and round each
-# gradient to bf16; 2^-6 of a gradient's largest magnitude is at least two
-# bf16 ulps there.
-K2_RTOL_OF_MAX = 2.0 ** -6
-# K3 vs its plain version and vs K2 in bf16: the same roundings, held to one
-# bf16 ulp at the gradient's largest magnitude, 2^(floor(log2 max) - 7).
+# K2 and K3 vs their plain versions (and K3 vs K2) in bf16: both round p and
+# ds to bf16 after f32 sums taken in different orders (a p or ds may move one
+# bf16 ulp) and round each gradient to bf16; held to one bf16 ulp at the
+# gradient's largest magnitude, 2^(floor(log2 max) - 7).
 K3_ULPS = 1
 # The training recipes: 2 steps with Lion, then 2 with Adafactor; GradCache
 # checked at 4 × 128 against one batch of 512 pairs.
@@ -168,6 +167,15 @@ ATTENTION_CASES = {
     "scalar_path": (2, 50, 3, 20, True),  # width 60: element-wise loads and stores
     "s416": (4, 416, 12, 64, False),  # the K1/K7 dispatch limit at width 768 / 12: two passes
 }
+# Further K2 cases (b, s, h, dh, causal): a ragged length the warpgroup body
+# takes (s_pad = 208, not 196's) and the first length past its range, which
+# the wmma body takes.
+K2_MORE_CASES = {"ragged_200": (8, 200, 12, 64, False), "s257": (2, 257, 12, 64, False)}
+# K2's bodies (short_attention_bwd_body), and the cases that must take the
+# warpgroup body (head dim 64, 16-byte rows, s_pad <= 256); the others
+# (dh 72, width 60, s = 257 and 416) take the wmma body.
+K2_BODIES = {1: "wgmma, TMA, resident operands", 0: "wmma, cp.async"}
+K2_WGMMA_CASES = ("vision", "text", "causal", "l14", "ragged_200")
 # K7 cases: (b, s, h, dh, causal).
 FLASH_CASES = {
     "b16_512": (32, 1024, 12, 64, False),  # the B/16-512 vision shape, microbatch 32
@@ -353,6 +361,24 @@ def short_attention_body(sa, s: int, dh: int, vec: int) -> tuple[str, str]:
     return body, registers(f"short_attention_fwd_kernel<{(dh + 15) // 16}, {keys // 8}>")
 
 
+def short_attention_bwd_body(sa, s: int, dh: int, vec: int) -> tuple[str, dict]:
+    """(body, {kernel: ptxas line}) of the K2 body a call at (s, dh) runs:
+    the warpgroup body's dQ kernel is instantiated at the 64, 208 or 256
+    keys of its products, the wmma body's kernels at dh's 16-wide tiles."""
+    code = sa._library("short_attention_bwd").short_attention_bwd_body(s, dh, vec)
+    if code != sa.short_attention_bwd_body(s, dh, vec):
+        raise AssertionError(f"K2 body at s={s}, dh={dh}, vec={vec} != python mirror")
+    body = K2_BODIES[code] + ("" if vec or code else " (element-wise loads)")
+    if code:
+        s_pad = (s + 15) // 16 * 16
+        keys = 64 if s_pad <= 64 else 208 if s_pad <= 208 else 256
+        kernels = (f"short_attention_bwd_dq_wgmma_kernel<{keys}>",
+                   "short_attention_bwd_dkdv_wgmma_kernel")
+    else:
+        kernels = tuple(f"short_attention_bwd_{k}_kernel<{(dh + 15) // 16}>" for k in ("dq", "dkdv"))
+    return body, {k: registers(k) for k in kernels}
+
+
 FLASH_BODIES = {1: "wgmma, TMA producer", 2: "wgmma, element-wise producer",
                 0: "mma.sync, two-stage cp.async"}
 
@@ -508,27 +534,51 @@ def check_short_attention(sa, gen) -> dict:
 
 
 def check_short_attention_bwd(sa, gen) -> dict:
-    """K2 against its plain version at the same cases as K1; returns the
-    JSON record of the vision shape (the main path's largest)."""
+    """K2 against its plain version at the same cases as K1 and at
+    K2_MORE_CASES: each gradient within K3_ULPS bf16 ulps of its largest
+    magnitude, run twice for bitwise repeatability, with the body each call
+    took (B/16 vision and text and L/14 must take the warpgroup body, s=257
+    the wmma body), its kernels' registers and blocks per SM. Where the
+    warpgroup body runs, its two kernels' p and ds are held bit for bit
+    equal (``sa._launch_bwd_probe`` on up to 8 batch rows). Times K2 beside
+    its plain version and SDPA's backward at the vision and text shapes, with
+    the device time of each of its two launches. Returns the JSON record of
+    the vision shape (the main path's largest)."""
     import torch.nn.functional as F
 
     lib = sa._library("short_attention_bwd")
     record = None
-    for name, (b, s, h, dh, causal) in ATTENTION_CASES.items():
+    for name, (b, s, h, dh, causal) in {**ATTENTION_CASES, **K2_MORE_CASES}.items():
         q, k, v, do = (
             torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
             for _ in range(4)
         )
         got = sa.short_self_attention_bwd(q, k, v, do, causal)
+        again = sa.short_self_attention_bwd(q, k, v, do, causal)
         torch.cuda.synchronize()
+        repeatable = all(torch.equal(a, c) for a, c in zip(got, again))
         ref = sa.short_self_attention_bwd_plain(q, k, v, do, causal)
-        errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
-        tols = {n: K2_RTOL_OF_MAX * r.float().abs().max().item() for n, r in zip(("dq", "dk", "dv"), ref)}
+        names = ("dq", "dk", "dv")
+        errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(names, got, ref)}
+        tols = {n: K3_ULPS * bf16_ulp(r) for n, r in zip(names, ref)}
         finite = all(bool(torch.isfinite(g).all()) for g in got)
+        vec = sa._vec(dh, h * dh, (q, k, v, do))
+        body, regs = short_attention_bwd_body(sa, s, dh, vec)
+        wgmma = body == K2_BODIES[1]
         row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=errs, atol=tols,
-                   finite=finite,
-                   blocks_per_sm={"dq": lib.short_attention_bwd_occupancy(s, dh, 0),
-                                  "dkdv": lib.short_attention_bwd_occupancy(s, dh, 1)})
+                   finite=finite, repeatable=repeatable, body=body, registers=regs,
+                   blocks_per_sm={"dq": lib.short_attention_bwd_occupancy(s, dh, vec, 0),
+                                  "dkdv": lib.short_attention_bwd_occupancy(s, dh, vec, 1)})
+        if wgmma:
+            row["smem_bytes"] = {w: sa.short_attention_bwd_wgmma_smem_bytes(s, w)
+                                 for w in ("dq", "dkdv")}
+            bp = min(b, 8)
+            probe = sa._launch_bwd_probe(*(t[:bp].contiguous() for t in (q, k, v, do)), causal,
+                                         dh ** -0.5)[3]
+            torch.cuda.synchronize()
+            row["p_ds_bitwise_equal_between_kernels"] = bool(
+                torch.equal(probe[0], probe[1]) and torch.equal(probe[2], probe[3]))
+            del probe
         if name in ("vision", "text"):
             row["ms"] = time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal))
             row["plain_ms"] = time_ms(lambda: sa.short_self_attention_bwd_plain(q, k, v, do, causal))
@@ -540,17 +590,29 @@ def check_short_attention_bwd(sa, gen) -> dict:
             row["library_ms"] = time_ms(
                 lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
             )
-            row["device_ms"] = device_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal))
+            row["device_ms_by_kernel"] = device_ms(
+                lambda: sa.short_self_attention_bwd(q, k, v, do, causal), by_kernel=True)
+            row["device_ms"] = (sum(row["device_ms_by_kernel"].values())
+                                if row["device_ms_by_kernel"] else None)
             row["library_device_ms"] = device_ms(
                 lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
             )
             row["bound_ms"], row["bound_by"] = attention_bound_ms(b, s, h, dh, causal, 7, 5)
+            if row["device_ms"]:
+                row["bound_over_device"] = row["bound_ms"] / row["device_ms"]
             del out, leaves
         log("kernel_bwd", **row)
-        if not finite or any(errs[n] > tols[n] for n in errs):
+        if not (finite and repeatable) or any(errs[n] > tols[n] for n in errs):
             raise AssertionError(f"short_attention_bwd disagrees with its plain version: {row}")
+        if wgmma and not row["p_ds_bitwise_equal_between_kernels"]:
+            raise AssertionError(f"K2's two kernels disagree on p or ds at {name}: {row}")
+        if (name in K2_WGMMA_CASES) != wgmma:
+            raise AssertionError(f"K2 took the {body} body at {name}")
         if name == "vision":
             record = row
+        if name == "text":
+            record["text"] = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "device_ms",
+                                                   "library_device_ms", "bound_ms", "bound_by")}
     return record
 
 
@@ -2112,12 +2174,31 @@ def main() -> int:
         log("build", library=lib, seconds=info["seconds"], ptxas=ptxas_usage(info["log"]),
             wgmma_serialized=wgmma_serialized(info["log"]))
     log("build", seconds=time.monotonic() - t0, built=sorted(built))
+    # K2's warpgroup kernels keep their wgmma chains asynchronous and spill
+    # nothing (a spilling consumer corrupted a result in mid-wgmma before).
+    if "short_attention_bwd" in built:
+        k2_log = built["short_attention_bwd"]["log"]
+        usage = ptxas_usage(k2_log)
+        wg = {k: u for k, u in usage.items() if "_wgmma_kernel" in k}
+        serialized = [k for k in wgmma_serialized(k2_log) if "_wgmma_kernel" in k]
+        log("build", library="short_attention_bwd", wgmma_kernels=wg,
+            wgmma_serialized=serialized)
+        if len(wg) != 4 or serialized or any("spill 0 B" not in u for u in wg.values()):
+            raise AssertionError(f"K2's warpgroup kernels spill or serialise: {wg}, {serialized}")
     for lib, mirror in (("short_attention", sa.short_attention_smem_bytes),
                         ("short_attention_bwd", sa.short_attention_bwd_smem_bytes),
                         ("short_attention_bwd_batched", sa.short_attention_bwd_batched_smem_bytes)):
         smem = getattr(sa._library(lib), f"{lib}_smem_bytes")(196, 64)
         if smem != mirror(196, 64):
             raise AssertionError(f"{lib} smem {smem} != python mirror {mirror(196, 64)}")
+    k2_lib = sa._library("short_attention_bwd")
+    for s_, dh, vec in ((1, 64, 1), (64, 64, 1), (65, 64, 1), (196, 64, 1), (200, 64, 1),
+                        (256, 64, 1), (257, 64, 1), (196, 64, 0), (256, 72, 1), (50, 20, 0)):
+        if k2_lib.short_attention_bwd_body(s_, dh, vec) != sa.short_attention_bwd_body(s_, dh, vec) \
+                or any(k2_lib.short_attention_bwd_wgmma_smem_bytes(s_, i) !=
+                       sa.short_attention_bwd_wgmma_smem_bytes(s_, which)
+                       for i, which in enumerate(("dq", "dkdv"))):
+            raise AssertionError(f"K2 body or smem at s={s_}, dh={dh}, vec={vec} != python mirror")
     k3_lib = sa._library("short_attention_bwd_batched")
     for s_, dh in ((64, 64), (225, 64), (250, 64), (212, 64), (208, 72), (196, 128), (272, 8)):
         if k3_lib.short_attention_bwd_batched_smem_bytes(s_, dh) != \
@@ -2199,7 +2280,8 @@ def main() -> int:
         {"name": "short_attention_bwd", "route": "cuda",
          "source": source + "short_attention_bwd.cu", "replaces": attn + "278",
          **launches("short_attention_bwd"), "max_abs_err": max(k2["max_abs_err"].values()),
-         **timed(k2), "shape": attn_shape},
+         **timed(k2), "device_ms": k2["device_ms"], "library_device_ms": k2["library_device_ms"],
+         "body": k2["body"], "text": k2["text"], "shape": attn_shape},
         {"name": "short_attention_bwd_batched", "route": "cuda",
          "source": source + "short_attention_bwd_batched.cu", "replaces": attn + "185",
          **launches("short_attention_bwd_batched"), "max_abs_err": max(k3["max_abs_err"].values()),

@@ -1,7 +1,8 @@
 // Hopper warpgroup products (wgmma) for the attention kernels' bodies
-// that use them (short_attention.cu, K1 at head dim 64; flash_attention.cu
-// and flash_attention_bwd.cu, K7's forward, dK/dV and dQ at head dims 64
-// and 128): shared-memory descriptors of 128-byte-swizzled operands, the
+// that use them (short_attention.cu, K1 at head dim 64;
+// short_attention_bwd.cu, K2 at head dim 64; flash_attention.cu and
+// flash_attention_bwd.cu, K7's forward, dK/dV and dQ at head dims 64 and
+// 128): shared-memory descriptors of 128-byte-swizzled operands, the
 // fence / commit / wait protocol, and the products at the shapes those
 // bodies issue. sm_90a only.
 
@@ -69,6 +70,18 @@ __device__ inline void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, in
       "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·bᵀ: m64n16k16, both operands K-major in shared memory (128-byte
+// swizzle); scale_d = 0 overwrites d.
+__device__ inline void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -15,7 +15,10 @@ Replaces the Pallas TPU kernels of
   f32 ``p``, ``dv = bf16(p)ᵀ·do``, f32 ``dp = do·vᵀ``,
   ``ds = bf16(p ⊙ (dp − rowsum(dp ⊙ p)) · scale)``, ``dq = ds·k``,
   ``dk = dsᵀ·q``. Kernel: ``csrc/short_attention_bwd.cu`` (two launches; the
-  second recomputes the logits and dp).
+  second recomputes the logits and dp), with two bodies picked by shape
+  (:func:`short_attention_bwd_body`): the warpgroup body (wgmma fed by TMA)
+  at head dim 64, 16-byte rows and s_pad <= 256 (B/16's vision and text
+  lengths, L/14's), the wmma body at every other shape K1 takes.
 - K3, the same call with the body ``_bwd_kernel_batched``: K2's function at
   K2's rounding points, the chain computed once and each of the five products
   issued once. Kernel: ``csrc/short_attention_bwd_batched.cu``, one launch
@@ -68,6 +71,8 @@ __all__ = [
     "short_attention_fits",
     "short_attention_smem_bytes",
     "short_attention_bwd_smem_bytes",
+    "short_attention_bwd_body",
+    "short_attention_bwd_wgmma_smem_bytes",
     "short_attention_bwd_batched_smem_bytes",
     "short_attention_bwd_batched_fits",
     "set_bwd_batch_heads",
@@ -197,8 +202,9 @@ def _k1_dispatch_limit_bytes(s: int, head_dim: int) -> int:
 
 
 def short_attention_bwd_smem_bytes(s: int, head_dim: int) -> int:
-    """Dynamic shared memory of one block of either K2 kernel: two of the
-    head's (s, head_dim) operands in bf16 (rows padded to 16, row stride
+    """Dynamic shared memory of one block of either kernel of K2's wmma body
+    (the dispatch term of :func:`short_attention_fits`, whichever body a
+    call then takes): two of the head's (s, head_dim) operands in bf16 (rows padded to 16, row stride
     head_dim_pad + 8), four warp regions (the larger of 16 staged rows of two
     operands, four 16×16 scratch tiles, or 16 f32 output rows; rounded up to
     128 bytes) and three f32 row statistics per query. Mirrors ``geometry()``
@@ -210,6 +216,40 @@ def short_attention_bwd_smem_bytes(s: int, head_dim: int) -> int:
     out = _ROWS_PER_WARP * (dh_pad + 4) * 4
     warp = _round_up(max(staged, scratch, out), 128)
     return 2 * s_pad * ld_kv * 2 + _WARPS * warp + 3 * s_pad * 4
+
+
+def short_attention_bwd_body(s: int, head_dim: int, vec: int = 1) -> int:
+    """The K2 body a bf16 call takes, decided before launch from the shape:
+    1 = the warpgroup body (wgmma fed by TMA: head dim 64, rows 16-byte
+    aligned (``vec``, see :func:`_vec`), s_pad <= 256), 0 = the wmma body
+    (every other shape K1 takes). Mirrors ``short_attention_bwd_body`` in
+    ``short_attention_bwd.cu``."""
+    return int(head_dim == 64 and bool(vec) and 1 <= s and _round_up(s, 16) <= 256)
+
+
+def short_attention_bwd_wgmma_smem_bytes(s: int, which: str) -> int:
+    """Dynamic shared memory of one block of the K2 warpgroup body's
+    ``"dq"`` or ``"dkdv"`` kernel at length s (0 where that body does not
+    run). dQ: 1,024 bytes of alignment slack, K and V over the 64, 256 or
+    256 rows that hold the N = 64, 208 or 256 keys of its products, and per
+    warpgroup (one at N = 64, else two) a 64-row Q and dO tile and its
+    parked f32 p (N/2 floats a thread), then three or two 8-byte barriers.
+    dK/dV: the slack, Q and dO over s rounded up to 64 rows, one 64-row K
+    and V tile, three f32 statistics a row and one barrier. Mirrors
+    ``short_attention_bwd_wgmma_smem_bytes`` in the source. Not a term of
+    :func:`short_attention_fits`: the wmma body's footprint is."""
+    if not short_attention_bwd_body(s, 64):
+        return 0
+    if which == "dq":
+        s_pad = _round_up(s, 16)
+        n = 64 if s_pad <= 64 else 208 if s_pad <= 208 else 256
+        groups = 1 if n == 64 else 2
+        return 1024 + 2 * _round_up(n, 64) * 128 + groups * (2 * 64 * 128 + n // 2 * 128 * 4) \
+            + (1 + groups) * 8
+    if which == "dkdv":
+        rows = _round_up(s, 64)
+        return 1024 + 2 * rows * 128 + 2 * 64 * 128 + 3 * rows * 4 + 8
+    raise ValueError(f"which must be 'dq' or 'dkdv', got {which!r}")
 
 
 def _k3_variant(s: int, head_dim: int) -> tuple[int, int]:
@@ -390,9 +430,15 @@ def _library(name: str) -> ctypes.CDLL:
     else:
         lib.short_attention_bwd.argtypes = [p] * 8 + [i, i, i, i, ctypes.c_float, i, i, p]
         lib.short_attention_bwd.restype = i
+        lib.short_attention_bwd_probe.argtypes = [p] * 9 + [i, i, i, ctypes.c_float, i, p]
+        lib.short_attention_bwd_probe.restype = i
         lib.short_attention_bwd_smem_bytes.argtypes = [i, i]
         lib.short_attention_bwd_smem_bytes.restype = ctypes.c_longlong
-        lib.short_attention_bwd_occupancy.argtypes = [i, i, i]
+        lib.short_attention_bwd_wgmma_smem_bytes.argtypes = [i, i]
+        lib.short_attention_bwd_wgmma_smem_bytes.restype = ctypes.c_longlong
+        lib.short_attention_bwd_body.argtypes = [i, i, i]
+        lib.short_attention_bwd_body.restype = i
+        lib.short_attention_bwd_occupancy.argtypes = [i, i, i, i]
         lib.short_attention_bwd_occupancy.restype = i
         lib.short_attention_bwd_error_string.argtypes = [i]
         lib.short_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -471,6 +517,34 @@ def _launch_bwd(q, k, v, do, causal: bool, scale: float):
         raise RuntimeError(f"short_attention_bwd launch failed: CUDA error {err} ({msg})")
     _count("bwd")
     return dq, dk, dv
+
+
+def _launch_bwd_probe(q, k, v, do, causal: bool, scale: float):
+    """K2's warpgroup body on checked bf16 CUDA tensors of a shape it takes,
+    also returning what each of its two kernels computed for every (query,
+    key) pair below s: ``(dq, dk, dv, probe)`` with ``probe`` (4, b, h, s,
+    s) f32, planes p and ds (before the bf16 rounding) from the dQ kernel
+    (0, 2) and from the dK/dV kernel (1, 3). For checks that the two agree
+    bit for bit; not counted as a launch."""
+    _check_cuda("short_attention_bwd_probe", q, (("k", k), ("v", v), ("do", do)))
+    b, s, h, dh = q.shape
+    if not short_attention_bwd_body(s, dh, _vec(dh, h * dh, (q, k, v, do))):
+        raise ValueError(f"K2's warpgroup body does not take s={s}, dh={dh}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    stats = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
+    probe = torch.zeros((4, b, h, s, s), dtype=torch.float32, device=q.device)
+    lib = _library("short_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.short_attention_bwd_probe(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), probe.data_ptr(),
+            b, s, h, float(scale), int(bool(causal)), stream,
+        )
+    if err != 0:
+        msg = lib.short_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"short_attention_bwd_probe launch failed: CUDA error {err} ({msg})")
+    return dq, dk, dv, probe
 
 
 def _launch_bwd_batched(q, k, v, do, causal: bool, scale: float):
