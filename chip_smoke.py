@@ -72,8 +72,11 @@ and nothing is caught:
    3): their forward in K1's role and their backward in K2's and K3's at
    B/16 vision, and both in K7's at b=32, s=1,024, against the plain
    versions in f32 (TF32 off) at rtol 1e-4 of the largest magnitude, twice
-   for bitwise repeatability, timed beside SDPA in f32 (each pass, and the
-   K2/K3 role whole: the forward it runs again, dK/dV and dQ); then an f32
+   for bitwise repeatability (each backward case with the body, registers
+   and blocks per SM of its split-f32 kernels, which must spill nothing),
+   timed beside SDPA in f32 (each pass, the pair, the K2/K3 role whole: the
+   forward it runs again, dK/dV and dQ; and K7's role) with the backward's
+   two bounds, on the CUDA cores and in 3xTF32 on the tensor cores; then an f32
    B/16 model with ``attn_impl="flash"`` (``[f32_tower]``: 224 px with K2
    and with K3 as its backward, 512 px on K7's role), forward and backward
    between two reads of the counts (the roles' and each f32 kernel's own),
@@ -216,8 +219,13 @@ F32_ATTENTION_CASES = {"vision": (128, 196, 12, 64), "b16_512": (32, 1024, 12, 6
 # odd head dim, and K7's role causal and ragged.
 F32_ATTENTION_MORE = {"causal": (4, 77, 8, 64, True), "head_dim_20": (2, 50, 3, 20, True),
                       "head_dim_72": (2, 256, 16, 72, False),
+                      "head_dim_128": (2, 196, 12, 128, False),
                       "k7_causal_1000": (2, 1000, 12, 64, True)}
 F32_RTOL_OF_MAX = 1e-4
+# TF32 on the tensor cores (NVIDIA data sheet, H100 SXM, dense): the f32
+# backward's split products, three TF32 products for each f32 one.
+TF32_FLOP_PER_S = 495e12
+F32_BWD_BODY = "mma.sync m16n8k8 split f32 (3xTF32), two-stage cp.async ring"
 # The f32 model with attn_impl="flash": batch at 224 px and at 512 px.
 F32_TOWER_BATCH = {"b16": 8, "b16_512": 2}
 # int8 (NVIDIA data sheet, H100 SXM, dense): the loss kernels' int8 products.
@@ -755,19 +763,51 @@ def f32_attention_bound_ms(b, s, h, dh, tensors, products) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def f32_bwd_bounds_ms(b, s, h, dh, tensors, products) -> dict:
+    """Both bounds of f32 backward work: on the CUDA cores (IEEE f32 FMAs at
+    67 TFLOP/s) and on the tensor cores in split f32 (three TF32 products for
+    each f32 one at 495 TFLOP/s), each against the bytes of ``tensors`` f32
+    tensors; ``bound_ms`` is the lower."""
+    cuda_core, by_cc = f32_attention_bound_ms(b, s, h, dh, tensors, products)
+    t_bytes = tensors * b * s * h * dh * 4 / HBM_BYTES_PER_S
+    t_ops = 3 * products * 2 * b * h * s * s * dh / TF32_FLOP_PER_S
+    tensor_core = max(t_bytes, t_ops) * 1e3
+    by_tc = "bytes" if t_bytes >= t_ops else "operations"
+    return dict(bound_cuda_core_ms=cuda_core, bound_tensor_core_ms=tensor_core,
+                bound_ms=min(cuda_core, tensor_core),
+                bound_by=(by_tc if tensor_core <= cuda_core else by_cc) +
+                (", 3xTF32 on the tensor cores" if tensor_core <= cuda_core
+                 else ", f32 on the CUDA cores"))
+
+
+def f32_bwd_body(af, dh: int, vec: bool) -> dict:
+    """Body, ptxas line and blocks per SM of the f32 backward kernels a call
+    at head dim dh runs (both instantiated at round16(dh) / 16)."""
+    kc = (dh + 15) // 16
+    lib = af._library()
+    return dict(body=F32_BWD_BODY + (", 16-byte copies" if vec else ", 4-byte copies"),
+                registers={w: registers(f"attention_f32_{w}_kernel<{kc}>") for w in ("dkv", "dq")},
+                blocks_per_sm={"dkv": lib.attention_f32_occupancy(dh, 1),
+                               "dq": lib.attention_f32_occupancy(dh, 2)},
+                smem_bytes={"dkv": af.smem_bytes(dh, 1), "dq": af.smem_bytes(dh, 2)})
+
+
 def check_f32_attention(sa, fa, gen) -> dict:
     """The f32 attention kernels against their plain versions in f32 (TF32
     off): the forward in K1's role and the backward in K2's and K3's at B/16
-    vision, both in K7's at b=32, s=1,024; each output within
-    F32_RTOL_OF_MAX of its largest magnitude, run twice for bitwise
-    repeatability. Times the forward, the dK/dV and the dQ pass at B/16
-    vision beside the plain versions, SDPA in f32 and the bound. Returns
-    ``{"fwd", "bwd_dkv", "bwd_dq"}`` records for the JSON line."""
+    vision, both in K7's at b=32, s=1,024, and F32_ATTENTION_MORE; each
+    output within F32_RTOL_OF_MAX of its largest magnitude, run twice for
+    bitwise repeatability, each backward case with its body, registers and
+    blocks per SM. Times the forward, the dK/dV and the dQ pass, the pair
+    and the K2/K3 role at B/16 vision, and K7's role, beside the plain
+    versions, SDPA in f32 and the bounds (the backward's on the CUDA cores
+    and in 3xTF32). Returns ``{"fwd", "bwd_dkv", "bwd_dq", "k7_role"}``
+    records for the JSON line."""
     import torch.nn.functional as F
 
     from distributed_sigmoid_loss_tpu_torch.ops import attention_f32 as af
 
-    def held(role, shape, kernel, plain):
+    def held(role, shape, kernel, plain, inputs=None):
         got, again = kernel(), kernel()
         torch.cuda.synchronize()
         ref = plain()
@@ -776,6 +816,8 @@ def check_f32_attention(sa, fa, gen) -> dict:
         row = dict(role=role, shape=list(shape), max_err_of_max=max(errs), min_cosine=min(cos),
                    repeatable=all(torch.equal(a, c) for a, c in zip(got, again)),
                    finite=all(bool(torch.isfinite(g).all()) for g in got))
+        if inputs is not None:  # a backward role: the body its two kernels ran
+            row.update(f32_bwd_body(af, shape[-1], af.bwd_vec(shape[-1], *inputs)))
         log("kernel_f32_attention", **row)
         if not (row["finite"] and row["repeatable"]) or max(errs) > F32_RTOL_OF_MAX:
             raise AssertionError(f"f32 attention in {role} disagrees with its plain version: {row}")
@@ -788,10 +830,10 @@ def check_f32_attention(sa, fa, gen) -> dict:
                    lambda: (sa.short_self_attention_plain(q, k, v),))
     err_bwd = held("K2", (b, s, h, dh),
                    lambda: sa.short_self_attention_bwd(q, k, v, do, batch_heads=False),
-                   lambda: sa.short_self_attention_bwd_plain(q, k, v, do))
+                   lambda: sa.short_self_attention_bwd_plain(q, k, v, do), (q, k, v, do))
     err_bwd = max(err_bwd, held(
         "K3", (b, s, h, dh), lambda: sa.short_self_attention_bwd(q, k, v, do, batch_heads=True),
-        lambda: sa.short_self_attention_bwd_batched_plain(q, k, v, do)))
+        lambda: sa.short_self_attention_bwd_batched_plain(q, k, v, do), (q, k, v, do)))
 
     # Each pass alone at B/16 vision, timed; dK/dV and dQ from one forward.
     out, stats = af.launch_fwd(q, k, v, False, scale, with_stats=True)
@@ -822,11 +864,30 @@ def check_f32_attention(sa, fa, gen) -> dict:
                    library_ms=time_ms(library, iters=10) if library else sdpa_bwd_ms,
                    library_call="SDPA in f32 (TF32 off)" + ("" if library else
                                                             ", its whole backward (dq, dk, dv)"))
-        rec["bound_ms"], rec["bound_by"] = f32_attention_bound_ms(b, s, h, dh, tensors, products)
-        if which != "fwd":
-            rec["pair_bound_ms"] = f32_attention_bound_ms(b, s, h, dh, 7, 5)[0]
+        if which == "fwd":
+            rec["bound_ms"], rec["bound_by"] = f32_attention_bound_ms(b, s, h, dh, tensors,
+                                                                      products)
+        else:
+            rec.update(f32_bwd_bounds_ms(b, s, h, dh, tensors, products))
+            rec["pair_bound_ms"] = f32_bwd_bounds_ms(b, s, h, dh, 7, 5)["bound_ms"]
+            rec.update(f32_bwd_body(af, dh, af.bwd_vec(dh, q, k, v, do)))
+            if which == "bwd_dkv":  # the di pass and the dK/dV kernel apart
+                rec["device_ms_by_kernel"] = device_ms(kernel, by_kernel=True)
+        rec["bound_over_device"] = (rec["bound_ms"] / rec["device_ms"] if rec["device_ms"]
+                                    else None)  # None: not measured
         log("kernel_f32_attention_time", kernel=which, **rec)
         records[which] = rec
+    # The pair alone (dK/dV with its di pass, then dQ) against SDPA's
+    # backward, which computes the same three gradients; its bounds count
+    # the function's 5 products.
+    pair = lambda: (passes["bwd_dkv"][0](), passes["bwd_dq"][0]())  # noqa: E731
+    pair_rec = dict(pair_ms=time_ms(pair, iters=10), pair_device_ms=device_ms(pair),
+                    library_ms=sdpa_bwd_ms, library_device_ms=device_ms(
+                        lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)),
+                    **f32_bwd_bounds_ms(b, s, h, dh, 7, 5))
+    pair_rec["bound_over_device"] = (pair_rec["bound_ms"] / pair_rec["pair_device_ms"]
+                                     if pair_rec["pair_device_ms"] else None)
+    log("kernel_f32_attention_time", kernel="pair (dkv + dq)", **pair_rec)
     # The K2/K3 role as the towers call it: the forward again (with its
     # statistics), then dK/dV and dQ; its bound counts the 9 products those
     # three launches run (2 + 4 + 3) beside the 5 of the function alone.
@@ -837,7 +898,8 @@ def check_f32_attention(sa, fa, gen) -> dict:
                     library_ms=sdpa_bwd_ms)
     log("kernel_f32_attention_time", kernel="K2/K3 role (fwd + dkv + dq)", **role_rec)
     for which in ("bwd_dkv", "bwd_dq"):
-        records[which].update(role_ms=role_rec["role_ms"], role_bound_ms=role_rec["role_bound_ms"])
+        records[which].update(role_ms=role_rec["role_ms"], role_bound_ms=role_rec["role_bound_ms"],
+                              pair_ms=pair_rec["pair_ms"], pair_device_ms=pair_rec["pair_device_ms"])
     del out, stats, di, leaves, sdpa_out
 
     # K7's role at the B/16-512 shape: the forward with its statistics, then
@@ -851,12 +913,24 @@ def check_f32_attention(sa, fa, gen) -> dict:
     err7 = max(err7, held(
         "K7 bwd", (b, s, h, dh), lambda: fa.flash_self_attention_bwd(q, k, v, out, do, stats),
         lambda: fa.flash_self_attention_bwd_plain(q, k, v, out, do, stats, False, scale,
-                                                  fa.BLOCK_K)))
-    log("kernel_f32_attention_time", role="K7", shape=[b, s, h, dh],
-        fwd_ms=time_ms(lambda: fa._forward(q, k, v, False, scale), iters=5),
-        bwd_ms=time_ms(lambda: fa.flash_self_attention_bwd(q, k, v, out, do, stats), iters=5),
-        fwd_bound_ms=f32_attention_bound_ms(b, s, h, dh, 4, 2)[0],
-        bwd_bound_ms=f32_attention_bound_ms(b, s, h, dh, 7, 5)[0])
+                                                  fa.BLOCK_K), (q, k, v, do)))
+    k7_bwd = lambda: fa.flash_self_attention_bwd(q, k, v, out, do, stats)  # noqa: E731
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    dout = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)  # noqa: E731
+    k7_rec = dict(fwd_ms=time_ms(lambda: fa._forward(q, k, v, False, scale), iters=5),
+                  bwd_ms=time_ms(k7_bwd, iters=5), bwd_device_ms=device_ms(k7_bwd),
+                  library_bwd_ms=time_ms(sdpa_bwd, iters=5),
+                  library_bwd_device_ms=device_ms(sdpa_bwd),
+                  library_call="SDPA backward in f32 (TF32 off)",
+                  fwd_bound_ms=f32_attention_bound_ms(b, s, h, dh, 4, 2)[0],
+                  **{f"bwd_{k}": x for k, x in f32_bwd_bounds_ms(b, s, h, dh, 7, 5).items()})
+    if k7_rec["bwd_device_ms"]:
+        k7_rec["bwd_bound_over_device"] = k7_rec["bwd_bound_ms"] / k7_rec["bwd_device_ms"]
+    log("kernel_f32_attention_time", role="K7", shape=[b, s, h, dh], **k7_rec)
+    records["k7_role"] = k7_rec
+    del leaves, sdpa_out, dout
     records["k7_role_max_err_of_max"] = err7
     del q, k, v, do, out, stats
     for name, (b, s, h, dh, causal) in F32_ATTENTION_MORE.items():
@@ -869,13 +943,13 @@ def check_f32_attention(sa, fa, gen) -> dict:
             held(f"K7 bwd {name}", (b, s, h, dh),
                  lambda: fa.flash_self_attention_bwd(q, k, v, out, do, stats, causal),
                  lambda: fa.flash_self_attention_bwd_plain(q, k, v, out, do, stats, causal,
-                                                           scale, fa.BLOCK_K))
+                                                           scale, fa.BLOCK_K), (q, k, v, do))
             continue
         held(f"K1 {name}", (b, s, h, dh), lambda: (sa.short_self_attention(q, k, v, causal),),
              lambda: (sa.short_self_attention_plain(q, k, v, causal),))
         held(f"K2 {name}", (b, s, h, dh),
              lambda: sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=False),
-             lambda: sa.short_self_attention_bwd_plain(q, k, v, do, causal))
+             lambda: sa.short_self_attention_bwd_plain(q, k, v, do, causal), (q, k, v, do))
     torch.cuda.empty_cache()
     return records
 
@@ -2185,6 +2259,15 @@ def main() -> int:
             wgmma_serialized=serialized)
         if len(wg) != 4 or serialized or any("spill 0 B" not in u for u in wg.values()):
             raise AssertionError(f"K2's warpgroup kernels spill or serialise: {wg}, {serialized}")
+    # The f32 backward's split-f32 kernels (eight instantiations each of
+    # dK/dV and dQ, one per 16 head-dim columns) spill nothing.
+    if "attention_f32" in built:
+        usage = ptxas_usage(built["attention_f32"]["log"])
+        bwd = {k: u for k, u in usage.items()
+               if k.startswith(("attention_f32_dkv_kernel", "attention_f32_dq_kernel"))}
+        log("build", library="attention_f32", bwd_kernels=bwd)
+        if len(bwd) != 16 or any("spill 0 B" not in u for u in bwd.values()):
+            raise AssertionError(f"the f32 backward kernels spill: {bwd}")
     for lib, mirror in (("short_attention", sa.short_attention_smem_bytes),
                         ("short_attention_bwd", sa.short_attention_bwd_smem_bytes),
                         ("short_attention_bwd_batched", sa.short_attention_bwd_batched_smem_bytes)):
@@ -2340,8 +2423,11 @@ def main() -> int:
                         **launches(f"attention_f32_{which}"),
                         "max_abs_err": rec["max_abs_err"], **timed(rec),
                         "device_ms": rec["device_ms"], "library_call": rec["library_call"],
-                        **({k: rec[k] for k in ("pair_bound_ms", "role_ms", "role_bound_ms")}
-                           if which != "fwd" else {}),
+                        **({k: rec[k] for k in (
+                            "pair_bound_ms", "pair_ms", "pair_device_ms", "role_ms",
+                            "role_bound_ms", "bound_cuda_core_ms", "bound_tensor_core_ms",
+                            "bound_over_device", "body")} if which != "fwd" else {}),
+                        **({"k7_role": f32_recs["k7_role"]} if which == "bwd_dq" else {}),
                         "shape": f"b={b} s={s} h={h} dh={dh} f32 (max_abs_err: of the "
                                  "largest magnitude)"})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
-// f32 self-attention for Hopper (sm_90a): a forward and a two-pass backward
-// (a di pass with dK/dV, then dQ) in IEEE f32 on the CUDA cores.
+// f32 self-attention for Hopper (sm_90a): a forward on the CUDA cores and a
+// two-pass backward (a di pass with dK/dV, then dQ) whose products run on the
+// tensor cores in split f32 (3xTF32).
 //
 // Replaces, for f32 activations, the Pallas TPU kernels that JAX runs in f32
 // on the same towers: K1 (distributed_sigmoid_loss_tpu/ops/
@@ -16,31 +17,79 @@
 // role it plays) and writes the row statistics (m, l) for K7's saved stats,
 // and one backward plays the K2, K3 and K7-backward roles: in the K2 and K3
 // roles the caller first runs the forward for (out, m, l), since those saved
-// only (q, k, v). Every product is an IEEE f32 FMA (no TF32, no tensor
-// cores), expf is the precise one, as JAX's f32 kernels are held at rtol 1e-4.
+// only (q, k, v). JAX's f32 kernels are held at rtol 1e-4; so are these.
 //
 // Bound on this card: operations. At ViT-B/16 vision in f32 (b=128, s=196,
-// h=12, dh=64) the forward's two products are 4·128·12·196²·64 = 15.1 GFLOP,
-// 225 µs at the 67 TFLOP/s f32 peak, against 4·128·196·768·4 B = 308 MB, 92
-// µs at 3.35 TB/s; the backward's five products (plus the forward it
-// recomputes in the K2/K3 roles) likewise.
+// h=12, dh=64) one s²·dh product is 2·128·12·196²·64 = 7.55 GFLOP against
+// 4·128·196·768·4 B = 308 MB (92 µs at 3.35 TB/s) for four tensors.
 //
-// Design: flash attention in f32. A block of 256 threads owns 64 rows (the
-// forward and dQ: query rows; dK/dV: key rows) of one (batch row, head) and
-// walks over the 64-row tiles of the other side, so shared memory stays
-// O(64·dh) whatever s is: a per-head s × s chain in f32 (153 KB at s = 196)
-// would not fit beside K and V. Every tile sits in shared memory transposed,
-// column-major with a row stride of 65 floats, so the loads from device
-// memory (consecutive threads on consecutive columns) and both reads of a
-// product (a row index shared by a half-warp, or consecutive rows) are free of
-// bank conflicts. A thread computes a 4 × 4 patch of a 64 × 64 logit tile
-// (rows ty + 16i, columns tx + 16j) and a 4 × dh/16 patch of the 64 × dh
-// outputs; row maxima and sums are half-warp shuffles. The forward keeps the
-// online-softmax state (m, l, the output rows) in registers; the backward
-// recomputes p from the saved (m, l), as K7's does. Every output element has
-// one writer and there are no atomics: runs are bitwise repeatable. Ragged s
-// is zero-filled and masked by index; causal tiles past the diagonal are
-// skipped. wgmma-free by design: the tensor cores have no IEEE f32 product.
+// The forward: every product an IEEE f32 FMA on the CUDA cores, expf the
+// precise one; its two products take 225 µs at the 67 TFLOP/s f32 peak. A
+// block of 256 threads owns 64 query rows of one (batch row, head) and walks
+// the 64-row key tiles, so shared memory stays O(64·dh) whatever s is. Every
+// tile sits in shared memory transposed, column-major at a row stride of 65
+// floats, so the loads from device memory and both reads of a product are
+// free of bank conflicts; a thread computes a 4 × 4 patch of a 64 × 64 logit
+// tile and a 4 × dh/16 patch of the output, and keeps the online-softmax
+// state (m, l, the output rows) in registers.
+//
+// The backward: split-f32 products on the tensor cores. Each f32 operand x
+// is split into hi = tf32(x) and lo = tf32(x − hi), both rounded as
+// cvt.rna.tf32.f32 rounds (nearest, ties away; done on the integer bits,
+// bitwise the same and cheaper), and every mma.sync m16n8k8 TF32 step adds
+// lo·hi, hi·lo, then hi·hi into an f32 accumulator (the small terms first).
+// What is dropped, lo·lo and the rounding of lo, is about 2^-22 of each
+// term; on the card the outputs stay within ~1.5e-5 of the largest magnitude
+// of the f32 plain version at s = 1,024 (the tensor cores' own accumulation
+// adds to it), inside the 1e-4 contract. Plain TF32 (hi·hi alone) keeps
+// about three digits, ~8e-4 here, and would not hold. (This is the fast-f32
+// scheme of PyTorch's memory-efficient attention, its f32 yardstick on this
+// card.) Bound: the three TF32 products of each of the four (dK/dV: x, dp,
+// dv, dk) or three (dQ: x, dp, dq) s²·dh products at the 495 TFLOP/s TF32
+// peak, 0.183 and 0.137 ms at B/16 vision; on the CUDA cores they would take
+// 0.451 and 0.338.
+//
+// Design of the two backward kernels. A block of 128 threads (4 warps) owns
+// 64 resident rows of one (batch row, head), 16 a warp: dK/dV its keys, with
+// K and V resident; dQ its queries, with Q and dO resident. It walks the
+// other side's tiles of 32 rows, which stream through a two-stage cp.async
+// ring: tile j + 1's copies fly while tile j's products run. Rows are copied
+// 16 bytes at a time when dh % 4 == 0 and the tensors are 16-byte aligned,
+// else 4 bytes at a time, into the same layout, so both give bitwise the same
+// result. Rows past s and columns past dh are zero-filled. Every tile is
+// row-major at a stride of round16(dh) + 4 floats (≡ 4 mod 8), so each
+// fragment read below is free of bank conflicts. Per streamed tile a warp
+//   1. forms x and dp, its 16 rows against the tile's 32 (A = the resident
+//      rows, B = the streamed rows, both split as they are read),
+//   2. turns them into p and ds in the accumulators, p = expf(x·scale − m) ·
+//      (1/l) with the forward's m and l, masked (−inf keys: causal, past s)
+//      to 0, ds = p·(dp − di)·scale,
+//   3. adds p·do and ds·q (dK/dV: into dv and dk) or ds·k (dQ: into dq) with
+//      p and ds as the A operand straight from the accumulators. A 16 × 8
+//      accumulator holds columns (2t, 2t + 1) of rows (g, g + 8), while the
+//      TF32 A fragment holds k = (t, t + 4): reading the B operand's k rows in
+//      the order (2t, 2t + 1) makes the accumulator the A fragment, with no
+//      round trip through shared memory. p and ds are split in registers.
+// Each 8-column step splits its operands once and runs its lo·hi products
+// for every output tile, then the hi·lo, then the hi·hi, so independent
+// products cover each other's latency. The splitting, not the tensor cores,
+// is most of the instructions. The resident rows stay f32 in shared memory
+// and are split as they are read (once per 8 columns, reused across the
+// tile's four 8-row groups): split planes would double their footprint. 32
+// streamed rows (not 64) keep the accumulators within the registers without
+// a spill at dh = 128 and let three blocks share an SM at dh = 64 (64 rows:
+// two, and slower at B/16). A tile with at most 8 live rows (s = 196's
+// last) runs one 8-row group, and a warp whose rows are all past s, or
+// causally before the whole tile, skips it. Shared memory: dK/dV 2·64 + 4·32
+// rows of f32 + 6·32 statistics, dQ 2·64 + 4·32 rows; and the blocks an SM
+// holds by it (228 KB, 1 KB reserved a block; registers may hold fewer):
+//    dh   dK/dV bytes  blocks  dQ bytes  blocks
+//    20        37,632       6    36,864       6
+//    64        70,400       3    69,632       3
+//    72        86,784       2    86,016       2
+//   128       135,936       1   135,168       1
+// Every output element has one writer and there are no atomics: runs are
+// bitwise repeatable. The di pass is its own launch, one warp a row.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,12 +112,22 @@ __host__ __device__ inline size_t fwd_smem_bytes(int dh) {
   return (size_t)(3 * tile_floats(dh) + kTile * kLd) * sizeof(float);
 }
 
+// The backward's geometry at head dim dh: a block's 64 resident rows, 32
+// streamed rows a stage, every row at stride round16(dh) + 4 floats.
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kRes = 16 * kBwdWarps;
+constexpr int kStream = 32;  // streamed rows a stage
+
+__host__ __device__ constexpr int bwd_ld(int kc) { return 16 * kc + 4; }
+
 __host__ __device__ inline size_t dkv_smem_bytes(int dh) {
-  return (size_t)(4 * tile_floats(dh) + 2 * kTile * kLd + 3 * kTile) * sizeof(float);
+  return (size_t)((2 * kRes + 4 * kStream) * bwd_ld(round16(dh) / 16) + 6 * kStream) *
+         sizeof(float);
 }
 
 __host__ __device__ inline size_t dq_smem_bytes(int dh) {
-  return (size_t)(4 * tile_floats(dh) + kTile * kLd) * sizeof(float);
+  return (size_t)(2 * kRes + 4 * kStream) * bwd_ld(round16(dh) / 16) * sizeof(float);
 }
 
 // Rows [row0, row0 + 64) of one head's (s, dh) slice (rows at stride
@@ -255,136 +314,331 @@ attention_f32_di_kernel(const float* __restrict__ out, const float* __restrict__
   }
 }
 
+// ---- the backward's split-f32 tensor-core products --------------------------
+
+// Asynchronous copies global -> shared; a src_bytes of 0 zero-fills.
+__device__ inline void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ inline void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most one committed group of this thread is still in flight.
+__device__ inline void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + rows) of one head's (s, dh) slice (rows at stride
+// `width`) into dst at row stride bwd_ld(KC), zero past s and for columns in
+// [dh, 16·KC): 16 bytes a copy with `vec` (dh % 4 == 0, 16-byte aligned
+// rows), else 4. The caller commits and waits.
+template <int KC>
+__device__ inline void load_rows(float* dst, const float* __restrict__ src, int row0, int rows,
+                                 int s, int width, int dh, bool vec) {
+  constexpr int kDhp = 16 * KC, kLdb = bwd_ld(KC);
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * (kDhp / 4); i += kBwdThreads) {
+      const int r = i / (kDhp / 4), c = i % (kDhp / 4) * 4, row = row0 + r;
+      const bool in = row < s && c < dh;
+      cp_async16(dst + r * kLdb + c, in ? src + (size_t)row * width + c : src, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * kDhp; i += kBwdThreads) {
+      const int r = i / kDhp, c = i % kDhp, row = row0 + r;
+      const bool in = row < s && c < dh;
+      cp_async4(dst + r * kLdb + c, in ? src + (size_t)row * width + c : src, in ? 4 : 0);
+    }
+  }
+}
+
+// x rounded to TF32 (10 explicit significand bits, the low 13 cleared),
+// nearest with ties away from zero: bitwise what cvt.rna.tf32.f32 gives for
+// finite x, in two integer operations (the conversion made the whole
+// backward slower on the card).
+__device__ inline unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + O(2^-22 x): hi = tf32(x), lo = tf32(x − hi) (x − hi is exact).
+__device__ inline void split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a · b: one m16n8k8 TF32 product with f32 accumulation. a: rows g and
+// g + 8 at k = t, t + 4; b: k = t, t + 4 at column g; d: rows g, g + 8 at
+// columns 2t, 2t + 1 (g = lane / 4, t = lane % 4).
+__device__ inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[n] = Σ_d a[r][d] · b[8n + c][d]: the warp's 16 rows of `a` (resident)
+// against the first 8·NT rows of the streamed tile `b`, over 16·KC columns.
+template <int KC, int NT>
+__device__ inline void product_rows(float (&c)[NT][4], const float* a, const float* b) {
+  constexpr int kLdb = bwd_ld(KC);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* ar = a + g * kLdb + t;
+  const float* br = b + g * kLdb + t;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll 2
+  for (int kc = 0; kc < 2 * KC; ++kc) {
+    unsigned ahi[4], alo[4];
+    split(ar[8 * kc], ahi[0], alo[0]);
+    split(ar[8 * kLdb + 8 * kc], ahi[1], alo[1]);
+    split(ar[8 * kc + 4], ahi[2], alo[2]);
+    split(ar[8 * kLdb + 8 * kc + 4], ahi[3], alo[3]);
+    unsigned bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      split(br[8 * n * kLdb + 8 * kc], bh[n][0], bl[n][0]);
+      split(br[8 * n * kLdb + 8 * kc + 4], bh[n][1], bl[n][1]);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(c[n], alo, bh[n][0], bh[n][1]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(c[n], ahi, bl[n][0], bl[n][1]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(c[n], ahi, bh[n][0], bh[n][1]);
+  }
+}
+
+// o[n] += Σ_k p[r][k] · b[k][8n + c] over the first 8·NT rows k of the
+// streamed tile b: p is a product_rows accumulator, its columns (2t, 2t + 1)
+// taken as the A fragment's k = (t, t + 4), so b's rows are read in that order.
+template <int KC, int NT>
+__device__ inline void product_acc(float (&o)[2 * KC][4], const float (&p)[NT][4],
+                                   const float* b) {
+  constexpr int kLdb = bwd_ld(KC);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* br = b + 2 * t * kLdb + g;
+#pragma unroll
+  for (int kc = 0; kc < NT; ++kc) {
+    unsigned ahi[4], alo[4];
+    split(p[kc][0], ahi[0], alo[0]);
+    split(p[kc][2], ahi[1], alo[1]);
+    split(p[kc][1], ahi[2], alo[2]);
+    split(p[kc][3], ahi[3], alo[3]);
+    unsigned bh[2 * KC][2], bl[2 * KC][2];
+#pragma unroll
+    for (int n = 0; n < 2 * KC; ++n) {
+      split(br[8 * kc * kLdb + 8 * n], bh[n][0], bl[n][0]);
+      split(br[(8 * kc + 1) * kLdb + 8 * n], bh[n][1], bl[n][1]);
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * KC; ++n) mma_tf32(o[n], alo, bh[n][0], bh[n][1]);
+#pragma unroll
+    for (int n = 0; n < 2 * KC; ++n) mma_tf32(o[n], ahi, bl[n][0], bl[n][1]);
+#pragma unroll
+    for (int n = 0; n < 2 * KC; ++n) mma_tf32(o[n], ahi, bh[n][0], bh[n][1]);
+  }
+}
+
+// Write a warp's 16 × 16·KC accumulator as rows row0 + g (+8) < s, columns
+// < dh of one head's slice.
+template <int KC>
+__device__ inline void store_acc(float* __restrict__ dst, const float (&o)[2 * KC][4], int row0,
+                                 int s, int width, int dh) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < 2 * KC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1), col = 8 * n + 2 * t + (e & 1);
+      if (row < s && col < dh) dst[(size_t)row * width + col] = o[n][e];
+    }
+}
+
+// One streamed query tile of the dK/dV kernel for one warp: keys key0 + r
+// (resident k, v rows), queries q0 + c (tile rows qt, dot; their m, l, di in
+// st[0..N), st[N..2N), st[2N..3N)); only the first 8·NT queries are live.
+template <int KC, int NT>
+__device__ inline void dkv_tile(float (&gk)[2 * KC][4], float (&gv)[2 * KC][4], const float* kr,
+                                const float* vr, const float* qt, const float* dot,
+                                const float* st, int key0, int q0, int s, float scale,
+                                int causal) {
+  constexpr int N = kStream;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float x[NT][4], dp[NT][4];
+  product_rows<KC, NT>(x, kr, qt);   // x[key][query]
+  product_rows<KC, NT>(dp, vr, dot); // dp[key][query]
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int cq = 8 * n + 2 * t + (e & 1), query = q0 + cq, key = key0 + g + 8 * (e >> 1);
+      const bool live = query < s && (!causal || key <= query);
+      const float p = live ? expf(x[n][e] * scale - st[cq]) * __frcp_rn(st[N + cq]) : 0.f;
+      dp[n][e] = p * (dp[n][e] - st[2 * N + cq]) * scale;
+      x[n][e] = p;
+    }
+  product_acc<KC, NT>(gv, x, dot);  // dv += p·do
+  product_acc<KC, NT>(gk, dp, qt);  // dk += ds·q
+}
+
 // dK/dV: grid (key tiles, heads, b); a block owns 64 key rows and walks the
 // query tiles (causal: from its own diagonal on).
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
+template <int KC>
+__global__ void __launch_bounds__(kBwdThreads)
 attention_f32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ stats, const float* __restrict__ di,
                          float* __restrict__ dk, float* __restrict__ dv, int s, int heads,
-                         int dh, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int tf = tile_floats(dh);
-  float* kt = smem;
-  float* vt = kt + tf;
-  float* qt = vt + tf;
-  float* dot = qt + tf;
-  float* pt = dot + tf;            // p[query][key]
-  float* dst = pt + kTile * kLd;   // ds[query][key]
-  float* rm = dst + kTile * kLd;   // the query tile's m, 1/l and di
-  float* rl = rm + kTile;
-  float* rd = rl + kTile;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int width = heads * dh, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+                         int dh, float scale, int causal, int vec) {
+  constexpr int N = kStream, kLdb = bwd_ld(KC);
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* kr = bwd_smem;
+  float* vr = kr + kRes * kLdb;
+  float* ring = vr + kRes * kLdb;       // stage i: q tile at 2i·N rows, do at (2i + 1)·N
+  float* rst = ring + 4 * N * kLdb;     // stage i: m, l, di at 3i·N
+  const int k0 = blockIdx.x * kRes, h = blockIdx.y, b = blockIdx.z;
+  const int width = heads * dh, warp = threadIdx.x / 32;
   const size_t slab = (size_t)b * s * width + (size_t)h * dh;
-  const size_t row_off = ((size_t)b * heads + h) * s;
   const float* st = stats + ((size_t)b * heads + h) * 2 * s;
-  load_t(kt, k + slab, k0, s, width, dh);
-  load_t(vt, v + slab, k0, s, width, dh);
+  const float* dr = di + ((size_t)b * heads + h) * s;
+  const int first = causal ? k0 : 0, tiles = ceil_div(s - first, N);
+  const auto fetch = [&](int j) {
+    const int q0 = first + j * N, i = j & 1;
+    load_rows<KC>(ring + 2 * i * N * kLdb, q + slab, q0, N, s, width, dh, vec);
+    load_rows<KC>(ring + (2 * i + 1) * N * kLdb, dout + slab, q0, N, s, width, dh, vec);
+    for (int r = threadIdx.x; r < 3 * N; r += kBwdThreads) {
+      const int row = q0 + r % N;
+      const float* src = r < N ? st + row : r < 2 * N ? st + s + row : dr + row;
+      cp_async4(rst + 3 * i * N + r, row < s ? src : st, row < s ? 4 : 0);
+    }
+  };
+  load_rows<KC>(kr, k + slab, k0, kRes, s, width, dh, vec);
+  load_rows<KC>(vr, v + slab, k0, kRes, s, width, dh, vec);
+  fetch(0);
+  cp_async_commit();
 
-  float gk[4][NC], gv[4][NC];
+  float gk[2 * KC][4], gv[2 * KC][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 2 * KC; ++n)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) gk[i][j] = gv[i][j] = 0.f;
-  for (int q0 = causal ? k0 : 0; q0 < s; q0 += kTile) {
-    __syncthreads();
-    load_t(qt, q + slab, q0, s, width, dh);
-    load_t(dot, dout + slab, q0, s, width, dh);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const int row = q0 + r;
-      rm[r] = row < s ? st[row] : 0.f;
-      rl[r] = row < s ? 1.f / st[s + row] : 0.f;
-      rd[r] = row < s ? di[row_off + row] : 0.f;
+    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.f;
+  const int key0 = k0 + 16 * warp;
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles) fetch(j + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();  // tile j (and the resident rows) landed for every thread
+    const int q0 = first + j * N, i = j & 1;
+    const float* qt = ring + 2 * i * N * kLdb;
+    const float* dot = qt + N * kLdb;
+    if (key0 < s && !(causal && q0 + N - 1 < key0)) {
+      if (s - q0 <= 8)  // one 8-row group live (s = 196's last tile)
+        dkv_tile<KC, 1>(gk, gv, kr + 16 * warp * kLdb, vr + 16 * warp * kLdb, qt, dot,
+                        rst + 3 * i * N, key0, q0, s, scale, causal);
+      else
+        dkv_tile<KC, N / 8>(gk, gv, kr + 16 * warp * kLdb, vr + 16 * warp * kLdb, qt, dot,
+                            rst + 3 * i * N, key0, q0, s, scale, causal);
     }
-    __syncthreads();
-    float x[4][4], dp[4][4];
-    tile_tt(x, kt, qt, dh);   // x[key][query]
-    tile_tt(dp, vt, dot, dh); // dp[key][query]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cq = tx + 16 * j, row = q0 + cq;
-        const bool live = !causal || key <= row;
-        const float p = live ? expf(x[i][j] * scale - rm[cq]) * rl[cq] : 0.f;
-        pt[cq * kLd + ty + 16 * i] = p;
-        dst[cq * kLd + ty + 16 * i] = p * (dp[i][j] - rd[cq]) * scale;
-      }
-    }
-    __syncthreads();
-    tile_acc<NC>(gv, pt, dot);
-    tile_acc<NC>(gk, dst, qt);
+    __syncthreads();  // every warp is done with stage i before tile j + 2 refills it
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<NC>(dk + slab, gk, one, k0, s, width, dh);
-  store_rows<NC>(dv + slab, gv, one, k0, s, width, dh);
+  store_acc<KC>(dk + slab, gk, key0, s, width, dh);
+  store_acc<KC>(dv + slab, gv, key0, s, width, dh);
+}
+
+// One streamed key tile of the dQ kernel for one warp: queries row0 + r
+// (resident q, do rows; their m, 1/l and di in registers, r = g, g + 8),
+// keys k0 + c (tile rows kt, vt); only the first 8·NT keys are live.
+template <int KC, int NT>
+__device__ inline void dq_tile(float (&gq)[2 * KC][4], const float* qr, const float* dor,
+                               const float* kt, const float* vt, const float (&rm)[2],
+                               const float (&rl)[2], const float (&rd)[2], int row0, int k0,
+                               int s, float scale, int causal) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float x[NT][4], dp[NT][4];
+  product_rows<KC, NT>(x, qr, kt);    // x[query][key]
+  product_rows<KC, NT>(dp, dor, vt);  // dp[query][key]
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * n + 2 * t + (e & 1), row = row0 + g + 8 * (e >> 1), i = e >> 1;
+      const bool live = key < s && (!causal || key <= row);
+      const float p = live ? expf(x[n][e] * scale - rm[i]) * rl[i] : 0.f;
+      x[n][e] = p * (dp[n][e] - rd[i]) * scale;
+    }
+  product_acc<KC, NT>(gq, x, kt);  // dq += ds·k
 }
 
 // dQ: grid (query tiles, heads, b); a block owns 64 query rows and walks the
 // key tiles (causal: up to its diagonal).
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
+template <int KC>
+__global__ void __launch_bounds__(kBwdThreads)
 attention_f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ stats, const float* __restrict__ di,
                         float* __restrict__ dq, int s, int heads, int dh, float scale,
-                        int causal) {
-  extern __shared__ float smem[];
-  const int tf = tile_floats(dh);
-  float* qt = smem;
-  float* dot = qt + tf;
-  float* kt = dot + tf;
-  float* vt = kt + tf;
-  float* dst = vt + tf;  // ds[key][query]
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int width = heads * dh, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+                        int causal, int vec) {
+  constexpr int N = kStream, kLdb = bwd_ld(KC);
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* qr = bwd_smem;
+  float* dor = qr + kRes * kLdb;
+  float* ring = dor + kRes * kLdb;  // stage i: k tile at 2i·N rows, v at (2i + 1)·N
+  const int q0 = blockIdx.x * kRes, h = blockIdx.y, b = blockIdx.z;
+  const int width = heads * dh, warp = threadIdx.x / 32;
   const size_t slab = (size_t)b * s * width + (size_t)h * dh;
-  const size_t row_off = ((size_t)b * heads + h) * s;
   const float* st = stats + ((size_t)b * heads + h) * 2 * s;
-  load_t(qt, q + slab, q0, s, width, dh);
-  load_t(dot, dout + slab, q0, s, width, dh);
-  float rm[4], rl[4], rd[4];
+  const float* dr = di + ((size_t)b * heads + h) * s;
+  const int last = causal ? min(s, q0 + kRes) : s, tiles = ceil_div(last, N);
+  const auto fetch = [&](int j) {
+    const int i = j & 1;
+    load_rows<KC>(ring + 2 * i * N * kLdb, k + slab, j * N, N, s, width, dh, vec);
+    load_rows<KC>(ring + (2 * i + 1) * N * kLdb, v + slab, j * N, N, s, width, dh, vec);
+  };
+  load_rows<KC>(qr, q + slab, q0, kRes, s, width, dh, vec);
+  load_rows<KC>(dor, dout + slab, q0, kRes, s, width, dh, vec);
+  fetch(0);
+  cp_async_commit();
+
+  const int row0 = q0 + 16 * warp, g = threadIdx.x % 32 / 4;
+  float rm[2], rl[2], rd[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
     rm[i] = row < s ? st[row] : 0.f;
     rl[i] = row < s ? 1.f / st[s + row] : 0.f;
-    rd[i] = row < s ? di[row_off + row] : 0.f;
+    rd[i] = row < s ? dr[row] : 0.f;
   }
-
-  float g[4][NC];
+  float gq[2 * KC][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 2 * KC; ++n)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) g[i][j] = 0.f;
-  const int last = causal ? min(s, q0 + kTile) : s;
-  for (int k0 = 0; k0 < last; k0 += kTile) {
-    __syncthreads();
-    load_t(kt, k + slab, k0, s, width, dh);
-    load_t(vt, v + slab, k0, s, width, dh);
-    __syncthreads();
-    float x[4][4], dp[4][4];
-    tile_tt(x, qt, kt, dh);   // x[query][key]
-    tile_tt(dp, dot, vt, dh); // dp[query][key]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ck = tx + 16 * j, key = k0 + ck;
-        const bool live = key < s && (!causal || key <= row);
-        const float p = live ? expf(x[i][j] * scale - rm[i]) * rl[i] : 0.f;
-        dst[ck * kLd + ty + 16 * i] = p * (dp[i][j] - rd[i]) * scale;
-      }
+    for (int e = 0; e < 4; ++e) gq[n][e] = 0.f;
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles) fetch(j + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();  // tile j (and the resident rows) landed for every thread
+    const int k0 = j * N, i = j & 1;
+    const float* kt = ring + 2 * i * N * kLdb;
+    const float* vt = kt + N * kLdb;
+    if (row0 < s && !(causal && k0 > row0 + 15)) {
+      if (s - k0 <= 8)  // one 8-row group live (s = 196's last tile)
+        dq_tile<KC, 1>(gq, qr + 16 * warp * kLdb, dor + 16 * warp * kLdb, kt, vt, rm, rl, rd,
+                       row0, k0, s, scale, causal);
+      else
+        dq_tile<KC, N / 8>(gq, qr + 16 * warp * kLdb, dor + 16 * warp * kLdb, kt, vt, rm, rl,
+                           rd, row0, k0, s, scale, causal);
     }
-    __syncthreads();
-    tile_acc<NC>(g, dst, kt);
+    __syncthreads();  // every warp is done with stage i before tile j + 2 refills it
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<NC>(dq + slab, g, one, q0, s, width, dh);
+  store_acc<KC>(dq + slab, gq, row0, s, width, dh);
 }
 
 template <typename Kernel>
@@ -397,6 +651,14 @@ bool bad_shape(int b, int s, int heads, int dh) {
          dh > kMaxHeadDim;
 }
 
+// 16-byte copies: dh % 4 == 0 and every tensor the backward streams is
+// 16-byte aligned (then so is every row of every head).
+bool bwd_vec(int dh, const void* q, const void* k, const void* v, const void* dout) {
+  const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
+  return dh % 4 == 0 && any % 16 == 0;
+}
+
+// NC = round16(dh) / 16: the forward's 16-column groups, the backward's KC.
 #define ATTN_F32_SWITCH(NC_EXPR, CALL)                                              \
   switch (NC_EXPR) {                                                                \
     case 1: CALL(1) case 2: CALL(2) case 3: CALL(3) case 4: CALL(4) case 5: CALL(5) \
@@ -415,28 +677,51 @@ int launch_fwd(const float* q, const float* k, const float* v, float* out, float
   return (int)cudaGetLastError();
 }
 
-template <int NC>
+template <int KC>
 int launch_dkv(const float* q, const float* k, const float* v, const float* dout,
                const float* stats, const float* di, float* dk, float* dv, int b, int s,
-               int heads, int dh, float scale, int causal, cudaStream_t st) {
+               int heads, int dh, float scale, int causal, int vec, cudaStream_t st) {
   const size_t smem = dkv_smem_bytes(dh);
-  cudaError_t err = configure(attention_f32_dkv_kernel<NC>, smem);
+  cudaError_t err = configure(attention_f32_dkv_kernel<KC>, smem);
   if (err != cudaSuccess) return (int)err;
-  attention_f32_dkv_kernel<NC><<<dim3(ceil_div(s, kTile), heads, b), kThreads, smem, st>>>(
-      q, k, v, dout, stats, di, dk, dv, s, heads, dh, scale, causal);
+  attention_f32_dkv_kernel<KC><<<dim3(ceil_div(s, kRes), heads, b), kBwdThreads, smem, st>>>(
+      q, k, v, dout, stats, di, dk, dv, s, heads, dh, scale, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int KC>
+int launch_dq(const float* q, const float* k, const float* v, const float* dout,
+              const float* stats, const float* di, float* dq, int b, int s, int heads, int dh,
+              float scale, int causal, int vec, cudaStream_t st) {
+  const size_t smem = dq_smem_bytes(dh);
+  cudaError_t err = configure(attention_f32_dq_kernel<KC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_f32_dq_kernel<KC><<<dim3(ceil_div(s, kRes), heads, b), kBwdThreads, smem, st>>>(
+      q, k, v, dout, stats, di, dq, s, heads, dh, scale, causal, vec);
   return (int)cudaGetLastError();
 }
 
 template <int NC>
-int launch_dq(const float* q, const float* k, const float* v, const float* dout,
-              const float* stats, const float* di, float* dq, int b, int s, int heads, int dh,
-              float scale, int causal, cudaStream_t st) {
-  const size_t smem = dq_smem_bytes(dh);
-  cudaError_t err = configure(attention_f32_dq_kernel<NC>, smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_f32_dq_kernel<NC><<<dim3(ceil_div(s, kTile), heads, b), kThreads, smem, st>>>(
-      q, k, v, dout, stats, di, dq, s, heads, dh, scale, causal);
-  return (int)cudaGetLastError();
+int occupancy(int which, int dh) {
+  int blocks = 0;
+  cudaError_t err;
+  if (which == 0) {
+    err = configure(attention_f32_fwd_kernel<NC>, fwd_smem_bytes(dh));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attention_f32_fwd_kernel<NC>,
+                                                          kThreads, fwd_smem_bytes(dh));
+  } else if (which == 1) {
+    err = configure(attention_f32_dkv_kernel<NC>, dkv_smem_bytes(dh));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attention_f32_dkv_kernel<NC>,
+                                                          kBwdThreads, dkv_smem_bytes(dh));
+  } else {
+    err = configure(attention_f32_dq_kernel<NC>, dq_smem_bytes(dh));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attention_f32_dq_kernel<NC>,
+                                                          kBwdThreads, dq_smem_bytes(dh));
+  }
+  return err == cudaSuccess ? blocks : 0;
 }
 
 }  // namespace
@@ -449,6 +734,19 @@ long long attention_f32_smem_bytes(int dh, int which) {
   if (dh < 1) return 0;
   return (long long)(which == 0 ? fwd_smem_bytes(dh)
                                 : which == 1 ? dkv_smem_bytes(dh) : dq_smem_bytes(dh));
+}
+
+// Blocks of the forward (which = 0), dK/dV (1) or dQ (2) kernel that one SM
+// of this card holds at head dim dh (registers and shared memory); 0 on error.
+int attention_f32_occupancy(int dh, int which) {
+  if (dh < 1 || dh > kMaxHeadDim) return 0;
+#define OCC_CALL(NC) return occupancy<NC>(which, dh);
+  switch (round16(dh) / 16) {
+    case 1: OCC_CALL(1) case 2: OCC_CALL(2) case 3: OCC_CALL(3) case 4: OCC_CALL(4)
+    case 5: OCC_CALL(5) case 6: OCC_CALL(6) case 7: OCC_CALL(7) case 8: OCC_CALL(8)
+    default: return 0;
+  }
+#undef OCC_CALL
 }
 
 // q, k, v, out: (b, s, heads·dh) f32, contiguous; stats: (b, heads, 2, s) f32
@@ -485,8 +783,10 @@ int attention_f32_bwd_dkv(const void* q, const void* k, const void* v, const voi
               *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout),
               *sf = static_cast<const float*>(stats), *df = static_cast<const float*>(di);
   float *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv);
-#define DKV_CALL(NC) \
-  return launch_dkv<NC>(qf, kf, vf, gf, sf, df, dkf, dvf, b, s, heads, dh, scale, causal, st);
+  const int vec = bwd_vec(dh, q, k, v, dout);
+#define DKV_CALL(KC)                                                                         \
+  return launch_dkv<KC>(qf, kf, vf, gf, sf, df, dkf, dvf, b, s, heads, dh, scale, causal, vec, \
+                        st);
   ATTN_F32_SWITCH(round16(dh) / 16, DKV_CALL)
 #undef DKV_CALL
 }
@@ -501,8 +801,9 @@ int attention_f32_bwd_dq(const void* q, const void* k, const void* v, const void
               *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout),
               *sf = static_cast<const float*>(stats), *df = static_cast<const float*>(di);
   float* dqf = static_cast<float*>(dq);
-#define DQ_CALL(NC) \
-  return launch_dq<NC>(qf, kf, vf, gf, sf, df, dqf, b, s, heads, dh, scale, causal, st);
+  const int vec = bwd_vec(dh, q, k, v, dout);
+#define DQ_CALL(KC) \
+  return launch_dq<KC>(qf, kf, vf, gf, sf, df, dqf, b, s, heads, dh, scale, causal, vec, st);
   ATTN_F32_SWITCH(round16(dh) / 16, DQ_CALL)
 #undef DQ_CALL
 }

@@ -1,6 +1,9 @@
 """The f32 attention kernels (``csrc/attention_f32.cu``): one forward and one
-two-pass backward in IEEE f32 that play, for f32 activations, the roles of
-K1, K2, K3 and K7.
+two-pass backward that play, for f32 activations, the roles of K1, K2, K3
+and K7. The forward computes in IEEE f32 on the CUDA cores; the backward
+forms its products in split f32 on the tensor cores (each f32 operand as
+two TF32 parts, three TF32 products summed in f32, :func:`split_f32_matmul`
+emulates them), within the same 1e-4 of the largest magnitude.
 
 In f32 nothing is rounded to a narrower type between the products, so JAX's
 K1 and K7 compute one function and K2, K3 and K7's backward another (the
@@ -24,9 +27,12 @@ import torch
 from distributed_sigmoid_loss_tpu_torch.ops import _cuda
 
 __all__ = ["launch_fwd", "launch_bwd_dkv", "launch_bwd_dq", "check_cuda", "smem_bytes",
+           "BWD_ROWS", "blocks_per_sm_by_smem", "bwd_vec", "tf32_round", "split_f32_matmul",
            "launches", "reset_launches", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
+# Rows of the other side that the backward kernels stream a stage.
+BWD_ROWS = 32
 
 _count_lock = threading.Lock()
 _launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
@@ -62,6 +68,8 @@ def _library() -> ctypes.CDLL:
     lib.attention_f32_bwd_dq.restype = i
     lib.attention_f32_smem_bytes.argtypes = [i, i]
     lib.attention_f32_smem_bytes.restype = ctypes.c_longlong
+    lib.attention_f32_occupancy.argtypes = [i, i]
+    lib.attention_f32_occupancy.restype = i
     lib.attention_f32_error_string.argtypes = [i]
     lib.attention_f32_error_string.restype = ctypes.c_char_p
     lib._typed = True
@@ -70,11 +78,56 @@ def _library() -> ctypes.CDLL:
 
 def smem_bytes(head_dim: int, which: int) -> int:
     """Dynamic shared memory of one block of the forward (``which`` 0),
-    dK/dV (1) or dQ (2): transposed 64-row f32 tiles at row stride 65, each
-    ``round16(head_dim)`` columns. Mirrors ``attention_f32_smem_bytes``."""
-    tile = -(-head_dim // 16) * 16 * 65
-    floats = (3 * tile + 64 * 65, 4 * tile + 2 * 64 * 65 + 3 * 64, 4 * tile + 64 * 65)[which]
-    return 4 * floats
+    dK/dV (1) or dQ (2). The forward: transposed 64-row f32 tiles at row
+    stride 65, each ``round16(head_dim)`` columns. The backward: 64 resident
+    rows of two tensors and a two-stage ring of :data:`BWD_ROWS` rows of two,
+    f32 at row stride ``round16(head_dim) + 4``; dK/dV adds the ring's row
+    statistics (m, l, di). Mirrors ``attention_f32_smem_bytes``."""
+    dh16 = -(-head_dim // 16) * 16
+    if which == 0:
+        return 4 * (3 * dh16 * 65 + 64 * 65)
+    rows = (2 * 64 + 4 * BWD_ROWS) * (dh16 + 4)
+    return 4 * (rows + 6 * BWD_ROWS if which == 1 else rows)
+
+
+# Shared memory of one H100 SM (228 KB), and what each block reserves.
+SM_SMEM_BYTES, BLOCK_RESERVED_SMEM_BYTES = 228 * 1024, 1024
+
+
+def blocks_per_sm_by_smem(head_dim: int, which: int) -> int:
+    """Blocks of a kernel (``which`` as in :func:`smem_bytes`) one SM holds by
+    shared memory alone; registers may hold fewer (``chip_smoke.py`` prints
+    the card's own count, ``attention_f32_occupancy``)."""
+    return SM_SMEM_BYTES // (smem_bytes(head_dim, which) + BLOCK_RESERVED_SMEM_BYTES)
+
+
+def bwd_vec(head_dim: int, *tensors: torch.Tensor) -> bool:
+    """Whether the backward kernels copy rows 16 bytes at a time (else 4):
+    ``head_dim % 4 == 0`` and every tensor 16-byte aligned. Mirrors
+    ``bwd_vec`` in the source; both copies give bitwise the same result."""
+    return head_dim % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` does: to 10
+    explicit significand bits, nearest with ties away from zero, by the int32
+    bits (the low 13 bits cleared). Used by the tests to emulate the backward
+    kernels' split products on the CPU."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_f32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """``a @ b`` as the backward kernels form it on the tensor cores: each f32
+    operand split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, and the
+    products lo·hi, hi·lo, then hi·hi summed in f32 (``terms=3``);
+    ``terms=1`` is plain TF32 (hi·hi alone). Each TF32 product is exact in
+    f32. Used by the tests only."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    hi = a_hi @ b_hi
+    if terms == 1:
+        return hi
+    return (tf32_round(a - a_hi) @ b_hi + a_hi @ tf32_round(b - b_hi)) + hi
 
 
 def check_cuda(fn: str, q, others) -> None:

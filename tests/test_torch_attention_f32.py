@@ -1,0 +1,157 @@
+"""The f32 attention backward's split-f32 (3xTF32) design, on the CPU.
+
+The CUDA kernels of ``csrc/attention_f32.cu`` run only on the card
+(``chip_smoke.py`` holds them against the plain versions there). Here the
+Python mirror of their shared-memory layout is held to the table the source
+states, and their numeric design is pinned by emulation: the backward's five
+products formed as the kernels form them on the tensor cores
+(``attention_f32.split_f32_matmul``: each f32 operand split into two TF32
+parts, three TF32 products summed in f32), at B/16's head and at K7's
+length, against the plain f32 version and against JAX's ``_short_attention_bwd``
+in f32 in the Pallas interpreter.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_sigmoid_loss_tpu.ops.pallas_short_attention import _short_attention_bwd
+from distributed_sigmoid_loss_tpu_torch.ops import attention_f32 as af
+from distributed_sigmoid_loss_tpu_torch.ops import flash_attention as fa
+from distributed_sigmoid_loss_tpu_torch.ops import short_attention as sa
+
+SOURCE = Path(af.__file__).resolve().parents[1] / "csrc" / "attention_f32.cu"
+
+
+def _stated_layout() -> dict[int, tuple[int, int, int, int]]:
+    """The source header's table: dh → (dK/dV bytes, blocks, dQ bytes, blocks)."""
+    rows = re.findall(r"^//\s+(\d+)\s+([\d,]+)\s+(\d+)\s+([\d,]+)\s+(\d+)\s*$",
+                      SOURCE.read_text(), flags=re.M)
+    return {int(dh): (int(a.replace(",", "")), int(na), int(b.replace(",", "")), int(nb))
+            for dh, a, na, b, nb in rows}
+
+
+@pytest.mark.parametrize("dh", [20, 64, 72, 128])
+def test_smem_mirror_matches_the_layout_the_source_states(dh):
+    dkv, dkv_blocks, dq, dq_blocks = _stated_layout()[dh]
+    assert af.smem_bytes(dh, 1) == dkv
+    assert af.smem_bytes(dh, 2) == dq
+    assert af.blocks_per_sm_by_smem(dh, 1) == dkv_blocks
+    assert af.blocks_per_sm_by_smem(dh, 2) == dq_blocks
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_every_head_dim_fits_one_block(which):
+    for dh in range(1, af.MAX_HEAD_DIM + 1):
+        assert af.smem_bytes(dh, which) <= sa.SMEM_BUDGET_BYTES, (dh, which)
+    # Three blocks an SM at the B/16 head (dh = 64), one at dh = 128.
+    if which:
+        assert af.blocks_per_sm_by_smem(64, which) >= 3
+        assert af.blocks_per_sm_by_smem(128, which) >= 1
+
+
+def test_copy_width():
+    t = torch.zeros(64 * 5)
+    assert af.bwd_vec(64, t, t)
+    assert not af.bwd_vec(18, t, t)  # rows of 72 bytes are not 16-byte aligned
+    assert not af.bwd_vec(64, t, t[1:])  # a misaligned tensor
+
+
+def test_tf32_round_is_nearest_ties_away():
+    one_ulp = 2.0 ** -10  # TF32 keeps 10 explicit significand bits
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4,
+                      1 + 3 * one_ulp / 4, 0.0, -0.0, float("inf")], dtype=torch.float32)
+    want = torch.tensor([1 + one_ulp, -(1 + one_ulp), 1.0, 1 + one_ulp, 0.0, -0.0,
+                         float("inf")], dtype=torch.float32)
+    got = af.tf32_round(x)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    r = af.tf32_round(torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                                       .astype(np.float32)))
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+
+
+def test_split_recovers_f32_to_22_bits():
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(4096).astype(np.float32))
+    hi = af.tf32_round(x)
+    lo = af.tf32_round(x - hi)
+    # x - hi is exact in f32; rounding it to TF32 costs at most 2^-11 of it,
+    # and |x - hi| <= 2^-11 |x|.
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+
+
+def _emulated_bwd(q, k, v, do, causal, terms):
+    """The backward as the card's kernels form it: (out, m, l) from the f32
+    forward, di = rowsum(out ⊙ do), then the five products in split f32
+    (``terms`` 3) or plain TF32 (1), p = exp(x·scale − m)·(1/l) masked to 0,
+    ds = p·(dp − di)·scale. (b, s, h, dh) f32 → (dq, dk, dv)."""
+    b, s, h, dh = q.shape
+    scale = dh ** -0.5
+    out, stats = fa.flash_self_attention_plain(q, k, v, causal, scale, fa.BLOCK_K)
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    m, inv_l = stats[:, :, 0, :, None], 1.0 / stats[:, :, 1, :, None]
+    di = (out * do).sum(-1).permute(0, 2, 1)[..., None]
+
+    def mm(a, c):
+        return af.split_f32_matmul(a.contiguous(), c.contiguous(), terms)
+
+    x = mm(qh, kh.transpose(-1, -2))
+    live = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        live = torch.tril(live)
+    p = torch.where(live, torch.exp(x * scale - m) * inv_l, torch.zeros(()))
+    dp = mm(doh, vh.transpose(-1, -2))
+    ds = p * (dp - di) * scale
+    dv, dk, dq = mm(p.transpose(-1, -2), doh), mm(ds.transpose(-1, -2), qh), mm(ds, kh)
+    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
+
+
+def _err_of_max(got, ref):
+    return [float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)]
+
+
+# (b, s, h, dh): B/16's head (s = 196: three full 64-row tiles and a ragged
+# fourth) and K7's length (s = 1,024 at the B/16-512 shape).
+CASES = [((2, 196, 2, 64), False), ((2, 196, 2, 64), True), ((1, 1024, 1, 64), False)]
+# Split f32 against the f32 plain version: a tenth of the kernels' contract
+# (1e-4 of the largest magnitude). What split f32 drops is ~2^-22 (2.4e-7) of
+# each product term; with f32 sums in other orders the error stays near 1e-6
+# of the largest magnitude.
+SPLIT_VS_PLAIN = 1e-5
+# Against JAX's f32 kernel in the Pallas interpreter: the contract itself.
+SPLIT_VS_JAX = 1e-4
+
+
+@pytest.mark.parametrize("shape,causal", CASES)
+def test_split_f32_backward_matches_plain_f32(shape, causal):
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(shape, 0))
+    ref = sa.short_self_attention_bwd_plain(q, k, v, do, causal)
+    got = _emulated_bwd(q, k, v, do, causal, terms=3)
+    errs = _err_of_max(got, ref)
+    # For the record: plain TF32 (one product) at the same inputs.
+    errs_1x = _err_of_max(_emulated_bwd(q, k, v, do, causal, terms=1), ref)
+    print(f"\nsplit-f32 backward {shape} causal={causal}: (dq, dk, dv) error of the "
+          f"largest magnitude, 3xTF32 {errs}, 1xTF32 {errs_1x}")
+    for name, e in zip(("dq", "dk", "dv"), errs):
+        assert e <= SPLIT_VS_PLAIN, (name, e)
+
+
+@pytest.mark.parametrize("shape,causal", CASES)
+def test_split_f32_backward_matches_jax_f32_kernel(shape, causal):
+    q, k, v, do = _inputs(shape, 0)
+    ref = _short_attention_bwd(causal, None, True, False,
+                               tuple(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(do))
+    ref = [torch.from_numpy(np.array(x)) for x in ref]
+    got = _emulated_bwd(*(torch.from_numpy(x) for x in (q, k, v, do)), causal, terms=3)
+    for name, e in zip(("dq", "dk", "dv"), _err_of_max(got, ref)):
+        assert e <= SPLIT_VS_JAX, (name, e)
