@@ -27,10 +27,14 @@ and nothing is caught:
    around that run, then the towers against their plain attention and their
    device time by kernel at the largest bucket (torch.profiler);
    Then the loss kernels (K4, the streaming loss forward; K5 and K6, its
-   backward) against their plain versions in seven cases (the headline
+   backward) against their plain versions in eight cases (the headline
    block, a fused all-gather rank view, a ring hop at 32k global over 8
-   ranks with and without positives, bf16, ragged, So400m width), timed at
-   the ring hop beside cuBLAS's f32 product ("product only");
+   ranks with and without positives, bf16, ragged, So400m width, the fused
+   all-gather's block at 32k global, 4096 × 32768), twice for bitwise
+   repeatability, with K5/K6's splits and scratch bytes, timed at the ring
+   hop, the headline block and the 32k block beside cuBLAS's f32 products
+   ("product only"), K5/K6 against both bounds (CUDA cores and split f32 on
+   the tensor cores);
 5. the training path (``run_train_path`` with ``TRAIN``): the headline
    train step (B/16, 16 accumulated
    microbatches of 128 pairs, ``save_hot`` remat, bf16 accumulator and Adam
@@ -88,7 +92,8 @@ and nothing is caught:
    phase 3): K4, K5 and K6 int8 against their plain int8 versions at the
    headline block, the 32k ring hop with and without positives and
    So400m's d = 1,152, twice for bitwise repeatability, a non-tileable
-   block refused to the caller's plain path, timed beside ``torch._int_mm``;
+   block refused to the caller's plain path, timed beside ``torch._int_mm``
+   (K5/K6 int8: with one cuBLAS f32 product, the gradient product);
    then B/16 served with int8 projections (``[serve_int8]``, the serving
    path of phase 4 with ``quant="int8"``, each embedding against the same
    weights in bf16) and the headline step with ``quant_train="int8"`` and
@@ -145,8 +150,16 @@ LOSS_CASES = {
     "bf16_block": (128, 128, 512, 0, torch.bfloat16),
     "ragged": (100, 300, 200, 7, torch.float32),
     "so400m_width": (256, 512, 1152, 0, torch.float32),  # SigLIPConfig.so400m embeddings
+    # The fused all-gather's block, rank 3 of 8 at 32k global: K5 walks
+    # 512 text tiles, so its splits and their scratch are the most any case
+    # needs.
+    "fused_allgather_w8_32k": (4096, 32768, 512, 3 * 4096, torch.float32),
 }
 LOSS_TIMED = "ring_hop_32k_positive"
+# Also timed (not in the kernels line): the headline microbatch's block,
+# where 128-row K5/K6 blocks leave most of the card idle, and the fused
+# all-gather's 32k block.
+LOSS_TIMED_MORE = ("headline_block", "fused_allgather_w8_32k")
 # Loss kernels vs plain versions, both IEEE f32 with sums in other orders:
 # the loss at rtol 1e-5; each gradient within 1e-4 of its largest magnitude
 # (sums over up to 4096 products of order-1 terms). bf16 inputs: the
@@ -226,6 +239,11 @@ F32_RTOL_OF_MAX = 1e-4
 # backward's split products, three TF32 products for each f32 one.
 TF32_FLOP_PER_S = 495e12
 F32_BWD_BODY = "mma.sync m16n8k8 split f32 (3xTF32), two-stage cp.async ring"
+# K5/K6's body (csrc/sigmoid_loss.cu): the logits and the gradient product
+# on wgmma in split f32, B split once per block into TF32 planes, the
+# slices of a row block a cluster that shares the logits.
+LOSS_BWD_BODY = ("wgmma m64n64k8 / m64n256k8 split f32 (3xTF32), TF32 hi/lo planes, "
+                 "four-stage cp.async ring, slices share the logits as a cluster")
 # The f32 model with attn_impl="flash": batch at 224 px and at 512 px.
 F32_TOWER_BATCH = {"b16": 8, "b16_512": 2}
 # int8 (NVIDIA data sheet, H100 SXM, dense): the loss kernels' int8 products.
@@ -763,14 +781,15 @@ def f32_attention_bound_ms(b, s, h, dh, tensors, products) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def f32_bwd_bounds_ms(b, s, h, dh, tensors, products) -> dict:
-    """Both bounds of f32 backward work: on the CUDA cores (IEEE f32 FMAs at
-    67 TFLOP/s) and on the tensor cores in split f32 (three TF32 products for
-    each f32 one at 495 TFLOP/s), each against the bytes of ``tensors`` f32
-    tensors; ``bound_ms`` is the lower."""
-    cuda_core, by_cc = f32_attention_bound_ms(b, s, h, dh, tensors, products)
-    t_bytes = tensors * b * s * h * dh * 4 / HBM_BYTES_PER_S
-    t_ops = 3 * products * 2 * b * h * s * s * dh / TF32_FLOP_PER_S
+def split_f32_bounds_ms(nbytes, flops) -> dict:
+    """Both bounds of IEEE-f32 work of ``flops`` operations on ``nbytes``
+    bytes: on the CUDA cores (f32 FMAs at 67 TFLOP/s) and on the tensor
+    cores in split f32 (three TF32 products for each f32 one at 495
+    TFLOP/s), each against the bytes; ``bound_ms`` is the lower."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_cc, t_ops = flops / FP32_FLOP_PER_S, 3 * flops / TF32_FLOP_PER_S
+    cuda_core = max(t_bytes, t_cc) * 1e3
+    by_cc = "bytes" if t_bytes >= t_cc else "operations"
     tensor_core = max(t_bytes, t_ops) * 1e3
     by_tc = "bytes" if t_bytes >= t_ops else "operations"
     return dict(bound_cuda_core_ms=cuda_core, bound_tensor_core_ms=tensor_core,
@@ -778,6 +797,14 @@ def f32_bwd_bounds_ms(b, s, h, dh, tensors, products) -> dict:
                 bound_by=(by_tc if tensor_core <= cuda_core else by_cc) +
                 (", 3xTF32 on the tensor cores" if tensor_core <= cuda_core
                  else ", f32 on the CUDA cores"))
+
+
+def f32_bwd_bounds_ms(b, s, h, dh, tensors, products) -> dict:
+    """Both bounds of f32 attention backward work (``split_f32_bounds_ms``):
+    ``tensors`` (b, s, h, dh) f32 tensors against ``products`` s²·dh
+    products."""
+    return split_f32_bounds_ms(tensors * b * s * h * dh * 4,
+                               products * 2 * b * h * s * s * dh)
 
 
 def f32_bwd_body(af, dh: int, vec: bool) -> dict:
@@ -1053,19 +1080,35 @@ def loss_bound_ms(b, n, d, which) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def loss_bwd_bounds_ms(b, n, d, which) -> dict:
+    """Both bounds of K5 or K6 (``which`` "bwd_img" / "bwd_txt";
+    ``split_f32_bounds_ms``): the bytes of ``loss_bound_ms`` against the
+    4·b·n·d operations the function needs (the logits again and the
+    gradient product)."""
+    own = b if which == "bwd_img" else n
+    return split_f32_bounds_ms(4 * (b + n) * d + 4 * own * d, 4 * b * n * d)
+
+
 def check_loss_kernels(ssl, gen) -> dict:
     """K4, K5 and K6 against their plain versions (TF32 off) in every case of
     LOSS_CASES, through the autograd node a caller uses: the loss and all
-    four gradients. Times the three kernels at LOSS_TIMED. Returns
-    ``{kernel: record}`` for the JSON line."""
+    four gradients, twice for bitwise repeatability. Times the three kernels
+    at LOSS_TIMED (and LOSS_TIMED_MORE). Returns ``{kernel: record}`` of
+    LOSS_TIMED for the JSON line."""
     lib = ssl._library()
     records = {}
     for name, (b, n, d, off, dtype) in LOSS_CASES.items():
         zimg, ztxt, tp, bias = loss_case_inputs(b, n, d, off, dtype, gen)
-        leaves = [t.detach().requires_grad_() for t in (zimg, ztxt, tp, bias)]
-        loss = ssl.streaming_block_loss_sum(*leaves, off)
-        grads = torch.autograd.grad(loss, leaves)
+
+        def run():
+            leaves = [t.detach().requires_grad_() for t in (zimg, ztxt, tp, bias)]
+            loss = ssl.streaming_block_loss_sum(*leaves, off)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        (loss, grads), (loss2, grads2) = run(), run()
         torch.cuda.synchronize()
+        repeatable = torch.equal(loss, loss2) and all(
+            torch.equal(a, c) for a, c in zip(grads, grads2))
         one = torch.ones((), device="cuda")
         ref_loss = ssl.streaming_loss_fwd_plain(zimg, ztxt, tp, bias, off)
         dzi, dtp, dbias = ssl.streaming_loss_bwd_img_plain(zimg, ztxt, tp, bias, off, one)
@@ -1080,15 +1123,20 @@ def check_loss_kernels(ssl, gen) -> dict:
         finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
         row = dict(case=name, shape=[b, n, d], pos_offset=off, dtype=str(dtype).split(".")[1],
                    loss=loss.item(), max_abs_err=errs, atol=tols, finite=finite,
-                   smem_bwd=lib.sigmoid_loss_bwd_smem_bytes(d),
+                   repeatable=repeatable, smem_bwd=lib.sigmoid_loss_bwd_smem_bytes(d),
+                   bwd_layout=dict(zip(("slices", "slice", "cluster", "steps_a_tile"),
+                                       ssl.bwd_layout(d))),
                    bwd_splits={"img": lib.sigmoid_loss_bwd_splits(b, n, d),
                                "txt": lib.sigmoid_loss_bwd_splits(n, b, d)},
+                   bwd_scratch_bytes={"img": 4 * lib.sigmoid_loss_bwd_scratch_floats(b, n, d, 1),
+                                      "txt": 4 * lib.sigmoid_loss_bwd_scratch_floats(n, b, d, 0)},
                    blocks_per_sm={"fwd": lib.sigmoid_loss_occupancy(d, 0),
                                   "bwd": lib.sigmoid_loss_occupancy(d, 1)})
         log("loss_kernel", **row)
-        if not finite or any(errs[k] > tols[k] for k in errs):
+        if not (finite and repeatable) or any(errs[k] > tols[k] for k in errs):
             raise AssertionError(f"loss kernels disagree with their plain versions: {row}")
-        if name != LOSS_TIMED:
+        del loss2, grads2
+        if name != LOSS_TIMED and name not in LOSS_TIMED_MORE:
             continue
         g = one
         p = torch.randn(b, n, device="cuda", generator=gen)
@@ -1112,9 +1160,18 @@ def check_loss_kernels(ssl, gen) -> dict:
                        library_ms=time_ms(library, iters=10), library_device_ms=device_ms(library),
                        library_call="product only: cuBLAS IEEE-f32 torch.matmul of the same "
                                     + ("product" if which == "fwd" else "two products"))
-            rec["bound_ms"], rec["bound_by"] = loss_bound_ms(b, n, d, which)
+            if which == "fwd":
+                rec["bound_ms"], rec["bound_by"] = loss_bound_ms(b, n, d, which)
+            else:
+                rec.update(loss_bwd_bounds_ms(b, n, d, which))
+                rec["bound_over_device"] = (rec["bound_ms"] / rec["device_ms"]
+                                            if rec["device_ms"] else None)
+                rec["body"] = LOSS_BWD_BODY
+                rec["registers"] = registers(
+                    f"sigmoid_loss_bwd_kernel<{int(which == 'bwd_txt')}, 0>")
             log("loss_kernel_time", kernel=which, **rec)
-            records[which] = rec
+            if name == LOSS_TIMED:
+                records[which] = rec
         del p
     return records
 
@@ -1220,18 +1277,25 @@ def check_loss_kernels_int8(ssl, gen) -> dict:
                                                                  "int8"),
                         errs["dztxt"]),
         }
-        library_ms = time_ms(lambda: torch._int_mm(ziq, ztq_t), iters=10)
-        library_device_ms = device_ms(lambda: torch._int_mm(ziq, ztq_t))
+        # The library's work of each: the int8 logit product, and for K5/K6
+        # also their f32 gradient product (p·ztxt, pᵀ·zimg).
+        p = torch.randn(b, n, device="cuda", generator=gen)
+        library = {"fwd": lambda: torch._int_mm(ziq, ztq_t),
+                   "bwd_img": lambda: (torch._int_mm(ziq, ztq_t), p @ ztxt),
+                   "bwd_txt": lambda: (torch._int_mm(ziq, ztq_t), p.T @ zimg)}
         for which, (kernel, plain, err) in calls.items():
             rec = dict(case=name, shape=[b, n, d], max_abs_err=err,
                        ms=time_ms(kernel, iters=10), device_ms=device_ms(kernel),
-                       plain_ms=time_ms(plain, iters=5), library_ms=library_ms,
-                       library_device_ms=library_device_ms,
-                       library_call="product only: torch._int_mm of the two int8 operands")
+                       plain_ms=time_ms(plain, iters=5),
+                       library_ms=time_ms(library[which], iters=10),
+                       library_device_ms=device_ms(library[which]),
+                       library_call="product only: torch._int_mm of the two int8 operands" +
+                                    ("" if which == "fwd" else
+                                     ", and cuBLAS's IEEE-f32 gradient product"))
             rec["bound_ms"], rec["bound_by"] = loss_int8_bound_ms(b, n, d, which)
             log("loss_kernel_int8_time", kernel=f"{which}_int8", **rec)
             records[which] = rec
-        del quantized, ziq, ztq_t
+        del quantized, ziq, ztq_t, p
 
     # A block JAX's dispatch refuses (b = 100 is no multiple of 32): None,
     # "xla" recorded, nothing launched.
@@ -2268,6 +2332,14 @@ def main() -> int:
         log("build", library="attention_f32", bwd_kernels=bwd)
         if len(bwd) != 16 or any("spill 0 B" not in u for u in bwd.values()):
             raise AssertionError(f"the f32 backward kernels spill: {bwd}")
+    # K5/K6 (four instantiations: image/text side, f32/int8) hold their
+    # gradient rows in registers: nothing may spill.
+    if "sigmoid_loss" in built:
+        usage = ptxas_usage(built["sigmoid_loss"]["log"])
+        bwd = {k: u for k, u in usage.items() if k.startswith("sigmoid_loss_bwd_kernel")}
+        log("build", library="sigmoid_loss", bwd_kernels=bwd)
+        if len(bwd) != 4 or any("spill 0 B" not in u for u in bwd.values()):
+            raise AssertionError(f"the K5/K6 kernels spill: {bwd}")
     for lib, mirror in (("short_attention", sa.short_attention_smem_bytes),
                         ("short_attention_bwd", sa.short_attention_bwd_smem_bytes),
                         ("short_attention_bwd_batched", sa.short_attention_bwd_batched_smem_bytes)):
@@ -2388,6 +2460,8 @@ def main() -> int:
                         "replaces": loss + line, **launches(kernel),
                         "max_abs_err": rec["max_abs_err"], **timed(rec),
                         "device_ms": rec["device_ms"], "library_call": rec["library_call"],
+                        **{k: rec[k] for k in ("bound_cuda_core_ms", "bound_tensor_core_ms",
+                                               "bound_over_device", "body") if k in rec},
                         "shape": loss_shape})
     b, s, h, dh = FLASH_CASES[FLASH_TIMED][:4]
     flash = "distributed_sigmoid_loss_tpu/ops/flash_attention.py:110"

@@ -29,32 +29,15 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from chip_smoke import time_ms
+
 SHAPES = {"vision": (128, 196, 12, 64), "k7_role": (32, 1024, 12, 64)}
-
-
-def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def load_other(path: Path) -> ctypes.CDLL:
     from distributed_sigmoid_loss_tpu_torch.ops import _cuda
 
-    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _cuda.BUILD_DIR / "libattention_f32_other.so"
-    build = subprocess.run([_cuda._nvcc(), *_cuda._NVCC_FLAGS, "-o", str(out), str(path)],
-                           capture_output=True, text=True)
-    if build.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {path}:\n{build.stdout}{build.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib, _ = _cuda.build_other(path, "attention_f32")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.attention_f32_bwd_dkv.argtypes = [p] * 9 + [i, i, i, i, f, i, p]
     lib.attention_f32_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, f, i, p]
@@ -109,13 +92,13 @@ def main() -> int:
         runs = {which: (lambda lib=lib: pair(lib, q, k, v, out, do, stats, scale))
                 for which, lib in libs.items()}
         order = ("other", "checkout", "checkout", "other")
-        times = [time_ms(runs[which]) for which in order]
+        times = [time_ms(runs[which], iters=10) for which in order]
         row["pair_ms_in_turns"] = [[w, t] for w, t in zip(order, times)]
         leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(*leaves)
         dout = do.transpose(1, 2)
         row["sdpa_f32_bwd_ms"] = time_ms(
-            lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
+            lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True), iters=10)
         print(json.dumps(row), flush=True)
         del q, k, v, do, out, stats, ref, leaves, sdpa_out
         torch.cuda.empty_cache()

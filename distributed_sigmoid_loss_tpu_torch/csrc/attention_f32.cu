@@ -37,8 +37,9 @@
 // is split into hi = tf32(x) and lo = tf32(x − hi), both rounded as
 // cvt.rna.tf32.f32 rounds (nearest, ties away; done on the integer bits,
 // bitwise the same and cheaper), and every mma.sync m16n8k8 TF32 step adds
-// lo·hi, hi·lo, then hi·hi into an f32 accumulator (the small terms first).
-// What is dropped, lo·lo and the rounding of lo, is about 2^-22 of each
+// lo·hi, hi·lo, then hi·hi into an f32 accumulator (the small terms first;
+// the split, the step and the cp.async copies are in split_f32.cuh, shared
+// with sigmoid_loss.cu). What is dropped, lo·lo and the rounding of lo, is about 2^-22 of each
 // term; on the card the outputs stay within ~1.5e-5 of the largest magnitude
 // of the f32 plain version at s = 1,024 (the tensor cores' own accumulation
 // adds to it), inside the 1e-4 contract. Plain TF32 (hi·hi alone) keeps
@@ -94,6 +95,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "split_f32.cuh"
+
+using namespace split_f32;
 
 namespace {
 
@@ -316,26 +321,6 @@ attention_f32_di_kernel(const float* __restrict__ out, const float* __restrict__
 
 // ---- the backward's split-f32 tensor-core products --------------------------
 
-// Asynchronous copies global -> shared; a src_bytes of 0 zero-fills.
-__device__ inline void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ inline void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// Wait until at most one committed group of this thread is still in flight.
-__device__ inline void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Rows [row0, row0 + rows) of one head's (s, dh) slice (rows at stride
 // `width`) into dst at row stride bwd_ld(KC), zero past s and for columns in
 // [dh, 16·KC): 16 bytes a copy with `vec` (dh % 4 == 0, 16-byte aligned
@@ -357,30 +342,6 @@ __device__ inline void load_rows(float* dst, const float* __restrict__ src, int 
       cp_async4(dst + r * kLdb + c, in ? src + (size_t)row * width + c : src, in ? 4 : 0);
     }
   }
-}
-
-// x rounded to TF32 (10 explicit significand bits, the low 13 cleared),
-// nearest with ties away from zero: bitwise what cvt.rna.tf32.f32 gives for
-// finite x, in two integer operations (the conversion made the whole
-// backward slower on the card).
-__device__ inline unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo + O(2^-22 x): hi = tf32(x), lo = tf32(x − hi) (x − hi is exact).
-__device__ inline void split(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d += a · b: one m16n8k8 TF32 product with f32 accumulation. a: rows g and
-// g + 8 at k = t, t + 4; b: k = t, t + 4 at column g; d: rows g, g + 8 at
-// columns 2t, 2t + 1 (g = lane / 4, t = lane % 4).
-__device__ inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c[n] = Σ_d a[r][d] · b[8n + c][d]: the warp's 16 rows of `a` (resident)
@@ -533,7 +494,7 @@ attention_f32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int j = 0; j < tiles; ++j) {
     if (j + 1 < tiles) fetch(j + 1);
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();  // tile j (and the resident rows) landed for every thread
     const int q0 = first + j * N, i = j & 1;
     const float* qt = ring + 2 * i * N * kLdb;
@@ -623,7 +584,7 @@ attention_f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int j = 0; j < tiles; ++j) {
     if (j + 1 < tiles) fetch(j + 1);
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();  // tile j (and the resident rows) landed for every thread
     const int k0 = j * N, i = j & 1;
     const float* kt = ring + 2 * i * N * kLdb;

@@ -20,7 +20,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load", "library_path"]
+__all__ = ["SOURCES", "build", "build_other", "load", "library_path"]
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
@@ -89,6 +89,22 @@ def build(names=None) -> dict[str, dict]:
         os.replace(tmp, out)
         built[name] = {"seconds": time.monotonic() - t0, "log": log}
     return built
+
+
+def build_other(path, name: str) -> tuple[ctypes.CDLL, str]:
+    """Another version of source ``name`` (``path``: a copy of an earlier
+    commit's ``csrc/<name>.cu`` beside that commit's headers), built with
+    the same flags into ``build/lib<name>_other.so`` and loaded, with the
+    compiler's log, for side-by-side timing; raises with the log on
+    failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"lib{name}_other.so"
+    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(out), str(path)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path}:\n{log}")
+    return ctypes.CDLL(str(out)), log
 
 
 def load(name: str) -> ctypes.CDLL:

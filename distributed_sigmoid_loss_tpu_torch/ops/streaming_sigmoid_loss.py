@@ -16,7 +16,11 @@ exp(t′)``, ``raw = zimg·ztxtᵀ`` and ``logit = raw·t + bias``, labels +1 wh
 Kernels: ``csrc/sigmoid_loss.cu``. As in the JAX kernel the product is f32
 on the f32-cast embeddings whatever ``precision`` the caller's loss names,
 the backward recomputes every logit tile from the saved embeddings, and the
-gradients come back in the inputs' dtypes.
+gradients come back in the inputs' dtypes. K4 forms its product in IEEE f32;
+K5 and K6 form both of theirs (the logits again, and the gradient product)
+in split f32 on the tensor cores, each operand as two TF32 parts and three
+TF32 products summed in f32 (``ops/attention_f32.split_f32_matmul``
+emulates them), within the plain versions' 1e-4 of the largest magnitude.
 
 ``quant="int8"`` is the int8 mode (JAX ``_tile_raw_int8``, K4 int8): each
 embedding row is quantized once per call (``ops/quant.quantize_int8``,
@@ -61,6 +65,7 @@ __all__ = [
     "reset_launches",
     "fwd_partials",
     "bwd_smem_bytes",
+    "bwd_layout",
     "NEGATIVE_ONLY_OFFSET",
     "DEFAULT_TILE_B",
     "DEFAULT_TILE_N",
@@ -75,11 +80,16 @@ NEGATIVE_ONLY_OFFSET = -(2 ** 24)
 DEFAULT_TILE_B = 128
 DEFAULT_TILE_N = 256
 
-# Mirrors of the kernels' tiling (csrc/sigmoid_loss.cu): K4's 64 × 64 tiles,
-# K5/K6's 32 owned rows, the widest slice of gradient columns one block keeps.
-# (How many blocks share K5/K6's other operand depends on the card's SM
-# count: the library reports it, sigmoid_loss_bwd_splits.)
-_FWD_TILE, _BWD_ROWS, _BWD_CHUNK, _MAX_SLICE, _PAD = 64, 32, 64, 1152, 4
+# Mirrors of the kernels' tiling (csrc/sigmoid_loss.cu): K4's 64 × 64 tiles;
+# K5/K6's 128 owned rows, 64-row tiles of the other operand, the widest
+# slice of gradient columns one block keeps, the 32 columns of a logit step,
+# the 32 tile rows of a gradient step (at a row stride of 260 floats), the
+# stages of the cp.async ring and the largest cluster of slices that share
+# the logits. (How many blocks share K5/K6's other operand depends on the
+# card's SM count: the library reports it, sigmoid_loss_bwd_splits.)
+_FWD_TILE = 64
+_BWD_ROWS, _BWD_TILE, _MAX_SLICE, _STEP_COLS, _GRAD_ROWS = 128, 64, 256, 32, 32
+_STAGES, _MAX_CLUSTER = 4, 8
 
 _count_lock = threading.Lock()
 _KERNELS = ("fwd", "bwd_img", "bwd_txt", "fwd_int8", "bwd_img_int8", "bwd_txt_int8")
@@ -143,14 +153,32 @@ def fwd_partials(b: int, n: int) -> int:
     return _ceil_div(b, _FWD_TILE) * _ceil_div(n, _FWD_TILE)
 
 
-def bwd_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one K5/K6 block at width ``d``: the staged
-    operands, the tile's dlogits and 32 owned rows of gradient accumulators
-    over the block's slice of columns (mirrors ``bwd_smem_floats``)."""
+def bwd_layout(d: int) -> tuple[int, int, int, int]:
+    """K5/K6's layout at width ``d`` in the f32 mode: (slices of the
+    gradient columns over grid.y, columns a slice, blocks of the cluster
+    that share the logits, steps of the ring a tile for the cluster member
+    with the most: its share of the 32-column logit steps, then the two
+    gradient steps). Mirrors ``bwd_slices``, ``bwd_slice`` and
+    ``bwd_cluster``."""
     slices = _ceil_div(d, _MAX_SLICE)
-    slice_ = _ceil_div(_ceil_div(d, slices), _BWD_CHUNK) * _BWD_CHUNK
-    stage = max(16 * (_BWD_ROWS + _PAD) + 16 * (64 + _PAD), 64 * (_BWD_CHUNK + _PAD))
-    return 4 * (stage + 64 * (_BWD_ROWS + _PAD) + _BWD_ROWS * (slice_ + _PAD))
+    cluster = slices if slices <= _MAX_CLUSTER else 1
+    steps = _ceil_div(_ceil_div(d, _STEP_COLS), cluster) + _BWD_TILE // _GRAD_ROWS
+    return slices, _ceil_div(_ceil_div(d, slices), 32) * 32, cluster, steps
+
+
+def bwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one K5/K6 block at width ``d``: the TF32 hi
+    and lo planes of the wgmma B operands (a gradient step's 256 slice
+    columns and a logit step's 64 tile rows, 128 bytes each), the ring's
+    stages of 32 × 260 floats (which also hold a logit step's 192 rows of 36)
+    and 1 KB of alignment slack. The gradient rows and dlogits live in
+    registers, so it does not grow with ``d`` (mirrors ``bwd_smem_bytes`` in
+    the source)."""
+    if d < 1:
+        return 0
+    stage = _GRAD_ROWS * (_MAX_SLICE + 4)
+    planes = 2 * 128 * (_MAX_SLICE + _BWD_TILE)
+    return 1024 + planes + 4 * _STAGES * stage
 
 
 # --- the plain versions -------------------------------------------------------

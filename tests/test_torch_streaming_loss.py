@@ -9,6 +9,8 @@ Inputs come from numpy seeds and go through both packages.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from distributed_sigmoid_loss_tpu.ops import pallas_sigmoid_loss as jpl
+from distributed_sigmoid_loss_tpu_torch.ops import attention_f32 as af
 from distributed_sigmoid_loss_tpu_torch.ops import quant
 from distributed_sigmoid_loss_tpu_torch.ops import streaming_sigmoid_loss as ssl
 from distributed_sigmoid_loss_tpu_torch.ops.sigmoid_loss import sigmoid_loss_chunk_scan
@@ -165,11 +168,37 @@ def test_shape_mirrors():
     """The Python mirrors of the kernels' scratch and shared-memory sizes
     (held against the library's own on the card by chip_smoke.py)."""
     assert ssl.fwd_partials(100, 300) == 2 * 5
-    # 32 owned rows × (slice + 4) f32 accumulators beside the staged tiles:
-    # d = 1152 (So400m) in one slice, still under Hopper's 227 KB.
-    assert ssl.bwd_smem_bytes(512) == 92672
-    assert ssl.bwd_smem_bytes(1152) == 174592 <= 227 * 1024
-    assert ssl.bwd_smem_bytes(2000) == 158208  # two slices of 1024
+    # K5/K6 keep their gradient rows and dlogits in registers: shared memory
+    # is the wgmma operands' TF32 planes and the cp.async ring, the same at
+    # every width and under Hopper's 227 KB. d is cut into slices of at most
+    # 256 gradient columns; up to 8 slices share the logits as a cluster.
+    assert ssl.bwd_smem_bytes(512) == 216064
+    assert ssl.bwd_smem_bytes(1152) == 216064 <= 227 * 1024
+    assert ssl.bwd_smem_bytes(2000) == 216064
+    assert ssl.bwd_layout(512) == (2, 256, 2, 10)
+    assert ssl.bwd_layout(1152) == (5, 256, 5, 10)  # So400m
+    assert ssl.bwd_layout(2000) == (8, 256, 8, 10)
+    assert ssl.bwd_layout(4096) == (16, 256, 1, 130)  # past the portable cluster size
+
+
+SOURCE = Path(ssl.__file__).resolve().parents[1] / "csrc" / "sigmoid_loss.cu"
+
+
+def _stated_bwd_layout() -> dict[int, tuple[int, int, int, int, int, int]]:
+    """The source header's K5/K6 table: d → (slices, slice, cluster, steps a
+    tile, shared bytes, blocks per SM by shared memory)."""
+    rows = re.findall(r"^//\s+(\d+)\s+(\d+)\s+(\d+)\s+(\d+)\s+(\d+)\s+([\d,]+)\s+(\d+)\s*$",
+                      SOURCE.read_text(), flags=re.M)
+    return {int(d): (int(a), int(b), int(c), int(e), int(f.replace(",", "")), int(h))
+            for d, a, b, c, e, f, h in rows}
+
+
+@pytest.mark.parametrize("d", [200, 512, 1152, 2000, 4096])
+def test_shape_mirrors_match_the_layout_the_source_states(d):
+    slices, slice_, cluster, steps, smem, blocks = _stated_bwd_layout()[d]
+    assert ssl.bwd_layout(d) == (slices, slice_, cluster, steps)
+    assert ssl.bwd_smem_bytes(d) == smem
+    assert af.SM_SMEM_BYTES // (smem + af.BLOCK_RESERVED_SMEM_BYTES) == blocks
 
 
 def test_int8_refused_naming_its_row():
