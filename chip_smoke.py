@@ -33,8 +33,8 @@ and nothing is caught:
    all-gather's block at 32k global, 4096 × 32768), twice for bitwise
    repeatability, with K5/K6's splits and scratch bytes, timed at the ring
    hop, the headline block and the 32k block beside cuBLAS's f32 products
-   ("product only"), K5/K6 against both bounds (CUDA cores and split f32 on
-   the tensor cores);
+   ("product only"), each against both bounds (CUDA cores and split f32 on
+   the tensor cores) with its body and registers;
 5. the training path (``run_train_path`` with ``TRAIN``): the headline
    train step (B/16, 16 accumulated
    microbatches of 128 pairs, ``save_hot`` remat, bf16 accumulator and Adam
@@ -90,10 +90,13 @@ and nothing is caught:
    version and SDPA) and refusing s = 251;
 12. the int8 mode of the loss kernels (``[loss_kernel_int8]``, run with
    phase 3): K4, K5 and K6 int8 against their plain int8 versions at the
-   headline block, the 32k ring hop with and without positives and
-   So400m's d = 1,152, twice for bitwise repeatability, a non-tileable
-   block refused to the caller's plain path, timed beside ``torch._int_mm``
-   (K5/K6 int8: with one cuBLAS f32 product, the gradient product);
+   headline block, the 32k ring hop with and without positives,
+   So400m's d = 1,152 and the fused all-gather's 32k block, twice for
+   bitwise repeatability, a non-tileable block refused to the caller's
+   plain path, timed at the ring hop and the 32k block beside
+   ``torch._int_mm`` (K5/K6 int8: with one cuBLAS f32 product, the gradient
+   product; K4 int8: its device time split into the kernel's own and the
+   quantize passes in front of it);
    then B/16 served with int8 projections (``[serve_int8]``, the serving
    path of phase 4 with ``quant="int8"``, each embedding against the same
    weights in bf16) and the headline step with ``quant_train="int8"`` and
@@ -244,6 +247,19 @@ F32_BWD_BODY = "mma.sync m16n8k8 split f32 (3xTF32), two-stage cp.async ring"
 # slices of a row block a cluster that shares the logits.
 LOSS_BWD_BODY = ("wgmma m64n64k8 / m64n256k8 split f32 (3xTF32), TF32 hi/lo planes, "
                  "four-stage cp.async ring, slices share the logits as a cluster")
+# K4's bodies (csrc/sigmoid_loss.cu): a persistent walk over 128 x 128
+# tiles, the logits on wgmma in split f32 or int8, the epilogue in registers.
+LOSS_FWD_BODY = ("persistent 128 x 128 tiles, wgmma m64n128k8 split f32 (3xTF32), B in TF32 "
+                 "hi/lo planes split while the products run, four-stage cp.async ring, "
+                 "one block an SM")
+LOSS_FWD_INT8_BODY = ("persistent 128 x 128 tiles, wgmma m64n128k32 s8 from swizzled shared "
+                      "memory, three-stage cp.async ring, two blocks an SM")
+# SASS instructions of K4's epilogue for one logit in the int8 mode
+# (dequantize, the label, logit_of, softplus with precise expf and log1pf,
+# the mask and the sum), as `compare_sigmoid_loss.py --count-epilogue`
+# counted them for sm_90a (a static count: one branch, one MUFU.EX2); each
+# issues for 32 lanes on the CUDA cores.
+K4_EPILOGUE_INSTRUCTIONS = 61
 # The f32 model with attn_impl="flash": batch at 224 px and at 512 px.
 F32_TOWER_BATCH = {"b16": 8, "b16_512": 2}
 # int8 (NVIDIA data sheet, H100 SXM, dense): the loss kernels' int8 products.
@@ -255,12 +271,18 @@ LOSS_INT8_CASES = {
     "ring_hop_32k_positive": (4096, 4096, 512, 0),
     "ring_hop_32k_negative": (4096, 4096, 512, NEGATIVE_ONLY_OFFSET),
     "so400m_width": (256, 512, 1152, 0),
+    # The fused all-gather's block, rank 3 of 8 at 32k global: K5's sums run
+    # over 32,768 text rows, the longest of any case.
+    "fused_allgather_w8_32k": (4096, 32768, 512, 3 * 4096),
 }
 LOSS_INT8_TIMED = "ring_hop_32k_positive"
+# Also timed (not in the kernels line).
+LOSS_INT8_TIMED_MORE = ("fused_allgather_w8_32k",)
 # int8 loss kernels vs plain: the int8 raw is exact on both sides, so the
 # loss and the bias gradient within rtol 1e-5, each embedding gradient within
-# 1e-5 of its largest magnitude, and t′'s (a sum of b·n terms that cancel)
-# within 1e-5 of t·Σ|dl·raw|.
+# 1e-5 of its largest magnitude (against an f64 product of the plain
+# version's dlogits), and t′'s (a sum of b·n terms that cancel) within 1e-5
+# of t·Σ|dl·raw|.
 LOSS_INT8_RTOL = 1e-5
 # int8 serving vs the same weights in bf16 (JAX's fidelity contract,
 # tests/test_quant.py): every embedding row's cosine above this.
@@ -1068,25 +1090,15 @@ def loss_case_inputs(b, n, d, off, dtype, gen):
     return zimg.to(dtype), ztxt.to(dtype), tp, bias
 
 
-def loss_bound_ms(b, n, d, which) -> tuple[float, str]:
-    """Least time of one loss kernel call: its f32 inputs read once and
-    outputs written once, against its IEEE f32 operations at the peak outside
-    the tensor cores. K4 reads both operands and does 2·b·n·d; K5 also writes
-    dzimg, K6 dztxt, and each does 4·b·n·d (the logits again and the
-    gradient product)."""
-    nbytes = 4 * (b + n) * d + {"fwd": 0, "bwd_img": 4 * b * d, "bwd_txt": 4 * n * d}[which]
+def loss_bounds_ms(b, n, d, which) -> dict:
+    """Both bounds of K4, K5 or K6 (``which`` "fwd", "bwd_img", "bwd_txt";
+    ``split_f32_bounds_ms``): the f32 inputs read once and the outputs
+    written once (K5 also writes dzimg, K6 dztxt) against the operations the
+    function needs: K4's product, 2·b·n·d; K5's and K6's 4·b·n·d (the logits
+    again and the gradient product)."""
+    own = {"fwd": 0, "bwd_img": b, "bwd_txt": n}[which]
     flops = (2 if which == "fwd" else 4) * b * n * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def loss_bwd_bounds_ms(b, n, d, which) -> dict:
-    """Both bounds of K5 or K6 (``which`` "bwd_img" / "bwd_txt";
-    ``split_f32_bounds_ms``): the bytes of ``loss_bound_ms`` against the
-    4·b·n·d operations the function needs (the logits again and the
-    gradient product)."""
-    own = b if which == "bwd_img" else n
-    return split_f32_bounds_ms(4 * (b + n) * d + 4 * own * d, 4 * b * n * d)
+    return split_f32_bounds_ms(4 * (b + n) * d + 4 * own * d, flops)
 
 
 def check_loss_kernels(ssl, gen) -> dict:
@@ -1124,6 +1136,7 @@ def check_loss_kernels(ssl, gen) -> dict:
         row = dict(case=name, shape=[b, n, d], pos_offset=off, dtype=str(dtype).split(".")[1],
                    loss=loss.item(), max_abs_err=errs, atol=tols, finite=finite,
                    repeatable=repeatable, smem_bwd=lib.sigmoid_loss_bwd_smem_bytes(d),
+                   fwd_steps_a_tile=dict(zip(("f32", "int8"), ssl.fwd_layout(d))),
                    bwd_layout=dict(zip(("slices", "slice", "cluster", "steps_a_tile"),
                                        ssl.bwd_layout(d))),
                    bwd_splits={"img": lib.sigmoid_loss_bwd_splits(b, n, d),
@@ -1160,15 +1173,16 @@ def check_loss_kernels(ssl, gen) -> dict:
                        library_ms=time_ms(library, iters=10), library_device_ms=device_ms(library),
                        library_call="product only: cuBLAS IEEE-f32 torch.matmul of the same "
                                     + ("product" if which == "fwd" else "two products"))
+            rec.update(loss_bounds_ms(b, n, d, which))
             if which == "fwd":
-                rec["bound_ms"], rec["bound_by"] = loss_bound_ms(b, n, d, which)
+                rec["body"] = LOSS_FWD_BODY
+                rec["registers"] = registers(f"sigmoid_loss_fwd_kernel<0, {ssl._vec(zimg, ztxt)}>")
             else:
-                rec.update(loss_bwd_bounds_ms(b, n, d, which))
-                rec["bound_over_device"] = (rec["bound_ms"] / rec["device_ms"]
-                                            if rec["device_ms"] else None)
                 rec["body"] = LOSS_BWD_BODY
                 rec["registers"] = registers(
                     f"sigmoid_loss_bwd_kernel<{int(which == 'bwd_txt')}, 0>")
+            rec["bound_over_device"] = (rec["bound_ms"] / rec["device_ms"]
+                                        if rec["device_ms"] else None)
             log("loss_kernel_time", kernel=which, **rec)
             if name == LOSS_TIMED:
                 records[which] = rec
@@ -1180,15 +1194,20 @@ def loss_int8_bound_ms(b, n, d, which) -> tuple[float, str]:
     """Least time of one int8-mode loss kernel call: the largest of its
     inputs read once (int8 rows and f32 scales; K5/K6 also the other side's
     f32 rows) and outputs written once over the memory rate, its int8
-    products (2·b·n·d) at the int8 peak, and its f32 operations outside the
-    tensor cores at the f32 peak: K4's epilogue (about ten a logit:
-    dequantize, scale and shift, softplus, sum), K5/K6's epilogue and their
-    f32 gradient product, 2·b·n·d."""
+    products (2·b·n·d) at the int8 peak, and its work on the CUDA cores:
+    K4's epilogue, K4_EPILOGUE_INSTRUCTIONS a logit, each issued for 32
+    lanes at the f32 peak's instruction rate (67 TFLOP/s counts an FMA as
+    two operations, so half of it); K5/K6's epilogue (about ten f32
+    operations a logit) and their f32 gradient product, 2·b·n·d, at the f32
+    peak."""
     int8_bytes = (b + n) * d + 4 * (b + n)
     f32_rows = {"fwd": 0, "bwd_img": 4 * n * d + 4 * b * d, "bwd_txt": 4 * b * d + 4 * n * d}
     t_bytes = (int8_bytes + f32_rows[which]) / HBM_BYTES_PER_S
     t_int8 = 2 * b * n * d / INT8_OP_PER_S
-    t_f32 = (10 * b * n + (0 if which == "fwd" else 2 * b * n * d)) / FP32_FLOP_PER_S
+    if which == "fwd":
+        t_f32 = K4_EPILOGUE_INSTRUCTIONS * b * n / (FP32_FLOP_PER_S / 2)
+    else:
+        t_f32 = (10 * b * n + 2 * b * n * d) / FP32_FLOP_PER_S
     return max(t_bytes, t_int8, t_f32) * 1e3, ("bytes" if t_bytes >= max(t_int8, t_f32)
                                                else "operations")
 
@@ -1219,12 +1238,14 @@ def plain_loss_kernels(ssl):
 
 def check_loss_kernels_int8(ssl, gen) -> dict:
     """K4, K5 and K6 in the int8 mode against their plain int8 versions (the
-    exact int32 product by ``torch._int_mm``, TF32 off) in every case of
-    LOSS_INT8_CASES, through the autograd node the dispatch calls, twice for
-    bitwise repeatability; a non-tileable block must be refused to the
-    caller's plain path ("xla") with no launch. Times the three kernels at
-    LOSS_INT8_TIMED beside the plain versions and ``torch._int_mm`` of the
-    two int8 operands (product only). Returns ``{kernel: record}``."""
+    exact int32 product by ``torch._int_mm``, TF32 off; the embedding
+    gradients against f64 products of the plain versions' dlogits) in every
+    case of LOSS_INT8_CASES, through the autograd node the dispatch calls,
+    twice for bitwise repeatability; a non-tileable block must be refused to
+    the caller's plain path ("xla") with no launch. Times the three kernels
+    at LOSS_INT8_TIMED (and LOSS_INT8_TIMED_MORE) beside the plain versions
+    and ``torch._int_mm`` of the two int8 operands (product only). Returns
+    ``{kernel: record}`` of LOSS_INT8_TIMED."""
     records = {}
     for name, (b, n, d, off) in LOSS_INT8_CASES.items():
         zimg, ztxt, tp, bias = loss_case_inputs(b, n, d, off, torch.float32, gen)
@@ -1250,16 +1271,34 @@ def check_loss_kernels_int8(ssl, gen) -> dict:
         # rounding is bounded by t·Σ|dl·raw|, the scale it is held at.
         dl, raw, t = ssl._dlogits(zimg, ztxt, tp, bias, off, one, "int8")
         tols["dt_prime"] = LOSS_INT8_RTOL * float((dl * raw).abs().sum() * t)
+        # dzimg and dztxt are held to f64 products of the plain version's own
+        # dl (the function's exact gradient at the plain version's dlogits):
+        # over the 32,768 text rows of the fused block the plain version's
+        # IEEE-f32 sums are themselves ~8e-6 of the largest magnitude off it,
+        # most of the contract. Both the kernel's error against the plain
+        # version and the plain version's own are recorded beside it.
+        vs_plain = {}
+        for gname, got_, plain_, exact in (
+                ("dzimg", got[1], dzi, lambda: (dl.double() @ ztxt.double()) * t.double()),
+                ("dztxt", got[2], dzt, lambda: (dl.double().T @ zimg.double()) * t.double())):
+            exact = exact()
+            scale = exact.abs().max().item()
+            errs[gname] = (got_.double() - exact).abs().max().item()
+            tols[gname] = LOSS_INT8_RTOL * scale
+            vs_plain[gname] = {
+                "kernel_vs_plain": (got_.double() - plain_.double()).abs().max().item() / scale,
+                "plain_vs_f64": (plain_.double() - exact).abs().max().item() / scale}
+            del exact
         del dl, raw
         f32_loss = ssl.streaming_loss_fwd_plain(zimg, ztxt, tp, bias, off).item()
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         row = dict(case=name, shape=[b, n, d], pos_offset=off, loss=got[0].item(),
                    loss_f32=f32_loss, max_abs_err=errs, atol=tols, finite=finite,
-                   repeatable=repeatable)
+                   repeatable=repeatable, err_of_max_f32_sums=vs_plain)
         log("loss_kernel_int8", **row)
         if not (finite and repeatable) or any(errs[k] > tols[k] for k in errs):
             raise AssertionError(f"int8 loss kernels disagree with their plain versions: {row}")
-        if name != LOSS_INT8_TIMED:
+        if name != LOSS_INT8_TIMED and name not in LOSS_INT8_TIMED_MORE:
             continue
         quantized = ssl._int8_operands("time", zimg, ztxt)
         ziq, ztq_t = quantized[0], quantized[2].t()
@@ -1293,8 +1332,21 @@ def check_loss_kernels_int8(ssl, gen) -> dict:
                                     ("" if which == "fwd" else
                                      ", and cuBLAS's IEEE-f32 gradient product"))
             rec["bound_ms"], rec["bound_by"] = loss_int8_bound_ms(b, n, d, which)
+            if which == "fwd":
+                # The device time split into the kernel's own (K4 and its sum
+                # of partials) and the quantize passes in front of it.
+                by_kernel = device_ms(kernel, by_kernel=True) or {}
+                own = sum(v for k, v in by_kernel.items() if "sigmoid_loss" in k)
+                rec.update(kernel_device_ms=own if by_kernel else None,
+                           quantize_device_ms=(sum(by_kernel.values()) - own
+                                               if by_kernel else None),
+                           bound_over_device=rec["bound_ms"] / own if own else None,
+                           body=LOSS_FWD_INT8_BODY,
+                           registers=registers("sigmoid_loss_fwd_kernel<1, 1>"),
+                           blocks_per_sm=ssl._library().sigmoid_loss_occupancy(d, 2))
             log("loss_kernel_int8_time", kernel=f"{which}_int8", **rec)
-            records[which] = rec
+            if name == LOSS_INT8_TIMED:
+                records[which] = rec
         del quantized, ziq, ztq_t, p
 
     # A block JAX's dispatch refuses (b = 100 is no multiple of 32): None,
@@ -2333,13 +2385,23 @@ def main() -> int:
         if len(bwd) != 16 or any("spill 0 B" not in u for u in bwd.values()):
             raise AssertionError(f"the f32 backward kernels spill: {bwd}")
     # K5/K6 (four instantiations: image/text side, f32/int8) hold their
-    # gradient rows in registers: nothing may spill.
+    # gradient rows in registers, K4 (three: f32 with 16- and 4-byte copies,
+    # int8) its logits: nothing may spill, and every wgmma stays
+    # asynchronous.
     if "sigmoid_loss" in built:
-        usage = ptxas_usage(built["sigmoid_loss"]["log"])
+        loss_log = built["sigmoid_loss"]["log"]
+        usage = ptxas_usage(loss_log)
         bwd = {k: u for k, u in usage.items() if k.startswith("sigmoid_loss_bwd_kernel")}
-        log("build", library="sigmoid_loss", bwd_kernels=bwd)
+        fwd = {k: u for k, u in usage.items() if k.startswith("sigmoid_loss_fwd_kernel")}
+        serialized = [k for k in wgmma_serialized(loss_log)
+                      if k.startswith(("sigmoid_loss_bwd_kernel", "sigmoid_loss_fwd_kernel"))]
+        log("build", library="sigmoid_loss", bwd_kernels=bwd, fwd_kernels=fwd,
+            wgmma_serialized=serialized)
         if len(bwd) != 4 or any("spill 0 B" not in u for u in bwd.values()):
             raise AssertionError(f"the K5/K6 kernels spill: {bwd}")
+        if len(fwd) != 3 or any("spill 0 B" not in u for u in fwd.values()) or serialized:
+            raise AssertionError(f"the K4 kernels spill or serialise their wgmma: {fwd}, "
+                                 f"{serialized}")
     for lib, mirror in (("short_attention", sa.short_attention_smem_bytes),
                         ("short_attention_bwd", sa.short_attention_bwd_smem_bytes),
                         ("short_attention_bwd_batched", sa.short_attention_bwd_batched_smem_bytes)):
@@ -2378,6 +2440,9 @@ def main() -> int:
             raise AssertionError(f"sigmoid_loss smem at d={d} != python mirror")
     if loss_lib.sigmoid_loss_fwd_partials(100, 300) != ssl.fwd_partials(100, 300):
         raise AssertionError("sigmoid_loss partial count != python mirror")
+    for q in (0, 1):
+        if loss_lib.sigmoid_loss_fwd_smem_bytes(q) != ssl.fwd_smem_bytes(bool(q)):
+            raise AssertionError(f"sigmoid_loss K4 smem (int8 {q}) != python mirror")
 
     # Phase 3: each kernel against its plain version.
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -2484,6 +2549,8 @@ def main() -> int:
                         "replaces": loss + line, **launches(kernel),
                         "max_abs_err": rec["max_abs_err"], **timed(rec),
                         "device_ms": rec["device_ms"], "library_call": rec["library_call"],
+                        **{k: rec[k] for k in ("kernel_device_ms", "quantize_device_ms",
+                                               "bound_over_device", "body") if k in rec},
                         "shape": loss_shape.replace("f32", "int8")})
     # The f32 kernels play K1/K7 (forward) and K2/K3/K7 (backward), each
     # counted at its own launch.

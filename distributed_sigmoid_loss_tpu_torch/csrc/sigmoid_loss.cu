@@ -17,17 +17,18 @@
 // computes it, and the products `raw·t` and `+ bias` rounded apart (no
 // contraction into one FMA), as JAX rounds them; K5/K6's sigmoid takes its
 // reciprocal from rcp.approx refined by one Newton step (within an ulp).
-//   K4: its product is IEEE f32 FMA on the CUDA cores (no TF32).
-//   K5/K6 (f32 mode): both products, the logits recompute raw = own·otherᵀ
-//   and the gradient product dl·other, run on the tensor cores in split f32
-//   (3xTF32, split_f32.cuh): each f32 operand as hi = tf32(x) and lo =
-//   tf32(x − hi), lo·hi + hi·lo + hi·hi summed in f32, ~2^-22 of each term
-//   dropped. The tensor cores truncate as they accumulate, so sums are kept
-//   short: each 32-column step of the logits (12 TF32 products) is summed
-//   in fresh registers and then added to the logits with IEEE adds, and the
-//   gradient accumulator sums at most 8 tiles (512 other rows; 192 TF32
-//   products) before it is folded into the block's output rows with IEEE
-//   adds, the splits' partials summed in IEEE f32 too. On the card the
+//   f32 mode: every product, K4's logits, K5/K6's recompute of them (raw =
+//   own·otherᵀ) and their gradient product dl·other, runs on the tensor
+//   cores in split f32 (3xTF32, split_f32.cuh): each f32 operand as hi =
+//   tf32(x) and lo = tf32(x − hi), lo·hi + hi·lo + hi·hi summed in f32,
+//   ~2^-22 of each term dropped. The tensor cores truncate as they
+//   accumulate, so sums are kept short: each 32-column step of the logits
+//   (12 TF32 products) is summed in fresh registers and then added to the
+//   logits with IEEE adds, in K4 as in K5/K6, so the forward evaluates the
+//   function the backward differentiates; the gradient accumulator sums at
+//   most 8 tiles (512 other rows; 192 TF32 products; 4 in the int8 mode)
+//   before it is folded into the block's output rows with IEEE adds, the
+//   splits' partials summed in IEEE f32 too. On the card the
 //   gradients stay within ~5e-6 of the largest magnitude of the IEEE plain
 //   versions at the 4096-row ring hop (contract 1e-4); without the short
 //   sums they drifted to 4e-5 at d = 2000. Plain TF32 (hi·hi alone, ~6e-4
@@ -36,9 +37,11 @@
 //
 // Bounds at one ring hop of a 32k global batch over 8 ranks (b = n = 4096,
 // d = 512): operations. K4 reads 16.8 MB (5 µs) and does 2·b·n·d = 17.2
-// GFLOP, 0.256 ms at the 67 TFLOP/s f32 peak outside the tensor cores. K5
-// and K6 each do 4·b·n·d = 34.4 GFLOP: 0.513 ms on the CUDA cores, or, as
-// three TF32 products each, 0.208 ms at the 495 TFLOP/s TF32 peak.
+// GFLOP: 0.256 ms at the 67 TFLOP/s f32 peak outside the tensor cores, or,
+// as three TF32 products, 0.104 ms at the 495 TFLOP/s TF32 peak. K5 and K6
+// each do 4·b·n·d = 34.4 GFLOP: 0.513 ms on the CUDA cores, or 0.208 ms in
+// 3xTF32. K4's epilogue (softplus with precise expf and log1pf) adds b·n
+// evaluations on the CUDA cores beside the products.
 //
 // Design. No logits matrix ever reaches device memory: every kernel
 // recomputes its logit tiles from the embeddings, so memory stays O(tile),
@@ -46,9 +49,40 @@
 // step to the next; Hopper's blocks run in no order, so partial sums go to
 // scratch and are summed in a fixed order by a second kernel: runs are
 // bitwise repeatable (no float atomics).
-//   K4: one block of 256 threads per 64 × 64 tile, a register-tiled f32
-//   product (each thread a 4 × 4 patch) over d in chunks of 16 staged in
-//   shared memory; it writes that tile's loss partial.
+//   K4: a persistent grid of blocks of two warpgroups (one an SM in the
+//   f32 mode, two in the int8 mode) walks 128 × 128 tiles of the logits (tile x,
+//   x + grid, …; the operand with fewer 128-row blocks is swept fastest, so
+//   it stays in L2 while the other streams). A warpgroup holds the logits of
+//   64 zimg rows against the tile's 128 ztxt rows in the registers of a wgmma
+//   m64n128 accumulator. f32 mode: each 32-column step's B (the tile's ztxt
+//   rows) is split once into TF32 hi and lo planes (K-major, 128-byte
+//   swizzled, laid out as K5's logit planes; two sets, used in turn), each
+//   warp splits its own 16 zimg rows (A) in registers, and wgmma m64n128k8
+//   forms the three products of each 8 columns into a fresh accumulator,
+//   added to the logits with IEEE adds; step i + 1's B is split into the
+//   other plane set while step i's products run. int8 mode: a step is 128
+//   values of d; the int8 rows of both operands land by cp.async straight
+//   in 128-byte-swizzled K-major tiles, and wgmma m64n128k32 s8 (both
+//   operands in shared memory) accumulates the tile's exact int32 sums.
+//   Every step streams through a cp.async ring (f32: four stages, int8:
+//   three) that runs on across the block's tiles; step i + stages − 1's
+//   copies are issued after step i's products (straight-line code, so the
+//   wgmmas stay asynchronous), and steps i + 2 (f32; int8: i + 1) to
+//   i + stages − 1 fly while step i computes, the next tile's first ones
+//   while a tile's epilogue runs. The epilogue, in registers: (int8:
+//   dequantize) logit_of, the label, softplus, the mask, a per-thread sum
+//   and the block's fixed-order sum into one partial per tile, which
+//   sigmoid_loss_reduce_kernel sums in tile order: bitwise repeatable
+//   whatever the grid. K4 keeps no copy of the operands in device memory:
+//   its scratch is the partials, 4 bytes a tile. By width d (the steps of a
+//   tile in each mode; shared bytes and blocks per SM in each mode; '-':
+//   the int8 mode takes d % 16 == 0):
+//      d   f32 steps   int8 steps   f32 shared   int8 shared   blocks/SM
+//    200           7            -      214,016        99,328     1     2
+//    512          16            4      214,016        99,328     1     2
+//   1152          36            9      214,016        99,328     1     2
+//   2000          63           16      214,016        99,328     1     2
+//   4096         128           32      214,016        99,328     1     2
 //   K5 and K6 (one kernel, K6 on the transposed problem: own = ztxt, other =
 //   zimg): a block of two warpgroups owns 128 rows of `own` (64 a
 //   warpgroup, 16 a warp) and a slice of at most 256 gradient columns
@@ -119,10 +153,10 @@
 // row once (symmetric int8, per-row f32 scale, ops/quant.py), and the logit
 // tile is raw = (f32(Σ ziq·ztq) · zis) · zts: an exact int32 sum, converted
 // once and dequantized by two separately rounded multiplies in JAX's order,
-// image scale first. K4 forms the sum by __dp4a (four int8 products a
-// thread instruction); K5/K6 by mma.sync m16n8k32 s8 tensor-core products
-// laid out as the f32 mode's wgmma accumulator (exact in int32 in any
-// order, so the same raw). Everything after raw is the f32 mode's epilogue.
+// image scale first. K4 forms the sum by wgmma m64n128k32 s8, K5/K6 by
+// mma.sync m16n8k32 s8 products laid out as the f32 mode's wgmma
+// accumulator (exact in int32 in any order, so the same raw, bitwise the
+// plain version's). Everything after raw is the f32 mode's epilogue.
 // K5/K6 recompute dlogits at the int8 raw (and dt′ sums dl·raw at it), but
 // their gradient products read the full-precision f32 rows of the other
 // operand: the straight-through contract of JAX's kernel; that product is
@@ -130,11 +164,14 @@
 // IEEE plain version. The int8 mode takes d % 16 == 0 and 16-byte aligned
 // int8 operands (the dispatch hands it d % 128 == 0 only); rows are masked
 // as in the f32 mode. Bound at the 4096 × 4096 × 512 ring hop: the
-// forward's 17.2 G int8 operations are 8.7 µs at 1,979 TOP/s and its
-// epilogue's ~0.2 G f32 operations 3 µs at 67 TFLOP/s, so bytes (4.2 MB,
-// 1.3 µs) do not bind; K5/K6 keep one f32 gradient product each (2·b·n·d),
-// 0.104 ms in 3xTF32 at 495 TFLOP/s. K4's __dp4a runs on the CUDA cores,
-// far above its bound (mma.sync s8 tiles there are later work).
+// forward's 17.2 G int8 operations are 8.7 µs at 1,979 TOP/s, but its
+// epilogue binds: 61 SASS instructions a logit on the CUDA cores (dequantize,
+// label, logit_of, softplus with precise expf and log1pf, mask, sum; counted
+// by compare_sigmoid_loss.py --count-epilogue), 30.5 µs for 16.8 M logits at
+// the f32 peak's instruction rate (67 TFLOP/s counts an FMA as two); bytes
+// (4.2 MB, 1.3 µs) do not bind.
+// K5/K6 keep one f32 gradient product each (2·b·n·d), 0.104 ms in 3xTF32
+// at 495 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -150,36 +187,10 @@ using namespace split_f32;
 
 namespace {
 
-constexpr int kThreads = 256;   // K4: 16 × 16 threads
-constexpr int kBK = 16;         // contraction chunk of K4's product
-constexpr int kBN = 64;         // K4's tile columns (rows of the other operand)
-constexpr int kTN = 4;          // tile columns per thread
-constexpr int kPad = 4;         // floats of padding per shared row (keeps 16-byte rows)
-constexpr int kFwdTM = 4;       // K4: 64-row tiles
+constexpr int kThreads = 256;        // every K4-K6 block: two warpgroups
 constexpr int kReduceThreads = 256;
 
 __host__ __device__ inline int ceil_div(int x, int m) { return (x + m - 1) / m; }
-
-// Shared floats of one K4 block: the staged operand chunks.
-__host__ __device__ inline size_t fwd_smem_floats() {
-  return (size_t)kBK * (16 * kFwdTM + kPad) + (size_t)kBK * (kBN + kPad);
-}
-
-// Four consecutive floats of row `row`, columns [col, col + 4), of a row-major
-// (rows × cols) matrix; zeros outside it. `vec`: cols % 4 == 0 and a 16-byte
-// aligned base, so the four are one aligned load.
-__device__ inline float4 load4(const float* __restrict__ base, int row, int rows, int col,
-                               int cols, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row >= rows || col >= cols) return v;
-  const float* p = base + (size_t)row * cols + col;
-  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
-  v.x = __ldg(p);
-  if (col + 1 < cols) v.y = __ldg(p + 1);
-  if (col + 2 < cols) v.z = __ldg(p + 2);
-  if (col + 3 < cols) v.w = __ldg(p + 3);
-  return v;
-}
 
 __device__ inline float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }
 
@@ -214,114 +225,6 @@ __device__ inline float block_sum(float x, float* red) {
   return s;
 }
 
-// acc[i][j] = Σ_k own[r0 + ty·TM + i, k] · other[c0 + tx·4 + j, k] over all d,
-// with rows past n_own / n_other and columns past d read as zero. As and Bs
-// stage one kBK-wide chunk of each operand, transposed (k-major).
-template <int TM>
-__device__ inline void tile_product(float (&acc)[TM][kTN], const float* __restrict__ own,
-                                    int r0, int n_own, const float* __restrict__ other, int c0,
-                                    int n_other, int d, bool vec, float* As, float* Bs) {
-  constexpr int BM = 16 * TM, lda = BM + kPad, ldb = kBN + kPad;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    for (int s = tid; s < BM * (kBK / 4); s += kThreads) {
-      const int row = s / (kBK / 4), kq = (s % (kBK / 4)) * 4;
-      const float4 v = load4(own, r0 + row, n_own, k0 + kq, d, vec);
-      As[(kq + 0) * lda + row] = v.x;
-      As[(kq + 1) * lda + row] = v.y;
-      As[(kq + 2) * lda + row] = v.z;
-      As[(kq + 3) * lda + row] = v.w;
-    }
-    for (int s = tid; s < kBN * (kBK / 4); s += kThreads) {
-      const int row = s / (kBK / 4), kq = (s % (kBK / 4)) * 4;
-      const float4 v = load4(other, c0 + row, n_other, k0 + kq, d, vec);
-      Bs[(kq + 0) * ldb + row] = v.x;
-      Bs[(kq + 1) * ldb + row] = v.y;
-      Bs[(kq + 2) * ldb + row] = v.z;
-      Bs[(kq + 3) * ldb + row] = v.w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[TM];
-      if constexpr (TM == 4) {
-        const float4 av = *reinterpret_cast<const float4*>(As + k * lda + ty * TM);
-        a[0] = av.x; a[1] = av.y; a[2] = av.z; a[3] = av.w;
-      } else {
-        const float2 av = *reinterpret_cast<const float2*>(As + k * lda + ty * TM);
-        a[0] = av.x; a[1] = av.y;
-      }
-      const float4 bv = *reinterpret_cast<const float4*>(Bs + k * ldb + tx * kTN);
-      const float b[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Four int8 words (16 int8 values) of row `row` at word column `col` of a
-// row-major (rows × cols) int matrix, cols % 4 == 0 and a 16-byte aligned
-// base; zeros outside it.
-__device__ inline int4 load4i(const int* __restrict__ base, int row, int rows, int col,
-                              int cols) {
-  if (row >= rows || col >= cols) return make_int4(0, 0, 0, 0);
-  return __ldg(reinterpret_cast<const int4*>(base + (size_t)row * cols + col));
-}
-
-// The int8 mode's tile_product: acc[i][j] = Σ_k own[r][k]·other[c][k] over
-// int8 rows packed four to an int32 word (dw words a row), exact in int32.
-// As and Bs stage kBK words (64 int8 values) of each operand, transposed.
-template <int TM>
-__device__ inline void tile_product_int8(int (&acc)[TM][kTN], const int* __restrict__ own, int r0,
-                                         int n_own, const int* __restrict__ other, int c0,
-                                         int n_other, int dw, int* As, int* Bs) {
-  constexpr int BM = 16 * TM, lda = BM + kPad, ldb = kBN + kPad;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
-  for (int k0 = 0; k0 < dw; k0 += kBK) {
-    for (int s = tid; s < BM * (kBK / 4); s += kThreads) {
-      const int row = s / (kBK / 4), kq = (s % (kBK / 4)) * 4;
-      const int4 v = load4i(own, r0 + row, n_own, k0 + kq, dw);
-      As[(kq + 0) * lda + row] = v.x;
-      As[(kq + 1) * lda + row] = v.y;
-      As[(kq + 2) * lda + row] = v.z;
-      As[(kq + 3) * lda + row] = v.w;
-    }
-    for (int s = tid; s < kBN * (kBK / 4); s += kThreads) {
-      const int row = s / (kBK / 4), kq = (s % (kBK / 4)) * 4;
-      const int4 v = load4i(other, c0 + row, n_other, k0 + kq, dw);
-      Bs[(kq + 0) * ldb + row] = v.x;
-      Bs[(kq + 1) * ldb + row] = v.y;
-      Bs[(kq + 2) * ldb + row] = v.z;
-      Bs[(kq + 3) * ldb + row] = v.w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      int a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k * lda + ty * TM + i];
-      const int4 bv = *reinterpret_cast<const int4*>(Bs + k * ldb + tx * kTN);
-      const int b[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
 // What the kernels read. f32 mode: own and other are the f32 rows of the
 // logit product. int8 mode: own_q/other_q are the int8 rows (four a word)
 // with their per-row scales own_s/other_s; `other` stays the f32 rows of
@@ -335,75 +238,9 @@ struct Operands {
   const float* other_s;
 };
 
-// The block's (16·TM × 64) tile of raw = own·otherᵀ at rows r0, columns c0:
-// the f32 product, or (Q) the dequantized int8 product
-// (f32(acc) · image scale) · text scale, each multiply rounded on its own
-// (TXT: own is the text side).
-template <int TM, bool Q, bool TXT>
-__device__ inline void raw_tile(float (&raw)[TM][kTN], const Operands& op, int r0, int n_own,
-                                int c0, int n_other, int d, bool vec, float* As, float* Bs) {
-  if constexpr (!Q) {
-    tile_product<TM>(raw, op.own, r0, n_own, op.other, c0, n_other, d, vec, As, Bs);
-  } else {
-    int acc[TM][kTN];
-    tile_product_int8<TM>(acc, op.own_q, r0, n_own, op.other_q, c0, n_other, d / 4,
-                          reinterpret_cast<int*>(As), reinterpret_cast<int*>(Bs));
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float so[TM], sc[kTN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = r0 + ty * TM + i;
-      so[i] = r < n_own ? __ldg(op.own_s + r) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = c0 + tx * kTN + j;
-      sc[j] = c < n_other ? __ldg(op.other_s + c) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const float f = __int2float_rn(acc[i][j]);
-        raw[i][j] = TXT ? __fmul_rn(__fmul_rn(f, sc[j]), so[i])
-                        : __fmul_rn(__fmul_rn(f, so[i]), sc[j]);
-      }
-  }
-}
-
-// K4: one block per 64 × 64 tile; partials[tile] = Σ softplus(−label·logit).
-template <bool Q>
-__global__ void __launch_bounds__(kThreads)
-sigmoid_loss_fwd_kernel(const Operands op, const float* __restrict__ t_prime,
-                        const float* __restrict__ bias, int b, int n, int d, int off, int vec,
-                        float* __restrict__ partials) {
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + kBK * (16 * kFwdTM + kPad);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int r0 = blockIdx.x * 16 * kFwdTM, c0 = blockIdx.y * kBN;
-  float acc[kFwdTM][kTN];
-  raw_tile<kFwdTM, Q, false>(acc, op, r0, b, c0, n, d, vec, As, Bs);
-  const float t = expf(__ldg(t_prime)), bb = __ldg(bias);
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kFwdTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int r = r0 + ty * kFwdTM + i, c = c0 + tx * kTN + j;
-      if (r < b && c < n) {
-        const float label = c == r + off ? 1.f : -1.f;
-        sum += softplus(-label * logit_of(acc[i][j], t, bb));
-      }
-    }
-  const float s = block_sum(sum, As);
-  if (threadIdx.x == 0) partials[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
-}
-
 // ---- K5/K6: split-f32 tensor-core products, dlogits and gradient rows in
-// registers -------------------------------------------------------------------
+// registers (their ring and plane layouts are K4's too) ------------------------
 
-constexpr int kBwdThreads = 256;                // two warpgroups of 64 owned rows
 constexpr int kBwdRows = 128;                   // owned rows a block, 16 a warp
 constexpr int kBwdTile = 64;                    // rows of the other operand a tile
 constexpr int kMaxSlice = 256;                  // gradient columns a block keeps
@@ -414,9 +251,14 @@ constexpr int kLdGrad = kMaxSlice + 4;          // their row stride in a stage, 
 constexpr int kStages = 4;                      // cp.async ring
 // Tiles the gradient accumulator sums before a fold: the tensor cores
 // truncate as they accumulate, so the running sums are kept short (24 TF32
-// products a tile); every kFoldTiles tiles a block adds its accumulator to
-// its own rows of the output in IEEE f32 and starts it again at zero.
-constexpr int kFoldTiles = 8;
+// products a tile); every fold_tiles<Q>() tiles a block adds its accumulator
+// to its own rows of the output in IEEE f32 and starts it again at zero.
+// The int8 mode folds after fewer tiles: its contract is ten times tighter
+// (1e-5 of the largest magnitude), and at 8 tiles the 4096 × 32768 × 512
+// block of the fused all-gather reached it.
+constexpr int kFoldTilesInt8 = 4;
+template <bool Q>
+__host__ __device__ constexpr int fold_tiles() { return Q ? kFoldTilesInt8 : 8; }
 // Resident waves of blocks the splits may fill at most: the scratch of the
 // splits' partial gradients stays within about that many blocks' rows.
 constexpr int kMaxSplitWaves = 2;
@@ -455,13 +297,13 @@ __device__ inline void load_tile(float* dst, const void* src_, int row0, int row
   const float* src = static_cast<const float*>(src_);
   if (vec) {
     const int per = ncols / 4;
-    for (int i = threadIdx.x; i < rows * per; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < rows * per; i += kThreads) {
       const int r = i / per, c = i % per * 4, row = row0 + r, col = col0 + c;
       const bool in = row < nrows && col < total;
       cp_async16(dst + r * ld + c, in ? src + (size_t)row * total + col : src, in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * ncols; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < rows * ncols; i += kThreads) {
       const int r = i / ncols, c = i % ncols, row = row0 + r, col = col0 + c;
       const bool in = row < nrows && col < total;
       cp_async4(dst + r * ld + c, in ? src + (size_t)row * total + col : src, in ? 4 : 0);
@@ -482,24 +324,28 @@ __device__ inline void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A logit step's B operand: the tile's 64 rows × 32 columns (stage rows at
-// stride kLdStep) split into the hi and lo planes. The A fragments read
-// column 8t + s of the step's 32 as k-step s's k = t and 8t + 4 + s as
-// k = t + 4; plane position 8s + u holds that column (u < 4: 8u + s,
-// else 8(u − 4) + 4 + s). A thread writes 16-byte chunks: chunk c of row
-// r gathers columns c/2 + 8·(0..3) (+ 4 for odd c).
+// Item i of a logit step's B operand: rows × 32 columns (stage rows at
+// stride kLdStep) split into the hi and lo planes, 8 items a row. The A
+// fragments read column 8t + s of the step's 32 as k-step s's k = t and
+// 8t + 4 + s as k = t + 4; plane position 8s + u holds that column (u < 4:
+// 8u + s, else 8(u − 4) + 4 + s). Item i writes 16-byte chunk c = i % 8 of
+// row r = i / 8: columns c/2 + 8·(0..3) (+ 4 for odd c).
+__device__ __forceinline__ void split_logit_chunk(unsigned char* hi, unsigned char* lo,
+                                                  const float* x, int i) {
+  const int r = i / 8, c = i % 8, col = c / 2 + 4 * (c & 1);
+  uint4 h, l;
+  split(x[r * kLdStep + col], h.x, l.x);
+  split(x[r * kLdStep + col + 8], h.y, l.y);
+  split(x[r * kLdStep + col + 16], h.z, l.z);
+  split(x[r * kLdStep + col + 24], h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + sw128(r, c)) = h;
+  *reinterpret_cast<uint4*>(lo + sw128(r, c)) = l;
+}
+
+// K5/K6's logit step: the tile's 64 rows.
 __device__ inline void split_logit_plane(unsigned char* hi, unsigned char* lo, const float* x) {
 #pragma unroll 1  // unrolled, the items' loads would crowd the gradient rows' registers
-  for (int i = threadIdx.x; i < kBwdTile * 8; i += kBwdThreads) {
-    const int r = i / 8, c = i % 8, col = c / 2 + 4 * (c & 1);
-    uint4 h, l;
-    split(x[r * kLdStep + col], h.x, l.x);
-    split(x[r * kLdStep + col + 8], h.y, l.y);
-    split(x[r * kLdStep + col + 16], h.z, l.z);
-    split(x[r * kLdStep + col + 24], h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + sw128(r, c)) = h;
-    *reinterpret_cast<uint4*>(lo + sw128(r, c)) = l;
-  }
+  for (int i = threadIdx.x; i < kBwdTile * 8; i += kThreads) split_logit_chunk(hi, lo, x, i);
 }
 
 // A gradient step's B operand: the step's 32 tile rows × 256 slice columns
@@ -511,7 +357,7 @@ __device__ inline void split_logit_plane(unsigned char* hi, unsigned char* lo, c
 // writes one chunk of each plane an item.
 __device__ inline void split_grad_plane(unsigned char* hi, unsigned char* lo, const float* x) {
 #pragma unroll 1  // as in split_logit_plane
-  for (int i = threadIdx.x; i < kMaxSlice * 8; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < kMaxSlice * 8; i += kThreads) {
     const int n = i % kMaxSlice, c = i / kMaxSlice;
     const float* col = x + (8 * (c / 2) + (c & 1)) * kLdGrad + n;
     uint4 h, l;
@@ -560,7 +406,7 @@ __device__ __forceinline__ void logit_step_int8(float (&raw)[32], const float* a
 // reading), half of them at a time, by cp.async: the copies need no
 // registers, so a half's reads fly at once instead of a few at a time.
 // Every thread of the block calls it alike (barriers).
-static_assert(2 * (kMaxSlice / 16) * kBwdThreads * sizeof(float2) <= 2 * (size_t)kGradPlane,
+static_assert(2 * (kMaxSlice / 16) * kThreads * sizeof(float2) <= 2 * (size_t)kGradPlane,
               "half of a fold's read-back fits the gradient planes");
 __device__ inline void store_rows(const float (&acc)[kMaxSlice / 2], float* dst, float2* buf,
                                   int row0, int n_own, int d, int d0, int width, bool vec,
@@ -579,7 +425,7 @@ __device__ inline void store_rows(const float (&acc)[kMaxSlice / 2], float* dst,
           const int row = row0 + gr + 8 * h;
           if (col >= width || row >= n_own) continue;
           const float* p = dst + (size_t)row * d + d0 + col;
-          float2* slot = buf + (2 * jj + h) * kBwdThreads + threadIdx.x;
+          float2* slot = buf + (2 * jj + h) * kThreads + threadIdx.x;
           if (vec) {
             cp_async8(slot, p, 8);
           } else {
@@ -601,7 +447,7 @@ __device__ inline void store_rows(const float (&acc)[kMaxSlice / 2], float* dst,
         float* p = dst + (size_t)row * d + d0 + col;
         float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         if (!first) {
-          const float2 old = buf[(2 * jj + h) * kBwdThreads + threadIdx.x];
+          const float2 old = buf[(2 * jj + h) * kThreads + threadIdx.x];
           v0 += old.x;
           v1 += old.y;
         }
@@ -623,12 +469,12 @@ __device__ inline void store_rows(const float (&acc)[kMaxSlice / 2], float* dst,
 // gradient columns [d0, d0 + slice), d0 = blockIdx.y·slice, and walks split
 // blockIdx.z's `split_tiles` 64-row tiles of `other`. With one split it
 // writes t·Σ into dout, else Σ into dpart[split] (the caller sums the
-// splits), folding its accumulator into those rows every kFoldTiles
+// splits), folding its accumulator into those rows every fold_tiles<Q>()
 // tiles. K5's blocks of slice 0 also write partials of dt′ and dbias:
 // partials[i] and partials[count + i], with i = blockIdx.z·gridDim.x +
 // blockIdx.x and count = gridDim.x·gridDim.z.
 template <bool TXT, bool Q>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
                         const float* __restrict__ bias, const float* __restrict__ g, int n_own,
                         int n_other, int d, int off, int vec, int split_tiles,
@@ -708,7 +554,7 @@ sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
   const bool whole = gridDim.z == 1;
   float* dst = whole ? dout : dpart + (size_t)blockIdx.z * n_own * d;
 
-  // Folds: the accumulator sums at most kFoldTiles tiles, then the block
+  // Folds: the accumulator sums at most fold_tiles<Q>() tiles, then the block
   // adds it to its rows. The last fold, after the last tile (a split is
   // never empty), scales by t with one split.
   int i = 0;
@@ -784,7 +630,7 @@ sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
         // in the grad planes' space, free until this tile's gradient steps.
         float* xch = reinterpret_cast<float*>(grad_hi);
 #pragma unroll
-        for (int n = 0; n < 32; ++n) xch[n * kBwdThreads + threadIdx.x] = dl[n];
+        for (int n = 0; n < 32; ++n) xch[n * kThreads + threadIdx.x] = dl[n];
         cluster.sync();
         float sum[32];
 #pragma unroll
@@ -792,7 +638,7 @@ sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
         for (int r = 0; r < members; ++r) {
           const float* peer = cluster.map_shared_rank(xch, r);
 #pragma unroll
-          for (int n = 0; n < 32; ++n) sum[n] += peer[n * kBwdThreads + threadIdx.x];
+          for (int n = 0; n < 32; ++n) sum[n] += peer[n * kThreads + threadIdx.x];
         }
 #pragma unroll
         for (int n = 0; n < 32; ++n) dl[n] = sum[n];
@@ -846,7 +692,7 @@ sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
         fence_operands(alo);
       }
     }
-    if ((tile + 1) % kFoldTiles == 0 || tile + 1 == tiles) {
+    if ((tile + 1) % fold_tiles<Q>() == 0 || tile + 1 == tiles) {
       // A fold: the accumulator's sums added to the block's rows in IEEE
       // f32 (each thread rereads only what it wrote); it starts again at 0.
       const float scale = tile + 1 == tiles && whole ? expf(__ldg(t_prime)) : 1.f;
@@ -857,7 +703,7 @@ sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
       asm volatile("" : "+l"(out), "+r"(rows), "+r"(cols));
       // The gradient planes are free until the next tile's gradient step.
       store_rows(acc, out, reinterpret_cast<float2*>(grad_hi), row0, rows, d, d0, cols, vec,
-                 tile < kFoldTiles, scale);
+                 tile < fold_tiles<Q>(), scale);
 #pragma unroll
       for (int n = 0; n < kMaxSlice / 2; ++n) acc[n] = 0.f;
     }
@@ -871,6 +717,269 @@ sigmoid_loss_bwd_kernel(const Operands op, const float* __restrict__ t_prime,
     if (threadIdx.x == 0) partials[idx] = sr * t;
     const float sd = block_sum(s_dl, ring);
     if (threadIdx.x == 0) partials[count + idx] = sd;
+  }
+}
+
+// ---- K4: the logits on the tensor cores (split f32, or int8), a persistent
+// walk over 128 × 128 tiles --------------------------------------------------
+
+constexpr int kFwdRows = 128;                   // zimg rows of a tile, 64 a warpgroup
+constexpr int kFwdCols = 128;                   // ztxt rows of a tile
+constexpr int kFwdPlane = kFwdCols * 128;       // bytes of one TF32 plane of a step's B
+// A step in a stage: the tile's zimg rows, then its ztxt rows. f32: 32
+// columns at stride kLdStep; int8: 32 words (128 values), 128-byte rows
+// swizzled as the wgmma operands they are.
+constexpr int kFwdStageFloats = (kFwdRows + kFwdCols) * kLdStep;
+constexpr int kFwdStageInt8 = (kFwdRows + kFwdCols) * 128;
+static_assert(kFwdRows == kFwdCols && kFwdRows * 8 % kThreads == 0,
+              "a step's 16-byte chunks of either operand split evenly over the block");
+
+// Stages of K4's ring and its resident blocks a SM. The f32 mode's planes
+// and four stages fill an SM's shared memory, and its accumulators its
+// registers (one block); the int8 mode takes three stages and two blocks
+// (at most 128 registers a thread), so one block's epilogue runs beside the
+// other's copies and products.
+__host__ __device__ constexpr int fwd_stages(bool q) { return q ? 3 : 4; }
+__host__ __device__ constexpr int fwd_blocks(bool q) { return q ? 2 : 1; }
+
+// f32: two sets of B's hi and lo planes, used in turn, then the ring; int8:
+// the ring. 1 KB of slack aligns the planes and stages to 1,024 bytes.
+__host__ __device__ constexpr size_t fwd_smem_bytes(bool q) {
+  return 1024 + (q ? (size_t)fwd_stages(q) * kFwdStageInt8
+                   : 4 * (size_t)kFwdPlane +
+                         (size_t)fwd_stages(q) * kFwdStageFloats * sizeof(float));
+}
+
+__host__ __device__ inline long long fwd_tiles(int b, int n) {
+  return (long long)ceil_div(b, kFwdRows) * ceil_div(n, kFwdCols);
+}
+
+// Rows [row0, row0 + 128) and columns [col0, col0 + 32) of a row-major
+// (nrows × total) f32 matrix into dst at row stride kLdStep, zero outside
+// it: 16 bytes a copy with VEC (total % 4 == 0, a 16-byte aligned base),
+// else 4. Straight-line code: K4 issues it while its products run. The
+// caller commits.
+template <bool VEC>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int row0, int nrows,
+                                              int col0, int total) {
+  constexpr int kPer = VEC ? 8 : 32;  // copies a row
+#pragma unroll
+  for (int k = 0; k < kFwdRows * kPer / kThreads; ++k) {
+    const int i = threadIdx.x + k * kThreads, r = i / kPer, c = (32 / kPer) * (i % kPer);
+    const int row = row0 + r, col = col0 + c;
+    const bool in = row < nrows && col < total;
+    const float* from = in ? src + (size_t)row * total + col : src;
+    if constexpr (VEC) cp_async16(dst + r * kLdStep + c, from, in ? 16 : 0);
+    else cp_async4(dst + r * kLdStep + c, from, in ? 4 : 0);
+  }
+}
+
+// Rows [row0, row0 + 128) and words [col0, col0 + 32) of a row-major (nrows ×
+// total) int8 matrix (four values a word, total % 4 == 0, 16-byte aligned)
+// into a 128-byte-swizzled K-major tile at dst, zero outside it. The caller
+// commits.
+__device__ inline void load_rows_int8(unsigned char* dst, const int* src, int row0, int nrows,
+                                      int col0, int total) {
+#pragma unroll
+  for (int k = 0; k < kFwdRows * 8 / kThreads; ++k) {
+    const int i = threadIdx.x + k * kThreads, r = i / 8, c = i % 8;
+    const int row = row0 + r, col = col0 + 4 * c;
+    const bool in = row < nrows && col < total;
+    cp_async16(dst + sw128(r, c), in ? src + (size_t)row * total + col : src, in ? 16 : 0);
+  }
+}
+
+// K4: partials[tile] = Σ softplus(−label·logit) over the tile's logits. Block
+// x walks tiles x, x + gridDim.x, …; tile t is row block t % (row blocks)
+// and column block t / (row blocks) when zimg has no more row blocks than
+// ztxt (so concurrent tiles share zimg, which stays in L2), else the other
+// way round. VEC: the f32 rows are copied 16 bytes at a time (the int8
+// mode's always are).
+template <bool Q, bool VEC>
+__global__ void __launch_bounds__(kThreads, Q ? 2 : 1)
+sigmoid_loss_fwd_kernel(const Operands op, const float* __restrict__ t_prime,
+                        const float* __restrict__ bias, int b, int n, int d, int off,
+                        float* __restrict__ partials) {
+  static_assert(fwd_blocks(Q) == (Q ? 2 : 1), "the launch bounds' blocks a SM");
+  constexpr int kS = fwd_stages(Q);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[kThreads / 32];
+  // Aligned by an offset, so the compiler still sees shared-memory pointers.
+  unsigned char* base =
+      smem_raw + ((1024 - (unsigned)__cvta_generic_to_shared(smem_raw) % 1024) % 1024);
+  unsigned char* planes = base;  // f32: [set][hi, lo]
+  unsigned char* ring = Q ? base : base + 4 * kFwdPlane;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tc = lane % 4;
+  const int tiles_r = ceil_div(b, kFwdRows), tiles_c = ceil_div(n, kFwdCols);
+  const int tiles = tiles_r * tiles_c;
+  const bool rows_fast = tiles_r <= tiles_c;
+  const int cols = Q ? d / 4 : d;  // 32-bit columns of the product's operands
+  const int ksteps = ceil_div(cols, kStepCols);
+  const int my_tiles = ceil_div(tiles - (int)blockIdx.x, gridDim.x);
+  const int steps = my_tiles * ksteps;
+  const auto origin = [&](int j, int& r0, int& c0) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    r0 = (rows_fast ? tile % tiles_r : tile / tiles_c) * kFwdRows;
+    c0 = (rows_fast ? tile / tiles_r : tile % tiles_c) * kFwdCols;
+  };
+
+  // Step i: the block's tile i / ksteps, columns of step i % ksteps, into
+  // stage i % kS. Past the block's last step it copies rows of tiles that
+  // are not the block's (in bounds, or zero-filled) into a free stage: the
+  // copies stay unconditional, so no branch lies in the products' way.
+  const auto fetch = [&](int i) {
+    int r0, c0;
+    origin(i / ksteps, r0, c0);
+    const int col0 = (i % ksteps) * kStepCols;
+    if constexpr (Q) {
+      unsigned char* st = ring + (i % kS) * kFwdStageInt8;
+      load_rows_int8(st, op.own_q, r0, b, col0, cols);
+      load_rows_int8(st + kFwdRows * 128, op.other_q, c0, n, col0, cols);
+    } else {
+      float* st = reinterpret_cast<float*>(ring) + (i % kS) * kFwdStageFloats;
+      load_rows_f32<VEC>(st, op.own, r0, b, col0, d);
+      load_rows_f32<VEC>(st + kFwdRows * kLdStep, op.other, c0, n, col0, d);
+    }
+  };
+  // f32: step i's B (the stage's ztxt rows) into plane set i % 2.
+  const auto split_b = [&](int i) {
+    const float* x =
+        reinterpret_cast<const float*>(ring) + (i % kS) * kFwdStageFloats + kFwdRows * kLdStep;
+    unsigned char* hi = planes + (i % 2) * 2 * kFwdPlane;
+#pragma unroll
+    for (int k = 0; k < kFwdCols * 8 / kThreads; ++k)
+      split_logit_chunk(hi, hi + kFwdPlane, x, threadIdx.x + k * kThreads);
+    fence_proxy_async();
+  };
+#pragma unroll
+  for (int i = 0; i < kS - 1; ++i) {
+    if (i < steps) fetch(i);
+    cp_async_commit();
+  }
+  if constexpr (!Q) {
+    cp_async_wait<kS - 2>();
+    __syncthreads();
+    split_b(0);
+  }
+
+  const float t = expf(__ldg(t_prime)), bb = __ldg(bias);
+  // The accumulators: a step's products (f32) or the tile's int32 sums
+  // (int8). Each step's first product overwrites them.
+  float step[64];
+  int acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    step[e] = 0.f;
+    acc[e] = 0;
+  }
+  int i = 0;
+  for (int j = 0; j < my_tiles; ++j) {
+    int r0, c0;
+    origin(j, r0, c0);
+    // The tile's raw logits (int8: their int32 sums in `acc`), 16 rows × 128
+    // a warp, in the layout of a wgmma m64n128 accumulator: element 4m + e
+    // is row g + 8(e / 2), column 8m + 2t + e % 2.
+    float raw[64], so[2];
+    if constexpr (Q) {
+      for (int k = 0; k < ksteps; ++k, ++i) {
+        // Step i has landed for every thread (and is visible to the tensor
+        // cores), and every warpgroup is done with step i − 1, whose stage
+        // step i + kS − 1 refills while step i's products run.
+        cp_async_wait<kS - 2>();
+        fence_proxy_async();
+        __syncthreads();
+        const unsigned char* st = ring + (i % kS) * kFwdStageInt8;
+        const unsigned char* a = st + (warp / 4) * 64 * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_s8_n128(acc, sw128_desc(a + 32 * s, 16),
+                        sw128_desc(st + kFwdRows * 128 + 32 * s, 16), k > 0 || s > 0);
+        wgmma_commit();
+        fetch(i + kS - 1);
+        cp_async_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * warp + gr + 8 * h;
+        so[h] = r < b ? __ldg(op.own_s + r) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) raw[e] = 0.f;
+      for (int k = 0; k < ksteps; ++k, ++i) {
+        // Step i + 1 has landed for every thread, step i's B planes are
+        // written, and every warpgroup is done with step i − 1 (its stage,
+        // which step i + kS − 1 refills while step i's products run, and its
+        // plane set, which step i + 1's B then takes).
+        cp_async_wait<kS - 3>();
+        __syncthreads();
+        // The warp's 16 zimg rows (A), split in registers: row g's columns
+        // 8t..8t + 3 are k = t of k-steps 0..3 and 8t + 4..8t + 7 their
+        // k = t + 4; the same for row g + 8.
+        const float* ar = reinterpret_cast<const float*>(ring) + (i % kS) * kFwdStageFloats +
+                          (16 * warp + gr) * kLdStep + 8 * tc;
+        const float4 g0 = *reinterpret_cast<const float4*>(ar);
+        const float4 g4 = *reinterpret_cast<const float4*>(ar + 4);
+        const float4 h0 = *reinterpret_cast<const float4*>(ar + 8 * kLdStep);
+        const float4 h4 = *reinterpret_cast<const float4*>(ar + 8 * kLdStep + 4);
+        const float x[4][4] = {{g0.x, h0.x, g4.x, h4.x}, {g0.y, h0.y, g4.y, h4.y},
+                               {g0.z, h0.z, g4.z, h4.z}, {g0.w, h0.w, g4.w, h4.w}};
+        unsigned ahi[4][4], alo[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) split(x[s][f], ahi[s][f], alo[s][f]);
+        // The step's 12 TF32 products, summed in `step` (the first
+        // overwrites it), then added to the logits with IEEE adds.
+        const unsigned char* bhi = planes + (i % 2) * 2 * kFwdPlane;
+        const unsigned char* blo = bhi + kFwdPlane;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          wgmma_tf32_n128(step, alo[s], sw128_desc(bhi + 32 * s, 16), s);
+          wgmma_tf32_n128(step, ahi[s], sw128_desc(blo + 32 * s, 16), 1);
+          wgmma_tf32_n128(step, ahi[s], sw128_desc(bhi + 32 * s, 16), 1);
+        }
+        wgmma_commit();
+        // While they run: step i + kS − 1's copies, and step i + 1's B into
+        // the other plane set (after the block's last step, a stale stage
+        // into planes nobody reads).
+        fetch(i + kS - 1);
+        cp_async_commit();
+        split_b(i + 1);
+        wgmma_wait<0>();
+        fence_operands(step);
+        fence_operands(ahi);
+        fence_operands(alo);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) raw[e] += step[e];
+      }
+    }
+    // The epilogue, in registers: (int8: dequantize, in JAX's order, the
+    // image scale first, element by element, so no second array of 64
+    // lives beside the sums) logit_of, the label, softplus, masked.
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < 16; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 16 * warp + gr + 8 * (e >> 1), c = c0 + 8 * m + 2 * tc + (e & 1);
+        float x;
+        if constexpr (Q) {
+          const float sc = c < n ? __ldg(op.other_s + c) : 0.f;
+          x = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * m + e]), so[e >> 1]), sc);
+        } else {
+          x = raw[4 * m + e];
+        }
+        const float label = c == r + off ? 1.f : -1.f;
+        const float v = softplus(-label * logit_of(x, t, bb));
+        sum += r < b && c < n ? v : 0.f;
+      }
+    const float s = block_sum(sum, red);
+    if (threadIdx.x == 0) partials[blockIdx.x + j * gridDim.x] = s;
   }
 }
 
@@ -908,7 +1017,7 @@ cudaError_t configure(Kernel kernel, size_t smem) {
 }
 
 bool bad_shape(int b, int n, int d) {
-  return b < 1 || n < 1 || d < 1 || ceil_div(n, kBN) > 65535 || bwd_slices(d) > 65535;
+  return b < 1 || n < 1 || d < 1 || fwd_tiles(b, n) > 0x7FFFFFFF || bwd_slices(d) > 65535;
 }
 
 // Resident K5/K6 blocks on the current device: the f32 kernel's clusters
@@ -917,7 +1026,7 @@ long long bwd_slots(int d) {
   const int members = bwd_cluster(d, false);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(1, members, 1);
-  config.blockDim = dim3(kBwdThreads);
+  config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = bwd_smem_bytes();
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -977,7 +1086,7 @@ cudaError_t launch_bwd(const Operands& op, const float* t_prime, const float* bi
   float* partials = scratch + (splits > 1 ? (size_t)splits * count : 0);
   cudaLaunchConfig_t config = {};
   config.gridDim = grid;
-  config.blockDim = dim3(kBwdThreads);
+  config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = bwd_smem_bytes();
   config.stream = stream;
   cudaLaunchAttribute cluster;
@@ -997,23 +1106,29 @@ cudaError_t launch_bwd(const Operands& op, const float* t_prime, const float* bi
   return cudaGetLastError();
 }
 
+// K4's persistent grid: fwd_blocks(Q) blocks a SM, at most one a tile; then
+// the partials summed in tile order.
 template <bool Q>
 int launch_fwd(const Operands& op, const void* t_prime, const void* bias, int b, int n, int d,
                int off, int vec, void* partials, void* out, void* stream) {
   if (bad_shape(b, n, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = fwd_smem_floats() * sizeof(float);
-  cudaError_t err = configure(sigmoid_loss_fwd_kernel<Q>, smem);
+  const auto kernel = Q ? sigmoid_loss_fwd_kernel<true, true>
+                       : vec ? sigmoid_loss_fwd_kernel<false, true>
+                             : sigmoid_loss_fwd_kernel<false, false>;
+  cudaError_t err = configure(kernel, fwd_smem_bytes(Q));
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(ceil_div(b, 16 * kFwdTM), ceil_div(n, kBN));
-  sigmoid_loss_fwd_kernel<Q><<<grid, kThreads, smem, st>>>(
-      op, static_cast<const float*>(t_prime), static_cast<const float*>(bias), b, n, d, off, vec,
+  const int tiles = (int)fwd_tiles(b, n), slots = sms * fwd_blocks(Q);
+  kernel<<<tiles < slots ? tiles : slots, kThreads, fwd_smem_bytes(Q), st>>>(
+      op, static_cast<const float*>(t_prime), static_cast<const float*>(bias), b, n, d, off,
       static_cast<float*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sigmoid_loss_reduce_kernel<<<1, kReduceThreads, 0, st>>>(
-      static_cast<const float*>(partials), (int)ceil_div(b, 16 * kFwdTM) * ceil_div(n, kBN),
-      static_cast<float*>(out));
+  sigmoid_loss_reduce_kernel<<<1, kReduceThreads, 0, st>>>(static_cast<const float*>(partials),
+                                                            tiles, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -1074,10 +1189,13 @@ bool bad_int8(int d, const void* a, const void* b) {
 
 extern "C" {
 
-// Partials each pass writes (mirrored in ops/streaming_sigmoid_loss.py).
-long long sigmoid_loss_fwd_partials(int b, int n) {
-  return (long long)ceil_div(b, 16 * kFwdTM) * ceil_div(n, kBN);
-}
+// Partials K4 writes, one a 128 × 128 tile (mirrored in
+// ops/streaming_sigmoid_loss.py).
+long long sigmoid_loss_fwd_partials(int b, int n) { return fwd_tiles(b, n); }
+
+// Dynamic shared memory of one K4 block in the f32 (q = 0) or int8 (q = 1)
+// mode, bytes.
+long long sigmoid_loss_fwd_smem_bytes(int q) { return (long long)fwd_smem_bytes(q != 0); }
 
 // Scratch floats of a K5 (img = 1) or K6 (img = 0) call on the current
 // device: the splits' partial gradients when the text (K6: image) tiles are
@@ -1164,23 +1282,25 @@ int sigmoid_loss_bwd_txt_int8(const void* ziq, const void* zis, const void* ztq,
                               d, off, vec, dztxt, scratch, stream);
 }
 
-// Resident blocks per SM of K4 (which = 0) or K5/K6 (which = 1) at width d
-// (0 with an error), for the records.
+// Resident blocks per SM of K4 (which = 0; its int8 mode, which = 2) or
+// K5/K6 (which = 1) at width d (0 with an error), for the records.
 int sigmoid_loss_occupancy(int d, int which) {
   if (d < 1) return 0;
   int blocks = 0;
   cudaError_t err;
-  if (which == 0) {
-    const size_t smem = fwd_smem_floats() * sizeof(float);
-    err = configure(sigmoid_loss_fwd_kernel<false>, smem);
+  if (which == 0 || which == 2) {
+    const bool q = which == 2;
+    const auto kernel =
+        q ? sigmoid_loss_fwd_kernel<true, true> : sigmoid_loss_fwd_kernel<false, true>;
+    err = configure(kernel, fwd_smem_bytes(q));
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sigmoid_loss_fwd_kernel<false>,
-                                                          kThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                          fwd_smem_bytes(q));
   } else {
     err = configure(sigmoid_loss_bwd_kernel<false, false>, bwd_smem_bytes());
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, sigmoid_loss_bwd_kernel<false, false>, kBwdThreads, bwd_smem_bytes());
+          &blocks, sigmoid_loss_bwd_kernel<false, false>, kThreads, bwd_smem_bytes());
   }
   return err == cudaSuccess ? blocks : 0;
 }

@@ -16,16 +16,19 @@ exp(t′)``, ``raw = zimg·ztxtᵀ`` and ``logit = raw·t + bias``, labels +1 wh
 Kernels: ``csrc/sigmoid_loss.cu``. As in the JAX kernel the product is f32
 on the f32-cast embeddings whatever ``precision`` the caller's loss names,
 the backward recomputes every logit tile from the saved embeddings, and the
-gradients come back in the inputs' dtypes. K4 forms its product in IEEE f32;
-K5 and K6 form both of theirs (the logits again, and the gradient product)
-in split f32 on the tensor cores, each operand as two TF32 parts and three
-TF32 products summed in f32 (``ops/attention_f32.split_f32_matmul``
-emulates them), within the plain versions' 1e-4 of the largest magnitude.
+gradients come back in the inputs' dtypes. Every product (K4's logits, K5's
+and K6's logits again and their gradient products) runs in split f32 on the
+tensor cores, each operand as two TF32 parts and three TF32 products summed
+in f32 (``ops/attention_f32.split_f32_matmul`` emulates them), the logits
+summed 32 columns at a time and those sums added in IEEE f32: the loss
+within the plain version's rtol 1e-5, the gradients within 1e-4 of the
+largest magnitude.
 
 ``quant="int8"`` is the int8 mode (JAX ``_tile_raw_int8``, K4 int8): each
 embedding row is quantized once per call (``ops/quant.quantize_int8``,
 axis 1) and ``raw = (f32(ziq·ztqᵀ) · zis) · zts``, the exact int32 product
-dequantized by two separately rounded multiplies. K5/K6 recompute dlogits at
+(int8 tensor-core products in every kernel) dequantized by two separately
+rounded multiplies. K5/K6 recompute dlogits at
 that raw (dt′ sums ``dl·raw`` at it too), but dzimg and dztxt are the
 full-precision products ``t·dl·ztxt`` and ``t·dlᵀ·zimg``: the
 straight-through contract. Its launches are counted apart from the f32 ones.
@@ -64,6 +67,8 @@ __all__ = [
     "launches",
     "reset_launches",
     "fwd_partials",
+    "fwd_smem_bytes",
+    "fwd_layout",
     "bwd_smem_bytes",
     "bwd_layout",
     "NEGATIVE_ONLY_OFFSET",
@@ -80,14 +85,16 @@ NEGATIVE_ONLY_OFFSET = -(2 ** 24)
 DEFAULT_TILE_B = 128
 DEFAULT_TILE_N = 256
 
-# Mirrors of the kernels' tiling (csrc/sigmoid_loss.cu): K4's 64 × 64 tiles;
-# K5/K6's 128 owned rows, 64-row tiles of the other operand, the widest
-# slice of gradient columns one block keeps, the 32 columns of a logit step,
+# Mirrors of the kernels' tiling (csrc/sigmoid_loss.cu): K4's 128 × 128
+# tiles (a persistent grid walks them, one block an SM in the f32 mode, two
+# in the int8 mode, whose ring has three stages); K5/K6's 128 owned rows,
+# 64-row tiles of the other operand, the widest slice of gradient columns
+# one block keeps, the 32 columns of a logit step,
 # the 32 tile rows of a gradient step (at a row stride of 260 floats), the
 # stages of the cp.async ring and the largest cluster of slices that share
 # the logits. (How many blocks share K5/K6's other operand depends on the
 # card's SM count: the library reports it, sigmoid_loss_bwd_splits.)
-_FWD_TILE = 64
+_FWD_TILE, _FWD_STAGES_INT8 = 128, 3
 _BWD_ROWS, _BWD_TILE, _MAX_SLICE, _STEP_COLS, _GRAD_ROWS = 128, 64, 256, 32, 32
 _STAGES, _MAX_CLUSTER = 4, 8
 
@@ -149,8 +156,29 @@ def pallas_compatible(b: int, n: int, d: int, tile_b: int = DEFAULT_TILE_B,
 
 
 def fwd_partials(b: int, n: int) -> int:
-    """K4's per-tile partials (mirrors ``sigmoid_loss_fwd_partials``)."""
+    """K4's partials, one a 128 × 128 tile (mirrors
+    ``sigmoid_loss_fwd_partials``)."""
     return _ceil_div(b, _FWD_TILE) * _ceil_div(n, _FWD_TILE)
+
+
+def fwd_layout(d: int) -> tuple[int, int | None]:
+    """K4's steps a tile at width ``d``: 32 columns a step in the f32 mode,
+    128 in the int8 mode (None where the int8 mode refuses d, d % 16)."""
+    return _ceil_div(d, _STEP_COLS), (_ceil_div(d, 4 * _STEP_COLS) if d % 16 == 0 else None)
+
+
+def fwd_smem_bytes(quant: bool = False) -> int:
+    """Dynamic shared memory of one K4 block, the same at every width: the
+    cp.async ring's stages of a step (the tile's 128 zimg and 128 ztxt rows:
+    f32, four stages of 32 columns at a row stride of 36 floats; int8, three
+    of 128-byte rows) and, in the f32 mode, two sets of the TF32 hi and lo
+    planes of the ztxt rows (128 bytes a row), with 1 KB of alignment slack
+    (mirrors ``sigmoid_loss_fwd_smem_bytes``). One f32 block fits an SM, two
+    int8 blocks do."""
+    rows = 2 * _FWD_TILE
+    if quant:
+        return 1024 + _FWD_STAGES_INT8 * rows * 128
+    return 1024 + 4 * _FWD_TILE * 128 + _STAGES * rows * (_STEP_COLS + 4) * 4
 
 
 def bwd_layout(d: int) -> tuple[int, int, int, int]:
@@ -281,6 +309,8 @@ def _library() -> ctypes.CDLL:
     lib.sigmoid_loss_bwd_txt_int8.restype = i
     lib.sigmoid_loss_fwd_partials.argtypes = [i, i]
     lib.sigmoid_loss_fwd_partials.restype = ctypes.c_longlong
+    lib.sigmoid_loss_fwd_smem_bytes.argtypes = [i]
+    lib.sigmoid_loss_fwd_smem_bytes.restype = ctypes.c_longlong
     lib.sigmoid_loss_bwd_scratch_floats.argtypes = [i, i, i, i]
     lib.sigmoid_loss_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.sigmoid_loss_bwd_splits.argtypes = [i, i, i]

@@ -167,7 +167,11 @@ def test_cpu_tensors_launch_nothing():
 def test_shape_mirrors():
     """The Python mirrors of the kernels' scratch and shared-memory sizes
     (held against the library's own on the card by chip_smoke.py)."""
-    assert ssl.fwd_partials(100, 300) == 2 * 5
+    # K4: one partial a 128 × 128 tile; its shared memory is the ring (and,
+    # in the f32 mode, two sets of TF32 planes), the same at every width.
+    assert ssl.fwd_partials(100, 300) == 1 * 3
+    assert ssl.fwd_smem_bytes() == 214016 <= 227 * 1024
+    assert ssl.fwd_smem_bytes(quant=True) == 99328
     # K5/K6 keep their gradient rows and dlogits in registers: shared memory
     # is the wgmma operands' TF32 planes and the cp.async ring, the same at
     # every width and under Hopper's 227 KB. d is cut into slices of at most
@@ -191,6 +195,26 @@ def _stated_bwd_layout() -> dict[int, tuple[int, int, int, int, int, int]]:
                       SOURCE.read_text(), flags=re.M)
     return {int(d): (int(a), int(b), int(c), int(e), int(f.replace(",", "")), int(h))
             for d, a, b, c, e, f, h in rows}
+
+
+def _stated_fwd_layout() -> dict[int, tuple]:
+    """The source header's K4 table: d → (f32 steps a tile, int8 steps
+    (None: '-'), f32 and int8 shared bytes, f32 and int8 blocks per SM)."""
+    rows = re.findall(r"^//\s+(\d+)\s+(\d+)\s+(\d+|-)\s+([\d,]+)\s+([\d,]+)\s+(\d+)\s+(\d+)\s*$",
+                      SOURCE.read_text(), flags=re.M)
+    return {int(d): (int(f), None if q == "-" else int(q), int(fs.replace(",", "")),
+                     int(qs.replace(",", "")), int(kf), int(kq))
+            for d, f, q, fs, qs, kf, kq in rows if "," in fs}
+
+
+@pytest.mark.parametrize("d", [200, 512, 1152, 2000, 4096])
+def test_fwd_mirrors_match_the_layout_the_source_states(d):
+    f32_steps, int8_steps, f32_smem, int8_smem, f32_blocks, int8_blocks = _stated_fwd_layout()[d]
+    assert ssl.fwd_layout(d) == (f32_steps, int8_steps)
+    assert (ssl.fwd_smem_bytes(), ssl.fwd_smem_bytes(quant=True)) == (f32_smem, int8_smem)
+    # Blocks an SM by shared memory (228 KB, 1 KB reserved a block).
+    assert (f32_blocks, int8_blocks) == tuple(228 * 1024 // (s + 1024)
+                                              for s in (f32_smem, int8_smem))
 
 
 @pytest.mark.parametrize("d", [200, 512, 1152, 2000, 4096])
