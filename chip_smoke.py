@@ -76,11 +76,12 @@ and nothing is caught:
    3): their forward in K1's role and their backward in K2's and K3's at
    B/16 vision, and both in K7's at b=32, s=1,024, against the plain
    versions in f32 (TF32 off) at rtol 1e-4 of the largest magnitude, twice
-   for bitwise repeatability (each backward case with the body, registers
-   and blocks per SM of its split-f32 kernels, which must spill nothing),
-   timed beside SDPA in f32 (each pass, the pair, the K2/K3 role whole: the
-   forward it runs again, dK/dV and dQ; and K7's role) with the backward's
-   two bounds, on the CUDA cores and in 3xTF32 on the tensor cores; then an f32
+   for bitwise repeatability (each case with the body, registers and blocks
+   per SM of its split-f32 kernels, which must spill nothing and keep their
+   wgmma asynchronous), timed beside SDPA in f32 (each pass, the pair, the
+   K2/K3 role whole: the forward it runs again, dK/dV and dQ; and K7's role,
+   forward and backward) with two bounds, on the CUDA cores and in 3xTF32
+   on the tensor cores; then an f32
    B/16 model with ``attn_impl="flash"`` (``[f32_tower]``: 224 px with K2
    and with K3 as its backward, 512 px on K7's role), forward and backward
    between two reads of the counts (the roles' and each f32 kernel's own),
@@ -232,16 +233,26 @@ K3_IN_PLACE_TIMED = "s250_w768"
 # magnitude, as JAX's f32 kernels are held, with TF32 off.
 F32_ATTENTION_CASES = {"vision": (128, 196, 12, 64), "b16_512": (32, 1024, 12, 64)}
 # Further f32 cases held like those (b, s, h, dh, causal): causal text, an
-# odd head dim, and K7's role causal and ragged.
+# odd head dim, and K7's role causal and ragged; B/16's text and the wider
+# head dims at s <= 64, where the forward runs one warpgroup a block.
 F32_ATTENTION_MORE = {"causal": (4, 77, 8, 64, True), "head_dim_20": (2, 50, 3, 20, True),
                       "head_dim_72": (2, 256, 16, 72, False),
                       "head_dim_128": (2, 196, 12, 128, False),
+                      "text": (128, 64, 12, 64, False),
+                      "head_dim_72_short": (2, 40, 3, 72, False),
+                      "head_dim_128_short": (2, 64, 4, 128, True),
                       "k7_causal_1000": (2, 1000, 12, 64, True)}
 F32_RTOL_OF_MAX = 1e-4
 # TF32 on the tensor cores (NVIDIA data sheet, H100 SXM, dense): the f32
 # backward's split products, three TF32 products for each f32 one.
 TF32_FLOP_PER_S = 495e12
 F32_BWD_BODY = "mma.sync m16n8k8 split f32 (3xTF32), two-stage cp.async ring"
+# The f32 forward's body (csrc/attention_f32.cu): both products on wgmma in
+# split f32, the online softmax in registers.
+F32_FWD_BODY = ("wgmma m64nNk8 (N: a chunk's keys, 64, or 32 past dh 64; a last chunk of "
+                "<= 16 or 32 live keys at that width) / m64n(32·ceil(dh/32))k8 split f32 "
+                "(3xTF32), Q, K and V in TF32 hi/lo planes split once a block, p from the "
+                "accumulator, one cp.async stage")
 # K5/K6's body (csrc/sigmoid_loss.cu): the logits and the gradient product
 # on wgmma in split f32, B split once per block into TF32 planes, the
 # slices of a row block a cluster that shares the logits.
@@ -836,9 +847,20 @@ def f32_bwd_body(af, dh: int, vec: bool) -> dict:
     lib = af._library()
     return dict(body=F32_BWD_BODY + (", 16-byte copies" if vec else ", 4-byte copies"),
                 registers={w: registers(f"attention_f32_{w}_kernel<{kc}>") for w in ("dkv", "dq")},
-                blocks_per_sm={"dkv": lib.attention_f32_occupancy(dh, 1),
-                               "dq": lib.attention_f32_occupancy(dh, 2)},
+                blocks_per_sm={"dkv": lib.attention_f32_occupancy(dh, 1, 0),
+                               "dq": lib.attention_f32_occupancy(dh, 2, 0)},
                 smem_bytes={"dkv": af.smem_bytes(dh, 1), "dq": af.smem_bytes(dh, 2)})
+
+
+def f32_fwd_body(af, s: int, dh: int, vec: bool) -> dict:
+    """Body, ptxas line and blocks per SM of the f32 forward a call at (s,
+    dh) runs (instantiated at P = ceil(dh / 32) panels and fwd_groups(s)
+    warpgroups)."""
+    groups = af.fwd_groups(s)
+    return dict(body=F32_FWD_BODY + (", 16-byte copies" if vec else ", 4-byte copies"),
+                registers=registers(f"attention_f32_fwd_kernel<{(dh + 31) // 32}, {groups}>"),
+                blocks_per_sm=af._library().attention_f32_occupancy(dh, 0, s),
+                smem_bytes=af.smem_bytes(dh, 0, s), query_rows_a_block=64 * groups)
 
 
 def check_f32_attention(sa, fa, gen) -> dict:
@@ -846,12 +868,12 @@ def check_f32_attention(sa, fa, gen) -> dict:
     off): the forward in K1's role and the backward in K2's and K3's at B/16
     vision, both in K7's at b=32, s=1,024, and F32_ATTENTION_MORE; each
     output within F32_RTOL_OF_MAX of its largest magnitude, run twice for
-    bitwise repeatability, each backward case with its body, registers and
-    blocks per SM. Times the forward, the dK/dV and the dQ pass, the pair
-    and the K2/K3 role at B/16 vision, and K7's role, beside the plain
-    versions, SDPA in f32 and the bounds (the backward's on the CUDA cores
-    and in 3xTF32). Returns ``{"fwd", "bwd_dkv", "bwd_dq", "k7_role"}``
-    records for the JSON line."""
+    bitwise repeatability, each case with its body, registers and blocks
+    per SM. Times the forward, the dK/dV and the dQ pass, the pair and the
+    K2/K3 role at B/16 vision, and K7's role (forward and backward), beside
+    the plain versions, SDPA in f32 and the bounds (on the CUDA cores and in
+    3xTF32). Returns ``{"fwd", "bwd_dkv", "bwd_dq", "k7_role"}`` records for
+    the JSON line."""
     import torch.nn.functional as F
 
     from distributed_sigmoid_loss_tpu_torch.ops import attention_f32 as af
@@ -867,6 +889,8 @@ def check_f32_attention(sa, fa, gen) -> dict:
                    finite=all(bool(torch.isfinite(g).all()) for g in got))
         if inputs is not None:  # a backward role: the body its two kernels ran
             row.update(f32_bwd_body(af, shape[-1], af.bwd_vec(shape[-1], *inputs)))
+        else:  # a forward role
+            row.update(f32_fwd_body(af, shape[1], shape[-1], af.bwd_vec(shape[-1], q, k, v)))
         log("kernel_f32_attention", **row)
         if not (row["finite"] and row["repeatable"]) or max(errs) > F32_RTOL_OF_MAX:
             raise AssertionError(f"f32 attention in {role} disagrees with its plain version: {row}")
@@ -913,11 +937,10 @@ def check_f32_attention(sa, fa, gen) -> dict:
                    library_ms=time_ms(library, iters=10) if library else sdpa_bwd_ms,
                    library_call="SDPA in f32 (TF32 off)" + ("" if library else
                                                             ", its whole backward (dq, dk, dv)"))
+        rec.update(f32_bwd_bounds_ms(b, s, h, dh, tensors, products))
         if which == "fwd":
-            rec["bound_ms"], rec["bound_by"] = f32_attention_bound_ms(b, s, h, dh, tensors,
-                                                                      products)
+            rec.update(f32_fwd_body(af, s, dh, af.bwd_vec(dh, q, k, v)))
         else:
-            rec.update(f32_bwd_bounds_ms(b, s, h, dh, tensors, products))
             rec["pair_bound_ms"] = f32_bwd_bounds_ms(b, s, h, dh, 7, 5)["bound_ms"]
             rec.update(f32_bwd_body(af, dh, af.bwd_vec(dh, q, k, v, do)))
             if which == "bwd_dkv":  # the di pass and the dK/dV kernel apart
@@ -968,15 +991,23 @@ def check_f32_attention(sa, fa, gen) -> dict:
     sdpa_out = F.scaled_dot_product_attention(*leaves)
     dout = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)  # noqa: E731
-    k7_rec = dict(fwd_ms=time_ms(lambda: fa._forward(q, k, v, False, scale), iters=5),
+    k7_fwd = lambda: fa._forward(q, k, v, False, scale)  # noqa: E731
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(*leaves)  # noqa: E731
+    k7_rec = dict(fwd_ms=time_ms(k7_fwd, iters=5), fwd_device_ms=device_ms(k7_fwd),
+                  library_fwd_ms=time_ms(sdpa_fwd, iters=5),
+                  library_fwd_device_ms=device_ms(sdpa_fwd),
                   bwd_ms=time_ms(k7_bwd, iters=5), bwd_device_ms=device_ms(k7_bwd),
                   library_bwd_ms=time_ms(sdpa_bwd, iters=5),
                   library_bwd_device_ms=device_ms(sdpa_bwd),
-                  library_call="SDPA backward in f32 (TF32 off)",
-                  fwd_bound_ms=f32_attention_bound_ms(b, s, h, dh, 4, 2)[0],
-                  **{f"bwd_{k}": x for k, x in f32_bwd_bounds_ms(b, s, h, dh, 7, 5).items()})
-    if k7_rec["bwd_device_ms"]:
-        k7_rec["bwd_bound_over_device"] = k7_rec["bwd_bound_ms"] / k7_rec["bwd_device_ms"]
+                  library_call="SDPA forward and backward in f32 (TF32 off)",
+                  **{f"fwd_{k}": x for k, x in f32_bwd_bounds_ms(b, s, h, dh, 4, 2).items()},
+                  **{f"bwd_{k}": x for k, x in f32_bwd_bounds_ms(b, s, h, dh, 7, 5).items()},
+                  **{f"fwd_{k}": x for k, x in f32_fwd_body(af, s, dh, af.bwd_vec(dh, q, k, v))
+                     .items()})
+    for which in ("fwd", "bwd"):
+        if k7_rec[f"{which}_device_ms"]:
+            k7_rec[f"{which}_bound_over_device"] = (k7_rec[f"{which}_bound_ms"] /
+                                                    k7_rec[f"{which}_device_ms"])
     log("kernel_f32_attention_time", role="K7", shape=[b, s, h, dh], **k7_rec)
     records["k7_role"] = k7_rec
     del leaves, sdpa_out, dout
@@ -2375,15 +2406,25 @@ def main() -> int:
             wgmma_serialized=serialized)
         if len(wg) != 4 or serialized or any("spill 0 B" not in u for u in wg.values()):
             raise AssertionError(f"K2's warpgroup kernels spill or serialise: {wg}, {serialized}")
-    # The f32 backward's split-f32 kernels (eight instantiations each of
-    # dK/dV and dQ, one per 16 head-dim columns) spill nothing.
+    # The f32 kernels' split-f32 products: the backward's (eight
+    # instantiations each of dK/dV and dQ, one per 16 head-dim columns) and
+    # the forward's (eight: one per 32 head-dim columns, at one and at two
+    # warpgroups a block) spill nothing, and the forward's wgmma stay
+    # asynchronous.
     if "attention_f32" in built:
-        usage = ptxas_usage(built["attention_f32"]["log"])
+        f32_log = built["attention_f32"]["log"]
+        usage = ptxas_usage(f32_log)
         bwd = {k: u for k, u in usage.items()
                if k.startswith(("attention_f32_dkv_kernel", "attention_f32_dq_kernel"))}
-        log("build", library="attention_f32", bwd_kernels=bwd)
+        fwd = {k: u for k, u in usage.items() if k.startswith("attention_f32_fwd_kernel")}
+        serialized = [k for k in wgmma_serialized(f32_log) if k.startswith("attention_f32")]
+        log("build", library="attention_f32", bwd_kernels=bwd, fwd_kernels=fwd,
+            wgmma_serialized=serialized)
         if len(bwd) != 16 or any("spill 0 B" not in u for u in bwd.values()):
             raise AssertionError(f"the f32 backward kernels spill: {bwd}")
+        if len(fwd) != 8 or any("spill 0 B" not in u for u in fwd.values()) or serialized:
+            raise AssertionError(f"the f32 forward kernels spill or serialise their wgmma: "
+                                 f"{fwd}, {serialized}")
     # K5/K6 (four instantiations: image/text side, f32/int8) hold their
     # gradient rows in registers, K4 (three: f32 with 16- and 4-byte copies,
     # int8) its logits: nothing may spill, and every wgmma stays
@@ -2425,8 +2466,11 @@ def main() -> int:
 
     for dh in (8, 64, 72, 128):
         for which in range(3):
-            if af._library().attention_f32_smem_bytes(dh, which) != af.smem_bytes(dh, which):
-                raise AssertionError(f"attention_f32 smem at dh={dh}, pass {which} != mirror")
+            for s_ in (64, 196):
+                if af._library().attention_f32_smem_bytes(dh, which, s_) != \
+                        af.smem_bytes(dh, which, s_):
+                    raise AssertionError(f"attention_f32 smem at dh={dh}, s={s_}, pass {which} "
+                                         "!= mirror")
     for dh in (64, 72, 128):
         if fa._library("flash_attention").flash_attention_fwd_smem_bytes(dh) != \
                 fa.flash_attention_smem_bytes(dh) or any(
@@ -2564,10 +2608,10 @@ def main() -> int:
                         **launches(f"attention_f32_{which}"),
                         "max_abs_err": rec["max_abs_err"], **timed(rec),
                         "device_ms": rec["device_ms"], "library_call": rec["library_call"],
-                        **({k: rec[k] for k in (
+                        **{k: rec[k] for k in (
                             "pair_bound_ms", "pair_ms", "pair_device_ms", "role_ms",
                             "role_bound_ms", "bound_cuda_core_ms", "bound_tensor_core_ms",
-                            "bound_over_device", "body")} if which != "fwd" else {}),
+                            "bound_over_device", "body") if k in rec},
                         **({"k7_role": f32_recs["k7_role"]} if which == "bwd_dq" else {}),
                         "shape": f"b={b} s={s} h={h} dh={dh} f32 (max_abs_err: of the "
                                  "largest magnitude)"})

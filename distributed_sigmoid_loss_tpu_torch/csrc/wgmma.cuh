@@ -2,7 +2,8 @@
 // wgmma body shares: shared-memory descriptors of 128-byte-swizzled
 // operands, the fence / commit / wait protocol, and the TF32 and int8
 // products of the sigmoid-loss kernels (sigmoid_loss.cu: K4-K6 in split
-// f32, K4's int8 mode). In
+// f32, K4's int8 mode) and of the f32 attention forward (attention_f32.cu,
+// split f32). In
 // namespace short_attention, the bf16 products at the shapes the attention
 // kernels issue (short_attention.cu, K1 at head dim 64;
 // short_attention_bwd.cu, K2 at head dim 64; flash_attention.cu and
@@ -71,10 +72,11 @@ __device__ inline void fence_operands(unsigned (&a)[N][M]) {
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// d += a·bᵀ: m64n64k8 TF32 with f32 accumulation, A from registers (each
+// d (+)= a·bᵀ: m64n64k8 TF32 with f32 accumulation, A from registers (each
 // warp its 16 rows in the mma.sync m16n8k8 A layout), B K-major in shared
-// memory (128-byte swizzle).
-__device__ inline void wgmma_tf32_n64(float (&d)[32], const unsigned (&a)[4], uint64_t db) {
+// memory (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ inline void wgmma_tf32_n64(float (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                      int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -87,7 +89,7 @@ __device__ inline void wgmma_tf32_n64(float (&d)[32], const unsigned (&a)[4], ui
       "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // d += a·bᵀ: m64n256k8 TF32, as wgmma_tf32_n64.
@@ -154,6 +156,110 @@ __device__ inline void wgmma_tf32_n128(float (&d)[64], const unsigned (&a)[4], u
       "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·bᵀ: m64n32k8 TF32, A from registers and B K-major in shared
+// memory, as wgmma_tf32_n64; scale_d = 0 overwrites d.
+__device__ inline void wgmma_tf32_n32(float (&d)[16], const unsigned (&a)[4], uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·bᵀ: m64n96k8 TF32, A from registers and B K-major in shared
+// memory, as wgmma_tf32_n64; scale_d = 0 overwrites d.
+__device__ inline void wgmma_tf32_n96(float (&d)[48], const unsigned (&a)[4], uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·bᵀ: m64n16k8 TF32, both operands K-major in shared memory
+// (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ inline void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·bᵀ: m64n32k8 TF32, both operands K-major in shared memory
+// (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ inline void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·bᵀ: m64n64k8 TF32, both operands K-major in shared memory
+// (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ inline void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·bᵀ with A from registers at N = 32, 64, 96 or 128.
+template <int N>
+__device__ inline void wgmma_tf32_rs(float (&d)[N / 2], const unsigned (&a)[4], uint64_t db,
+                                     int scale_d) {
+  if constexpr (N == 32) wgmma_tf32_n32(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_tf32_n64(d, a, db, scale_d);
+  else if constexpr (N == 96) wgmma_tf32_n96(d, a, db, scale_d);
+  else wgmma_tf32_n128(d, a, db, scale_d);
+}
+
+// d (+)= a·bᵀ with both operands in shared memory at N = 16, 32 or 64.
+template <int N>
+__device__ inline void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 16) wgmma_tf32_ss_n16(d, da, db, scale_d);
+  else if constexpr (N == 32) wgmma_tf32_ss_n32(d, da, db, scale_d);
+  else wgmma_tf32_ss_n64(d, da, db, scale_d);
 }
 
 // d (+)= a·bᵀ: m64n128k32 int8 with exact int32 accumulation, both operands

@@ -1,9 +1,11 @@
 """The f32 attention kernels (``csrc/attention_f32.cu``): one forward and one
 two-pass backward that play, for f32 activations, the roles of K1, K2, K3
-and K7. The forward computes in IEEE f32 on the CUDA cores; the backward
-forms its products in split f32 on the tensor cores (each f32 operand as
-two TF32 parts, three TF32 products summed in f32, :func:`split_f32_matmul`
-emulates them), within the same 1e-4 of the largest magnitude.
+and K7. Both form every product in split f32 on the tensor cores (each f32
+operand as two TF32 parts, three TF32 products summed in f32;
+:func:`split_f32_matmul` emulates them): the forward on ``wgmma``, walking
+the keys :func:`fwd_keys` at a time with the online softmax in registers,
+the backward on ``mma.sync``. Outputs stay within 1e-4 of the largest
+magnitude of the IEEE-f32 plain versions.
 
 In f32 nothing is rounded to a narrower type between the products, so JAX's
 K1 and K7 compute one function and K2, K3 and K7's backward another (the
@@ -27,12 +29,29 @@ import torch
 from distributed_sigmoid_loss_tpu_torch.ops import _cuda
 
 __all__ = ["launch_fwd", "launch_bwd_dkv", "launch_bwd_dq", "check_cuda", "smem_bytes",
-           "BWD_ROWS", "blocks_per_sm_by_smem", "bwd_vec", "tf32_round", "split_f32_matmul",
-           "launches", "reset_launches", "MAX_HEAD_DIM"]
+           "BWD_ROWS", "fwd_groups", "fwd_keys", "blocks_per_sm_by_smem",
+           "bwd_vec", "tf32_round", "split_f32_matmul", "launches", "reset_launches",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 # Rows of the other side that the backward kernels stream a stage.
 BWD_ROWS = 32
+
+
+def fwd_groups(seq_len: int) -> int:
+    """Warpgroups of 64 query rows in a block of the forward: two share
+    each chunk's split, one where it holds every row (``seq_len <= 64``).
+    Mirrors ``fwd_groups`` in the source, which picks the instantiation
+    before launch."""
+    return 1 if seq_len <= 64 else 2
+
+
+def fwd_keys(head_dim: int) -> int:
+    """Keys of the forward's chunk: 64 up to head dim 64, else 32 (the
+    planes of 64 would not fit beside Q's). A last chunk with at most 16 or
+    32 live keys runs at that width. Mirrors ``fwd_keys`` in the source."""
+    return 64 if head_dim <= 64 else 32
+
 
 _count_lock = threading.Lock()
 _launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
@@ -66,9 +85,9 @@ def _library() -> ctypes.CDLL:
     lib.attention_f32_bwd_dkv.restype = i
     lib.attention_f32_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, f, i, p]
     lib.attention_f32_bwd_dq.restype = i
-    lib.attention_f32_smem_bytes.argtypes = [i, i]
+    lib.attention_f32_smem_bytes.argtypes = [i, i, i]
     lib.attention_f32_smem_bytes.restype = ctypes.c_longlong
-    lib.attention_f32_occupancy.argtypes = [i, i]
+    lib.attention_f32_occupancy.argtypes = [i, i, i]
     lib.attention_f32_occupancy.restype = i
     lib.attention_f32_error_string.argtypes = [i]
     lib.attention_f32_error_string.restype = ctypes.c_char_p
@@ -76,16 +95,23 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(head_dim: int, which: int) -> int:
+def smem_bytes(head_dim: int, which: int, seq_len: int | None = None) -> int:
     """Dynamic shared memory of one block of the forward (``which`` 0),
-    dK/dV (1) or dQ (2). The forward: transposed 64-row f32 tiles at row
-    stride 65, each ``round16(head_dim)`` columns. The backward: 64 resident
-    rows of two tensors and a two-stage ring of :data:`BWD_ROWS` rows of two,
-    f32 at row stride ``round16(head_dim) + 4``; dK/dV adds the ring's row
-    statistics (m, l, di). Mirrors ``attention_f32_smem_bytes``."""
+    dK/dV (1) or dQ (2). The forward, with ``P = ceil(head_dim / 32)``
+    panels of 128 bytes a row: TF32 hi and lo planes of the block's
+    ``64 * fwd_groups(seq_len)`` query rows (``seq_len`` None: the larger
+    block, two warpgroups), of a chunk's :func:`fwd_keys` keys and of its
+    values transposed (``32 * P`` rows a 32-key panel); the chunk's f32 K
+    and V rows; and 1 KB to align the planes. The backward (any
+    ``seq_len``): 64 resident rows of two tensors and a two-stage ring of
+    :data:`BWD_ROWS` rows of two, f32 at row stride ``round16(head_dim) +
+    4``; dK/dV adds the ring's row statistics (m, l, di). Mirrors
+    ``attention_f32_smem_bytes``."""
     dh16 = -(-head_dim // 16) * 16
     if which == 0:
-        return 4 * (3 * dh16 * 65 + 64 * 65)
+        panels = -(-head_dim // 32)
+        groups = 2 if seq_len is None else fwd_groups(seq_len)
+        return 2 * groups * panels * 64 * 128 + 6 * panels * fwd_keys(head_dim) * 128 + 1024
     rows = (2 * 64 + 4 * BWD_ROWS) * (dh16 + 4)
     return 4 * (rows + 6 * BWD_ROWS if which == 1 else rows)
 
@@ -94,31 +120,33 @@ def smem_bytes(head_dim: int, which: int) -> int:
 SM_SMEM_BYTES, BLOCK_RESERVED_SMEM_BYTES = 228 * 1024, 1024
 
 
-def blocks_per_sm_by_smem(head_dim: int, which: int) -> int:
-    """Blocks of a kernel (``which`` as in :func:`smem_bytes`) one SM holds by
-    shared memory alone; registers may hold fewer (``chip_smoke.py`` prints
-    the card's own count, ``attention_f32_occupancy``)."""
-    return SM_SMEM_BYTES // (smem_bytes(head_dim, which) + BLOCK_RESERVED_SMEM_BYTES)
+def blocks_per_sm_by_smem(head_dim: int, which: int, seq_len: int | None = None) -> int:
+    """Blocks of a kernel (``which`` and ``seq_len`` as in :func:`smem_bytes`)
+    one SM holds by shared memory alone; registers may hold fewer
+    (``chip_smoke.py`` prints the card's own count,
+    ``attention_f32_occupancy``)."""
+    return SM_SMEM_BYTES // (smem_bytes(head_dim, which, seq_len) + BLOCK_RESERVED_SMEM_BYTES)
 
 
 def bwd_vec(head_dim: int, *tensors: torch.Tensor) -> bool:
-    """Whether the backward kernels copy rows 16 bytes at a time (else 4):
-    ``head_dim % 4 == 0`` and every tensor 16-byte aligned. Mirrors
-    ``bwd_vec`` in the source; both copies give bitwise the same result."""
+    """Whether the kernels copy rows 16 bytes at a time (else 4):
+    ``head_dim % 4 == 0`` and every tensor 16-byte aligned (the forward's
+    q, k, v; the backward's q, k, v, do). Mirrors ``bwd_vec`` in the source;
+    both copies give bitwise the same result."""
     return head_dim % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """``x`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` does: to 10
     explicit significand bits, nearest with ties away from zero, by the int32
-    bits (the low 13 bits cleared). Used by the tests to emulate the backward
+    bits (the low 13 bits cleared). Used by the tests to emulate the
     kernels' split products on the CPU."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def split_f32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
-    """``a @ b`` as the backward kernels form it on the tensor cores: each f32
+    """``a @ b`` as the kernels form it on the tensor cores: each f32
     operand split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, and the
     products lo·hi, hi·lo, then hi·hi summed in f32 (``terms=3``);
     ``terms=1`` is plain TF32 (hi·hi alone). Each TF32 product is exact in
