@@ -17,9 +17,10 @@ and nothing is caught:
    head-batched backward, also against K2 and run twice) against its plain
    PyTorch version on the card at the shapes the main paths give it, and
    time kernel, plain version and the PyTorch library call beside the
-   work's least time on this card (K1's and K2's lines name the body each
-   case took, its registers from ``[build]`` and its blocks per SM; K2's
-   warpgroup kernels must spill nothing and keep their wgmma asynchronous);
+   work's least time on this card (K1's, K2's and K3's lines name the body
+   each case took, its registers from ``[build]`` and its blocks per SM; K2's
+   and K3's warpgroup kernels must spill nothing and keep their wgmma
+   asynchronous, and every dh-64 K3 case must take K3's warpgroup body);
 4. the serving path (``run_serve_path`` with ``SERVE``): SigLIP-B/16 at
    full width and depth in bf16, seeded random weights,
    ``InferenceEngine`` + ``EmbeddingService`` serving a 256-image corpus and
@@ -87,8 +88,9 @@ and nothing is caught:
    between two reads of the counts (the roles' and each f32 kernel's own),
    the gradient against the plain versions; K3 (``[kernel_bwd_batched]``)
    also at JAX's longest lengths (s = 225 and 250 at width 768, 212 at
-   1,024, 208 at 1,152; its in-place kernel timed at s = 250 beside its plain
-   version and SDPA) and refusing s = 251;
+   1,024, 208 at 1,152; the warpgroup body timed at s = 250 and the in-place
+   mma.sync kernel at s = 208, dh = 72, beside their plain version and SDPA)
+   and refusing s = 251;
 12. the int8 mode of the loss kernels (``[loss_kernel_int8]``, run with
    phase 3): K4, K5 and K6 int8 against their plain int8 versions at the
    headline block, the 32k ring hop with and without positives,
@@ -226,8 +228,20 @@ K3_LONG_CASES = {
     "s240_scalar_causal": (2, 240, 3, 20, True),
 }
 K3_REFUSED_CASE = (2, 251, 12, 64)
-# The case whose time stands in the JSON line for the in-place kernel.
+# K3's bodies (short_attention_bwd_batched_body), and the cases that must
+# take the warpgroup body (head dim 64, 16-byte rows, s_pad <= 256): every
+# dh-64 case K3 takes. The others (dh 72 and 20) take the mma.sync kernels.
+K3_BODIES = {1: "wgmma, TMA: a producer warpgroup and two consumers (one warpgroup at "
+                "s <= 64)", 0: "mma.sync, cp.async"}
+K3_WGMMA_CASES = ("vision", "text", "causal", "s225_w768", "s250_w768", "s212_w1024",
+                  "s250_causal")
+# The case timed past s_pad = 208, the in-place kernel's range before the
+# warpgroup body took it; its row stands beside the vision and text rows.
 K3_IN_PLACE_TIMED = "s250_w768"
+# The cases timed for the mma.sync kernels that remain, by kernel: the
+# two-array kernel on its element-wise path, the in-place one at dh 72.
+K3_MMA_SYNC_TIMED = {"short_attention_bwd_batched_two_arrays": "scalar_path",
+                     "short_attention_bwd_batched_in_place": "s208_w1152"}
 # The f32 attention kernels: K1's and K2/K3's roles at B/16 vision, K7's at
 # the B/16-512 shape, all (b, s, h, dh); held at rtol 1e-4 of the largest
 # magnitude, as JAX's f32 kernels are held, with TF32 off.
@@ -436,6 +450,26 @@ def short_attention_bwd_body(sa, s: int, dh: int, vec: int) -> tuple[str, dict]:
     else:
         kernels = tuple(f"short_attention_bwd_{k}_kernel<{(dh + 15) // 16}>" for k in ("dq", "dkdv"))
     return body, {k: registers(k) for k in kernels}
+
+
+def short_attention_bwd_batched_body(sa, s: int, dh: int, vec: int) -> tuple[str, dict]:
+    """(body, {kernel: ptxas line}) of the K3 kernel a call at (s, dh) runs:
+    the warpgroup body at the 64, 208 or 256 keys of its products, else the
+    two-array or in-place mma.sync kernel (key tiles, head-dim tiles)."""
+    lib = sa._library("short_attention_bwd_batched")
+    code = lib.short_attention_bwd_batched_body(s, dh, vec)
+    if code != sa.short_attention_bwd_batched_body(s, dh, vec):
+        raise AssertionError(f"K3 body at s={s}, dh={dh}, vec={vec} != python mirror")
+    body = K3_BODIES[code] + ("" if vec or code else " (element-wise loads)")
+    nt = (s + 15) // 16
+    if code:
+        kernel = f"short_attention_bwd_batched_wgmma_kernel<{sa._wgmma_keys(s)}>"
+    elif lib.short_attention_bwd_batched_variant(s, dh) == 1:
+        kernel = f"short_attention_bwd_batched_kernel<{nt}>"
+    else:
+        kernel = (f"short_attention_bwd_batched_inplace_kernel<{nt}, "
+                  f"{8 if (dh + 15) // 16 <= 4 else 16}>")
+    return body, {kernel: registers(kernel)}
 
 
 FLASH_BODIES = {1: "wgmma, TMA producer", 2: "wgmma, element-wise producer",
@@ -682,16 +716,24 @@ def bf16_ulp(x: torch.Tensor) -> float:
 
 def check_short_attention_bwd_batched(sa, gen) -> dict:
     """K3 against its plain version and against K2 at the same cases as K1
-    and K2 (a shape K3 does not take must be refused with ValueError), run
-    twice for bitwise repeatability; times K3 beside K2, the plain version
-    and SDPA's backward at the vision and text shapes. Returns the JSON
-    record of the vision shape."""
+    and K2 and at JAX's longest K3 lengths (K3_LONG_CASES); a shape K3 does
+    not take must be refused with ValueError. Each case runs twice for
+    bitwise repeatability, with the body it took (K3_WGMMA_CASES must take
+    the warpgroup body, the others the mma.sync kernels), its kernel's
+    registers, blocks per SM and shared memory. Times K3 beside K2 at every
+    long case, and beside the plain version and SDPA's backward too at the
+    vision and text shapes, K3_IN_PLACE_TIMED and K3_MMA_SYNC_TIMED. Returns
+    the JSON record of the vision shape, with the text, K3_IN_PLACE_TIMED and
+    mma.sync rows under "text", "long" and "mma_sync"."""
     import torch.nn.functional as F
 
     lib = sa._library("short_attention_bwd_batched")
-    record = None
-    for name, (b, s, h, dh, causal) in ATTENTION_CASES.items():
+    timed = {"vision", "text", K3_IN_PLACE_TIMED, *K3_MMA_SYNC_TIMED.values()}
+    rows = {}
+    for name, (b, s, h, dh, causal) in {**ATTENTION_CASES, **K3_LONG_CASES}.items():
         if not sa.short_attention_bwd_batched_fits(s, h * dh, h, 2):
+            if name in K3_LONG_CASES:
+                raise AssertionError(f"K3 refuses {name}, which JAX's K3 takes")
             q = torch.zeros(b, s, h, dh, device="cuda", dtype=torch.bfloat16)
             try:
                 sa.short_self_attention_bwd(q, q, q, q, causal, batch_heads=True)
@@ -703,94 +745,60 @@ def check_short_attention_bwd_batched(sa, gen) -> dict:
             torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
             for _ in range(4)
         )
-        got = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True)
-        again = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True)
+
+        def k3(k2=False):
+            return sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=not k2)
+
+        got, again = k3(), k3()
         torch.cuda.synchronize()
         repeatable = all(torch.equal(a, c) for a, c in zip(got, again))
         ref = sa.short_self_attention_bwd_batched_plain(q, k, v, do, causal)
-        k2 = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=False)
+        k2 = k3(k2=True)
         names = ("dq", "dk", "dv")
         errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(names, got, ref)}
         errs_k2 = {n: (g.float() - c.float()).abs().max().item() for n, g, c in zip(names, got, k2)}
         tols = {n: K3_ULPS * bf16_ulp(r) for n, r in zip(names, ref)}
         finite = all(bool(torch.isfinite(g).all()) for g in got)
+        vec = sa._vec(dh, h * dh, (q, k, v, do))
+        body, regs = short_attention_bwd_batched_body(sa, s, dh, vec)
+        wgmma = body == K3_BODIES[1]
         row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=errs,
                    max_abs_err_vs_k2=errs_k2, atol=tols, finite=finite, repeatable=repeatable,
-                   blocks_per_sm=lib.short_attention_bwd_batched_occupancy(s, dh),
-                   smem_bytes=sa.short_attention_bwd_batched_smem_bytes(s, dh))
-        if name in ("vision", "text"):
-            row["ms"] = time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal,
-                                                                     batch_heads=True))
-            row["k2_ms"] = time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal,
-                                                                        batch_heads=False))
-            row["plain_ms"] = time_ms(
-                lambda: sa.short_self_attention_bwd_batched_plain(q, k, v, do, causal))
-            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-            dout = do.transpose(1, 2)
-            row["library_ms"] = time_ms(
-                lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
-            )
-            row["device_ms"] = device_ms(
-                lambda: sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True))
-            row["k2_device_ms"] = device_ms(
-                lambda: sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=False))
-            row["bound_ms"], row["bound_by"] = attention_bound_ms(b, s, h, dh, causal, 7, 5)
-            del out, leaves
-        log("kernel_bwd_batched", **row)
-        if not (finite and repeatable) or any(errs[n] > tols[n] or errs_k2[n] > tols[n]
-                                              for n in names):
-            raise AssertionError(f"short_attention_bwd_batched disagrees: {row}")
-        if name == "vision":
-            record = row
-    # JAX's longest K3 lengths at three widths (the in-place kernel), each
-    # against its plain version and K2 within one bf16 ulp, repeatable.
-    for name, (b, s, h, dh, causal) in K3_LONG_CASES.items():
-        if not sa.short_attention_bwd_batched_fits(s, h * dh, h, 2):
-            raise AssertionError(f"K3 refuses {name}, which JAX's K3 takes")
-        q, k, v, do = (
-            torch.randn(b, s, h, dh, device="cuda", generator=gen).to(torch.bfloat16)
-            for _ in range(4)
-        )
-        got = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True)
-        again = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True)
-        torch.cuda.synchronize()
-        repeatable = all(torch.equal(a, c) for a, c in zip(got, again))
-        ref = sa.short_self_attention_bwd_batched_plain(q, k, v, do, causal)
-        k2 = sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=False)
-        names = ("dq", "dk", "dv")
-        errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(names, got, ref)}
-        errs_k2 = {n: (g.float() - c.float()).abs().max().item() for n, g, c in zip(names, got, k2)}
-        tols = {n: K3_ULPS * bf16_ulp(r) for n, r in zip(names, ref)}
-        finite = all(bool(torch.isfinite(g).all()) for g in got)
-        row = dict(case=name, shape=[b, s, h, dh], causal=causal, max_abs_err=errs,
-                   max_abs_err_vs_k2=errs_k2, atol=tols, finite=finite, repeatable=repeatable,
+                   body=body, registers=regs,
                    variant=lib.short_attention_bwd_batched_variant(s, dh),
                    blocks_per_sm=lib.short_attention_bwd_batched_occupancy(s, dh),
-                   smem_bytes=sa.short_attention_bwd_batched_smem_bytes(s, dh),
-                   ms=time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal,
-                                                                   batch_heads=True), iters=10),
-                   k2_ms=time_ms(lambda: sa.short_self_attention_bwd(q, k, v, do, causal,
-                                                                      batch_heads=False), iters=10))
-        row["bound_ms"], row["bound_by"] = attention_bound_ms(b, s, h, dh, causal, 7, 5)
-        if name == K3_IN_PLACE_TIMED:
-            # The in-place kernel's record: beside its plain version and SDPA.
+                   smem_bytes=sa.short_attention_bwd_batched_wgmma_smem_bytes(s) if wgmma
+                   else sa.short_attention_bwd_batched_smem_bytes(s, dh))
+        if name in K3_LONG_CASES or name in timed:
+            few = name in K3_LONG_CASES
+            row["ms"] = time_ms(k3, iters=10 if few else 20)
+            row["k2_ms"] = time_ms(lambda: k3(k2=True), iters=10 if few else 20)
+            row["bound_ms"], row["bound_by"] = attention_bound_ms(b, s, h, dh, causal, 7, 5)
+        if name in timed:
             row["plain_ms"] = time_ms(
-                lambda: sa.short_self_attention_bwd_batched_plain(q, k, v, do, causal), iters=3)
+                lambda: sa.short_self_attention_bwd_batched_plain(q, k, v, do, causal),
+                iters=3 if few else 20)
             leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
             dout = do.transpose(1, 2)
-            row["library_ms"] = time_ms(
-                lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), iters=10)
-            row["device_ms"] = device_ms(
-                lambda: sa.short_self_attention_bwd(q, k, v, do, causal, batch_heads=True))
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+            row["library_ms"] = time_ms(sdpa_bwd, iters=10 if few else 20)
+            row["device_ms"] = device_ms(k3)
+            row["k2_device_ms"] = device_ms(lambda: k3(k2=True))
+            row["library_device_ms"] = device_ms(sdpa_bwd)
+            if row["device_ms"]:
+                row["bound_over_device"] = row["bound_ms"] / row["device_ms"]
             del out, leaves
         log("kernel_bwd_batched", **row)
         if not (finite and repeatable) or any(errs[n] > tols[n] or errs_k2[n] > tols[n]
                                               for n in names):
             raise AssertionError(f"short_attention_bwd_batched disagrees at {name}: {row}")
-        if name == K3_IN_PLACE_TIMED:
-            record["in_place"] = row
+        if (name in K3_WGMMA_CASES) != wgmma:
+            raise AssertionError(f"K3 took the {body} body at {name}")
+        rows[name] = row
     b, s, h, dh = K3_REFUSED_CASE
     if sa.short_attention_bwd_batched_fits(s, h * dh, h, 2):
         raise AssertionError(f"K3 takes s={s} at width {h * dh}, which JAX refuses")
@@ -801,6 +809,12 @@ def check_short_attention_bwd_batched(sa, gen) -> dict:
         log("kernel_bwd_batched", case="s251_w768", shape=[b, s, h, dh], refused=str(e))
     else:
         raise AssertionError(f"K3 took s={s} at width {h * dh}, which JAX refuses")
+    record = rows["vision"]
+    record["text"] = {k: rows["text"][k] for k in (
+        "ms", "k2_ms", "plain_ms", "library_ms", "device_ms", "k2_device_ms",
+        "library_device_ms", "bound_ms", "bound_by", "bound_over_device") if k in rows["text"]}
+    record["long"] = rows[K3_IN_PLACE_TIMED]
+    record["mma_sync"] = {kernel: rows[case] for kernel, case in K3_MMA_SYNC_TIMED.items()}
     return record
 
 
@@ -1417,6 +1431,7 @@ def read_counts(sa, ssl) -> dict:
     return {"short_attention_fwd": sa.launches(), "short_attention_bwd": sa.bwd_launches(),
             "short_attention_bwd_batched": sa.bwd_batched_launches(),
             "short_attention_bwd_batched_in_place": sa.bwd_batched_in_place_launches(),
+            "short_attention_bwd_batched_wgmma": sa.bwd_batched_wgmma_launches(),
             "sigmoid_loss_fwd": loss["fwd"], "sigmoid_loss_bwd_img": loss["bwd_img"],
             "sigmoid_loss_bwd_txt": loss["bwd_txt"],
             "sigmoid_loss_fwd_int8": loss["fwd_int8"],
@@ -2054,7 +2069,8 @@ def run_train_recipes_path(args, sa, ssl) -> dict:
     depth = cfg.vision.depth + cfg.text.depth
     expect = dict.fromkeys(counts, 0)
     expect.update(short_attention_fwd=2 * depth * ACCUM * steps,
-                  short_attention_bwd_batched=depth * ACCUM * steps)
+                  short_attention_bwd_batched=depth * ACCUM * steps,
+                  short_attention_bwd_batched_wgmma=depth * ACCUM * steps)
     for row in rows:
         log("train_recipes", **row, pairs_per_s=ACCUM * MICRO / (row["step_ms"] / 1e3))
     log("train_recipes", launches=counts, expected=expect, per_step={
@@ -2406,6 +2422,19 @@ def main() -> int:
             wgmma_serialized=serialized)
         if len(wg) != 4 or serialized or any("spill 0 B" not in u for u in wg.values()):
             raise AssertionError(f"K2's warpgroup kernels spill or serialise: {wg}, {serialized}")
+    # K3's warpgroup body (three instantiations: N = 64, 208, 256) likewise;
+    # its mma.sync kernels are reported as they are.
+    if "short_attention_bwd_batched" in built:
+        k3_log = built["short_attention_bwd_batched"]["log"]
+        usage = ptxas_usage(k3_log)
+        wg = {k: u for k, u in usage.items() if "_wgmma_kernel" in k}
+        mma_sync = {k: u for k, u in usage.items()
+                    if k.startswith("short_attention_bwd_batched") and k not in wg}
+        serialized = [k for k in wgmma_serialized(k3_log) if "_wgmma_kernel" in k]
+        log("build", library="short_attention_bwd_batched", wgmma_kernels=wg,
+            wgmma_serialized=serialized, mma_sync_kernels=mma_sync)
+        if len(wg) != 3 or serialized or any("spill 0 B" not in u for u in wg.values()):
+            raise AssertionError(f"K3's warpgroup kernels spill or serialise: {wg}, {serialized}")
     # The f32 kernels' split-f32 products: the backward's (eight
     # instantiations each of dK/dV and dQ, one per 16 head-dim columns) and
     # the forward's (eight: one per 32 head-dim columns, at one and at two
@@ -2462,6 +2491,14 @@ def main() -> int:
         if k3_lib.short_attention_bwd_batched_smem_bytes(s_, dh) != \
                 sa.short_attention_bwd_batched_smem_bytes(s_, dh):
             raise AssertionError(f"K3 smem at s={s_}, dh={dh} != python mirror")
+    for s_ in (1, 50, 64, 65, 77, 196, 208, 209, 250, 256, 257):
+        for dh, vec in ((64, 1), (64, 0), (72, 1), (20, 0)):
+            if k3_lib.short_attention_bwd_batched_body(s_, dh, vec) != \
+                    sa.short_attention_bwd_batched_body(s_, dh, vec):
+                raise AssertionError(f"K3 body at s={s_}, dh={dh}, vec={vec} != python mirror")
+        if k3_lib.short_attention_bwd_batched_wgmma_smem_bytes(s_) != \
+                sa.short_attention_bwd_batched_wgmma_smem_bytes(s_):
+            raise AssertionError(f"K3 warpgroup smem at s={s_} != python mirror")
     from distributed_sigmoid_loss_tpu_torch.ops import attention_f32 as af
 
     for dh in (8, 64, 72, 128):
@@ -2548,19 +2585,35 @@ def main() -> int:
          "body": k2["body"], "text": k2["text"], "shape": attn_shape},
         {"name": "short_attention_bwd_batched", "route": "cuda",
          "source": source + "short_attention_bwd_batched.cu", "replaces": attn + "185",
-         **launches("short_attention_bwd_batched"), "max_abs_err": max(k3["max_abs_err"].values()),
-         **timed(k3), "k2_ms": k3["k2_ms"], "device_ms": k3["device_ms"],
-         "k2_device_ms": k3["k2_device_ms"], "shape": attn_shape},
+         **launches("short_attention_bwd_batched_wgmma"),
+         "max_abs_err": max(k3["max_abs_err"].values()), **timed(k3), "k2_ms": k3["k2_ms"],
+         **{k: k3[k] for k in ("device_ms", "k2_device_ms", "library_device_ms",
+                               "bound_over_device", "body", "registers") if k in k3},
+         "text": k3["text"], "s250": {k: k3["long"][k] for k in (
+             "ms", "k2_ms", "plain_ms", "library_ms", "device_ms", "k2_device_ms",
+             "bound_ms", "bound_by", "bound_over_device") if k in k3["long"]},
+         "shape": attn_shape + " (the warpgroup body; text: s=64; s250: b=32 s=250)"},
     ]
-    k3_long = k3["in_place"]
-    b, s, h, dh = k3_long["shape"]
-    kernels.append({"name": "short_attention_bwd_batched_in_place", "route": "cuda",
-                    "source": source + "short_attention_bwd_batched.cu", "replaces": attn + "185",
-                    **launches("short_attention_bwd_batched_in_place"),
-                    "max_abs_err": max(k3_long["max_abs_err"].values()), **timed(k3_long),
-                    "k2_ms": k3_long["k2_ms"], "device_ms": k3_long["device_ms"],
-                    "library_call": "SDPA backward in bf16",
-                    "shape": f"b={b} s={s} h={h} dh={dh} bf16 (K3 for s_pad > 208)"})
+    # K3's mma.sync kernels, at the shapes that still take them; the
+    # two-array kernel's launches are K3's that took neither other kernel.
+    for kernel, rec in k3["mma_sync"].items():
+        if kernel.endswith("_in_place"):
+            counted = launches(kernel)
+        else:
+            total, wg, in_place = (launches("short_attention_bwd_batched" + x)["launches_by_path"]
+                                   for x in ("", "_wgmma", "_in_place"))
+            by_path = {p: total[p] - wg[p] - in_place[p] for p in total}
+            counted = {"launches": sum(by_path.values()), "launches_by_path": by_path}
+        b, s, h, dh = rec["shape"]
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": source + "short_attention_bwd_batched.cu",
+                        "replaces": attn + "185", **counted,
+                        "max_abs_err": max(rec["max_abs_err"].values()), **timed(rec),
+                        "k2_ms": rec["k2_ms"],
+                        **{k: rec[k] for k in ("device_ms", "k2_device_ms", "bound_over_device",
+                                               "body", "registers") if k in rec},
+                        "library_call": "SDPA backward in bf16",
+                        "shape": f"b={b} s={s} h={h} dh={dh} bf16"})
     for kernel, which, line in (("sigmoid_loss_fwd", "fwd", "429"),
                                 ("sigmoid_loss_bwd_img", "bwd_img", "462"),
                                 ("sigmoid_loss_bwd_txt", "bwd_txt", "485")):

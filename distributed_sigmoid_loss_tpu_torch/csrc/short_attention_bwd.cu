@@ -524,13 +524,6 @@ __host__ __device__ inline size_t wg_dkdv_smem(int s) {
          sizeof(uint64_t);
 }
 
-template <int N>
-__device__ inline void wgmma_ss_keys(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
-  else if constexpr (N == 208) wgmma_ss_n208(d, da, db, scale_d);
-  else wgmma_ss_n256(d, da, db, scale_d);
-}
-
 __device__ inline void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }

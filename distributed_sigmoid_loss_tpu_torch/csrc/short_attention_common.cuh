@@ -105,6 +105,14 @@ __device__ inline void ldsm_x4_t(unsigned (&r)[4], const void* p) {
                : "memory");
 }
 
+// Store four 8 × 8 b16 matrices, r[i] this lane's pair of matrix i in the
+// mma fragment layout; lanes 8i .. 8i + 7 address the rows of matrix i.
+__device__ inline void stsm_x4(unsigned addr, const unsigned (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
 // d += a · b: one m16n8k16 bf16 product with f32 accumulation. a: rows g
 // and g+8 at columns 2t, 2t+8; b: rows 2t, 2t+8 at column g; d: rows g, g+8
 // at columns 2t, 2t+1 (g = lane / 4, t = lane % 4).

@@ -1,7 +1,6 @@
 // Tensor Memory Accelerator (TMA) and mbarrier helpers for the warpgroup
-// bodies of K7 (flash_attention.cu, the forward; flash_attention_bwd.cu, the
-// dK/dV and dQ kernels): shared-memory barriers with transaction counts,
-// the 3-D bulk tensor load of one 64 × 64 box, the element-wise fill that
+// bodies of K2, K3 and K7: shared-memory barriers with transaction counts,
+// the 3-D bulk tensor load and store of one 64 × 64 box, the element-wise fill that
 // lays a tile out as TMA's 128-byte swizzle does (for rows that are not
 // 16-byte aligned), and the tensor maps over a (b, s, width) bf16 tensor.
 // sm_90a only.
@@ -52,6 +51,33 @@ __device__ inline void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(batch)
       : "memory");
+}
+
+// One 64 × 64 box from shared memory into a (b, s, width) bf16 tensor map at
+// (column, row, batch), asynchronously (bulk group); rows past s are not
+// written.
+__device__ inline void tma_store(const CUtensorMap* map, const void* src, int col, int row,
+                                 int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(batch)
+      : "memory");
+}
+
+__device__ inline void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk stores have read their shared
+// memory (it may be written again).
+__device__ inline void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk stores are complete.
+__device__ inline void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Element-wise fill of `rows` rows of one head's (s, DH) slice from row0 on

@@ -6,9 +6,9 @@
 // split f32). In
 // namespace short_attention, the bf16 products at the shapes the attention
 // kernels issue (short_attention.cu, K1 at head dim 64;
-// short_attention_bwd.cu, K2 at head dim 64; flash_attention.cu and
-// flash_attention_bwd.cu, K7's forward, dK/dV and dQ at head dims 64 and
-// 128). sm_90a only.
+// short_attention_bwd.cu and short_attention_bwd_batched.cu, K2 and K3 at
+// head dim 64; flash_attention.cu and flash_attention_bwd.cu, K7's forward,
+// dK/dV and dQ at head dims 64 and 128). sm_90a only.
 
 #pragma once
 
@@ -16,13 +16,17 @@
 
 namespace hopper {
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: 8-row
-// groups 1024 bytes apart (SBO); lbo = the distance between 64-column
-// panels (read for MN-major operands wider than one panel).
-__device__ inline uint64_t sw128_desc(const void* p, unsigned lbo) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand at shared
+// address a: 8-row groups 1024 bytes apart (SBO); lbo = the distance between
+// 64-column panels (read for MN-major operands wider than one panel).
+__device__ inline uint64_t sw128_desc(unsigned a, unsigned lbo) {
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same at a generic pointer into shared memory.
+__device__ inline uint64_t sw128_desc(const void* p, unsigned lbo) {
+  return sw128_desc(static_cast<unsigned>(__cvta_generic_to_shared(p)), lbo);
 }
 
 __device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -397,6 +401,35 @@ __device__ inline void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, 
       "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
       "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a·b: m64n64k16 with both operands in shared memory (128-byte
+// swizzle), each K-major (TA, TB = 0) or MN-major (1: stored as rows of K,
+// its 64 M or N values contiguous); scale_d = 0 overwrites d.
+template <int TA, int TB>
+__device__ inline void wgmma_ss_n64_major(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (+)= a·bᵀ over N = 64, 208 or 256 keys, both operands K-major in shared
+// memory (the logits and dp of the K2 and K3 warpgroup bodies).
+template <int N>
+__device__ inline void wgmma_ss_keys(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else if constexpr (N == 208) wgmma_ss_n208(d, da, db, scale_d);
+  else wgmma_ss_n256(d, da, db, scale_d);
 }
 
 // d (+)= a·b: m64n64k16, A (bf16) from registers in the mma.sync A

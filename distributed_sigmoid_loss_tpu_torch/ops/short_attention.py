@@ -22,9 +22,15 @@ Replaces the Pallas TPU kernels of
 - K3, the same call with the body ``_bwd_kernel_batched``: K2's function at
   K2's rounding points, the chain computed once and each of the five products
   issued once. Kernel: ``csrc/short_attention_bwd_batched.cu``, one launch
-  per backward call, one block per (batch row, head). Selected by
-  :func:`set_bwd_batch_heads` (default off, as in JAX) or ``batch_heads=``;
-  it takes what JAX's K3 takes where the card's shared memory holds it
+  per backward call, one block per (batch row, head), with two bodies picked
+  by shape (:func:`short_attention_bwd_batched_body`): the warpgroup body
+  (wgmma fed by TMA, a producer warpgroup forming the logits, dp, ds and dq
+  per 64-row query tile, two consumers accumulating dv and dk for every
+  key) at head dim 64, 16-byte rows and s_pad <= 256 (every dh-64 shape K3
+  takes), and the ``mma.sync`` kernels at the others (head dims 72 and 20,
+  rows not 16-byte aligned). Selected by :func:`set_bwd_batch_heads`
+  (default off, as in JAX) or ``batch_heads=``; it takes what JAX's K3 takes
+  where the card's shared memory holds it
   (:func:`short_attention_bwd_batched_fits`: s <= 250 at width 768 / 12
   heads, 212 at 1,024 / 16, 208 at 1,152 / 16) and raises ``ValueError``
   beyond, with no fallback to K2.
@@ -74,6 +80,8 @@ __all__ = [
     "short_attention_bwd_body",
     "short_attention_bwd_wgmma_smem_bytes",
     "short_attention_bwd_batched_smem_bytes",
+    "short_attention_bwd_batched_body",
+    "short_attention_bwd_batched_wgmma_smem_bytes",
     "short_attention_bwd_batched_fits",
     "set_bwd_batch_heads",
     "traced_bwd_batch_heads",
@@ -84,6 +92,8 @@ __all__ = [
     "launches",
     "bwd_launches",
     "bwd_batched_launches",
+    "bwd_batched_in_place_launches",
+    "bwd_batched_wgmma_launches",
     "reset_launches",
 ]
 
@@ -102,7 +112,8 @@ SHORT_ATTENTION_MAX_SEQ = 1024
 _VMEM_BUDGET_BYTES = 16 * 1024 * 1024 * 0.7
 
 _count_lock = threading.Lock()
-_launches = {"fwd": 0, "bwd": 0, "bwd_batched": 0, "bwd_batched_in_place": 0}
+_launches = {"fwd": 0, "bwd": 0, "bwd_batched": 0, "bwd_batched_in_place": 0,
+             "bwd_batched_wgmma": 0}
 
 # The process default for ``batch_heads=None`` call sites (the towers):
 # False = the per-head backward K2, True = the head-batched K3.
@@ -131,13 +142,21 @@ def bwd_batched_launches() -> int:
 
 def bwd_batched_in_place_launches() -> int:
     """Those of the K3 launches since the last :func:`reset_launches` that
-    ran its in-place kernel (s_pad > 208, see :func:`_k3_variant`)."""
+    ran its in-place ``mma.sync`` kernel (s_pad > 208 where the warpgroup
+    body does not run, see :func:`_k3_variant`)."""
     return _launches["bwd_batched_in_place"]
+
+
+def bwd_batched_wgmma_launches() -> int:
+    """Those of the K3 launches since the last :func:`reset_launches` that
+    ran its warpgroup body (:func:`short_attention_bwd_batched_body`)."""
+    return _launches["bwd_batched_wgmma"]
 
 
 def reset_launches() -> None:
     with _count_lock:
-        _launches.update(fwd=0, bwd=0, bwd_batched=0, bwd_batched_in_place=0)
+        _launches.update(fwd=0, bwd=0, bwd_batched=0, bwd_batched_in_place=0,
+                         bwd_batched_wgmma=0)
 
 
 def _count(kernel: str) -> None:
@@ -241,8 +260,7 @@ def short_attention_bwd_wgmma_smem_bytes(s: int, which: str) -> int:
     if not short_attention_bwd_body(s, 64):
         return 0
     if which == "dq":
-        s_pad = _round_up(s, 16)
-        n = 64 if s_pad <= 64 else 208 if s_pad <= 208 else 256
+        n = _wgmma_keys(s)
         groups = 1 if n == 64 else 2
         return 1024 + 2 * _round_up(n, 64) * 128 + groups * (2 * 64 * 128 + n // 2 * 128 * 4) \
             + (1 + groups) * 8
@@ -272,10 +290,49 @@ def _k3_variant(s: int, head_dim: int) -> tuple[int, int]:
 
 
 def short_attention_bwd_batched_smem_bytes(s: int, head_dim: int) -> int:
-    """Dynamic shared memory of one K3 block at this bf16 shape (0 where no
-    variant of the kernel takes it). Mirrors
-    ``short_attention_bwd_batched_smem_bytes`` in the source."""
+    """Dynamic shared memory of one block of K3's ``mma.sync`` kernel at this
+    bf16 shape, the fit's term (0 where no variant of the kernel takes it).
+    Mirrors ``short_attention_bwd_batched_smem_bytes`` in the source; the
+    warpgroup body's is :func:`short_attention_bwd_batched_wgmma_smem_bytes`."""
     return _k3_variant(s, head_dim)[1]
+
+
+def _wgmma_keys(s: int) -> int:
+    """Keys N of the K2 and K3 warpgroup bodies' products at length s (64,
+    208 or 256), 0 past s_pad = 256."""
+    s_pad = _round_up(s, 16)
+    if s < 1 or s_pad > 256:
+        return 0
+    return 64 if s_pad <= 64 else 208 if s_pad <= 208 else 256
+
+
+def short_attention_bwd_batched_body(s: int, head_dim: int, vec: int = 1) -> int:
+    """The K3 body a bf16 call takes, decided before launch from the shape:
+    1 = the warpgroup body (wgmma fed by TMA: head dim 64, rows 16-byte
+    aligned (``vec``, see :func:`_vec`), s_pad <= 256), 0 = the ``mma.sync``
+    kernels (:func:`_k3_variant`'s two-array or in-place kernel). Not a term
+    of :func:`short_attention_bwd_batched_fits`. Mirrors
+    ``short_attention_bwd_batched_body`` in the source."""
+    return int(head_dim == 64 and bool(vec) and _wgmma_keys(s) > 0
+               and _k3_variant(s, head_dim)[0] != 0)
+
+
+def short_attention_bwd_batched_wgmma_smem_bytes(s: int) -> int:
+    """Dynamic shared memory of one block of K3's warpgroup body at length s
+    (0 where that body does not run), by the keys N of its products: 1,024
+    bytes of alignment slack; K and V over 64 or 256 rows of 128 bytes; one
+    stage (N = 64) or two of a 64-row Q and dO tile; the bf16(p) and ds
+    panels, one or four of 64 × 64; the producer's parked f32 p, N/2 floats
+    a thread; five or six 8-byte barriers. Mirrors
+    ``short_attention_bwd_batched_wgmma_smem_bytes`` in the source."""
+    n = _wgmma_keys(s)
+    if not n:
+        return 0
+    rows = _round_up(n, 64)
+    stages = 1 if n == 64 else 2
+    box = 64 * 128
+    return (1024 + 2 * rows * 128 + stages * 2 * box + 2 * (rows // 64) * box
+            + n // 2 * 128 * 4 + (4 + stages) * 8)
 
 
 def short_attention_bwd_batched_fits(s: int, width: int, num_heads: int,
@@ -425,6 +482,10 @@ def _library(name: str) -> ctypes.CDLL:
         lib.short_attention_bwd_batched_variant.restype = i
         lib.short_attention_bwd_batched_occupancy.argtypes = [i, i]
         lib.short_attention_bwd_batched_occupancy.restype = i
+        lib.short_attention_bwd_batched_body.argtypes = [i, i, i]
+        lib.short_attention_bwd_batched_body.restype = i
+        lib.short_attention_bwd_batched_wgmma_smem_bytes.argtypes = [i]
+        lib.short_attention_bwd_batched_wgmma_smem_bytes.restype = ctypes.c_longlong
         lib.short_attention_bwd_batched_error_string.argtypes = [i]
         lib.short_attention_bwd_batched_error_string.restype = ctypes.c_char_p
     else:
@@ -564,7 +625,9 @@ def _launch_bwd_batched(q, k, v, do, causal: bool, scale: float):
         msg = lib.short_attention_bwd_batched_error_string(err).decode()
         raise RuntimeError(f"short_attention_bwd_batched launch failed: CUDA error {err} ({msg})")
     _count("bwd_batched")
-    if _k3_variant(s, dh)[0] == 2:
+    if short_attention_bwd_batched_body(s, dh, vec):
+        _count("bwd_batched_wgmma")
+    elif _k3_variant(s, dh)[0] == 2:
         _count("bwd_batched_in_place")
     return dq, dk, dv
 
