@@ -35,7 +35,9 @@ and nothing is caught:
    repeatability, with K5/K6's splits and scratch bytes, timed at the ring
    hop, the headline block and the 32k block beside cuBLAS's f32 products
    ("product only"), each against both bounds (CUDA cores and split f32 on
-   the tensor cores) with its body and registers;
+   the tensor cores) with its body and registers; and a NaN in zimg at the
+   ring hop, which the loss and every gradient must carry exactly where the
+   plain version's do (``[loss_kernel_nan]``);
 5. the training path (``run_train_path`` with ``TRAIN``): the headline
    train step (B/16, 16 accumulated
    microbatches of 128 pairs, ``save_hot`` remat, bf16 accumulator and Adam
@@ -82,7 +84,9 @@ and nothing is caught:
    wgmma asynchronous), timed beside SDPA in f32 (each pass, the pair, the
    K2/K3 role whole: the forward it runs again, dK/dV and dQ; and K7's role,
    forward and backward) with two bounds, on the CUDA cores and in 3xTF32
-   on the tensor cores; then an f32
+   on the tensor cores, and a NaN in q, which the K1, K2 and K3 roles must
+   carry exactly where the plain versions do
+   (``[kernel_f32_attention_nan]``); then an f32
    B/16 model with ``attn_impl="flash"`` (``[f32_tower]``: 224 px with K2
    and with K3 as its backward, 512 px on K7's role), forward and backward
    between two reads of the counts (the roles' and each f32 kernel's own),
@@ -105,7 +109,22 @@ and nothing is caught:
    weights in bf16) and the headline step with ``quant_train="int8"`` and
    ``use_pallas=True`` (``[train_int8]``: the int8 loss kernels, the STE
    projections, the gradient against every kernel's plain version);
-13. a JSON line of the kernels' numbers and, last, the device record.
+13. the reference's loss classes (``[compat]``): ``DDPSigmoidLoss`` and
+   ``SigLipLoss`` at W = 1 on 4096 × 512 unit rows, with and without the
+   loss kernels (one K4, K5 and K6 a call, read around each call), each
+   bitwise equal to ``make_sharded_loss_fn``, the kernels against the plain
+   path (the loss and all four gradients), one class against the other;
+14. the train command (``[train_cli]``, ``cli.main`` in this process) at
+   full B/16 width and depth, TRAIN_CLI_FLAGS: (a) 2 steps saved at 2 into
+   D, (b) resumed from D to 4, (c) 4 steps into E, the counts read around
+   each run against ``[train_pallas]``'s per microbatch plus K1 for each
+   eval forward; D's and E's step-4 states compared; each checkpoint's bytes
+   and save seconds; ``eval`` of D with and without ``--ema``
+   (``[eval_cli]``); steps timed with and without an asynchronous save in
+   flight; steps through the resilient loop with and without the host copy
+   of ``--watchdog skip`` before the first checkpoint, a NaN batch rolled
+   back bit for bit; D and E deleted;
+15. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -115,8 +134,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -313,6 +335,29 @@ LOSS_INT8_RTOL = 1e-5
 # tests/test_quant.py): every embedding row's cosine above this.
 INT8_MIN_COSINE = 0.995
 TRAIN_INT8_STEPS = 2
+
+# The reference's loss classes at W = 1 (``[compat]``): rows of the ring hop.
+COMPAT_ROWS, COMPAT_DIM = 4096, 512
+# The train command at full B/16 width and depth (``[train_cli]``): a global
+# batch of 256 in 2 microbatches of 128, the headline's bf16 accumulator and
+# save_hot remat, the loss kernels, the EMA, asynchronous checkpoints and an
+# eval every 2 steps; (a) 2 steps saved at 2, (b) resumed to 4, (c) 4 steps
+# uninterrupted; then ``eval`` of (b)'s checkpoint with and without --ema.
+TRAIN_CLI_FLAGS = ("--model", "b16", "--batch", "256", "--accum", "2", "--accum-bf16",
+                   "--remat-policy", "save_hot", "--use-pallas", "--ema-decay", "0.999",
+                   "--async-checkpoint", "--eval-every", "2")
+TRAIN_CLI_ACCUM, TRAIN_CLI_EVAL_EVERY, TRAIN_CLI_EVAL_BATCH = 2, 2, 128
+# The resumed and the uninterrupted run on the card: the token embedding's
+# gradient sums by atomics, so they may differ in the last bits; then the
+# parameters' cosine and the losses of steps 3-4 are held to these.
+TRAIN_CLI_MIN_COSINE, TRAIN_CLI_LOSS_RTOL = 0.999999, 1e-5
+TRAIN_CLI_KERNELS = ("short_attention_fwd", "short_attention_bwd", "sigmoid_loss_fwd",
+                     "sigmoid_loss_bwd_img", "sigmoid_loss_bwd_txt")
+# Steps timed with and without an asynchronous save in flight.
+SAVE_IN_FLIGHT_STEPS = 3
+# Steps through the resilient loop with and without the skip rollback's
+# host copy; the NaN batch's position under "skip".
+SKIP_LOOP_STEPS, SKIP_POISON = 6, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -877,6 +922,25 @@ def f32_fwd_body(af, s: int, dh: int, vec: bool) -> dict:
                 smem_bytes=af.smem_bytes(dh, 0, s), query_rows_a_block=64 * groups)
 
 
+def card_nan() -> torch.Tensor:
+    """The card's NaN, 0x7FFFFFFF (what its arithmetic makes), as a 0-d f32
+    tensor: the split products' TF32 rounding once carried it into the sign
+    bit and read it as −0."""
+    return torch.full((), 0x7FFFFFFF, dtype=torch.int32, device="cuda").view(torch.float32)
+
+
+def nan_held(tag: str, role: str, names, got, want, **extra) -> None:
+    """Logs the NaN count of each output beside its plain version's and
+    raises unless the NaNs sit exactly where the plain version's do (and
+    some output has one)."""
+    row = {name: dict(nan=int(torch.isnan(g).sum()), plain_nan=int(torch.isnan(w).sum()),
+                      same=torch.equal(torch.isnan(g), torch.isnan(w)))
+           for name, g, w in zip(names, got, want)}
+    log(tag, role=role, **extra, **row)
+    if not all(r["same"] for r in row.values()) or not any(r["nan"] for r in row.values()):
+        raise AssertionError(f"[{tag}] {role} loses a NaN its plain version keeps: {row}")
+
+
 def check_f32_attention(sa, fa, gen) -> dict:
     """The f32 attention kernels against their plain versions in f32 (TF32
     off): the forward in K1's role and the backward in K2's and K3's at B/16
@@ -921,6 +985,22 @@ def check_f32_attention(sa, fa, gen) -> dict:
     err_bwd = max(err_bwd, held(
         "K3", (b, s, h, dh), lambda: sa.short_self_attention_bwd(q, k, v, do, batch_heads=True),
         lambda: sa.short_self_attention_bwd_batched_plain(q, k, v, do), (q, k, v, do)))
+    # One entry of q the card's NaN: each role's outputs NaN where the plain
+    # version's are.
+    qn = q.clone()
+    qn[0, 5, 0, 3] = card_nan()
+    for role, names, kernel, plain in (
+            ("K1", ("out",), lambda: (sa.short_self_attention(qn, k, v),),
+             lambda: (sa.short_self_attention_plain(qn, k, v),)),
+            ("K2", ("dq", "dk", "dv"),
+             lambda: sa.short_self_attention_bwd(qn, k, v, do, batch_heads=False),
+             lambda: sa.short_self_attention_bwd_plain(qn, k, v, do)),
+            ("K3", ("dq", "dk", "dv"),
+             lambda: sa.short_self_attention_bwd(qn, k, v, do, batch_heads=True),
+             lambda: sa.short_self_attention_bwd_batched_plain(qn, k, v, do))):
+        nan_held("kernel_f32_attention_nan", role, names, kernel(), plain(),
+                 shape=[b, s, h, dh], nan_at=[0, 5, 0, 3])
+    del qn
 
     # Each pass alone at B/16 vision, timed; dK/dV and dQ from one forward.
     out, stats = af.launch_fwd(q, k, v, False, scale, with_stats=True)
@@ -1144,6 +1224,25 @@ def loss_bounds_ms(b, n, d, which) -> dict:
     own = {"fwd": 0, "bwd_img": b, "bwd_txt": n}[which]
     flops = (2 if which == "fwd" else 4) * b * n * d
     return split_f32_bounds_ms(4 * (b + n) * d + 4 * own * d, flops)
+
+
+def check_loss_kernels_nan(ssl) -> None:
+    """K4, K5 and K6 hand on a NaN as their plain versions do: one entry of
+    zimg the card's NaN (``card_nan``) at the ring hop's shape; the loss and
+    every gradient NaN exactly where the plain version's are."""
+    b, n, d, off, dtype = LOSS_CASES[LOSS_TIMED]
+    zimg, ztxt, tp, bias = loss_case_inputs(b, n, d, off, dtype,
+                                            torch.Generator(device="cuda").manual_seed(77))
+    zimg[1, 3] = card_nan()
+    leaves = [t.detach().requires_grad_() for t in (zimg, ztxt, tp, bias)]
+    loss = ssl.streaming_block_loss_sum(*leaves, off)
+    got = (loss.detach(), *torch.autograd.grad(loss, leaves))
+    one = torch.ones((), device="cuda")
+    dzi, dtp, dbias = ssl.streaming_loss_bwd_img_plain(zimg, ztxt, tp, bias, off, one)
+    want = (ssl.streaming_loss_fwd_plain(zimg, ztxt, tp, bias, off),
+            dzi, ssl.streaming_loss_bwd_txt_plain(zimg, ztxt, tp, bias, off, one), dtp, dbias)
+    nan_held("loss_kernel_nan", "K4-K6", ("loss", "dzimg", "dztxt", "dt_prime", "dbias"),
+             got, want, shape=[b, n, d], nan_at=[1, 3])
 
 
 def check_loss_kernels(ssl, gen) -> dict:
@@ -2375,6 +2474,346 @@ def run_context(sa, ssl, fa) -> dict:
     torch.cuda.empty_cache()
     return counts
 
+def run_compat(sa, ssl, gen) -> dict:
+    """The reference's loss classes (``compat.py``) at W = 1 on COMPAT_ROWS
+    × COMPAT_DIM unit rows: each class with ``use_pallas`` on and off,
+    forward and backward between two reads of the counts (one K4, K5 and K6
+    a call with the kernels, none without); each class bitwise equal to
+    ``make_sharded_loss_fn``; the kernels against the plain path for the loss
+    and all four gradients (LOSS_RTOL; LOSS_GRAD_RTOL_OF_MAX of each
+    gradient's largest magnitude); DDPSigmoidLoss against SigLipLoss."""
+    from distributed_sigmoid_loss_tpu_torch.compat import DDPSigmoidLoss, SigLipLoss
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_sharded_loss_fn
+
+    b, d = COMPAT_ROWS, COMPAT_DIM
+    zimg, ztxt, _, _ = loss_case_inputs(b, b, d, 0, torch.float32, gen)
+    variants = {"ddp": "all_gather", "siglip": "ring"}
+
+    def call(cls, use_pallas):
+        leaves = [zimg.detach().clone().requires_grad_(), ztxt.detach().clone().requires_grad_()]
+        if cls == "ddp":
+            mod = DDPSigmoidLoss(gpu_batch_size=b, use_pallas=use_pallas)
+            params = [mod.t_prime, mod.bias]
+            loss = mod(*leaves)
+        else:
+            p = SigLipLoss.init_params()
+            params = [p["logit_scale"], p["logit_bias"]]
+            loss = SigLipLoss(rank=0, world_size=1, use_pallas=use_pallas)(*leaves, *params)
+        grads = torch.autograd.grad(loss, leaves + params)
+        return leaves, params, loss.detach(), grads
+
+    out, counts_total = {}, None
+    for cls in variants:
+        for use_pallas in (True, False):
+            torch.cuda.synchronize()
+            # -- the class's forward and backward, between the two reads ------
+            reset_counts(sa, ssl)
+            leaves, params, loss, grads = call(cls, use_pallas)
+            torch.cuda.synchronize()
+            counts = read_counts(sa, ssl)
+            # -- end --------------------------------------------------------------
+            expect = dict.fromkeys(counts, 0)
+            if use_pallas:
+                for k in ("sigmoid_loss_fwd", "sigmoid_loss_bwd_img", "sigmoid_loss_bwd_txt"):
+                    expect[k] = 1
+                counts_total = counts if counts_total is None else {
+                    k: counts_total[k] + v for k, v in counts.items()}
+            if counts != expect:
+                raise AssertionError(f"[compat] {cls} use_pallas={use_pallas}: launches "
+                                     f"{counts} != {expect}")
+            fn = make_sharded_loss_fn(variant=variants[cls], use_pallas=use_pallas)
+            fn_loss = fn({"t_prime": params[0], "bias": params[1]}, *leaves)
+            fn_grads = torch.autograd.grad(fn_loss, leaves + params)
+            equal = torch.equal(loss, fn_loss.detach()) and all(
+                torch.equal(a, c) for a, c in zip(grads, fn_grads))
+            ms = time_ms(lambda: call(cls, use_pallas), iters=5, warmup=1)
+            out[cls, use_pallas] = dict(loss=loss, grads=grads)
+            log("compat", cls=cls, use_pallas=use_pallas, shape=[b, b, d], loss=loss.item(),
+                launches={k: v for k, v in counts.items() if v}, class_equals_function=equal,
+                fwd_bwd_ms=ms)
+            if not equal:
+                raise AssertionError(f"[compat] {cls} use_pallas={use_pallas} != the function")
+
+    def compare(a, ref):
+        errs = {"loss": abs(a["loss"].item() - ref["loss"].item())}
+        tols = {"loss": LOSS_RTOL * abs(ref["loss"].item())}
+        for name, g, r in zip(("dzimg", "dztxt", "dt_prime", "dbias"), a["grads"], ref["grads"]):
+            errs[name] = (g - r).abs().max().item()
+            tols[name] = LOSS_GRAD_RTOL_OF_MAX * r.abs().max().item()
+        return errs, tols
+
+    for what, a, ref in [(f"{cls} kernels vs plain", out[cls, True], out[cls, False])
+                         for cls in variants] + [
+            (f"ddp vs siglip, use_pallas={up}", out["ddp", up], out["siglip", up])
+            for up in (True, False)]:
+        errs, tols = compare(a, ref)
+        bitwise = all(torch.equal(x, y) for x, y in zip((a["loss"], *a["grads"]),
+                                                          (ref["loss"], *ref["grads"])))
+        log("compat", compare=what, max_abs_err=errs, atol=tols, bitwise=bitwise)
+        if any(not np.isfinite(v) or v > tols[k] for k, v in errs.items()):
+            raise AssertionError(f"[compat] {what}: {errs} over {tols}")
+    del out, zimg, ztxt
+    torch.cuda.empty_cache()
+    return counts_total
+
+
+def run_cli(sa, ssl, argv) -> dict:
+    """``cli.main(argv)`` in this process between two reads of the counts:
+    its exit code, output, error output, launches and seconds."""
+    from distributed_sigmoid_loss_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts(sa, ssl)
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = read_counts(sa, ssl)
+    return dict(rc=rc, out=out.getvalue(), err=err.getvalue(), counts=counts, seconds=seconds)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path)
+               for f in files)
+
+
+def run_train_cli_path(args, sa, ssl, per_microbatch: dict) -> dict:
+    """The ``train`` and ``eval`` commands at full B/16 width and depth
+    (TRAIN_CLI_FLAGS), in process: (a) 2 steps saved at step 2 into D, (b)
+    resumed from D to 4, (c) 4 steps into E uninterrupted, each between two
+    reads of the counts, which must be the loss-kernel path's per-microbatch
+    counts (``[train_pallas]``) times the microbatches run, plus K1 for each
+    eval forward; D's and E's step-4 states compared; each checkpoint's
+    bytes and save seconds; ``eval`` of D with and without --ema; then
+    steps timed with and without an asynchronous save in flight."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        AsyncSaver,
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        restore_latest,
+        save_checkpoint,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(headline_config(), loss=LossConfig())
+    layers = cfg.vision.depth + cfg.text.depth
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_cli")
+    d_dir, e_dir = os.path.join(root, "D"), os.path.join(root, "E")
+    shutil.rmtree(root, ignore_errors=True)
+    report_re = re.compile(r"resilient loop: steps (\d+)->(\d+), checkpoints at \[(.*)\]")
+    ckpt_re = re.compile(r"checkpoint (\S+): (\d+) bytes, host snapshot ([\d.]+) s, "
+                         r"write ([\d.]+) s")
+    totals, runs = None, {}
+    try:
+        for name, steps, ckpt_every, ckpt_dir, start in (("a", 2, 2, d_dir, 0),
+                                                         ("b", 4, 2, d_dir, 2),
+                                                         ("c", 4, 4, e_dir, 0)):
+            argv = ["train", *TRAIN_CLI_FLAGS, "--steps", str(steps), "--ckpt-every",
+                    str(ckpt_every), "--ckpt-dir", ckpt_dir]
+            run = run_cli(sa, ssl, argv)
+            lines = [json.loads(x) for x in run["out"].splitlines() if x.startswith("{")]
+            report = report_re.search(run["err"])
+            saves = [dict(path=os.path.relpath(m.group(1), root), bytes=int(m.group(2)),
+                          snapshot_s=float(m.group(3)), write_s=float(m.group(4)))
+                     for m in ckpt_re.finditer(run["err"])]
+            for save in saves:
+                save["bytes_on_disk"] = dir_bytes(os.path.join(root, save["path"]))
+            evals = sum(1 for s_ in range(start + 1, steps + 1) if s_ % TRAIN_CLI_EVAL_EVERY == 0)
+            expect = {k: round(v * TRAIN_CLI_ACCUM * (steps - start))
+                      for k, v in per_microbatch.items()}
+            expect["short_attention_fwd"] += (evals + 1) * layers  # + the closing retrieval
+            log("train_cli", run=name, argv=" ".join(argv[1:]).replace(root + "/", ""),
+                rc=run["rc"], seconds=run["seconds"],
+                report=report.groups() if report else None, checkpoints=saves,
+                launches={k: v for k, v in run["counts"].items() if v},
+                expected={k: v for k, v in expect.items() if v},
+                lines=lines,
+                closing_retrieval=run["err"].strip().splitlines()[-1])
+            want_report = (str(start), str(steps),
+                           {"a": "2", "b": "2, 4", "c": "4"}[name])
+            if run["rc"] != 0 or report is None or report.groups() != want_report:
+                raise AssertionError(f"[train_cli] run {name}: rc {run['rc']}, report "
+                                     f"{report.groups() if report else None} != {want_report}")
+            if run["counts"] != expect or any(run["counts"][k] == 0 for k in TRAIN_CLI_KERNELS):
+                raise AssertionError(f"[train_cli] run {name}: launches {run['counts']} != "
+                                     f"{expect}")
+            losses = {x["step"]: x["loss"] for x in lines if "loss" in x}
+            if len(losses) != steps - start or not all(np.isfinite(list(losses.values()))):
+                raise AssertionError(f"[train_cli] run {name}: step losses {losses}")
+            runs[name] = dict(losses=losses, saves=saves, seconds=run["seconds"])
+            totals = run["counts"] if totals is None else {
+                k: totals[k] + v for k, v in run["counts"].items()}
+
+        # D's and E's step-4 states.
+        got = torch.load(os.path.join(d_dir, "step_00000004", "tensors.pt"), mmap=True)
+        want = torch.load(os.path.join(e_dir, "step_00000004", "tensors.pt"), mmap=True)
+        if got.keys() != want.keys():
+            raise AssertionError("[train_cli] D's and E's checkpoints hold other tensors")
+        bitwise = all(torch.equal(got[k], want[k]) for k in want)
+        diff = max((got[k].double() - want[k].double()).abs().max().item() for k in want)
+        params = [k for k in want if k.startswith("model.")]
+        flat = [torch.cat([t[k].double().flatten() for k in params]) for t in (got, want)]
+        cosine = float(torch.nn.functional.cosine_similarity(flat[0], flat[1], dim=0))
+        loss_rel = {s_: abs(runs["b"]["losses"][s_] - runs["c"]["losses"][s_])
+                    / abs(runs["c"]["losses"][s_]) for s_ in (3, 4)}
+        log("train_cli", compare="D (resumed) vs E (uninterrupted) at step 4", bitwise=bitwise,
+            max_abs_diff=diff, param_cosine=cosine, loss_rel_diff_steps_3_4=loss_rel,
+            tensors=len(want))
+        if not bitwise and (cosine < TRAIN_CLI_MIN_COSINE
+                            or max(loss_rel.values()) > TRAIN_CLI_LOSS_RTOL):
+            raise AssertionError(f"[train_cli] resumed vs uninterrupted: cosine {cosine}, "
+                                 f"loss differences {loss_rel}")
+        del got, want, flat
+
+        # eval of D, with and without the EMA weights.
+        for ema in (False, True):
+            argv = ["eval", "--model", "b16", "--ckpt-dir", d_dir, "--batch",
+                    str(TRAIN_CLI_EVAL_BATCH), *(["--ema"] if ema else [])]
+            run = run_cli(sa, ssl, argv)
+            result = json.loads(run["out"].strip().splitlines()[-1].replace("'", '"'))
+            expect = dict.fromkeys(run["counts"], 0)
+            # The batch through both towers, then the 20 class prompts
+            # through the text tower.
+            expect["short_attention_fwd"] = layers + cfg.text.depth
+            log("eval_cli", ema=ema, rc=run["rc"], seconds=run["seconds"], metrics=result,
+                restored=[x for x in run["err"].splitlines() if x.startswith("restored")],
+                launches={k: v for k, v in run["counts"].items() if v})
+            which = "ema" if ema else "params"
+            if run["rc"] != 0 or f"restored step 4 ({which})" not in run["err"] or not all(
+                    np.isfinite(v) and 0.0 <= v <= 1.0 for v in result.values()):
+                raise AssertionError(f"[eval_cli] ema={ema}: rc {run['rc']}, {run['err']!r}, "
+                                     f"{result}")
+            if run["counts"] != expect:
+                raise AssertionError(f"[eval_cli] launches {run['counts']} != {expect}")
+            totals = {k: totals[k] + v for k, v in run["counts"].items()}
+
+        # Steps with and without an asynchronous save in flight, and one
+        # synchronous save, on D's restored state (D and E then go, to keep
+        # the disk to two checkpoints' size).
+        model = SigLIP(cfg, device="cuda")
+        state = create_train_state(model, make_optimizer(
+            TrainConfig(learning_rate=1e-3, warmup_steps=5, total_steps=10)), ema=True)
+        t0 = time.monotonic()
+        restore_latest(d_dir, state)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        shutil.rmtree(d_dir)
+        shutil.rmtree(e_dir)
+        step = make_train_step(model, LossConfig(variant="ring", precision="default",
+                                                 use_pallas=True),
+                               accum_steps=TRAIN_CLI_ACCUM, accum_dtype="bfloat16",
+                               ema_decay=0.999)
+        batch = random_batch(cfg, 256, torch.Generator(device="cuda").manual_seed(args.seed + 9))
+
+        def timed_step() -> float:
+            t = time.monotonic()
+            _, m = step(state, batch)
+            m["loss"].item()
+            torch.cuda.synchronize()
+            return 1e3 * (time.monotonic() - t)
+
+        timed_step()
+        quiet_ms = [timed_step() for _ in range(SAVE_IN_FLIGHT_STEPS)]
+        with AsyncSaver() as saver:
+            t0 = time.monotonic()
+            saver.save(os.path.join(root, "F", "step_00000001"), state)
+            stall_s = time.monotonic() - t0
+            in_flight_ms = []
+            while saver.pending and len(in_flight_ms) < 50:
+                in_flight_ms.append(timed_step())
+            saver.wait()
+        t0 = time.monotonic()
+        save_checkpoint(os.path.join(root, "F", "step_00000002"), state)
+        sync_s = time.monotonic() - t0
+        log("train_cli", measure="steps with and without a save in flight (B/16, 256 pairs, "
+            "2 microbatches)", restore_s=restore_s, step_ms_no_save=quiet_ms,
+            step_ms_save_in_flight=in_flight_ms, async_snapshot_stall_s=stall_s,
+            async_write_s=saver.timings[-1]["write_s"], checkpoint_bytes=saver.timings[-1]["bytes"],
+            sync_save_s=sync_s,
+            bytes_on_disk=dir_bytes(os.path.join(root, "F", "step_00000002")))
+        if not in_flight_ms:
+            raise AssertionError("[train_cli] the asynchronous write ended before a step ran")
+        shutil.rmtree(os.path.join(root, "F"))
+        check_skip_rollback(state, step, batch, root)
+        del state, step, model, batch
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("train_cli", phase_seconds=time.monotonic() - t_phase, removed=[d_dir, e_dir])
+    return totals
+
+
+def check_skip_rollback(state, step, batch, root) -> None:
+    """The resilient loop under ``--watchdog skip`` before the first
+    checkpoint, on the B/16 train state: SKIP_LOOP_STEPS steps through
+    ``train_resilient`` with ``on_divergence`` "halt" (no host copy) and
+    "skip" (a host copy of the state before every step), the latter with a
+    NaN batch at SKIP_POISON. Logs the steps' times from ``on_metrics``
+    (the first apart: it allocates the pinned buffers), and raises unless
+    the rollback gave back the pre-step state bit for bit, counters
+    included, and the state stayed finite."""
+    from distributed_sigmoid_loss_tpu_torch.train import train_resilient
+    from distributed_sigmoid_loss_tpu_torch.train.checkpoint import state_tensors
+
+    poisoned = {**batch, "images": batch["images"] * float("nan")}
+    pre, rolled_back = {}, []
+
+    def step_fn(st, b):
+        if b is poisoned:
+            pre.update(tensors={k: t.clone() for k, t in state_tensors(st).items()},
+                       counters=(st.step, st.opt_state.count))
+        elif pre and not rolled_back:
+            rolled_back.append((st.step, st.opt_state.count) == pre["counters"] and all(
+                torch.equal(t, pre["tensors"][k]) for k, t in state_tensors(st).items()))
+            pre.clear()
+        return step(st, b)
+
+    for mode in ("halt", "skip"):
+        batches = [poisoned if mode == "skip" and i == SKIP_POISON else batch
+                   for i in range(SKIP_LOOP_STEPS)]
+        stamps, losses = [time.monotonic()], {}
+        counters = (state.step, state.opt_state.count)
+
+        def on_metrics(s_, m):
+            stamps.append(time.monotonic())
+            losses[s_] = m["loss"].item()
+
+        _, report = train_resilient(
+            state, step_fn, batches, total_steps=SKIP_LOOP_STEPS,
+            ckpt_dir=os.path.join(root, f"G_{mode}"), ckpt_every=SKIP_LOOP_STEPS,
+            on_divergence=mode, on_metrics=on_metrics)
+        shutil.rmtree(os.path.join(root, f"G_{mode}"), ignore_errors=True)
+        ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        skipped = mode == "skip"
+        advanced = (state.step - counters[0], state.opt_state.count - counters[1])
+        finite = all(torch.isfinite(t).all() for t in state_tensors(state).values())
+        if not skipped:
+            log("train_cli", measure=f"{SKIP_LOOP_STEPS} steps through the resilient loop, "
+                "no host copy (on_divergence=halt)", first_step_ms=ms[0], step_ms=ms[1:],
+                losses=losses, report=dataclasses.asdict(report))
+        else:
+            # on_metrics runs at steps 1..SKIP_POISON, then SKIP_POISON + 2..: the
+            # interval across the poisoned step holds it, its rollback and the next.
+            log("train_cli", measure=f"{SKIP_LOOP_STEPS} steps under --watchdog skip before "
+                f"the first checkpoint (a host copy before every step), NaN at step "
+                f"{SKIP_POISON + 1}", first_step_ms=ms[0], step_ms=ms[1:SKIP_POISON],
+                poisoned_rollback_and_next_step_ms=ms[SKIP_POISON:SKIP_POISON + 1],
+                after_ms=ms[SKIP_POISON + 1:], rollback_bitwise=rolled_back,
+                updates=advanced, losses=losses, report=dataclasses.asdict(report))
+        want = dict(checkpoints=[SKIP_LOOP_STEPS], divergences=int(skipped),
+                    updates=(SKIP_LOOP_STEPS - skipped,) * 2, finite=True,
+                    rolled_back=[True] if skipped else [])
+        got = dict(checkpoints=report.checkpoints, divergences=report.divergences,
+                   updates=advanced, finite=finite, rolled_back=rolled_back)
+        if got != want:
+            raise AssertionError(f"[train_cli] the loop under {mode}: {got} != {want}")
+
+
 def global_norm_of(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
@@ -2531,11 +2970,12 @@ def main() -> int:
     k2 = check_short_attention_bwd(sa, gen)
     k3 = check_short_attention_bwd_batched(sa, gen)
     loss_recs = check_loss_kernels(ssl, gen)
+    check_loss_kernels_nan(ssl)
     flash_recs = check_flash_attention(fa, gen)
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
 
-    # Phases 4-11: the main paths, each between two reads of the counts.
+    # Phases 4-14: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
                       ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
@@ -2547,13 +2987,17 @@ def main() -> int:
                       ("context", lambda: run_context(sa, ssl, fa)),
                       ("f32_tower", lambda: run_f32_tower_path(args, sa, ssl, fa)),
                       ("serve_int8", lambda: run_serve_path(args, sa, ssl, fa, SERVE_INT8)),
-                      ("train_int8", lambda: run_train_pallas_path(args, sa, ssl, fa, "int8"))):
+                      ("train_int8", lambda: run_train_pallas_path(args, sa, ssl, fa, "int8")),
+                      ("compat", lambda: run_compat(sa, ssl, gen)),
+                      ("train_cli", lambda: run_train_cli_path(args, sa, ssl, {
+                          k: v / (ACCUM * TRAIN_PALLAS_STEPS)
+                          for k, v in paths["train_pallas"].items()}))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 12: the records.
+    # Phase 15: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"

@@ -194,10 +194,10 @@ __host__ __device__ inline size_t fwd_smem_bytes(int dh, int groups) {
 __device__ inline int sw128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
 
 __device__ inline void split4(const float4 x, uint4& hi, uint4& lo) {
-  split(x.x, hi.x, lo.x);
-  split(x.y, hi.y, lo.y);
-  split(x.z, hi.z, lo.z);
-  split(x.w, hi.w, lo.w);
+  split_nan_lo(x.x, hi.x, lo.x);
+  split_nan_lo(x.y, hi.y, lo.y);
+  split_nan_lo(x.z, hi.z, lo.z);
+  split_nan_lo(x.w, hi.w, lo.w);
 }
 
 // Rows [q0, q0 + 64·G) of one head's (s, dh) slice of q (rows at stride
@@ -424,10 +424,10 @@ attention_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ 
     unsigned ahi[NK / 8][4], alo[NK / 8][4];
 #pragma unroll
     for (int jj = 0; jj < NK / 8; ++jj) {
-      split(x[4 * jj], ahi[jj][0], alo[jj][0]);
-      split(x[4 * jj + 2], ahi[jj][1], alo[jj][1]);
-      split(x[4 * jj + 1], ahi[jj][2], alo[jj][2]);
-      split(x[4 * jj + 3], ahi[jj][3], alo[jj][3]);
+      split_nan_lo(x[4 * jj], ahi[jj][0], alo[jj][0]);
+      split_nan_lo(x[4 * jj + 2], ahi[jj][1], alo[jj][1]);
+      split_nan_lo(x[4 * jj + 1], ahi[jj][2], alo[jj][2]);
+      split_nan_lo(x[4 * jj + 3], ahi[jj][3], alo[jj][3]);
     }
     float oc[16 * P];
     wgmma_fence();
@@ -554,15 +554,15 @@ __device__ inline void product_rows(float (&c)[NT][4], const float* a, const flo
 #pragma unroll 2
   for (int kc = 0; kc < 2 * KC; ++kc) {
     unsigned ahi[4], alo[4];
-    split(ar[8 * kc], ahi[0], alo[0]);
-    split(ar[8 * kLdb + 8 * kc], ahi[1], alo[1]);
-    split(ar[8 * kc + 4], ahi[2], alo[2]);
-    split(ar[8 * kLdb + 8 * kc + 4], ahi[3], alo[3]);
+    split_nan_lo(ar[8 * kc], ahi[0], alo[0]);
+    split_nan_lo(ar[8 * kLdb + 8 * kc], ahi[1], alo[1]);
+    split_nan_lo(ar[8 * kc + 4], ahi[2], alo[2]);
+    split_nan_lo(ar[8 * kLdb + 8 * kc + 4], ahi[3], alo[3]);
     unsigned bh[NT][2], bl[NT][2];
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      split(br[8 * n * kLdb + 8 * kc], bh[n][0], bl[n][0]);
-      split(br[8 * n * kLdb + 8 * kc + 4], bh[n][1], bl[n][1]);
+      split_nan_lo(br[8 * n * kLdb + 8 * kc], bh[n][0], bl[n][0]);
+      split_nan_lo(br[8 * n * kLdb + 8 * kc + 4], bh[n][1], bl[n][1]);
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) mma_tf32(c[n], alo, bh[n][0], bh[n][1]);
@@ -585,15 +585,15 @@ __device__ inline void product_acc(float (&o)[2 * KC][4], const float (&p)[NT][4
 #pragma unroll
   for (int kc = 0; kc < NT; ++kc) {
     unsigned ahi[4], alo[4];
-    split(p[kc][0], ahi[0], alo[0]);
-    split(p[kc][2], ahi[1], alo[1]);
-    split(p[kc][1], ahi[2], alo[2]);
-    split(p[kc][3], ahi[3], alo[3]);
+    split_nan_lo(p[kc][0], ahi[0], alo[0]);
+    split_nan_lo(p[kc][2], ahi[1], alo[1]);
+    split_nan_lo(p[kc][1], ahi[2], alo[2]);
+    split_nan_lo(p[kc][3], ahi[3], alo[3]);
     unsigned bh[2 * KC][2], bl[2 * KC][2];
 #pragma unroll
     for (int n = 0; n < 2 * KC; ++n) {
-      split(br[8 * kc * kLdb + 8 * n], bh[n][0], bl[n][0]);
-      split(br[(8 * kc + 1) * kLdb + 8 * n], bh[n][1], bl[n][1]);
+      split_nan_lo(br[8 * kc * kLdb + 8 * n], bh[n][0], bl[n][0]);
+      split_nan_lo(br[(8 * kc + 1) * kLdb + 8 * n], bh[n][1], bl[n][1]);
     }
 #pragma unroll
     for (int n = 0; n < 2 * KC; ++n) mma_tf32(o[n], alo, bh[n][0], bh[n][1]);

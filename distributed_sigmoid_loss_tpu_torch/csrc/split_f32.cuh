@@ -49,9 +49,22 @@ __device__ inline unsigned tf32_rna(float x) {
 }
 
 // x = hi + lo + O(2^-22 x): hi = tf32(x), lo = tf32(x − hi) (x − hi is exact).
+// A NaN x reaches the products as a NaN, as in an f32 product: tf32_rna
+// alone carries the card's NaN (0x7FFFFFFF, what its arithmetic makes) into
+// the sign bit and gives −0. Two forms, bitwise the same for every other x
+// (an infinite x: hi infinite, lo = tf32_rna(NaN) = −0), which ptxas
+// allocates differently: each source takes the one with which none of its
+// kernels spills. `split` rounds hi with cvt.rna.tf32.f32, which keeps a
+// NaN (sigmoid_loss.cu); `split_nan_lo` rounds hi by the bits and makes lo
+// the NaN (attention_f32.cu).
 __device__ inline void split(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(x);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ inline void split_nan_lo(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = isnan(x) ? 0x7FFFFFFFu : tf32_rna(x - __uint_as_float(hi));
 }
 
 // d += a · b: one m16n8k8 TF32 product with f32 accumulation. a: rows g and

@@ -150,8 +150,9 @@ def split_f32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.
     operand split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, and the
     products lo·hi, hi·lo, then hi·hi summed in f32 (``terms=3``);
     ``terms=1`` is plain TF32 (hi·hi alone). Each TF32 product is exact in
-    f32. Used by the tests only."""
-    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    f32. A NaN's hi is NaN, as in the kernels' ``split`` (``tf32_round``
+    alone turns the card's NaN into −0). Used by the tests only."""
+    a_hi, b_hi = (torch.where(torch.isnan(x), x, tf32_round(x)) for x in (a, b))
     hi = a_hi @ b_hi
     if terms == 1:
         return hi

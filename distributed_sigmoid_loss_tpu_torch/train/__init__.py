@@ -19,3 +19,18 @@ from distributed_sigmoid_loss_tpu_torch.train.train_step import (  # noqa: F401
     validate_accum_args,
     validate_step_args,
 )
+from distributed_sigmoid_loss_tpu_torch.train.checkpoint import (  # noqa: F401
+    AsyncSaver,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from distributed_sigmoid_loss_tpu_torch.train.resilience import (  # noqa: F401
+    PreemptionGuard,
+    ResilienceReport,
+    RestoreRequiredError,
+    TrainingDiverged,
+    latest_step,
+    restore_latest,
+    save_step,
+    train_resilient,
+)

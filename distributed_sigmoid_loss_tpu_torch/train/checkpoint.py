@@ -1,0 +1,294 @@
+"""Checkpoints of the train state, ported from the JAX package's
+``train/checkpoint.py`` (which writes with orbax; the port cannot: orbax
+imports JAX).
+
+A checkpoint is one directory:
+
+- ``tensors.pt``: one ``torch.save`` of a flat ``{name: tensor}`` dict, read
+  back with ``torch.load(weights_only=True)``. A train state's names are
+  ``model.<state_dict key>``; the optimizer state's tensors by parameter
+  name, ``opt.mu.<name>`` and ``opt.nu.<name>`` (AdamW; Lion has ``mu``
+  only) or by leaf of the JAX tree, ``opt.v_row.<leaf>``, ``opt.v_col.<leaf>``
+  and ``opt.v.<leaf>`` (Adafactor); and ``ema.<name>`` when the EMA is on.
+  A dict of tensors (nested dicts allowed) is written under its own keys,
+  joined with ``/``.
+- ``meta.json``: the format, the step, the optimizer's kind and update
+  count, and the dtypes of each group of tensors.
+
+Writes are atomic: the directory is written under a temporary name that
+``resilience.latest_step``'s ``^step_(\\d{8})$`` does not match, then moved
+into place with ``os.replace``; a ``step_NNNNNNNN`` directory that exists is
+complete. Two ways to save:
+
+- :func:`save_checkpoint`: synchronous; the step loop stalls for the write.
+- :class:`AsyncSaver`: the tensors are copied to host memory, then written
+  by a thread while training goes on.
+
+Derived state is never written: the error-feedback residual ``ef`` and the
+adaptive compression carry ``comp`` of the JAX package's compressed step
+(``_strip_ef``) are one step's carry that the controller rebuilds within a
+round or two, and writing them would make compressed runs' checkpoints
+unreadable by eval and by uncompressed resume. The port's ``TrainState`` has
+neither yet (ROADMAP.md queue A item 6.3); when they arrive they stay out of
+:func:`state_tensors`, and a restore keeps the target's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+import threading
+import time
+from typing import Any, Mapping
+
+import torch
+
+from distributed_sigmoid_loss_tpu_torch.train.train_step import (
+    AdafactorState,
+    AdamWState,
+    LionState,
+    TrainState,
+)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "AsyncSaver", "HostCopy", "state_tensors"]
+
+FORMAT = "dsl-torch-ckpt-v1"
+TENSORS_FILE = "tensors.pt"
+META_FILE = "meta.json"
+_OPTIMIZERS = {AdamWState: "adamw", LionState: "lion", AdafactorState: "adafactor"}
+
+
+def _flatten_dict(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten_dict(value, name + "/"))
+        elif isinstance(value, torch.Tensor):
+            out[name] = value
+        else:
+            raise TypeError(f"{name}: a checkpoint holds tensors, got {type(value).__name__}")
+    return out
+
+
+def state_tensors(state: Any) -> dict[str, torch.Tensor]:
+    """The tensors a checkpoint of ``state`` holds, by name (see the module
+    docstring), sharing storage with ``state``: copying into them restores
+    it. ``state`` is a ``TrainState`` or a (nested) dict of tensors."""
+    if isinstance(state, Mapping):
+        return _flatten_dict(state)
+    if not isinstance(state, TrainState):
+        raise TypeError(f"cannot checkpoint a {type(state).__name__}")
+    names = [n for n, _ in state.model.named_parameters()]
+    out = {f"model.{k}": v for k, v in state.model.state_dict(keep_vars=True).items()}
+    opt = state.opt_state
+    if isinstance(opt, (AdamWState, LionState)):
+        out.update({f"opt.mu.{n}": t for n, t in zip(names, opt.mu)})
+    if isinstance(opt, AdamWState):
+        out.update({f"opt.nu.{n}": t for n, t in zip(names, opt.nu)})
+    if isinstance(opt, AdafactorState):
+        for field in ("v_row", "v_col", "v"):
+            out.update({f"opt.{field}.{leaf.path}": t
+                        for leaf, t in zip(opt.leaves, getattr(opt, field))})
+    if state.ema is not None:
+        out.update({f"ema.{n}": t for n, t in zip(names, state.ema)})
+    return out
+
+
+def checkpoint_meta(state: Any, tensors: Mapping[str, torch.Tensor]) -> dict:
+    """``meta.json``'s content: the format, the step, the optimizer's kind
+    and update count (a train state), and each group's dtypes."""
+    groups: dict[str, set] = {}
+    for name, t in tensors.items():
+        group = ".".join(name.split(".")[:2]) if name.startswith("opt.") else name.split(".")[0]
+        groups.setdefault(group, set()).add(str(t.dtype).removeprefix("torch."))
+    meta = {"format": FORMAT, "dtypes": {g: sorted(d) for g, d in sorted(groups.items())}}
+    if isinstance(state, TrainState):
+        meta.update(step=state.step, optimizer=_OPTIMIZERS[type(state.opt_state)],
+                    count=state.opt_state.count, ema=state.ema is not None)
+    return meta
+
+
+def _write(path: str, host: Mapping[str, torch.Tensor], meta: dict) -> None:
+    """Write ``host`` (CPU tensors) and ``meta`` as the checkpoint ``path``,
+    atomically, replacing a checkpoint already there."""
+    parent, base = os.path.split(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".{base}.tmp-", dir=parent)
+    try:
+        torch.save(dict(host), os.path.join(tmp, TENSORS_FILE))
+        with open(os.path.join(tmp, META_FILE), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(path):
+            old = tmp + ".old"
+            os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old)
+        else:
+            os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def save_checkpoint(path: str, state: Any) -> None:
+    """Save a train state (or a dict of tensors) to the directory ``path``,
+    synchronously, replacing a checkpoint already there."""
+    tensors = state_tensors(state)
+    host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+    _write(os.path.abspath(path), host, checkpoint_meta(state, tensors))
+
+
+class HostCopy:
+    """Host copies of a state's tensors, in buffers kept from one copy to
+    the next: pinned where the tensor is on a GPU, so the copies run
+    without blocking the caller (a fresh pinned allocation of B/16's train
+    state costs seconds; a reused buffer nothing). ``take`` queues the
+    copies on each device's current stream and returns the host tensors by
+    name; ``wait`` blocks until they have landed. A ``take`` reuses the
+    buffers of the one before, so the caller is done with those first."""
+
+    def __init__(self):
+        self._host: dict[str, torch.Tensor] = {}
+        self._done: list[torch.cuda.Event] = []
+
+    def take(self, tensors: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        host, devices = {}, set()
+        for name, t in tensors.items():
+            buf = self._host.get(name)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            buf.copy_(t.detach(), non_blocking=t.is_cuda)
+            if t.is_cuda:
+                devices.add(t.device)
+            host[name] = buf
+        self._host = host
+        self._done = []
+        for device in devices:
+            with torch.cuda.device(device):
+                done = torch.cuda.Event()
+                done.record()
+                self._done.append(done)
+        return host
+
+    def wait(self) -> None:
+        for done in self._done:
+            done.synchronize()
+        self._done = []
+
+
+class AsyncSaver:
+    """Non-blocking checkpoint writes; use as a context manager.
+
+    ``save`` copies the state's tensors into host buffers (a
+    :class:`HostCopy`: pinned, reused from save to save), waits for those
+    copies, starts the
+    writer thread and returns: the write overlaps the following steps. A
+    second ``save`` waits for the first's write. ``wait`` blocks until every
+    write is durable and raises a writer's error; call it before reading
+    ``latest_step`` on the same directory (``__exit__`` waits too).
+    ``timings`` lists each save's ``snapshot_s`` (the caller's stall),
+    ``write_s`` (the thread's) and ``bytes``.
+    """
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self._copy = HostCopy()
+        self.timings: list[dict] = []
+
+    def save(self, path: str, state: Any) -> None:
+        self.wait()
+        t0 = time.perf_counter()
+        tensors = state_tensors(state)
+        host = self._copy.take(tensors)
+        self._copy.wait()
+        timing = {"path": os.path.abspath(path), "snapshot_s": time.perf_counter() - t0,
+                  "bytes": sum(t.numel() * t.element_size() for t in host.values())}
+        self.timings.append(timing)
+        self._thread = threading.Thread(
+            target=self._run, args=(timing, host, checkpoint_meta(state, tensors)),
+            name="dsl-checkpoint-writer")
+        self._thread.start()
+
+    def _run(self, timing, host, meta) -> None:
+        t0 = time.perf_counter()
+        try:
+            _write(timing["path"], host, meta)
+        except BaseException as e:  # noqa: BLE001 — raised again by wait()
+            self._error = e
+        timing["write_s"] = time.perf_counter() - t0
+
+    @property
+    def pending(self) -> bool:
+        """True while a write is in flight."""
+        return self._thread is not None and self._thread.is_alive()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def close(self) -> None:
+        """Wait for the pending write, then free the host buffers."""
+        try:
+            self.wait()
+        finally:
+            self._copy = HostCopy()
+
+    def __enter__(self) -> "AsyncSaver":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def restore_checkpoint(path: str, target: Any) -> Any:
+    """Restore the checkpoint ``path`` into ``target`` (a train state or a
+    dict of tensors of the same structure), in place, and return it. Each
+    tensor lands on the device of the target's, so a checkpoint written on
+    ``cuda`` restores on the CPU. Raises ``ValueError`` naming every tensor
+    that is missing, extra, or of another shape or dtype, and an optimizer
+    of another kind, before anything is copied."""
+    path = os.path.abspath(path)
+    with open(os.path.join(path, META_FILE)) as f:
+        meta = json.load(f)
+    if meta.get("format") != FORMAT:
+        raise ValueError(f"{path} is not a {FORMAT} checkpoint (format={meta.get('format')!r})")
+    stored = torch.load(os.path.join(path, TENSORS_FILE), map_location="cpu",
+                        weights_only=True, mmap=True)
+    want = state_tensors(target)
+    problems = []
+    if isinstance(target, TrainState):
+        kind = _OPTIMIZERS[type(target.opt_state)]
+        if meta.get("optimizer") != kind:
+            problems.append(f"  optimizer: checkpoint has {meta.get('optimizer')}, "
+                            f"target expects {kind}")
+    for name in sorted(want.keys() - stored.keys()):
+        t = want[name]
+        problems.append(f"  {name}: missing from the checkpoint, target expects "
+                        f"{tuple(t.shape)}/{t.dtype}")
+    for name in sorted(stored.keys() - want.keys()):
+        t = stored[name]
+        problems.append(f"  {name}: in the checkpoint ({tuple(t.shape)}/{t.dtype}), "
+                        "not in the target")
+    for name in sorted(want.keys() & stored.keys()):
+        w, s = want[name], stored[name]
+        if (w.shape, w.dtype) != (s.shape, s.dtype):
+            problems.append(f"  {name}: checkpoint has {tuple(s.shape)}/{s.dtype}, target "
+                            f"expects {tuple(w.shape)}/{w.dtype}")
+    if problems:
+        raise ValueError(f"checkpoint at {path} does not match the target train state:\n"
+                         + "\n".join(problems))
+    with torch.no_grad():
+        for name, t in want.items():
+            t.copy_(stored[name])
+    if isinstance(target, TrainState):
+        target.step = meta["step"]
+        target.opt_state.count = meta["count"]
+    return target

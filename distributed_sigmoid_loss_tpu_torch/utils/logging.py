@@ -1,13 +1,18 @@
-"""Latency-window aggregation the serving stack's ``stats()`` snapshots are
+"""Metrics logging for the train loop (JSON lines with steps/sec) and the
+latency-window aggregation the serving stack's ``stats()`` snapshots are
 built on (counterpart of the JAX package's ``utils/logging.py``)."""
 
 from __future__ import annotations
 
+import json
 import math
+import sys
 import threading
+import time
 from collections import deque
+from typing import IO, Mapping
 
-__all__ = ["LatencyWindow"]
+__all__ = ["LatencyWindow", "MetricsLogger"]
 
 
 class LatencyWindow:
@@ -42,3 +47,57 @@ class LatencyWindow:
             idx = min(n - 1, max(0, math.ceil(p / 100.0 * n) - 1))
             out[f"p{p}_ms"] = round(samples[idx] * 1000.0, 3)
         return out
+
+
+class MetricsLogger:
+    """JSON-lines metrics logger with steps/sec tracking.
+
+    Keeps host state only; pass scalars the caller has already read (tensors
+    are read with ``float``), so the logger decides no device sync of its
+    own. ``every``: log steps that are multiples of it. The JAX logger's
+    emit-time schema check (``schema=``) needs the metrics registry, not
+    ported yet: passing one raises ``NotImplementedError``.
+    """
+
+    def __init__(self, stream: IO | None = None, every: int = 1,
+                 schema: frozenset | None = None, schema_prefixes: tuple = ()):
+        if schema is not None or schema_prefixes:
+            raise NotImplementedError(
+                "MetricsLogger(schema=...): the metrics registry (obs/metrics_schema.py) "
+                "is not ported yet: ROADMAP.md queue A item 6.5"
+            )
+        self.stream = stream or sys.stdout
+        self.every = every
+        self._last_time: float | None = None
+        self._last_step: int | None = None
+
+    @staticmethod
+    def _jsonable(v):
+        # Scalars as float; strings as they are; small count vectors as a
+        # list of floats, so the line stays one self-describing record.
+        if isinstance(v, str):
+            return v
+        try:
+            return float(v)
+        except (TypeError, ValueError, RuntimeError):
+            return [float(x) for x in v]
+
+    def log(self, step: int, metrics: Mapping[str, float], *, force: bool = False) -> None:
+        """``force=True`` (out-of-band records, e.g. in-training eval)
+        bypasses the ``every`` filter AND leaves the steps/sec clock alone,
+        so the eval's wall time lands in the next train interval."""
+        if step % self.every and not force:
+            return
+        now = time.perf_counter()
+        record = {"step": step}
+        record.update({k: self._jsonable(v) for k, v in metrics.items()})
+        if not force:
+            if self._last_time is not None and step > self._last_step:
+                record["steps_per_sec"] = (step - self._last_step) / (now - self._last_time)
+            self._last_time, self._last_step = now, step
+        self.write(record)
+
+    def write(self, record: Mapping) -> None:
+        """Emit a raw JSON-lines record with no step bookkeeping."""
+        self.stream.write(json.dumps(dict(record)) + "\n")
+        self.stream.flush()

@@ -120,6 +120,21 @@ def test_split_recovers_f32_to_22_bits():
     assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
 
 
+def test_split_keeps_a_nan():
+    """The card's NaN (0x7FFFFFFF) rounds to −0 by the bits alone (the
+    carry reaches the sign); the split products keep it a NaN, as an f32
+    product does, so a NaN embedding gives a NaN loss through K4–K6."""
+    nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32)
+    assert torch.equal(af.tf32_round(nan).view(torch.int32),
+                       torch.tensor([-2 ** 31], dtype=torch.int32))
+    a = torch.ones(2, 4)
+    a[0, 1] = nan[0]
+    b = torch.ones(4, 3)
+    for terms in (1, 3):
+        got = af.split_f32_matmul(a, b, terms=terms)
+        assert torch.isnan(got[0]).all() and torch.equal(got[1], torch.full((3,), 4.0))
+
+
 def _emulated_fwd(q, k, v, causal, terms):
     """The forward as the card's kernel forms it: per block of
     ``64 * fwd_groups(s)`` query rows, the keys it sees (causal: up to its last

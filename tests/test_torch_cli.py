@@ -1,0 +1,253 @@
+"""The port's command line (``cli.py``: ``train``, ``eval``, ``tokenizer``)
+on the CPU (``--cpu-devices 1``), in process, beside the JAX package's CLI.
+
+- ``train --tiny`` exits 0 and its JSON lines carry the JAX CLI's keys, save
+  the observability-only ones (``OBS_ONLY``: the static attribution fields,
+  ROADMAP.md queue A item 6.5).
+- ``--ckpt-dir``: a run stopped at step 2 resumes to 4 and ends where an
+  uninterrupted run does, bit for bit; ``eval`` restores it with and without
+  ``--ema`` (the EMA weights are the ones evaluated), and refuses ``--ema``
+  on a checkpoint without them.
+- Every flag of an unported path exits 2 naming its ROADMAP.md item; without
+  ``--cpu-devices 1`` and without CUDA the commands exit non-zero.
+- ``tokenizer`` writes the JAX command's vocab JSON byte for byte.
+
+The JAX CLI runs twice in this file (one train, one tokenizer), each in a
+module-scoped fixture.
+"""
+
+import ast
+import contextlib
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_sigmoid_loss_tpu import cli as jax_cli
+from distributed_sigmoid_loss_tpu_torch import cli
+from distributed_sigmoid_loss_tpu_torch import eval as port_eval
+from distributed_sigmoid_loss_tpu_torch.data import BpeTokenizer, SyntheticImageText
+from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OBS_ONLY = {"mfu_est", "comm_bytes_total"}
+TINY = ["--tiny", "--cpu-devices", "1", "--batch", "8"]
+CORPUS = ["a photo of a cat", "a photo of a dog", "the cat and the dog", "a cat photo",
+          "dog photo of a dog", "ünïcödé caption"]
+
+
+def run(argv):
+    """``cli.main(argv)`` in process: (exit code, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def json_lines(stdout):
+    return [json.loads(line) for line in stdout.splitlines() if line.startswith("{\"step\"")]
+
+
+@pytest.fixture(scope="module")
+def jax_train_lines():
+    """The JAX CLI's train lines (on this process's CPU mesh)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = jax_cli.main(["train", "--tiny", "--steps", "2", "--batch", "8", "--eval-every", "2",
+                           "--watchdog", "off"])
+    assert rc == 0
+    return json_lines(out.getvalue())
+
+
+def test_train_exits_0_with_the_jax_clis_keys(jax_train_lines):
+    rc, out, err = run(["train", *TINY, "--steps", "2", "--eval-every", "2"])
+    assert rc == 0, err
+    lines = json_lines(out)
+    want = [set(line) - OBS_ONLY for line in jax_train_lines]
+    assert [set(line) for line in lines] == want
+    assert OBS_ONLY <= set(jax_train_lines[0])
+    assert all(np.isfinite(v) for line in lines for v in line.values())
+    assert {"i2t_recall@1", "t2i_recall@5"} <= set(ast.literal_eval(err.strip().splitlines()[-1]))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """A run stopped at step 2 and resumed to 4 (EMA on, asynchronous
+    saves), an uninterrupted 4-step run, and a 2-step run without EMA."""
+    root = tmp_path_factory.mktemp("cli")
+    common = ["train", *TINY, "--ema-decay", "0.9", "--eval-every", "2", "--accum", "2",
+              "--accum-bf16"]
+    out = {"split": str(root / "split"), "whole": str(root / "whole"), "bare": str(root / "bare")}
+    out["first"] = run([*common, "--steps", "2", "--ckpt-every", "2", "--ckpt-dir", out["split"],
+                        "--async-checkpoint"])
+    out["rest"] = run([*common, "--steps", "4", "--ckpt-every", "2", "--ckpt-dir", out["split"],
+                       "--async-checkpoint"])
+    out["uninterrupted"] = run([*common, "--steps", "4", "--ckpt-every", "4", "--ckpt-dir",
+                                out["whole"]])
+    out["no_ema"] = run(["train", *TINY, "--steps", "2", "--ckpt-every", "2", "--ckpt-dir",
+                         out["bare"]])
+    return out
+
+
+def _report(stderr):
+    return re.search(r"resilient loop: steps (\d+)->(\d+), checkpoints at (\[.*\])",
+                     stderr).groups()
+
+
+def test_resume_through_ckpt_dir_equals_an_uninterrupted_run(runs):
+    for name in ("first", "rest", "uninterrupted", "no_ema"):
+        assert runs[name][0] == 0, runs[name][2]
+    assert _report(runs["first"][2]) == ("0", "2", "[2]")
+    assert _report(runs["rest"][2]) == ("2", "4", "[2, 4]")
+    assert _report(runs["uninterrupted"][2]) == ("0", "4", "[4]")
+    split = json_lines(runs["first"][1]) + json_lines(runs["rest"][1])
+    whole = json_lines(runs["uninterrupted"][1])
+    for a, b in zip(split, whole):
+        assert a["step"] == b["step"]
+        for k in a.keys() - {"steps_per_sec", "input_wait_frac"}:
+            assert a[k] == b[k], (a["step"], k)
+    got = torch.load(os.path.join(runs["split"], "step_00000004", "tensors.pt"))
+    want = torch.load(os.path.join(runs["whole"], "step_00000004", "tensors.pt"))
+    assert got.keys() == want.keys() and any(k.startswith("ema.") for k in got)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("ema", [False, True])
+def test_eval_restores_the_checkpoint(runs, monkeypatch, ema):
+    seen = []
+    metrics = port_eval.retrieval_metrics
+    monkeypatch.setattr(port_eval, "retrieval_metrics",
+                        lambda zi, zt, **kw: seen.append(zi) or metrics(zi, zt, **kw))
+    rc, out, err = run(["eval", "--tiny", "--cpu-devices", "1", "--batch", "8", "--ckpt-dir",
+                        runs["split"], *(["--ema"] if ema else [])])
+    assert rc == 0, err
+    assert f"restored step 4 ({'ema' if ema else 'params'})" in err
+    result = ast.literal_eval(out.strip().splitlines()[-1])
+    assert set(result) == {"i2t_recall@1", "t2i_recall@1", "i2t_recall@5", "t2i_recall@5",
+                           "zeroshot_top@1", "zeroshot_top@5"}
+    assert all(0.0 <= v <= 1.0 for v in result.values())
+    # The evaluated image embeddings are those of the checkpoint's weights.
+    stored = torch.load(os.path.join(runs["split"], "step_00000004", "tensors.pt"))
+    cfg = SigLIPConfig.tiny_test()
+    model = SigLIP(cfg, device="cpu")
+    prefix = "ema." if ema else "model."
+    model.load_state_dict({k[len(prefix):]: v for k, v in stored.items() if k.startswith(prefix)})
+    batch = next(iter(SyntheticImageText(cfg, 8, image_seed=7, text_seed=9)))
+    with torch.no_grad():
+        assert torch.equal(seen[0], model.encode_image(batch["images"]))
+
+
+def test_eval_refuses_ema_on_a_checkpoint_without_it(runs):
+    rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", "--batch", "8", "--ckpt-dir",
+                      runs["bare"], "--ema"])
+    assert rc == 2 and "has no EMA weights" in err
+    rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", "--ema"])
+    assert rc == 2 and "--ema requires --ckpt-dir" in err
+    rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", "--ckpt-dir", runs["bare"] + "x"])
+    assert rc == 2 and "no checkpoint found" in err
+
+
+REFUSED = [
+    (["--pp", "2"], "6.4"), (["--pp-microbatches", "4"], "6.4"), (["--moe-experts", "4"], "6.4"),
+    (["--moe-aux-weight", "0.01"], "6.4"), (["--moe-group-size", "64"], "6.4"),
+    (["--ep", "2"], "6.4"), (["--coordinator", "localhost:1234"], "6.4"),
+    (["--num-processes", "2"], "6.4"), (["--process-id", "0"], "6.4"),
+    (["--grad-compression", "int8"], "6.3"), (["--topk-frac", "0.1"], "6.3"),
+    (["--topk-exact"], "6.3"), (["--dcn-budget-mbps", "100"], "6.3"),
+    (["--controller", "greedy"], "6.3"), (["--emu-dcn-mbps", "100"], "6.3"),
+    (["--dcn-slices", "2"], "6.3"), (["--force-dcn-emulation"], "6.3"),
+    (["--update-sharding", "zero1"], "6.3"), (["--update-sharding", "full"], "6.3"),
+    (["--zero1"], "6.3"), (["--data-dir", "d"], "6.1"), (["--data-shards", "*.tar"], "6.1"),
+    (["--shuffle-buffer", "8"], "6.1"), (["--native-decode"], "6.1"), (["--native-data"], "6.1"),
+    (["--data-workers", "2"], "6.1"), (["--eval-data", "d"], "6.1"), (["--obs-dir", "d"], "6.5"),
+    (["--watchdog", "warn"], "6.5"),
+]
+
+
+@pytest.mark.parametrize("flags,item", REFUSED, ids=[" ".join(f) for f, _ in REFUSED])
+def test_train_refuses_unported_flags_naming_their_item(flags, item):
+    rc, out, err = run(["train", *TINY, *flags])
+    assert rc == 2 and f"ROADMAP.md queue A item {item}" in err and flags[0] in err
+    assert out == ""
+
+
+@pytest.mark.parametrize("flags,item", [(["--moe-experts", "4"], "6.4"),
+                                        (["--data-dir", "d"], "6.1"),
+                                        (["--data-shards", "*.tar"], "6.1")])
+def test_eval_refuses_unported_flags_naming_their_item(flags, item):
+    rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", *flags])
+    assert rc == 2 and f"ROADMAP.md queue A item {item}" in err
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--accum-bf16"], "--accum-bf16 requires --accum > 1"),
+    (["--watchdog", "skip"], "--watchdog skip requires --ckpt-dir"),
+    (["--async-checkpoint"], "--async-checkpoint without --ckpt-dir"),
+    (["--loss-impl", "chunked", "--variant", "ring"], "--loss-impl chunked applies"),
+    (["--use-pallas", "--loss-family", "softmax"], "--use-pallas applies"),
+    (["--cpu-devices", "2"], "--cpu-devices 2"),
+])
+def test_train_refuses_incoherent_flags(flags, match):
+    rc, _, err = run(["train", "--tiny", "--cpu-devices", "1", *flags])
+    assert rc == 2 and match in err
+
+
+@pytest.mark.parametrize("command", [["train", "--tiny"], ["eval", "--tiny"]])
+def test_commands_without_cuda_exit_nonzero(monkeypatch, command):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = run(command)
+    assert rc != 0 and "CUDA is not available" in err and out == ""
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("corpus")
+    (root / "captions.txt").write_text("\n".join(CORPUS + ["", "  "]) + "\n", encoding="utf-8")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert jax_cli.main(["tokenizer", str(root / "jax.json"), "--text-file",
+                             str(root / "captions.txt"), "--vocab-size", "300"]) == 0
+    return root
+
+
+def test_tokenizer_writes_the_jax_commands_vocab(corpus):
+    rc, out, err = run(["tokenizer", str(corpus / "port.json"), "--text-file",
+                        str(corpus / "captions.txt"), "--vocab-size", "300"])
+    assert rc == 0, err
+    assert (corpus / "port.json").read_bytes() == (corpus / "jax.json").read_bytes()
+    assert "merges" in out
+    rc, _, err = run(["tokenizer", str(corpus / "x.json")])
+    assert rc == 2 and "exactly one of" in err
+
+
+def test_tokenizer_reads_a_caption_directory_and_train_stashes_it(corpus, tmp_path):
+    for i, text in enumerate(CORPUS):
+        (tmp_path / f"{i}.txt").write_text(text, encoding="utf-8")
+    proc = subprocess.run([sys.executable, "-m", "distributed_sigmoid_loss_tpu_torch",
+                           "tokenizer", str(tmp_path / "vocab.json"), "--data-dir",
+                           str(tmp_path), "--vocab-size", "280"],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    ckpt_dir = tmp_path / "ck"
+    rc, _, err = run(["train", *TINY, "--steps", "1", "--ckpt-every", "1", "--ckpt-dir",
+                      str(ckpt_dir), "--tokenizer", str(tmp_path / "vocab.json")])
+    assert rc == 0, err
+    stash = ckpt_dir / "tokenizer.json"
+    assert stash.read_bytes() == (tmp_path / "vocab.json").read_bytes()
+    rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", "--batch", "8", "--ckpt-dir",
+                      str(ckpt_dir)])
+    assert rc == 0 and f"using checkpoint tokenizer {stash}" in err
+    BpeTokenizer([(100, 101)]).save(str(tmp_path / "other.json"))
+    rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", "--batch", "8", "--ckpt-dir",
+                      str(ckpt_dir), "--tokenizer", str(tmp_path / "other.json")])
+    assert rc == 0 and "differs from the checkpoint's stashed vocab" in err

@@ -7,8 +7,9 @@ its Pallas kernel in interpret mode). Also: W = N ≡ W = 1, the overlapped
 ring bitwise equal to the serial one, the exchanges' and the all-gather's
 directions forward and backward, and the ring-permutation messages.
 
-Inputs are the reference harness's (``utils/parity_data.py``, as
-``tests/test_torch_reference_parity.py`` builds them) with 128-wide towers,
+Inputs are the reference harness's (the port's ``utils/parity_data.py``,
+held bitwise equal to the JAX package's copy by
+``tests/test_torch_compat.py``) with 128-wide towers,
 so the JAX kernel engages (d % 128 == 0, local_b % 8 == 0). One spawn per W
 runs every case (``tests/_torch_dist_worker.py``); the JAX side runs here.
 """
@@ -29,12 +30,12 @@ from distributed_sigmoid_loss_tpu.ops.pallas_sigmoid_loss import (
 from distributed_sigmoid_loss_tpu.ops.sigmoid_loss import init_loss_params, l2_normalize
 from distributed_sigmoid_loss_tpu.parallel import collectives as jcol
 from distributed_sigmoid_loss_tpu.parallel import make_mesh, make_sharded_loss_fn
-from distributed_sigmoid_loss_tpu.utils.parity_data import (
+from distributed_sigmoid_loss_tpu_torch.parallel import collectives as pcol
+from distributed_sigmoid_loss_tpu_torch.parallel.api import make_sharded_loss_fn as port_loss_fn
+from distributed_sigmoid_loss_tpu_torch.utils.parity_data import (
     reference_encoder_weights,
     reference_partition,
 )
-from distributed_sigmoid_loss_tpu_torch.parallel import collectives as pcol
-from distributed_sigmoid_loss_tpu_torch.parallel.api import make_sharded_loss_fn as port_loss_fn
 
 WORLDS = (2, 3, 4)
 GPU_BATCH, EMB_DIM, OUT_DIM = 8, 16, 128
