@@ -124,7 +124,19 @@ and nothing is caught:
    flight; steps through the resilient loop with and without the host copy
    of ``--watchdog skip`` before the first checkpoint, a NaN batch rolled
    back bit for bit; D and E deleted;
-15. a JSON line of the kernels' numbers and, last, the device record.
+15. real image-text data (``[train_data]``, ``cli.main`` in this process):
+   BMP tar shards written here with ``struct`` (240 x 320 sinusoid mixes: 2
+   train shards of 160 pairs, an eval shard of 256), each
+   ``decode_and_resize`` at 224 px timed; B/16 trained on them for 3 steps
+   (TRAIN_DATA_FLAGS, a shuffle buffer, ``--eval-data``, an eval every 2
+   steps), the counts read around the run against ``[train_pallas]``'s per
+   microbatch plus K1 for each eval forward; the real-data convergence
+   oracle (16 colour classes, ``--tiny``, 80 steps) at recall@1 >= 0.5 both
+   ways; 2 B/16 steps on ``--native-data`` without its fallback;
+   ``data-bench`` over the train shards; whether libjpeg (and PIL) are
+   here, and if libjpeg is, 2 ``--tiny`` steps with ``--native-decode`` on
+   the committed JPEG fixture without its fallback; the shards deleted;
+16. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -139,8 +151,10 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
+import tarfile
 import threading
 import time
 
@@ -358,6 +372,29 @@ SAVE_IN_FLIGHT_STEPS = 3
 # Steps through the resilient loop with and without the skip rollback's
 # host copy; the NaN batch's position under "skip".
 SKIP_LOOP_STEPS, SKIP_POISON = 6, 3
+# Real image-text data (``[train_data]``): BMP tar shards of HW sinusoid
+# mixes, SHARDS train shards of PAIRS pairs and one eval shard of a whole
+# batch (the holdout is one batch of --batch rows); B/16 as TRAIN_CLI_FLAGS
+# without its checkpoints and EMA, STEPS steps, an eval every EVAL_EVERY.
+TRAIN_DATA_HW, TRAIN_DATA_SHARDS, TRAIN_DATA_PAIRS = (240, 320), 2, 160
+TRAIN_DATA_BATCH, TRAIN_DATA_ACCUM = 256, 2
+TRAIN_DATA_FLAGS = ("--model", "b16", "--batch", str(TRAIN_DATA_BATCH), "--accum",
+                    str(TRAIN_DATA_ACCUM), "--accum-bf16", "--remat-policy", "save_hot",
+                    "--use-pallas")
+TRAIN_DATA_STEPS, TRAIN_DATA_EVAL_EVERY, TRAIN_DATA_NATIVE_STEPS = 3, 2, 2
+# Images timed through decode_and_resize at 224 px.
+TRAIN_DATA_DECODE_TIMED = 64
+# The real-data convergence oracle (the JAX package's
+# tests/test_convergence_real_data.py), its shards in BMP: recall@1 both
+# ways at least this (chance 1/16).
+ORACLE_NAMES = ("red", "green", "blue", "cyan", "magenta", "yellow", "white", "gray",
+                "crimson", "lime", "navy", "teal", "purple", "olive", "silver", "black")
+ORACLE_COLORS = ((220, 30, 30), (30, 200, 30), (30, 30, 220), (30, 200, 200),
+                 (200, 30, 200), (220, 220, 30), (240, 240, 240), (128, 128, 128),
+                 (150, 20, 60), (120, 255, 60), (20, 20, 120), (20, 120, 120),
+                 (120, 20, 160), (120, 120, 30), (190, 190, 190), (15, 15, 15))
+ORACLE_MIN_RECALL = 0.5
+JPEG_FIXTURE = os.path.join("tests", "fixtures", "jpeg_pairs.tar")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2814,6 +2851,230 @@ def check_skip_rollback(state, step, batch, root) -> None:
             raise AssertionError(f"[train_cli] the loop under {mode}: {got} != {want}")
 
 
+def bmp_bytes(rgb: np.ndarray) -> bytes:
+    """(h, w, 3) uint8 RGB as an uncompressed 24-bit BMP (bottom-up rows,
+    each padded to 4 bytes), written with ``struct``."""
+    h, w, _ = rgb.shape
+    stride = (24 * w + 31) // 32 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    pixels = rows.tobytes()
+    return (struct.pack("<2sIHHI", b"BM", 54 + len(pixels), 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(pixels), 2835, 2835, 0, 0)
+            + pixels)
+
+
+def write_bmp_shard(path: str, items) -> None:
+    """A webdataset-style tar shard of ``(name, rgb, caption)`` items:
+    ``name.bmp`` + ``name.txt`` members (the layout of the test suite's
+    ``write_tar_shard``)."""
+    with tarfile.open(path, "w") as tf:
+        for name, rgb, caption in items:
+            for member, data in ((f"{name}.bmp", bmp_bytes(rgb)),
+                                 (f"{name}.txt", caption.encode())):
+                info = tarfile.TarInfo(member)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+
+
+def sinusoid_images(n: int, hw: tuple[int, int], rng):
+    """The JAX package's ``make_synthetic_shards`` images: smooth random
+    sinusoid mixes, uint8."""
+    h, w = hw
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+    for _ in range(n):
+        f = rng.uniform(1.0, 6.0, (2, 3)).astype(np.float32)
+        ph = rng.uniform(0.0, 6.28, (2, 3)).astype(np.float32)
+        img = 63.75 * (2.0 + np.sin(6.28 * f[0] * yy + ph[0]) + np.sin(6.28 * f[1] * xx + ph[1]))
+        yield np.clip(img, 0, 255).astype(np.uint8)
+
+
+def train_lines(out: str) -> list[dict]:
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+
+
+def run_train_data_path(args, sa, ssl, per_microbatch: dict) -> dict:
+    """Real image-text data through the commands (``[train_data]``); see the
+    module docstring's phase 15. Returns the launches of every run."""
+    from distributed_sigmoid_loss_tpu_torch.data import decode_and_resize
+    from distributed_sigmoid_loss_tpu_torch.data.native_decode import native_decode_available
+
+    t_phase = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "train_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = headline_config()
+    layers = cfg.vision.depth + cfg.text.depth
+    totals = {}
+
+    def counted(run):
+        for k, v in run["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+
+    def expect_b16(steps, forwards):
+        """The loss-kernel path's launches per microbatch (``[train_pallas]``)
+        times the microbatches, plus K1 for each eval or retrieval forward."""
+        expect = {k: round(v * TRAIN_DATA_ACCUM * steps) for k, v in per_microbatch.items()}
+        expect["short_attention_fwd"] += forwards * layers
+        return expect
+
+    try:
+        # 1. BMP tar shards, and decode_and_resize's rate at 224 px.
+        rng = np.random.default_rng(args.seed + 16)
+        t0 = time.monotonic()
+        shards, first_blobs = [], []
+        for s_, n in [(i, TRAIN_DATA_PAIRS) for i in range(TRAIN_DATA_SHARDS)] + [
+                ("eval", TRAIN_DATA_BATCH)]:
+            path = os.path.join(root, f"{'eval' if s_ == 'eval' else 'train'}-{s_}.tar")
+            items = [(f"scene-{s_}-{i:04d}", img, f"synthetic scene {s_}-{i} hue {i % 11}")
+                     for i, img in enumerate(sinusoid_images(n, TRAIN_DATA_HW, rng))]
+            write_bmp_shard(path, items)
+            shards.append(path)
+            if not first_blobs:
+                first_blobs = [bmp_bytes(img) for _, img, _ in items[:TRAIN_DATA_DECODE_TIMED]]
+        write_s = time.monotonic() - t0
+        decode_and_resize(first_blobs[0], 224)
+        t0 = time.perf_counter()
+        for blob in first_blobs:
+            out = decode_and_resize(blob, 224)
+        decode_s = time.perf_counter() - t0
+        if out.shape != (224, 224, 3) or not (-1.0 <= out.min() <= out.max() <= 1.0):
+            raise AssertionError(f"[train_data] decode_and_resize gave {out.shape}, "
+                                 f"[{out.min()}, {out.max()}]")
+        log("train_data", shards=[os.path.relpath(p, repo) for p in shards],
+            bytes=sum(os.path.getsize(p) for p in shards), write_s=write_s,
+            decode=f"BMP {TRAIN_DATA_HW[0]}x{TRAIN_DATA_HW[1]} -> 224 px, decode_and_resize on "
+                   "one thread",
+            decoded=len(first_blobs), decode_ms_per_image=1e3 * decode_s / len(first_blobs),
+            decode_images_per_s=len(first_blobs) / decode_s, cpu_count=os.cpu_count())
+
+        # 2. B/16 trained on the shards, an eval of the held-out shard every
+        # 2 steps, then the closing retrieval on the stream's next batch.
+        train_glob = os.path.join(root, "train-*.tar")
+        argv = ["train", *TRAIN_DATA_FLAGS, "--steps", str(TRAIN_DATA_STEPS),
+                "--data-shards", train_glob, "--shuffle-buffer", "64",
+                "--eval-data", shards[-1], "--eval-every", str(TRAIN_DATA_EVAL_EVERY)]
+        run = run_cli(sa, ssl, argv)
+        lines = train_lines(run["out"])
+        steps = [x for x in lines if "loss" in x]
+        evals = [x for x in lines if "eval/i2t_recall@1" in x]
+        expect = expect_b16(TRAIN_DATA_STEPS, len(evals) + 1)
+        log("train_data", run="b16 on BMP shards", argv=" ".join(argv[1:]).replace(root + "/", ""),
+            rc=run["rc"], seconds=run["seconds"],
+            losses=[x["loss"] for x in steps], steps_per_sec=[x.get("steps_per_sec")
+                                                              for x in steps],
+            input_wait_frac=[x["input_wait_frac"] for x in steps], evals=evals,
+            closing_retrieval=run["err"].strip().splitlines()[-1],
+            launches={k: v for k, v in run["counts"].items() if v},
+            expected={k: v for k, v in expect.items() if v})
+        if run["rc"] != 0 or len(steps) != TRAIN_DATA_STEPS or len(evals) != 1 or not all(
+                np.isfinite(x["loss"]) for x in steps):
+            raise AssertionError(f"[train_data] b16 on BMP shards: rc {run['rc']}, {lines}, "
+                                 f"{run['err'][-2000:]}")
+        if run["counts"] != expect or any(run["counts"][k] == 0 for k in TRAIN_CLI_KERNELS):
+            raise AssertionError(f"[train_data] launches {run['counts']} != {expect}")
+        counted(run)
+
+        # 3. The convergence oracle, its shards in BMP.
+        orng = np.random.default_rng(7)
+        train_items = []
+        for _ in range(6):
+            for name, color in zip(ORACLE_NAMES, ORACLE_COLORS):
+                arr = np.clip(np.asarray(color)[None, None, :] + orng.integers(-12, 13, (16, 16, 3)),
+                              0, 255).astype(np.uint8)
+                train_items.append((f"t{len(train_items):04d}", arr, f"a {name} square"))
+        oracle = os.path.join(root, "oracle")
+        os.makedirs(oracle)
+        write_bmp_shard(os.path.join(oracle, "train0.tar"), train_items[:48])
+        write_bmp_shard(os.path.join(oracle, "train1.tar"), train_items[48:])
+        write_bmp_shard(os.path.join(oracle, "eval.tar"),
+                        [(f"e{i:02d}", np.full((16, 16, 3), c, np.uint8), f"a {n} square")
+                         for i, (n, c) in enumerate(zip(ORACLE_NAMES, ORACLE_COLORS))])
+        argv = ["train", "--tiny", "--steps", "80", "--batch", "16",
+                "--data-shards", os.path.join(oracle, "train*.tar"), "--shuffle-buffer", "64",
+                "--eval-every", "40", "--eval-data", os.path.join(oracle, "eval.tar"),
+                "--lr", "3e-3", "--log-every", "40"]
+        run = run_cli(sa, ssl, argv)
+        evals = [x for x in train_lines(run["out"]) if "eval/i2t_recall@1" in x]
+        log("train_data", run="convergence oracle (BMP shards, --tiny, 80 steps)", rc=run["rc"],
+            seconds=run["seconds"], evals=evals, chance=1 / len(ORACLE_NAMES),
+            launches={k: v for k, v in run["counts"].items() if v})
+        if run["rc"] != 0 or [x["step"] for x in evals] != [40, 80] or min(
+                evals[-1]["eval/i2t_recall@1"], evals[-1]["eval/t2i_recall@1"]) < ORACLE_MIN_RECALL:
+            raise AssertionError(f"[train_data] convergence oracle: rc {run['rc']}, {evals}, "
+                                 f"{run['err'][-2000:]}")
+        counted(run)
+
+        # 4. B/16 on the native synthetic engine.
+        argv = ["train", *TRAIN_DATA_FLAGS, "--steps", str(TRAIN_DATA_NATIVE_STEPS),
+                "--native-data"]
+        run = run_cli(sa, ssl, argv)
+        steps = [x for x in train_lines(run["out"]) if "loss" in x]
+        expect = expect_b16(TRAIN_DATA_NATIVE_STEPS, 1)
+        log("train_data", run="b16 --native-data", rc=run["rc"], seconds=run["seconds"],
+            losses=[x["loss"] for x in steps],
+            input_wait_frac=[x["input_wait_frac"] for x in steps],
+            launches={k: v for k, v in run["counts"].items() if v})
+        if (run["rc"] != 0 or "falling back to the numpy pipeline" in run["err"]
+                or len(steps) != TRAIN_DATA_NATIVE_STEPS
+                or not all(np.isfinite(x["loss"]) for x in steps)):
+            raise AssertionError(f"[train_data] --native-data: rc {run['rc']}, "
+                                 f"{run['err'][-2000:]}")
+        if run["counts"] != expect:
+            raise AssertionError(f"[train_data] --native-data launches {run['counts']} != "
+                                 f"{expect}")
+        counted(run)
+
+        # 5. data-bench over the train shards.
+        argv = ["data-bench", "--model", "b16", "--data-shards", train_glob, "--pil-decode"]
+        run = run_cli(sa, ssl, argv)
+        records = train_lines(run["out"])
+        for rec in records:
+            log("train_data", data_bench=rec)
+        stages = {r.get("stage"): r for r in records if r["metric"] == "data_bench_stage"}
+        if (run["rc"] != 0 or set(stages) != {"shard_read", "decode", "tokenize", "augment",
+                                               "h2d_commit"}
+                or stages["augment"]["device_kind"] != torch.cuda.get_device_name(0)
+                or len(records) != 6):
+            raise AssertionError(f"[train_data] data-bench: rc {run['rc']}, {records}, "
+                                 f"{run['err'][-2000:]}")
+        counted(run)
+
+        # 6. libjpeg (and PIL) on this machine; where libjpeg is, the native
+        # decoder on the committed JPEG fixture.
+        import ctypes.util
+        import importlib.util
+
+        include_dirs = ("/usr/include", "/usr/local/include", "/usr/include/x86_64-linux-gnu")
+        available = native_decode_available()
+        log("train_data", native_decode_available=available,
+            jpeglib_h=[d for d in include_dirs if os.path.exists(os.path.join(d, "jpeglib.h"))],
+            libjpeg=ctypes.util.find_library("jpeg"),
+            pil=importlib.util.find_spec("PIL") is not None)
+        if available:
+            argv = ["train", "--tiny", "--steps", "2", "--batch", "8",
+                    "--data-shards", os.path.join(repo, JPEG_FIXTURE), "--native-decode"]
+            run = run_cli(sa, ssl, argv)
+            steps = [x for x in train_lines(run["out"]) if "loss" in x]
+            log("train_data", run="--tiny --native-decode on the JPEG fixture", rc=run["rc"],
+                seconds=run["seconds"], losses=[x["loss"] for x in steps])
+            if (run["rc"] != 0 or "falling back to PIL decode" in run["err"]
+                    or len(steps) != 2 or not all(np.isfinite(x["loss"]) for x in steps)):
+                raise AssertionError(f"[train_data] --native-decode: rc {run['rc']}, "
+                                     f"{run['err'][-2000:]}")
+            counted(run)
+        else:
+            log("train_data", native_decode="libjpeg is not on this machine: the native "
+                "decoder waits for it; JPEG needs PIL or libjpeg here")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("train_data", phase_seconds=time.monotonic() - t_phase, removed=root)
+    return totals
+
+
 def global_norm_of(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
@@ -2975,7 +3236,7 @@ def main() -> int:
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
 
-    # Phases 4-14: the main paths, each between two reads of the counts.
+    # Phases 4-15: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
                       ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
@@ -2991,13 +3252,16 @@ def main() -> int:
                       ("compat", lambda: run_compat(sa, ssl, gen)),
                       ("train_cli", lambda: run_train_cli_path(args, sa, ssl, {
                           k: v / (ACCUM * TRAIN_PALLAS_STEPS)
+                          for k, v in paths["train_pallas"].items()})),
+                      ("train_data", lambda: run_train_data_path(args, sa, ssl, {
+                          k: v / (ACCUM * TRAIN_PALLAS_STEPS)
                           for k, v in paths["train_pallas"].items()}))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 15: the records.
+    # Phase 16: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"

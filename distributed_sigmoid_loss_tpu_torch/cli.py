@@ -1,15 +1,21 @@
 """Command-line entry point: ``python -m distributed_sigmoid_loss_tpu_torch <cmd>``
 (or ``dsl-torch <cmd>``), with the JAX package's flag names and defaults.
 
-- ``train``: SigLIP training on synthetic data: the towers, the distributed
+- ``train``: SigLIP training on synthetic data (the default, or the native
+  C++ engine under ``--native-data``) or on real image-text pairs: a folder
+  (``--data-dir``) or webdataset-style tar shards (``--data-shards``), with
+  a held-out eval source (``--eval-data``). The towers, the distributed
   sigmoid loss (ring or all-gather; K4-K6 under ``--use-pallas``), the
   optimizer, JSON-lines metrics, prefetch to the device, and with
   ``--ckpt-dir`` checkpoint/resume, preemption (SIGTERM) checkpoints and
   divergence rollback (``train.resilience.train_resilient``).
 - ``eval``: retrieval and zero-shot classification of a fresh or
-  checkpointed model on held-out synthetic data (``--ema``: the
-  checkpoint's EMA weights).
+  checkpointed model on held-out synthetic data, or on real pairs (their
+  captions are the zero-shot classes); ``--ema``: the checkpoint's EMA
+  weights.
 - ``tokenizer``: train a byte-level BPE vocab on a caption corpus.
+- ``data-bench``: the input pipeline's stages and the composed pipeline
+  against the synthetic loader (``data/data_bench.py``).
 
 The commands run on ``cuda``; ``--cpu-devices 1`` runs them on the CPU. A
 flag whose path the port does not have yet exits 2 with a message naming
@@ -48,13 +54,6 @@ _UNPORTED = (
     ("dcn_slices", 1, "--dcn-slices", "6.3", "the multi-slice dcn axis"),
     ("force_dcn_emulation", False, "--force-dcn-emulation", "6.3", "the multi-slice dcn axis"),
     ("zero1", False, "--zero1", "6.3", "sharded updates"),
-    ("data_dir", "", "--data-dir", "6.1", "real image data"),
-    ("data_shards", "", "--data-shards", "6.1", "real image data"),
-    ("shuffle_buffer", 0, "--shuffle-buffer", "6.1", "real image data"),
-    ("native_decode", False, "--native-decode", "6.1", "the native decoder"),
-    ("native_data", False, "--native-data", "6.1", "the native loader"),
-    ("data_workers", 0, "--data-workers", "6.1", "the host worker pools of real data"),
-    ("eval_data", "", "--eval-data", "6.1", "real image data"),
     ("obs_dir", "", "--obs-dir", "6.5", "observability (spans, flight recorder)"),
 )
 
@@ -143,6 +142,122 @@ def _byte_tokenize_for(cfg, vocab_path: str = ""):
     return tokenize
 
 
+def _resolve_eval_data(path: str):
+    """``--eval-data`` as ("dir", path), ("shards", [tars]) or (None, the
+    error): one resolution for the early check and the source."""
+    import glob
+
+    if os.path.isdir(path):
+        return "dir", path
+    shards = glob.glob(path)
+    if shards:
+        return "shards", shards
+    return None, f"--eval-data matched nothing: {path!r}"
+
+
+def _eval_holdout_source(args, cfg, tokenize, native_decode: bool):
+    """The ``--eval-data`` source (a directory or a tar-shard glob) of
+    ``args.batch`` rows. ``native_decode`` follows the training stream's
+    decoder: the two engines' pixels differ in the last bits, and an eval
+    batch decoded otherwise would measure another distribution."""
+    from distributed_sigmoid_loss_tpu_torch.data import ImageTextFolder, ImageTextShards
+
+    kind, resolved = _resolve_eval_data(args.eval_data)
+    if kind == "dir":
+        return ImageTextFolder(resolved, cfg, args.batch, tokenize, native_decode=native_decode)
+    if kind == "shards":
+        return ImageTextShards(resolved, cfg, args.batch, tokenize, native_decode=native_decode)
+    print(resolved, file=sys.stderr)
+    raise SystemExit(2)
+
+
+def _data_conflicts(args) -> str | None:
+    """The ``train`` command's refusals of incoherent data flags (the JAX
+    package's messages): the first, or None. The port runs one process, so
+    JAX's multi-process refusals never apply."""
+    import glob
+
+    from distributed_sigmoid_loss_tpu_torch.data import resolve_data_workers
+
+    if sum(map(bool, (args.data_dir, args.data_shards, args.native_data))) > 1:
+        return "--data-dir, --data-shards and --native-data are mutually exclusive data sources"
+    if args.shuffle_buffer and not args.data_shards:
+        return ("--shuffle-buffer applies to --data-shards streams only "
+                "(--data-dir already shuffles whole epochs)")
+    if args.native_decode and not (args.data_dir or args.data_shards):
+        return ("--native-decode without --data-dir/--data-shards would be a "
+                "silent no-op (synthetic data is not decoded)")
+    try:
+        resolve_data_workers(args.data_workers)
+    except ValueError as e:
+        return f"--data-workers: {e}"
+    if args.data_shards and not glob.glob(args.data_shards):
+        return f"--data-shards matched nothing: {args.data_shards!r}"
+    if args.eval_data and not args.eval_every:
+        return ("--eval-data without --eval-every would be a silent no-op "
+                "(nothing ever evaluates it)")
+    if args.eval_data:
+        kind, resolved = _resolve_eval_data(args.eval_data)
+        if kind is None:
+            return resolved
+    return None
+
+
+def _train_source(args, cfg):
+    """The training stream: ``(source, tokenize, native_decode)``. File
+    sources read one process's whole batch (``shard_index=0,
+    num_shards=1``); the host-side fallbacks of ``--native-decode`` and
+    ``--native-data`` are the JAX package's, with its warnings."""
+    import glob
+
+    from distributed_sigmoid_loss_tpu_torch.data import (
+        ImageTextFolder,
+        ImageTextShards,
+        SyntheticImageText,
+        resolve_data_workers,
+    )
+
+    # 0 = auto (cpu_count minus the prefetch/main threads): the host pool for
+    # decode (file sources) or generation (the native engine).
+    data_workers = resolve_data_workers(args.data_workers)
+    if args.data_dir or args.data_shards:
+        tokenize = _byte_tokenize_for(cfg, args.tokenizer)
+        native_decode = False
+        if args.native_decode:
+            from distributed_sigmoid_loss_tpu_torch.data.native_decode import (
+                native_decode_available,
+            )
+
+            native_decode = native_decode_available()
+            if not native_decode:
+                print("--native-decode: libjpeg engine unavailable, falling back to PIL "
+                      "decode", file=sys.stderr)
+        if args.data_dir:
+            source = ImageTextFolder(args.data_dir, cfg, args.batch, tokenize,
+                                     native_decode=native_decode, data_workers=data_workers)
+        else:
+            source = ImageTextShards(glob.glob(args.data_shards), cfg, args.batch, tokenize,
+                                     shard_index=0, num_shards=1, native_decode=native_decode,
+                                     shuffle_buffer=args.shuffle_buffer,
+                                     data_workers=data_workers)
+        return source, tokenize, native_decode
+    if args.native_data:
+        from distributed_sigmoid_loss_tpu_torch.data import (
+            NativeSyntheticImageText,
+            native_available,
+        )
+
+        reason = "no C++ toolchain or prebuilt library"
+        if native_available():
+            try:
+                return NativeSyntheticImageText(cfg, args.batch,
+                                                num_threads=data_workers), None, False
+            except (RuntimeError, OSError) as e:
+                reason = f"engine unusable: {e}"
+        print(f"--native-data: {reason}; falling back to the numpy pipeline", file=sys.stderr)
+    return SyntheticImageText(cfg, args.batch), None, False
+
+
 def _train_config_conflicts(args) -> str | None:
     """The ``train`` command's refusals of incoherent flag sets among the
     ported flags (the JAX package's messages): the first, or None."""
@@ -182,7 +297,7 @@ def _train_config_conflicts(args) -> str | None:
 
 
 def cmd_train(args) -> int:
-    refusal = _unported(args) or _train_config_conflicts(args)
+    refusal = _unported(args) or _train_config_conflicts(args) or _data_conflicts(args)
     if refusal:
         print(refusal, file=sys.stderr)
         return 2
@@ -194,27 +309,9 @@ def cmd_train(args) -> int:
 
     import torch
 
-    from distributed_sigmoid_loss_tpu_torch.data import (
-        PrefetchStats,
-        SyntheticImageText,
-        prefetch,
-        put_batch,
-        shard_batch,
-    )
-    from distributed_sigmoid_loss_tpu_torch.eval import retrieval_metrics
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
-    from distributed_sigmoid_loss_tpu_torch.train import (
-        AsyncSaver,
-        PreemptionGuard,
-        RestoreRequiredError,
-        create_train_state,
-        latest_step,
-        make_optimizer,
-        make_train_step,
-        train_resilient,
-    )
+    from distributed_sigmoid_loss_tpu_torch.train import make_optimizer
     from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
-    from distributed_sigmoid_loss_tpu_torch.utils.logging import MetricsLogger
 
     cfg = _model_config(args)
     if args.loss_family != "sigmoid":
@@ -225,7 +322,38 @@ def cmd_train(args) -> int:
     model = SigLIP(cfg, device=device)
     tx = make_optimizer(TrainConfig(learning_rate=args.lr, warmup_steps=5,
                                     total_steps=max(args.steps, 10), optimizer=args.optimizer))
-    source = SyntheticImageText(cfg, args.batch)
+    source, tokenize, native_decode = _train_source(args, cfg)
+    try:
+        return _train(args, device, cfg, model, tx, source, tokenize, native_decode)
+    finally:
+        close = getattr(source, "close", None)  # the native engine's threads
+        if close is not None:
+            close()
+
+
+def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int:
+    import torch
+
+    from distributed_sigmoid_loss_tpu_torch.data import (
+        PrefetchStats,
+        SyntheticImageText,
+        prefetch,
+        put_batch,
+        shard_batch,
+    )
+    from distributed_sigmoid_loss_tpu_torch.eval import retrieval_metrics
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        AsyncSaver,
+        PreemptionGuard,
+        RestoreRequiredError,
+        create_train_state,
+        latest_step,
+        make_train_step,
+        train_resilient,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig
+    from distributed_sigmoid_loss_tpu_torch.utils.logging import MetricsLogger
+
     data = iter(source)
     first = next(data)
     resuming = bool(args.ckpt_dir) and latest_step(args.ckpt_dir) is not None
@@ -247,9 +375,9 @@ def cmd_train(args) -> int:
     logger = MetricsLogger(every=args.log_every)
 
     def host_batches(skip: int = 0):
-        # The synthetic stream is deterministic per position: on resume, skip
-        # the batches the checkpointed steps consumed, so the resumed run sees
-        # the stream an uninterrupted run would.
+        # Every stream is deterministic per position (seeded): on resume,
+        # draw and drop the batches the checkpointed steps consumed, so the
+        # resumed run sees the stream an uninterrupted run would.
         if skip == 0:
             yield first
         for i, b in enumerate(data, start=1):
@@ -271,11 +399,33 @@ def cmd_train(args) -> int:
 
     eval_hook = None
     if args.eval_every:
-        # ONE fixed, held-out batch (shifted seeds) for every in-training
-        # eval: the curve measures the model, not data drift, and the
-        # training stream's positions stay untouched.
-        eval_batch = put_batch(shard_batch(next(iter(SyntheticImageText(
-            cfg, args.batch, image_seed=43, text_seed=41)))), device)
+        # ONE fixed batch for every in-training eval: the curve measures the
+        # model, not data drift. It is not drawn from the training stream,
+        # whose positions a resume skips by count. Synthetic runs take a
+        # held-out batch (shifted seeds), file and native streams the
+        # --eval-data holdout, else the position-0 training batch (with
+        # JAX's warning: that curve partly measures train-set fit).
+        if args.eval_data:
+            try:
+                # A holdout smaller than a batch raises ValueError: at
+                # construction for a folder, at the first draw for shards.
+                holdout = _eval_holdout_source(
+                    args, cfg, tokenize or _byte_tokenize_for(cfg, args.tokenizer),
+                    native_decode=native_decode)
+                eval_first = next(iter(holdout))
+            except ValueError as e:
+                print(f"--eval-data: {e}", file=sys.stderr)
+                return 2
+            eval_batch = put_batch(eval_first, device)
+        elif isinstance(source, SyntheticImageText):
+            eval_batch = put_batch(shard_batch(next(iter(SyntheticImageText(
+                cfg, args.batch, image_seed=43, text_seed=41)))), device)
+        else:
+            print("--eval-every without --eval-data on a file/native stream: the fixed eval "
+                  "batch is the position-0 TRAINING batch, so the curve partially measures "
+                  "train-set fit — pass --eval-data with held-out shards or a directory for "
+                  "a true validation curve", file=sys.stderr)
+            eval_batch = put_batch(shard_batch(first), device)
 
         def eval_hook(step_i, st):
             with torch.no_grad():
@@ -330,7 +480,7 @@ def cmd_train(args) -> int:
         finally:
             stream.close()  # joins the worker; `data` is single-reader again
 
-    # Retrieval on a held-out synthetic batch (the embeddings come normalized).
+    # Retrieval on the stream's next batch (the embeddings come normalized).
     held_out = put_batch(shard_batch(next(data)), device)
     with torch.no_grad():
         zimg, ztxt, _ = model(held_out["images"], held_out["tokens"])
@@ -347,6 +497,9 @@ def cmd_eval(args) -> int:
     if args.ema and not args.ckpt_dir:
         print("--ema requires --ckpt-dir (EMA weights live in a train checkpoint; "
               "a fresh model has none)", file=sys.stderr)
+        return 2
+    if args.data_dir and args.data_shards:
+        print("--data-dir and --data-shards are mutually exclusive", file=sys.stderr)
         return 2
     device, code = _device(args)
     if device is None:
@@ -379,7 +532,28 @@ def cmd_eval(args) -> int:
                               f"checkpoint's stashed vocab {stashed}; token ids will not "
                               "match training", file=sys.stderr)
     model = SigLIP(cfg, device=device)
-    batch = next(iter(SyntheticImageText(cfg, args.batch, image_seed=7, text_seed=9)))
+    captions = None
+    if args.data_dir or args.data_shards:
+        # Real pairs through the loaders train uses; their captions are the
+        # zero-shot class names (below).
+        import glob
+
+        from distributed_sigmoid_loss_tpu_torch.data import ImageTextFolder, ImageTextShards
+
+        tokenize = _byte_tokenize_for(cfg, args.tokenizer)
+        if args.data_dir:
+            source = ImageTextFolder(args.data_dir, cfg, args.batch, tokenize,
+                                     keep_captions=True)
+        else:
+            shards = glob.glob(args.data_shards)
+            if not shards:
+                print(f"--data-shards matched nothing: {args.data_shards!r}", file=sys.stderr)
+                return 2
+            source = ImageTextShards(shards, cfg, args.batch, tokenize, keep_captions=True)
+        batch = next(iter(source))
+        captions = batch.pop("captions")
+    else:
+        batch = next(iter(SyntheticImageText(cfg, args.batch, image_seed=7, text_seed=9)))
     if args.ckpt_dir:
         # Train writes the FULL train state; restore the newest into a
         # matching one (the optimizer state only as the restore target) and
@@ -426,13 +600,21 @@ def cmd_eval(args) -> int:
            for k, v in retrieval_metrics(zimg, ztxt, ks=(1, 5)).items()}
 
     # Zero-shot classification: class prompts through the tokenizer and the
-    # text tower into a prompt-ensembled classifier; synthetic labels. The
-    # class name first: short contexts (tiny: 8 tokens) would truncate a
-    # trailing name away.
-    n_classes = args.classes
-    class_names = [f"c{c}" for c in range(n_classes)]
-    rng = np.random.default_rng(0)
-    label_values = rng.integers(0, n_classes, zimg.shape[0]).astype(np.int32)
+    # text tower into a prompt-ensembled classifier.
+    if captions is not None:
+        # Real data: the batch's distinct captions are the label space, each
+        # image's class its own caption (retrieval as classification).
+        class_names = sorted(set(captions))
+        n_classes = len(class_names)
+        class_index = {c: i for i, c in enumerate(class_names)}
+        label_values = np.asarray([class_index[c] for c in captions], np.int32)
+    else:
+        # Synthetic labels. The class name first: short contexts (tiny: 8
+        # tokens) would truncate a trailing name away.
+        n_classes = args.classes
+        class_names = [f"c{c}" for c in range(n_classes)]
+        rng = np.random.default_rng(0)
+        label_values = rng.integers(0, n_classes, zimg.shape[0]).astype(np.int32)
     classifier = build_classifier(
         lambda tokens: model.encode_text(tokens.to(device)),
         class_names,
@@ -481,12 +663,19 @@ def cmd_tokenizer(args) -> int:
     return 0
 
 
+def cmd_data_bench(args) -> int:
+    """The input pipeline's stage bench (``data/data_bench.py``)."""
+    from distributed_sigmoid_loss_tpu_torch.data.data_bench import run_data_bench
+
+    return run_data_bench(args)
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="distributed_sigmoid_loss_tpu_torch",
                                  description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    tr = sub.add_parser("train", help="end-to-end SigLIP training (synthetic data)")
+    tr = sub.add_parser("train", help="end-to-end SigLIP training (synthetic or real data)")
     tr.add_argument("--steps", type=int, default=20)
     tr.add_argument("--tokenizer", default="",
                     help="trained BPE vocab json (the `tokenizer` command), stashed "
@@ -539,7 +728,28 @@ def _parser() -> argparse.ArgumentParser:
     tr.add_argument("--ckpt-every", type=int, default=50)
     tr.add_argument("--eval-every", type=int, default=0, metavar="N",
                     help="every N steps, log retrieval metrics (eval/i2t_recall@K ...) "
-                         "on one fixed held-out synthetic batch")
+                         "on one fixed batch: a held-out synthetic batch, the --eval-data "
+                         "holdout, or (with a warning) the first training batch of a "
+                         "file/native stream")
+    tr.add_argument("--data-dir", default="",
+                    help="train on a directory of name.jpg + name.txt pairs (real data)")
+    tr.add_argument("--data-shards", default="",
+                    help="train on webdataset-style tar shards matching this glob (real data)")
+    tr.add_argument("--shuffle-buffer", type=int, default=0,
+                    help="sample-shuffle reservoir size for --data-shards (webdataset-style; "
+                         "0 = stream in tar order)")
+    tr.add_argument("--native-decode", action="store_true",
+                    help="decode JPEGs with the native libjpeg engine (threaded, off-GIL; "
+                         "with --data-dir or --data-shards); falls back to PIL with a notice")
+    tr.add_argument("--native-data", action="store_true",
+                    help="the C++ synthetic engine (native/dataloader.cc) instead of the "
+                         "numpy stream; falls back with a notice where it cannot be built")
+    tr.add_argument("--data-workers", type=int, default=0, metavar="N",
+                    help="host worker threads for decode / native generation (0 = auto: "
+                         "cpu_count minus the prefetch/main threads)")
+    tr.add_argument("--eval-data", default="", metavar="PATH_OR_GLOB",
+                    help="held-out eval source for --eval-every: a directory "
+                         "(ImageTextFolder layout) or a tar-shard glob")
     tr.add_argument("--log-every", type=int, default=1)
     tr.add_argument("--watchdog", choices=["off", "warn", "skip"], default="off",
                     help="'skip' routes a non-finite loss into the rollback-and-skip "
@@ -552,12 +762,6 @@ def _parser() -> argparse.ArgumentParser:
     tr.add_argument("--pp", type=int, default=1)
     tr.add_argument("--pp-microbatches", type=int, default=0)
     tr.add_argument("--ep", type=int, default=1)
-    tr.add_argument("--data-dir", default="")
-    tr.add_argument("--data-shards", default="")
-    tr.add_argument("--shuffle-buffer", type=int, default=0)
-    tr.add_argument("--native-decode", action="store_true")
-    tr.add_argument("--native-data", action="store_true")
-    tr.add_argument("--data-workers", type=int, default=0, metavar="N")
     tr.add_argument("--update-sharding", choices=["off", "zero1", "full"], default="")
     tr.add_argument("--zero1", action="store_true")
     tr.add_argument("--dcn-slices", type=int, default=1, metavar="N")
@@ -569,7 +773,6 @@ def _parser() -> argparse.ArgumentParser:
     tr.add_argument("--emu-dcn-mbps", type=float, default=None, metavar="MBPS")
     tr.add_argument("--topk-frac", type=float, default=0.01, metavar="F")
     tr.add_argument("--topk-exact", action="store_true")
-    tr.add_argument("--eval-data", default="", metavar="PATH_OR_GLOB")
     tr.add_argument("--obs-dir", default="", metavar="DIR")
     tr.add_argument("--coordinator", default="")
     tr.add_argument("--num-processes", type=int, default=0)
@@ -593,10 +796,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="the towers' projections in dynamic int8 (inference only)")
     ev.add_argument("--ema", action="store_true",
                     help="evaluate the checkpoint's EMA weights (train --ema-decay)")
+    ev.add_argument("--data-dir", default="",
+                    help="directory of name.jpg + name.txt pairs: score real pairs "
+                         "(retrieval + caption-matching zero-shot) instead of synthetic data")
+    ev.add_argument("--data-shards", default="",
+                    help="glob of webdataset-style tar shards (the loaders train uses); "
+                         "mutually exclusive with --data-dir")
     # Flags of paths not ported yet (each exits 2 naming its ROADMAP item).
     ev.add_argument("--moe-experts", type=int, default=0)
-    ev.add_argument("--data-dir", default="")
-    ev.add_argument("--data-shards", default="")
 
     tk = sub.add_parser("tokenizer", help="train a byte-level BPE vocab on a caption corpus")
     tk.add_argument("out", help="output vocab json path")
@@ -604,12 +811,22 @@ def _parser() -> argparse.ArgumentParser:
     tk.add_argument("--data-dir", default="",
                     help="directory of name.txt caption files")
     tk.add_argument("--text-file", default="", help="plain text file, one caption per line")
+
+    db = sub.add_parser("data-bench", help="input-pipeline stage bench: shard read / decode / "
+                                           "tokenize / augment / h2d commit alone, and the "
+                                           "composed real-data pipeline vs the synthetic loader")
+    from distributed_sigmoid_loss_tpu_torch.data.data_bench import add_data_bench_args
+
+    add_data_bench_args(db)
+    db.add_argument("--cpu-devices", type=int, default=0,
+                    help="1 = run augment and the commits on the CPU (default: cuda)")
     return ap
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
-    return {"train": cmd_train, "eval": cmd_eval, "tokenizer": cmd_tokenizer}[args.cmd](args)
+    return {"train": cmd_train, "eval": cmd_eval, "tokenizer": cmd_tokenizer,
+            "data-bench": cmd_data_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -2,18 +2,16 @@
 ``data/loader.py``: device placement of a batch and a prefetch thread that
 keeps batches in flight ahead of the step.
 
-- :func:`put_batch`: a host batch onto this rank's device.
-- :func:`global_batch_from_local`: under ``torch.distributed`` every process
-  holds its own rows, which are its share of the global batch, so this is
-  :func:`put_batch` of those rows (JAX assembles a global array from the
-  hosts' shards instead; no data crosses hosts in either).
+- :func:`put_batch`: a host batch onto this rank's device, always as a copy
+  (a source may reuse its host memory for the next batch).
 - :func:`prefetch`: a daemon thread keeps ``size`` batches ahead; on a CUDA
   device it copies them from pinned host memory on a side stream, so the
   transfers overlap the step's compute.
 
 JAX's ``batch_shardings`` (a ``NamedSharding`` per leaf over the mesh's data
-axis) has no counterpart: there is no mesh, each rank's rows already are its
-shard.
+axis) and ``global_batch_from_local`` (a global array from each host's rows,
+ROADMAP.md queue A item 6.4, multi-host input) have no counterpart: each
+rank places its own rows.
 """
 
 from __future__ import annotations
@@ -25,7 +23,7 @@ from typing import Any, Callable, Iterable, Iterator
 
 import torch
 
-__all__ = ["put_batch", "global_batch_from_local", "prefetch", "PrefetchStats"]
+__all__ = ["put_batch", "prefetch", "PrefetchStats"]
 
 
 class PrefetchStats:
@@ -74,10 +72,13 @@ class PrefetchStats:
 
 
 def put_batch(batch: dict, device) -> dict:
-    """Each tensor (or array) of ``batch`` on ``device``. To a CUDA device
-    the copies come from pinned host memory and are issued without blocking,
-    on the current stream: the caller orders its use after them (see
-    :func:`prefetch`)."""
+    """Each tensor (or array) of ``batch`` on ``device``, as a copy. To a
+    CUDA device the copies come from pinned host memory (pinned by a copy
+    unless the tensor already is) and are issued without blocking, on the
+    current stream: the caller orders its use after them (see
+    :func:`prefetch`). On the CPU they are copies too, so a placed batch
+    never shares memory with a source's reusable buffer (the native loader's
+    ring)."""
     device = torch.device(device)
     out = {}
     for k, v in batch.items():
@@ -87,15 +88,8 @@ def put_batch(batch: dict, device) -> dict:
                 t = t.pin_memory()
             out[k] = t.to(device, non_blocking=True)
         else:
-            out[k] = t.to(device)
+            out[k] = t.to(device, copy=True)
     return out
-
-
-def global_batch_from_local(local_batch: dict, device) -> dict:
-    """This process's rows of the global batch on its device: under
-    ``torch.distributed`` a rank's own rows are its share of the global
-    batch, so this is :func:`put_batch`."""
-    return put_batch(local_batch, device)
 
 
 def _tensors(batch) -> list[torch.Tensor]:
@@ -154,10 +148,9 @@ def prefetch(
     def produce():
         for batch in it:
             if cuda:
-                with torch.cuda.stream(side):
-                    placed = put(batch, device)
-                    ready = torch.cuda.Event()
-                    ready.record(side)
+                placed = put(batch, device)
+                ready = torch.cuda.Event()
+                ready.record(side)
                 item = (placed, ready)
             else:
                 item = (put(batch, device), None)
@@ -170,7 +163,10 @@ def prefetch(
     def worker():
         try:
             if cuda:
-                with torch.cuda.device(device):
+                # The side stream stays current while the source is pulled
+                # too: a source that recycles host memory (the native
+                # loader's zero-copy ring) waits there for the last copy.
+                with torch.cuda.device(device), torch.cuda.stream(side):
                     produce()
             else:
                 produce()

@@ -167,10 +167,7 @@ REFUSED = [
     (["--controller", "greedy"], "6.3"), (["--emu-dcn-mbps", "100"], "6.3"),
     (["--dcn-slices", "2"], "6.3"), (["--force-dcn-emulation"], "6.3"),
     (["--update-sharding", "zero1"], "6.3"), (["--update-sharding", "full"], "6.3"),
-    (["--zero1"], "6.3"), (["--data-dir", "d"], "6.1"), (["--data-shards", "*.tar"], "6.1"),
-    (["--shuffle-buffer", "8"], "6.1"), (["--native-decode"], "6.1"), (["--native-data"], "6.1"),
-    (["--data-workers", "2"], "6.1"), (["--eval-data", "d"], "6.1"), (["--obs-dir", "d"], "6.5"),
-    (["--watchdog", "warn"], "6.5"),
+    (["--zero1"], "6.3"), (["--obs-dir", "d"], "6.5"), (["--watchdog", "warn"], "6.5"),
 ]
 
 
@@ -181,9 +178,7 @@ def test_train_refuses_unported_flags_naming_their_item(flags, item):
     assert out == ""
 
 
-@pytest.mark.parametrize("flags,item", [(["--moe-experts", "4"], "6.4"),
-                                        (["--data-dir", "d"], "6.1"),
-                                        (["--data-shards", "*.tar"], "6.1")])
+@pytest.mark.parametrize("flags,item", [(["--moe-experts", "4"], "6.4")])
 def test_eval_refuses_unported_flags_naming_their_item(flags, item):
     rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", *flags])
     assert rc == 2 and f"ROADMAP.md queue A item {item}" in err
@@ -200,6 +195,46 @@ def test_eval_refuses_unported_flags_naming_their_item(flags, item):
 def test_train_refuses_incoherent_flags(flags, match):
     rc, _, err = run(["train", "--tiny", "--cpu-devices", "1", *flags])
     assert rc == 2 and match in err
+
+
+# The real-data flags' refusals, JAX's exits: (command, flags); "{d}" is a
+# directory that exists.
+DATA_EXITS = [
+    ("train", ["--data-dir", "{d}", "--data-shards", "{d}/*.tar"]),
+    ("train", ["--data-dir", "{d}", "--native-data"]),
+    ("train", ["--data-shards", "{d}/*.tar", "--native-data"]),
+    ("train", ["--shuffle-buffer", "8"]),
+    ("train", ["--data-dir", "{d}", "--shuffle-buffer", "8"]),
+    ("train", ["--native-decode"]),
+    ("train", ["--native-decode", "--native-data"]),
+    ("train", ["--data-shards", "{d}/none-*.tar"]),
+    ("train", ["--data-workers", "-2"]),
+    ("train", ["--eval-data", "{d}"]),
+    ("train", ["--eval-data", "{d}/none-*.tar", "--eval-every", "2"]),
+    ("eval", ["--data-dir", "{d}", "--data-shards", "{d}/*.tar"]),
+    ("eval", ["--data-shards", "{d}/none-*.tar"]),
+]
+
+
+@pytest.mark.parametrize("command,flags", DATA_EXITS,
+                         ids=[f"{c} {' '.join(f)}" for c, f in DATA_EXITS])
+def test_real_data_flags_exit_2_with_jaxs_message(tmp_path, command, flags):
+    flags = [f.format(d=tmp_path) for f in flags]
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        want_rc = jax_cli.main([command, "--tiny", "--batch", "8", *flags])
+    want = err.getvalue().strip().splitlines()[-1]
+    rc, out, got = run([command, "--tiny", "--cpu-devices", "1", "--batch", "8", *flags])
+    assert want_rc == rc == 2 and out == ""
+    assert got.strip().splitlines()[-1] == want
+
+
+@pytest.mark.parametrize("command", ["train", "eval", "data-bench"])
+def test_cpu_devices_above_1_exits_2(command):
+    rc, out, err = run([command, "--cpu-devices", "2"])
+    assert rc == 2 and out == ""
+    assert ("--cpu-devices 2: the port emulates no multi-device mesh; pass --cpu-devices 1 "
+            "(one process on the CPU)") in err
 
 
 @pytest.mark.parametrize("command", [["train", "--tiny"], ["eval", "--tiny"]])
