@@ -136,7 +136,21 @@ and nothing is caught:
    ``data-bench`` over the train shards; whether libjpeg (and PIL) are
    here, and if libjpeg is, 2 ``--tiny`` steps with ``--native-decode`` on
    the committed JPEG fixture without its fallback; the shards deleted;
-16. a JSON line of the kernels' numbers and, last, the device record.
+16. the serve-bench command (``[serve_bench]``, ``cli.main`` in this
+   process) at full B/16 width (SERVE_BENCH_FLAGS): the snapshot on the
+   exact tier with one scrape of the live ``/metrics``, on the sharded tier
+   (``--mesh``: one shard on the card; every search also answered by the
+   exact index on the host, the ids equal but for near ties of the exact
+   scores), on the ann tier, with ``--swap-every 64``; the burst, skew,
+   slowloris and swapstorm scenarios; the host-loss and split-brain drills
+   (their workers from a fork server, CUDA being initialized), each run
+   between two reads of the counts (12 K1 launches per tower call, nothing
+   else), exit 0, ``compile_count`` at the 8 warmed buckets, no silent
+   drop, no over-ceiling sample; then ``ShardedIndex`` alone at 1,048,576 ×
+   512 small-integer rows (2 GiB) in 4 shards on cuda:0 with planted exact
+   ties: ids and scores equal to the host's exact index, and its search
+   time;
+17. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -395,6 +409,33 @@ ORACLE_COLORS = ((220, 30, 30), (30, 200, 30), (30, 30, 220), (30, 200, 200),
                  (120, 20, 160), (120, 120, 30), (190, 190, 190), (15, 15, 15))
 ORACLE_MIN_RECALL = 0.5
 JPEG_FIXTURE = os.path.join("tests", "fixtures", "jpeg_pairs.tar")
+# The serve-bench command (``[serve_bench]``, ``cli.main`` in this process) at
+# full B/16 width: the snapshot on each index tier, --swap-every churn, four
+# scenarios on the engine, the host-loss and split-brain drills, one scrape
+# of the live /metrics; then the sharded index alone on the card at 1M rows.
+SERVE_BENCH_FLAGS = ("--model", "b16", "--batch-buckets", "1,8,32,128", "--pool", "256",
+                     "--index-size", "256", "--requests", "512", "--clients", "8")
+SERVE_BENCH_DRILL = ("--duration-s", "2")
+SERVE_BENCH_RUNS = (
+    ("exact", ("--metrics-port", "0")),
+    ("sharded", ("--index-tier", "sharded", "--mesh")),
+    ("ann", ("--index-tier", "ann", "--rerank-k", "64")),
+    ("swap", ("--swap-every", "64")),
+    ("burst", ("--scenario", "burst") + SERVE_BENCH_DRILL),
+    ("skew", ("--scenario", "skew") + SERVE_BENCH_DRILL),
+    ("slowloris", ("--scenario", "slowloris") + SERVE_BENCH_DRILL),
+    ("swapstorm", ("--scenario", "swapstorm") + SERVE_BENCH_DRILL),
+    ("hostloss", ("--scenario", "hostloss") + SERVE_BENCH_DRILL),
+    ("fleet-splitbrain", ("--fleet-scenario", "fleet-splitbrain") + SERVE_BENCH_DRILL),
+)
+# Searches whose sharded (card) and exact (host) ids differ only where the
+# exact scores of the differing rows lie within this of each other: the
+# two sum the same f32 products in different orders.
+SERVE_BENCH_NEAR_TIE = 1e-5
+# The sharded index alone: rows, width, shards on cuda:0, queries, k; the
+# rows are small integers in f32, so every score is exact in any order of
+# summation and the ids must equal the host's exact index's.
+SHARDED_AT_SCALE = (1 << 20, 512, 4, 128, 10)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3075,6 +3116,222 @@ def run_train_data_path(args, sa, ssl, per_microbatch: dict) -> dict:
     return totals
 
 
+@contextlib.contextmanager
+def serve_instrumented(near_ties: list):
+    """While the block runs: every ``InferenceEngine`` made is collected
+    (their ``calls`` are the tower calls), and every search of a sharded
+    ``RetrievalRouter`` is answered again by its version's exact index on
+    the host; a differing rank must be a near tie of the exact scores
+    (``SERVE_BENCH_NEAR_TIE``), and ``near_ties`` gets one entry a search:
+    how many ranks differed."""
+    from distributed_sigmoid_loss_tpu_torch.serve.engine import InferenceEngine
+    from distributed_sigmoid_loss_tpu_torch.serve.service import RetrievalRouter
+
+    engines, init, search = [], InferenceEngine.__init__, RetrievalRouter.search
+
+    def init_and_collect(self, *a, **kw):
+        init(self, *a, **kw)
+        engines.append(self)
+
+    def search_and_check(self, queries, k=10, **kw):
+        out = search(self, queries, k, **kw)
+        version = self._current
+        if self.tier == "sharded":
+            q = np.atleast_2d(queries)
+            ids = np.atleast_2d(out[1])
+            exact_ids = version.exact.search(q, min(k, version.size))[1]
+            differ = ids != exact_ids
+            if differ.any():
+                blocks, id_blocks, _ = version.exact._snapshot()
+                corpus = np.concatenate(blocks)
+                pos = {int(i): p for p, i in enumerate(np.concatenate(id_blocks))}
+                for r in np.nonzero(differ.any(axis=1))[0]:
+                    sims = corpus @ q[r]
+                    got = sims[[pos[int(i)] for i in ids[r][differ[r]]]]
+                    want = sims[[pos[int(i)] for i in exact_ids[r][differ[r]]]]
+                    if np.abs(got - want).max() > SERVE_BENCH_NEAR_TIE:
+                        raise AssertionError(f"[serve_bench] sharded ids {ids[r]} != exact "
+                                             f"{exact_ids[r]} beyond a near tie: {got} vs {want}")
+            near_ties.append(int(differ.sum()))
+        return out
+
+    InferenceEngine.__init__ = init_and_collect
+    RetrievalRouter.search = search_and_check
+    try:
+        yield engines
+    finally:
+        InferenceEngine.__init__ = init
+        RetrievalRouter.search = search
+
+
+def check_sharded_index_at_scale(seed: int) -> dict:
+    """``ShardedIndex`` on the card at SHARDED_AT_SCALE: a corpus of small
+    integers in f32 (2 GiB at 1M × 512) made on the card and split into
+    shards on cuda:0 there, planted exact ties (each of 32 queries copied
+    into three rows on different shards, and 32 rows duplicated across
+    shards), its ids and scores against the exact ``RetrievalIndex`` on the
+    host, and its search time."""
+    from distributed_sigmoid_loss_tpu_torch.serve import RetrievalIndex, ShardedIndex
+
+    n, d, shards, nq, k = SHARDED_AT_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.monotonic()
+    corpus = torch.randint(-4, 5, (n, d), generator=gen, device="cuda",
+                           dtype=torch.int8).float()
+    queries = torch.randint(-4, 5, (nq, d), generator=gen, device="cuda",
+                            dtype=torch.int8).float()
+    per = n // shards
+    for j in range(32):
+        for w, off in enumerate((11, 0, 5)):
+            corpus[w * per + 97 * j + off] = queries[j]
+        corpus[3 * per + 31 * j] = corpus[1000 + j]  # a tie of two corpus rows
+    torch.cuda.synchronize()
+    made_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    index = ShardedIndex(corpus, devices=["cuda:0"] * shards, query_buckets=(nq,))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    host_corpus, host_q = corpus.cpu().numpy(), queries.cpu().numpy()
+    del corpus
+    scores, ids = index.search(host_q, k)  # the first search, off the clock
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        index.search(host_q, k)
+        times.append(1e3 * (time.perf_counter() - t0))
+    exact = RetrievalIndex()
+    exact.add(host_corpus)
+    t0 = time.perf_counter()
+    want_scores, want_ids = exact.search(host_q, k)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    planted = [ids[j][:3].tolist() for j in range(32)]
+    want_planted = [[97 * j + 11, per + 97 * j, 2 * per + 97 * j + 5] for j in range(32)]
+    rec = {"rows": n, "dim": d, "shards": shards, "devices": ["cuda:0"] * shards,
+           "queries": nq, "k": k, "corpus_bytes": n * d * 4, "made_s": made_s,
+           "build_s": build_s, "search_ms": times, "search_ms_median": float(np.median(times)),
+           "host_exact_search_ms": host_ms, "ids_equal": bool(np.array_equal(ids, want_ids)),
+           "scores_equal": bool(np.array_equal(scores, want_scores)),
+           "planted_ties_first_lower_id": planted == want_planted,
+           "compile_count": index.compile_count}
+    del index
+    torch.cuda.empty_cache()
+    log("serve_bench", sharded_at_scale=rec)
+    if not (rec["ids_equal"] and rec["scores_equal"] and rec["planted_ties_first_lower_id"]):
+        bad = np.nonzero((ids != want_ids).any(axis=1))[0][:4]
+        raise AssertionError(f"[serve_bench] sharded index at scale != exact index: rows {bad}, "
+                             f"{ids[bad]} vs {want_ids[bad]}")
+    return rec
+
+
+def run_serve_bench_path(args, sa, ssl) -> dict:
+    """The serve-bench command at full B/16 width (``[serve_bench]``), each
+    run between two reads of the counts; see the module docstring's phase
+    16. Returns the launches of every run."""
+    import urllib.request
+
+    from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
+
+    t_phase = time.monotonic()
+    cfg = SigLIPConfig.b16()
+    totals, near_ties, rows = {}, [], {}
+    scraped = {}
+
+    def scrape(err: io.StringIO, done: threading.Event):
+        # One scrape of the live /metrics while the run serves.
+        while not done.is_set():
+            m = re.search(r"live /metrics at (\S+)", err.getvalue())
+            if m:
+                time.sleep(1.0)
+                with urllib.request.urlopen(m.group(1), timeout=10) as resp:
+                    scraped["status"] = resp.status
+                    scraped["body"] = resp.read().decode()
+                return
+            done.wait(0.05)
+
+    for name, extra in SERVE_BENCH_RUNS:
+        argv = ["serve-bench", *SERVE_BENCH_FLAGS, "--seed", str(args.seed), *extra]
+        out, err = io.StringIO(), io.StringIO()
+        done = threading.Event()
+        scraper = None
+        if "--metrics-port" in extra:
+            scraper = threading.Thread(target=scrape, args=(err, done), daemon=True)
+            scraper.start()
+        from distributed_sigmoid_loss_tpu_torch import cli
+
+        torch.cuda.synchronize()
+        reset_counts(sa, ssl)
+        t0 = time.monotonic()
+        with serve_instrumented(near_ties) as engines, contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        counts = read_counts(sa, ssl)
+        done.set()
+        if scraper is not None:
+            scraper.join(timeout=30)
+        if rc != 0:
+            raise AssertionError(f"[serve_bench] {name}: serve-bench exited {rc}: "
+                                 f"{err.getvalue()[-3000:]}")
+        record = json.loads(out.getvalue().strip().splitlines()[-1])
+        calls = {kind: sum(e.calls.get(kind, 0) for e in engines) for kind in ("image", "text")}
+        expect = dict.fromkeys(counts, 0)
+        expect["short_attention_fwd"] = (cfg.vision.depth * calls["image"]
+                                         + cfg.text.depth * calls["text"])
+        for key, value in counts.items():
+            totals[key] = totals.get(key, 0) + value
+        row = {"seconds": seconds, "rc": rc, "metric": record["metric"],
+               "tower_calls": calls, "launches": {k: v for k, v in counts.items() if v},
+               "expected_k1": expect["short_attention_fwd"]}
+        for key in ("qps", "latency_ms", "compile_count", "bucket_space", "shed_rate",
+                    "recovery_time_s", "silent_drops", "swap_count", "swap_latency_ms",
+                    "recall_at_k", "rerank_k", "shard_count", "search_stage_latency_ms",
+                    "over_ceiling_samples", "restarts", "peak_admitted_rate", "ceiling_rate",
+                    "value", "cache", "batch_size_hist", "stage_latency_ms", "warmup_s"):
+            if key in record:
+                row[key] = record[key]
+        if "per_tenant" in record:
+            row["per_tenant"] = {t: {k: v[k] for k in ("sent", "ok", "shed", "shed_rate",
+                                                        "typed_errors", "p50_ms", "p99_ms")}
+                                 for t, v in record["per_tenant"].items()}
+        rows[name] = row
+        log("serve_bench", run=name, argv=argv[1:], **row)
+        if counts != expect:
+            raise AssertionError(f"[serve_bench] {name}: launches {counts} != {expect} (12 of "
+                                 "K1 per tower call, no other kernel)")
+        if engines and not (record["compile_count"] == record["bucket_space"] == 8):
+            raise AssertionError(f"[serve_bench] {name}: compile_count "
+                                 f"{record['compile_count']} != the 8 warmed buckets")
+        if record.get("silent_drops") or record.get("over_ceiling_samples"):
+            raise AssertionError(f"[serve_bench] {name}: silent drops or over-ceiling samples")
+        if name in ("exact", "sharded", "ann", "swap") and not calls["text"]:
+            raise AssertionError(f"[serve_bench] {name}: no tower call reached the engine")
+        if name == "sharded" and record["shard_count"] != 1:
+            raise AssertionError("[serve_bench] sharded: --mesh on one card is one shard")
+        if name in ("swap", "swapstorm") and not record["swap_count"]:
+            raise AssertionError(f"[serve_bench] {name}: no swap ran")
+        if name == "hostloss" and not (record["restarts"] >= 1 and record["recovery_time_s"] > 0):
+            raise AssertionError("[serve_bench] hostloss: no measured recovery")
+    if scraped.get("status") != 200 or "dsl_serve_qps" not in scraped.get("body", ""):
+        raise AssertionError(f"[serve_bench] the /metrics scrape failed: {scraped}")
+    body = scraped["body"]
+    log("serve_bench", metrics_scrape_bytes=len(body), metrics_series=sum(
+        1 for line in body.splitlines() if line and not line.startswith("#")),
+        metrics_qps_line=next(line for line in body.splitlines()
+                              if line.startswith("dsl_serve_qps")))
+    sharded_searches = len(near_ties)
+    log("serve_bench", sharded_searches_checked=sharded_searches,
+        sharded_ids_identical=sum(1 for x in near_ties if x == 0),
+        sharded_near_tie_ranks=sum(near_ties))
+    if not sharded_searches:
+        raise AssertionError("[serve_bench] no sharded search was checked against the exact tier")
+    at_scale = check_sharded_index_at_scale(args.seed + 17)
+    seconds = time.monotonic() - t_phase
+    log("serve_bench", seconds=seconds, runs={k: v["seconds"] for k, v in rows.items()},
+        sharded_at_scale_search_ms=at_scale["search_ms_median"])
+    return totals
+
+
 def global_norm_of(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
@@ -3236,7 +3493,7 @@ def main() -> int:
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
 
-    # Phases 4-15: the main paths, each between two reads of the counts.
+    # Phases 4-16: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
                       ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
@@ -3255,13 +3512,14 @@ def main() -> int:
                           for k, v in paths["train_pallas"].items()})),
                       ("train_data", lambda: run_train_data_path(args, sa, ssl, {
                           k: v / (ACCUM * TRAIN_PALLAS_STEPS)
-                          for k, v in paths["train_pallas"].items()}))):
+                          for k, v in paths["train_pallas"].items()})),
+                      ("serve_bench", lambda: run_serve_bench_path(args, sa, ssl))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 16: the records.
+    # Phase 17: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"

@@ -16,10 +16,16 @@
 - ``tokenizer``: train a byte-level BPE vocab on a caption corpus.
 - ``data-bench``: the input pipeline's stages and the composed pipeline
   against the synthetic loader (``data/data_bench.py``).
+- ``serve-bench``: concurrent clients through the serving stack (engine,
+  batcher, cache, the ``--index-tier`` retrieval router, ``--swap-every``
+  hot swaps, ``/metrics`` under ``--metrics-port``), or a chaos scenario
+  (``--scenario``, ``--fleet-scenario``); one JSON record with the JAX
+  command's keys.
 
-The commands run on ``cuda``; ``--cpu-devices 1`` runs them on the CPU. A
-flag whose path the port does not have yet exits 2 with a message naming
-its ROADMAP.md queue A item.
+The commands run on ``cuda``; ``--cpu-devices 1`` runs them on the CPU
+(serve-bench's ``hostloss`` and fleet drills touch no device and run on the
+host either way). A flag whose path the port does not have yet exits 2
+with a message naming its ROADMAP.md queue A item.
 """
 
 from __future__ import annotations
@@ -663,6 +669,309 @@ def cmd_tokenizer(args) -> int:
     return 0
 
 
+def _emit_serve_record(record: dict, *, strict_zero_drops: bool = False) -> int:
+    """The serve-bench emit contract, shared by the snapshot and scenario
+    paths: print the record (one JSON line, the JAX command's keys; the port
+    keeps no ledger). With ``strict_zero_drops`` a non-zero ``silent_drops``
+    count fails the run — the chaos scenarios' every-outcome-is-typed
+    gate."""
+    print(json.dumps(record), flush=True)
+    if strict_zero_drops and record.get("silent_drops"):
+        print(f"WARNING: {record['silent_drops']} silent drop(s) — a request ended with "
+              "neither a result nor a typed rejection; the degradation contract is broken",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _serve_bench_refusal(args) -> str | None:
+    """The serve-bench command's refusals (exit 2), in the JAX command's
+    order: the first, or None."""
+    if args.requests < 1 or args.clients < 1:
+        return "--requests and --clients must be >= 1"
+    if args.swap_every < 0 or args.rerank_k < 0:
+        return "--swap-every and --rerank-k must be >= 0"
+    if args.index_tier == "sharded" and not args.mesh:
+        return ("--index-tier sharded needs --mesh (the devices the corpus partitions "
+                "over: the visible GPU, or the CPU with --cpu-devices 1)")
+    try:
+        tuple(int(b) for b in args.batch_buckets.split(","))
+    except ValueError:
+        return f"--batch-buckets must be comma-separated ints, got {args.batch_buckets!r}"
+    if args.fleet_scenario and args.scenario:
+        return "--fleet-scenario and --scenario are mutually exclusive (one drill per run)"
+    if not args.fleet_scenario and (args.fleet_replicas or args.lease_ttl_s):
+        return "--fleet-replicas/--lease-ttl-s only make sense with --fleet-scenario"
+    if args.fleet_scenario and args.fleet_replicas and args.fleet_replicas < 2:
+        return ("--fleet-replicas must be >= 2 (with one replica there is no sibling to "
+                "reroute to and no wave to order)")
+    if (args.scenario or args.fleet_scenario) and (
+            args.duration_s <= 0 or args.offered_load <= 0 or args.capacity < 1):
+        return "--duration-s/--offered-load must be > 0 and --capacity >= 1"
+    return None
+
+
+def serve_bench_stack(args, model, buckets, shard_devices=None) -> dict:
+    """The serving stack serve-bench drives, over ``model``: the synthetic
+    pool (``--pool`` items, seeds ``--seed`` + 1 and + 2, as the JAX
+    command's), the bucketed engine warmed, the corpus (the first
+    ``--index-size`` pool images) encoded straight through the engine and
+    published to a :class:`RetrievalRouter` of ``--index-tier``.
+    ``shard_devices``: the sharded tier's devices."""
+    import time
+
+    import numpy as np
+
+    from distributed_sigmoid_loss_tpu_torch.data import SyntheticImageText
+    from distributed_sigmoid_loss_tpu_torch.serve import InferenceEngine, RetrievalRouter
+
+    pool = max(args.pool, 1)
+    batch = next(iter(SyntheticImageText(model.cfg, pool, image_seed=args.seed + 1,
+                                         text_seed=args.seed + 2)))
+    pool_tokens, pool_images = batch["tokens"].numpy(), batch["images"].numpy()
+    engine = InferenceEngine.from_model(model, batch_buckets=buckets)
+    t0 = time.perf_counter()
+    warmed = engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    # Corpus embeddings straight through the engine (the service clock should
+    # measure client traffic, not index build), chunked to the largest bucket.
+    step = buckets[-1]
+    corpus_emb = np.concatenate([
+        engine.encode_image(pool_images[i: i + step])
+        for i in range(0, min(args.index_size, pool), step)
+    ])
+    router = RetrievalRouter(tier=args.index_tier,
+                             devices=shard_devices if args.index_tier == "sharded" else None,
+                             rerank_k=args.rerank_k or None)
+    router.publish(corpus_emb)
+    if args.index_tier == "sharded":
+        # The first search off the clock, as the engine's warmup.
+        router.search(corpus_emb[:1], k=args.topk)
+    return dict(engine=engine, router=router, corpus_emb=corpus_emb, pool_tokens=pool_tokens,
+                pool_images=pool_images, warmed=warmed, warmup_s=warmup_s)
+
+
+def cmd_serve_bench(args) -> int:
+    """Drive the serve/ stack on synthetic data with concurrent clients and
+    print the ``stats()`` snapshot as one JSON record (the JAX command's
+    keys). With warmed buckets ``compile_count`` equals the warmed bucket
+    count, not the request count (else exit 1); ``--scenario`` and
+    ``--fleet-scenario`` print their degradation records instead (exit 1 on
+    any silent drop, or on an over-ceiling sample)."""
+    import concurrent.futures
+    import threading
+
+    import numpy as np
+
+    refusal = _serve_bench_refusal(args)
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
+    buckets = tuple(int(b) for b in args.batch_buckets.split(","))
+    scenario_tenants = None
+    if args.scenario or args.fleet_scenario:
+        from distributed_sigmoid_loss_tpu_torch.serve import parse_tenant_spec
+
+        try:
+            scenario_tenants = parse_tenant_spec(args.tenants)
+        except ValueError as e:
+            print(f"--tenants: {e}", file=sys.stderr)
+            return 2
+
+    if args.fleet_scenario:
+        # The fleet drill: leased admission → router → EngineProcess replicas
+        # with standard-library surrogate workers, so it drills the fleet's
+        # failure semantics (lease reclaim, typed reroute, swap waves) with no
+        # tensor involved, before any device is set up. Over-admission fails
+        # the run.
+        from distributed_sigmoid_loss_tpu_torch.serve import run_fleet_scenario
+
+        record = run_fleet_scenario(
+            args.fleet_scenario, replicas=args.fleet_replicas or 3,
+            tenants=scenario_tenants, duration_s=args.duration_s,
+            offered_load=args.offered_load, lease_ttl_s=args.lease_ttl_s or 0.5,
+            seed=args.seed,
+        )
+        rc = _emit_serve_record(record, strict_zero_drops=True)
+        if record.get("over_ceiling_samples"):
+            print(f"WARNING: {record['over_ceiling_samples']} window sample(s) exceeded the "
+                  "global admission ceiling — the bounded-staleness lease invariant is broken",
+                  file=sys.stderr)
+            return 1
+        return rc
+
+    if args.scenario == "hostloss":
+        # The host-loss drill: admission → batcher → EngineProcess with the
+        # surrogate worker (kill -9 mid-traffic, typed HostLostError to every
+        # in-flight caller, measured recovery); no tensor is involved, so it
+        # runs before any device is set up.
+        from distributed_sigmoid_loss_tpu_torch.serve import hostloss_drill
+
+        record = hostloss_drill(
+            tenants=scenario_tenants, duration_s=args.duration_s,
+            offered_load=args.offered_load, capacity=args.capacity, seed=args.seed,
+        )
+        return _emit_serve_record(record, strict_zero_drops=True)
+
+    device, code = _device(args)
+    if device is None:
+        return code
+
+    import torch
+
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.serve import (
+        AdmissionController,
+        EmbeddingCache,
+        EmbeddingService,
+        QueueFullError,
+        RequestTimeoutError,
+        SwapController,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.logging import MetricsLogger
+
+    shard_devices = None
+    if args.mesh:
+        shard_devices = ([device] if device.type == "cpu" else
+                         [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+        if len(shard_devices) > 1:
+            print(f"--mesh: {len(shard_devices)} GPUs are visible; the engine's batch split "
+                  "over several GPUs is not ported yet: ROADMAP.md queue A item 9 (with one "
+                  "visible GPU, --mesh puts the sharded tier's shard on it)", file=sys.stderr)
+            return 2
+
+    cfg = _model_config(args)
+    model = SigLIP(cfg, device=device,
+                   generator=torch.Generator(device=device).manual_seed(args.seed)).eval()
+    stack = serve_bench_stack(args, model, buckets, shard_devices)
+    engine, router, corpus_emb = stack["engine"], stack["router"], stack["corpus_emb"]
+    pool_tokens, pool_images = stack["pool_tokens"], stack["pool_images"]
+    warmed, warmup_s = stack["warmed"], stack["warmup_s"]
+    pool = len(pool_tokens)
+    params = engine.params
+    print(f"warmed {warmed} shape buckets in {warmup_s:.1f}s ({args.model} model, "
+          f"{len(buckets)} batch buckets, {device})", file=sys.stderr)
+
+    admission = AdmissionController(scenario_tenants, capacity=args.capacity) \
+        if args.scenario else None
+    service = EmbeddingService(
+        engine, cache=EmbeddingCache(args.cache_size), index=router,
+        max_wait_ms=args.max_wait_ms, max_queue=args.max_queue, default_timeout=60.0,
+        logger=MetricsLogger(), admission=admission,
+    )
+    if args.metrics_port >= 0:
+        exporter = service.start_metrics_server(port=args.metrics_port)
+        print(f"serve-bench: live /metrics at {exporter.url}", file=sys.stderr)
+
+    def compile_gate(snap) -> bool:
+        # Steady state: every bucket was warmed before traffic; a request off
+        # the grid would show as one more.
+        if snap["compile_count"] != warmed:
+            print(f"WARNING: compile_count {snap['compile_count']} != warmed buckets "
+                  f"{warmed} — a request ran off the warmed bucket grid", file=sys.stderr)
+            return False
+        return True
+
+    base = {"model": args.model, "clients": args.clients, "batch_buckets": list(buckets),
+            "max_wait_ms": args.max_wait_ms, "sharded": bool(shard_devices),
+            "index_tier": args.index_tier, "swap_every": args.swap_every,
+            "warmup_s": round(warmup_s, 2)}
+
+    if args.scenario:
+        # The scenario soak: the chaos harness's shaped offered load replaces
+        # the fixed-request client loop, the real engine underneath and
+        # admission at the front door; its degradation record merges with the
+        # stats() snapshot, and any silent drop fails the run.
+        from distributed_sigmoid_loss_tpu_torch.serve import run_scenario
+
+        swap_fn = None
+        if args.scenario == "swapstorm":
+            storm_controller = SwapController(engine, router)
+
+            def swap_fn() -> None:
+                storm_controller.swap(params=params, embeddings=corpus_emb)
+
+        def submit(tenant: str, i: int, *, items: int = 1, fresh: bool = False) -> None:
+            if fresh:
+                # A deterministic per-i row that always misses the cache.
+                rng = np.random.default_rng(args.seed * 100003 + i)
+                row = rng.integers(0, cfg.text.vocab_size, cfg.text.context_length,
+                                   dtype=np.int32)
+                service.encode_text(row, tenant=tenant, timeout=5.0)
+            elif items > 1:
+                rows = np.stack([pool_tokens[(i + j) % pool] for j in range(items)])
+                service.encode_text(rows, tenant=tenant, timeout=5.0)
+            else:
+                service.encode_text(pool_tokens[i % pool], tenant=tenant, timeout=5.0)
+
+        scen = run_scenario(
+            args.scenario, submit=submit, tenants=scenario_tenants, admission=admission,
+            duration_s=args.duration_s, offered_load=args.offered_load,
+            clients_per_tenant=args.clients, swap_fn=swap_fn, seed=args.seed,
+        )
+        snap = service.stats()
+        service.close()
+        rc = _emit_serve_record({**base, **snap, **scen}, strict_zero_drops=True)
+        return rc if compile_gate(snap) else 1
+
+    # --swap-every N churn: a swapper thread republishes the weights and
+    # freshly built index segments after every N completed client ops, under
+    # the traffic the bench measures.
+    ops_done = [0]
+    swap_done = threading.Event()
+    swap_thread = None
+    if args.swap_every:
+        controller = SwapController(engine, router)
+
+        def swapper():
+            next_at = args.swap_every
+            while not swap_done.is_set():
+                if ops_done[0] >= next_at:
+                    controller.swap(params=params, embeddings=corpus_emb)
+                    next_at += args.swap_every
+                else:
+                    swap_done.wait(0.002)
+
+        swap_thread = threading.Thread(target=swapper, name="serve-bench-swapper", daemon=True)
+        swap_thread.start()
+
+    def client(cid: int, n_ops: int) -> None:
+        rng = np.random.default_rng(args.seed * 1000 + cid)
+        for _ in range(n_ops):
+            op = rng.random()
+            try:
+                if op < 0.2:  # image encode from the shared pool (cacheable)
+                    service.encode_image(pool_images[rng.integers(pool)])
+                elif op < 0.4:  # retrieval query
+                    service.search(pool_tokens[rng.integers(pool)], k=args.topk)
+                elif op < 0.7:  # repeated text from the pool (cacheable)
+                    service.encode_text(pool_tokens[rng.integers(pool)])
+                else:  # fresh text (a cache miss: batcher and engine)
+                    row = rng.integers(0, cfg.text.vocab_size, cfg.text.context_length,
+                                       dtype=np.int32)
+                    service.encode_text(row)
+            except (QueueFullError, RequestTimeoutError):
+                pass  # counted in service.stats()
+            ops_done[0] += 1
+
+    per_client = [args.requests // args.clients] * args.clients
+    for i in range(args.requests % args.clients):
+        per_client[i] += 1
+    with concurrent.futures.ThreadPoolExecutor(args.clients) as pool_ex:
+        list(pool_ex.map(client, range(args.clients), per_client))
+    if swap_thread is not None:
+        swap_done.set()
+        swap_thread.join(timeout=60)
+
+    snap = service.stats()
+    service.close()
+    record = {"metric": "serve_bench", "value": snap["qps"], "unit": "req/s",
+              "model": args.model, "clients": args.clients, "requests_sent": args.requests,
+              **{k: v for k, v in base.items() if k not in ("model", "clients")}, **snap}
+    rc = _emit_serve_record(record)
+    return rc if compile_gate(snap) else 1
+
+
 def cmd_data_bench(args) -> int:
     """The input pipeline's stage bench (``data/data_bench.py``)."""
     from distributed_sigmoid_loss_tpu_torch.data.data_bench import run_data_bench
@@ -820,13 +1129,87 @@ def _parser() -> argparse.ArgumentParser:
     add_data_bench_args(db)
     db.add_argument("--cpu-devices", type=int, default=0,
                     help="1 = run augment and the commits on the CPU (default: cuda)")
+
+    sb = sub.add_parser("serve-bench", help="online serving micro-bench: concurrent clients "
+                                            "through the batched/cached/bucketed serve/ stack; "
+                                            "prints the stats snapshot as JSON")
+    sb.add_argument("--requests", type=int, default=512,
+                    help="total client requests across all clients")
+    sb.add_argument("--clients", type=int, default=8, help="concurrent client threads")
+    sb.add_argument("--model", choices=["b16", "l14", "so400m", "tiny"], default="tiny",
+                    help="tower config (default tiny: the CPU-runnable smoke shape)")
+    sb.add_argument("--batch-buckets", default="1,8,32", metavar="N,N,...",
+                    help="padded batch-size buckets the engine warms (steady state never "
+                         "runs outside the grid)")
+    sb.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="micro-batcher deadline: max ms a queued request waits for "
+                         "coalescing before a partial flush")
+    sb.add_argument("--max-queue", type=int, default=1024,
+                    help="bounded request queue per modality (full queue rejects with "
+                         "backpressure)")
+    sb.add_argument("--cache-size", type=int, default=4096,
+                    help="LRU embedding cache capacity (entries)")
+    sb.add_argument("--pool", type=int, default=64,
+                    help="distinct synthetic items clients draw from (repeats exercise "
+                         "the cache)")
+    sb.add_argument("--index-size", type=int, default=64,
+                    help="corpus rows indexed for the search requests")
+    sb.add_argument("--index-tier", choices=["exact", "sharded", "ann"], default="exact",
+                    help="retrieval tier answering search requests: exact = the host's "
+                         "chunked scan (the oracle), sharded = per-shard top-k on the "
+                         "--mesh devices + merged candidates, ann = int8 "
+                         "quantize-then-rerank with measured recall@k in the record")
+    sb.add_argument("--swap-every", type=int, default=0, metavar="N",
+                    help="churn mode: hot-swap the weights + freshly built index segments "
+                         "after every N completed client ops (0 = off)")
+    sb.add_argument("--rerank-k", type=int, default=0, metavar="K",
+                    help="ann tier: coarse candidates kept for the exact re-rank (0 = auto: "
+                         "max(8·topk, 64))")
+    sb.add_argument("--topk", type=int, default=5)
+    sb.add_argument("--metrics-port", type=int, default=-1, metavar="PORT",
+                    help="expose the live OpenMetrics-style /metrics endpoint during the "
+                         "bench on this port (0 = an ephemeral port, printed on stderr; "
+                         "-1 = off)")
+    sb.add_argument("--scenario", default="",
+                    choices=["", "burst", "skew", "slowloris", "hostloss", "swapstorm"],
+                    help="chaos soak: replace the fixed-request client loop with a shaped "
+                         "overload scenario (multi-tenant admission at the front door) and "
+                         "emit the degradation record")
+    sb.add_argument("--tenants", default="gold:prio=2,quota=24,slo=500;"
+                                         "free:prio=1,rate=80,quota=8",
+                    metavar="SPEC",
+                    help="scenario tenant policies, ';'-separated name:key=value[,...] rows "
+                         "(keys: prio, rate req/s, burst, quota in-flight items, slo ms)")
+    sb.add_argument("--duration-s", type=float, default=4.0,
+                    help="scenario soak duration (wall seconds of offered load)")
+    sb.add_argument("--offered-load", type=float, default=200.0,
+                    help="aggregate offered load across tenants (req/s) the scenario shapes")
+    sb.add_argument("--capacity", type=int, default=64,
+                    help="AdmissionController global in-flight item budget (priority tiers "
+                         "partition it under overload)")
+    sb.add_argument("--fleet-scenario", default="",
+                    choices=["", "fleet-rolling-swap", "fleet-hostloss", "fleet-splitbrain"],
+                    help="fleet drill: N EngineProcess-backed replicas behind the fleet "
+                         "router with token-lease admission; emits the fleet_siege record")
+    sb.add_argument("--fleet-replicas", type=int, default=0, metavar="N",
+                    help="replica count for --fleet-scenario (>= 2; 0 = unset: 3)")
+    sb.add_argument("--lease-ttl-s", type=float, default=0.0, metavar="S",
+                    help="fleet lease TTL: a dead host's quota slices expire and "
+                         "redistribute within this bound (0 = unset: 0.5)")
+    sb.add_argument("--seed", type=int, default=0)
+    sb.add_argument("--mesh", action="store_true",
+                    help="put the sharded tier's shards on the visible devices (one GPU, or "
+                         "the CPU under --cpu-devices 1; several GPUs: ROADMAP.md queue A "
+                         "item 9)")
+    sb.add_argument("--cpu-devices", type=int, default=0,
+                    help="1 = run on the CPU (default: cuda)")
     return ap
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
     return {"train": cmd_train, "eval": cmd_eval, "tokenizer": cmd_tokenizer,
-            "data-bench": cmd_data_bench}[args.cmd](args)
+            "data-bench": cmd_data_bench, "serve-bench": cmd_serve_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -25,15 +25,17 @@ One recipe, shared with the loss's int8 mode
 The int8 × int8 → int32 product is ``torch._int_mm``, as JAX leaves it to
 XLA outside any Pallas kernel; on a CUDA tensor it needs more than 16 rows
 and both widths a multiple of 8, which :func:`int8_matmul` checks and
-refuses rather than pads. Not ported yet: ``int8_expert_matmul[_ste]`` waits
-for the MoE layer (ROADMAP queue A item 6.4) and ``sign_sketch*`` for the
-ANN index (``serve/ann.py``, item 8).
+refuses rather than pads. :func:`sign_sketch` and :func:`sign_sketch_scores`
+(JAX's :159 and :167) are host numpy, the 1-bit coarse gear of the ANN tier
+(``serve/ann.py``). Not ported yet: ``int8_expert_matmul[_ste]`` waits for
+the MoE layer (ROADMAP queue A item 6.4).
 """
 
 from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -45,6 +47,8 @@ __all__ = [
     "Int8DenseSTE",
     "int_mm_calls",
     "reset_int_mm_calls",
+    "sign_sketch",
+    "sign_sketch_scores",
 ]
 
 # Symmetric int8: [-127, 127], -128 unused, so dequantizing is one multiply.
@@ -148,3 +152,29 @@ class Int8DenseSTE(torch.autograd.Function):
         dw = (g2.t() @ x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
         db = g2.sum(0) if ctx.needs_input_grad[2] else None
         return dx, dw, db
+
+
+# Binary sign sketches: the 1-bit coarse gear of the serving ANN tier. For
+# L2-normalized rows the sign-agreement count (d - 2·hamming) is a monotone
+# proxy for the dot product, good enough to prune and never to rank
+# (serve/ann.py re-ranks the survivors exactly). Host numpy: the coarse scan
+# runs where the index lives.
+_POPCOUNT = np.array([bin(v).count("1") for v in range(256)], dtype=np.uint8)
+
+
+def sign_sketch(x) -> np.ndarray:
+    """(n, d) float rows → (n, ceil(d/8)) packed sign bits (bit = row >= 0)."""
+    x = np.asarray(x)
+    if x.ndim != 2:
+        raise ValueError(f"sign_sketch expects (n, d) rows, got {x.shape}")
+    return np.packbits(x >= 0.0, axis=1)
+
+
+def sign_sketch_scores(qbits: np.ndarray, cbits: np.ndarray, dim: int) -> np.ndarray:
+    """Coarse scores (q, n) between packed query and corpus sketches: the
+    sign-agreement count ``d - 2·hamming``. ``dim`` is the unpacked width
+    (the pad bits past it add the same count to every score of a query row,
+    so they are left in)."""
+    xor = np.bitwise_xor(qbits[:, None, :], cbits[None, :, :])  # (q, n, B)
+    hamming = _POPCOUNT[xor].sum(axis=-1, dtype=np.int32)
+    return (dim - 2 * hamming).astype(np.float32)

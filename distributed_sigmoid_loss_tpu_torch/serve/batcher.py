@@ -24,8 +24,9 @@ feeds a bounded :class:`~distributed_sigmoid_loss_tpu_torch.utils.logging.
 LatencyWindow`, surfaced as ``stage_latency_ms`` in
 ``EmbeddingService.stats()``, so a p99 regression names its stage.
 
-The port of the JAX package's ``serve/batcher.py``; its fault-injection
-points and host spans are not ported yet.
+The port of the JAX package's ``serve/batcher.py``, with its chaos point
+(``batcher.stall``, ``serve/siege.py``); its host spans (``obs/spans.py``)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
+from distributed_sigmoid_loss_tpu_torch.serve.siege import maybe_inject
 from distributed_sigmoid_loss_tpu_torch.utils.logging import LatencyWindow
 
 BATCH_STAGES = ("queue_wait", "assembly", "device", "reply")
@@ -260,6 +262,9 @@ class MicroBatcher:
             with self._hist_lock:
                 self._batch_sizes[len(batch)] += 1
             try:
+                # Chaos point: a wedged worker (stall) or a pre-engine fault;
+                # dead unless DSL_CHAOS=1 AND a fault is armed (serve/siege).
+                maybe_inject("batcher.stall")
                 results = self._run_batch([r.item for r in batch])
             except Exception as e:  # noqa: BLE001 — fan the failure out
                 self._stage("device", t_run, time.monotonic())

@@ -16,8 +16,10 @@ token id 0 up to the bucket, as the training tokenizer pads to
 Calls run under ``torch.inference_mode()``, one at a time (the model's
 parameters are swapped in per call by ``torch.func.functional_call``, which
 is not safe to run concurrently on one module), and return host numpy f32.
-The JAX package's ``mesh=`` sharding and fault-injection points are not
-ported yet.
+The chaos points ``engine.latency`` and ``engine.exception``
+(``serve/siege.py``) sit where JAX's do, before the call. The JAX package's
+``mesh=`` split of a batch over devices is not ported yet (ROADMAP queue A
+item 9).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from distributed_sigmoid_loss_tpu_torch.serve.siege import maybe_inject
 from distributed_sigmoid_loss_tpu_torch.utils.device import resolve_device
 
 __all__ = ["InferenceEngine"]
@@ -97,9 +100,12 @@ class InferenceEngine:
     def swap_params(self, new_params: dict[str, Any]) -> None:
         """Replace the parameter dict. The same names with the same shapes
         and dtypes are required: a changed structure is a new engine, not a
-        swap, and is refused. Tensors move to the serving params' devices.
-        Publication is one attribute assignment; a call already in flight
-        finishes on the params it read at its start."""
+        swap, and is refused. Tensors move to the serving params' devices,
+        and where that copies onto a CUDA device the swapping thread's
+        stream is synchronized before the new dict is published, so no call
+        can read a tensor whose copy has not landed. Publication is one
+        attribute assignment; a call already in flight finishes on the
+        params it read at its start (and holds them until it returns)."""
         old = self.params
         if set(new_params) != set(old):
             raise ValueError(
@@ -113,7 +119,12 @@ class InferenceEngine:
                     f"swap_params: {name} spec {(tuple(n.shape), n.dtype)} != serving "
                     f"spec {(tuple(o.shape), o.dtype)}"
                 )
-        self.params = {name: new_params[name].to(o.device) for name, o in old.items()}
+        moved = {name: new_params[name].to(o.device) for name, o in old.items()}
+        copied = {t.device for name, t in moved.items()
+                  if t.is_cuda and t is not new_params[name]}
+        for device in copied:
+            torch.cuda.current_stream(device).synchronize()
+        self.params = moved
 
     # -- introspection -------------------------------------------------------
 
@@ -141,6 +152,11 @@ class InferenceEngine:
         )
 
     def _run(self, kind: str, padded: np.ndarray) -> np.ndarray:
+        # Chaos points (serve/siege.py): a slow or faulting device step. Dead
+        # unless DSL_CHAOS=1 AND a fault is armed; a raise here fans out
+        # typed through the batcher's futures, never a hang.
+        maybe_inject("engine.latency")
+        maybe_inject("engine.exception")
         with self._lock:
             self._compiled.add((kind, padded.shape))
             self.calls[kind] += 1

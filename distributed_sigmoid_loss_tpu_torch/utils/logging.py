@@ -54,22 +54,28 @@ class MetricsLogger:
 
     Keeps host state only; pass scalars the caller has already read (tensors
     are read with ``float``), so the logger decides no device sync of its
-    own. ``every``: log steps that are multiples of it. The JAX logger's
-    emit-time schema check (``schema=``) needs the metrics registry, not
-    ported yet: passing one raises ``NotImplementedError``.
+    own. ``every``: log steps that are multiples of it. ``schema`` (a field
+    set of ``obs/metrics_schema.py``, with ``schema_prefixes`` for dynamic
+    families such as ``eval/``) turns on the emit-time check: an undeclared
+    field warns on stderr and the line still prints.
     """
 
     def __init__(self, stream: IO | None = None, every: int = 1,
                  schema: frozenset | None = None, schema_prefixes: tuple = ()):
-        if schema is not None or schema_prefixes:
-            raise NotImplementedError(
-                "MetricsLogger(schema=...): the metrics registry (obs/metrics_schema.py) "
-                "is not ported yet: ROADMAP.md queue A item 6.5"
-            )
         self.stream = stream or sys.stdout
         self.every = every
+        self.schema = schema
+        self.schema_prefixes = tuple(schema_prefixes)
         self._last_time: float | None = None
         self._last_step: int | None = None
+
+    @staticmethod
+    def _warn_unregistered(record: Mapping, schema, prefixes) -> None:
+        from distributed_sigmoid_loss_tpu_torch.obs.metrics_schema import validate_metrics
+
+        problems = validate_metrics(dict(record), fields=schema, prefixes=tuple(prefixes))
+        if problems:
+            print("WARNING: metrics schema violation: " + "; ".join(problems), file=sys.stderr)
 
     @staticmethod
     def _jsonable(v):
@@ -95,9 +101,16 @@ class MetricsLogger:
             if self._last_time is not None and step > self._last_step:
                 record["steps_per_sec"] = (step - self._last_step) / (now - self._last_time)
             self._last_time, self._last_step = now, step
+        if self.schema is not None:
+            self._warn_unregistered(record, self.schema, self.schema_prefixes)
         self.write(record)
 
-    def write(self, record: Mapping) -> None:
-        """Emit a raw JSON-lines record with no step bookkeeping."""
+    def write(self, record: Mapping, schema: frozenset | None = None,
+              schema_prefixes: tuple = ()) -> None:
+        """Emit a raw JSON-lines record with no step bookkeeping. ``schema``
+        checks it against another registry than the constructor's (the
+        serving stack's stats snapshots, health events)."""
+        if schema is not None:
+            self._warn_unregistered(record, schema, schema_prefixes)
         self.stream.write(json.dumps(dict(record)) + "\n")
         self.stream.flush()

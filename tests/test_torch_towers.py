@@ -334,6 +334,11 @@ def test_port_imports_nothing_of_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'distributed_sigmoid_loss_tpu')]\n"
         "assert not bad, bad\n"
+        "need = ['obs.metrics_schema', 'obs.telemetry', 'serve.admission', 'serve.siege', "
+        "'serve.shard_index', 'serve.ann', 'serve.swap', 'serve.fleet.leases', "
+        "'serve.fleet.router', 'serve.fleet.waves', 'serve.fleet.scenarios']\n"
+        "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
