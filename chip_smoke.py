@@ -150,7 +150,30 @@ and nothing is caught:
    512 small-integer rows (2 GiB) in 4 shards on cuda:0 with planted exact
    ties: ids and scores equal to the host's exact index, and its search
    time;
-17. a JSON line of the kernels' numbers and, last, the device record.
+17. AOT export (``[export_forward]``, ``cli.main`` in this process): the
+   ``export --what forward --model b16 --batch 64 --check`` command, in bf16
+   and with ``--quant int8``, each artifact replayed by ``load_forward``
+   between two reads of the counts (24 K1 launches, nothing else; int8: 144
+   int8 products and each row's cosine with bf16 > 0.995), equal to the
+   live forward at ``--check``'s rtol 1e-5 / atol 1e-6, its export seconds,
+   bytes and replay vs live ms; then ``export_step`` of the 512 px forward
+   at batch 8 (12 K7 forwards and 12 K1 a replay);
+18. the artifact served (``[export_serve]``): ``InferenceEngine`` over
+   ``load_forward`` behind ``EmbeddingService``, a 256-image corpus, search
+   ids equal to a live engine's on the same weights before and after one
+   hot swap, ``compile_count`` unchanged;
+19. the train step exported (``[export_train_step]``): ``export --what
+   train_step --model b16 --batch 64 --check`` (JAX's defaults), then the
+   artifact replayed between two reads of the counts (K1 24, K2 24), loss
+   and every state tensor equal to the live step's, device ms and peak
+   memory of each;
+20. HF import (``[hf_import]``): a state dict under ``transformers``'
+   SigLIP names at google/siglip-base-patch16-224's widths, random from the
+   seed, through ``config_from_hf`` (a namespace) and ``params_from_hf``
+   into an HF-shaped B/16 in bf16, served as phase 4 (search == oracle, 12
+   K1 a tower call, the towers against their plain attention), then its
+   forward artifact replayed equal to it; ``build/export`` deleted;
+21. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -492,6 +515,24 @@ SERVE_INT8 = Serving("serve_int8", "b16_int8", (1, 8, 32, 128), 256, 64, 8, 0,
                      "short_attention_fwd", reference="b16")
 TRAIN = Training("train", "headline", ACCUM, MICRO, 3, 0, "bfloat16", "bfloat16", K1_K2, 10)
 TRAIN_512 = Training("train_512", "b16_512", 4, 32, 2, 4, None, None, K7, 0)
+# B/16 with weights imported under transformers' SigLIP names
+# ([hf_import]), served as SERVE.
+SERVE_HF = Serving("hf_import", "hf_b16", (1, 8, 32, 128), 256, 64, 8, 9, "short_attention_fwd")
+# The export phases: artifacts under build/export (deleted at the end), the
+# export command's batch (JAX's default), the 512 px forward's batch, and
+# --check's tolerance (JAX's).
+EXPORT_DIR = os.path.join("build", "export")
+EXPORT_BATCH, EXPORT_512_BATCH = 64, 8
+EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6
+# google/siglip-base-patch16-224's published config (transformers'
+# SiglipConfig fields), for [hf_import].
+HF_SIGLIP_B16 = {
+    "vision_config": dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                          intermediate_size=3072, image_size=224, patch_size=16),
+    "text_config": dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                        intermediate_size=3072, vocab_size=32000,
+                        max_position_embeddings=64, projection_size=768),
+}
 # The context block: (s, b), the JAX bench's "--context" shapes.
 CONTEXT_CASES = ((1024, 16), (4096, 4))
 
@@ -1619,7 +1660,7 @@ def read_counts(sa, ssl) -> dict:
             "attention_f32_bwd_dq": f32["bwd_dq"]}
 
 
-def run_serve_path(args, sa, ssl, fa, run: Serving) -> dict:
+def run_serve_path(args, sa, ssl, fa, run: Serving, model=None) -> dict:
     """One serving run through the service: the engine warmed, a random
     corpus encoded and indexed, and mixed requests (texts, some repeated
     captions that hit the cache, images, searches) from ``run.clients``
@@ -1627,7 +1668,8 @@ def run_serve_path(args, sa, ssl, fa, run: Serving) -> dict:
     tower's attention kernel per image tower call, 12 of K1 per text call,
     nothing else). Then the towers with every attention kernel against its
     plain version, and their times and device breakdowns at the largest
-    bucket."""
+    bucket. ``model``: a SigLIP already on the card (``[hf_import]``'s), in
+    place of ``run.config``'s seeded one."""
     from distributed_sigmoid_loss_tpu_torch.eval.retrieval import topk_ids
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
     from distributed_sigmoid_loss_tpu_torch.serve import (
@@ -1636,11 +1678,12 @@ def run_serve_path(args, sa, ssl, fa, run: Serving) -> dict:
         InferenceEngine,
     )
 
-    cfg = siglip_config(run.config)
     seed = args.seed + run.seed_offset
     t0 = time.monotonic()
-    model = SigLIP(cfg, device="cuda",
-                   generator=torch.Generator(device="cuda").manual_seed(seed)).eval()
+    if model is None:
+        model = SigLIP(siglip_config(run.config), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(seed)).eval()
+    cfg = model.cfg
     engine = InferenceEngine.from_model(model, batch_buckets=run.buckets)
     torch.cuda.synchronize()
     hw, ctx, vocab = cfg.vision.image_size, cfg.text.context_length, cfg.text.vocab_size
@@ -3332,6 +3375,439 @@ def run_serve_bench_path(args, sa, ssl) -> dict:
     return totals
 
 
+def export_cli(sa, ssl, argv) -> dict:
+    """``cli.main(["export", ...])`` through :func:`run_cli`: exit 0 and
+    ``--check``'s line, or this fails; adds the artifact's bytes and the
+    export seconds the command printed."""
+    run = run_cli(sa, ssl, argv)
+    if run["rc"] != 0 or "check ok" not in run["out"]:
+        raise AssertionError(f"{' '.join(argv)}: exit {run['rc']}\n{run['out']}\n{run['err']}")
+    m = re.search(r"\((\d+) bytes, ([0-9.]+) s\)", run["out"])
+    return dict(run, bytes=int(m.group(1)), export_s=float(m.group(2)))
+
+
+def counted(sa, ssl, fn):
+    """``fn()`` between two reads of the counts (and of the int8 products):
+    ``(result, counts, int8 products)``."""
+    from distributed_sigmoid_loss_tpu_torch.ops import quant
+
+    torch.cuda.synchronize()
+    reset_counts(sa, ssl)
+    quant.reset_int_mm_calls()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(sa, ssl), quant.int_mm_calls()
+
+
+def held_to_live(phase: str, got, want) -> float:
+    """Each replayed leaf against the live one at ``--check``'s tolerance;
+    returns the largest absolute difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{phase}: {len(got)} leaves replayed, {len(want)} live")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().float(), w.detach().float()
+        if not torch.allclose(g, w, rtol=EXPORT_RTOL, atol=EXPORT_ATOL):
+            raise AssertionError(f"{phase}: leaf {i} {tuple(g.shape)} differs from the live "
+                                 f"call by up to {float((g - w).abs().max())}")
+        worst = max(worst, float((g - w).abs().max()) if g.numel() else 0.0)
+    return worst
+
+
+def add_counts(total: dict | None, counts: dict) -> dict:
+    return dict(counts) if total is None else {k: total[k] + counts[k] for k in total}
+
+
+def expect_counts(counts: dict, phase: str, **expected) -> None:
+    want = dict.fromkeys(counts, 0)
+    want.update(expected)
+    if counts != want:
+        raise AssertionError(f"{phase} launches {counts} != {want}")
+
+
+def export_inputs(cfg, n: int, seed: int) -> dict:
+    """A seeded batch as the export command's: f32 pixels, int32 tokens."""
+    batch = random_batch(cfg, n, torch.Generator(device="cuda").manual_seed(seed))
+    return {"images": batch["images"], "tokens": batch["tokens"].int()}
+
+
+def forward_fn(model):
+    def fwd(params, images, tokens):
+        zimg, ztxt, _ = torch.func.functional_call(model, params, (images, tokens))
+        return zimg, ztxt
+
+    return fwd
+
+
+def export_forward_api(sa, ssl, model, batch, path: str, phase: str, **expected) -> dict:
+    """``export_step`` (the API) of ``model``'s forward at ``batch``, saved,
+    loaded and replayed once between two reads of the counts (which must be
+    ``expected``), against the live eager forward at ``--check``'s
+    tolerance."""
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        export_step,
+        load_exported,
+        save_exported,
+        tree_leaves,
+    )
+
+    params = dict(model.state_dict())
+    args = (params, batch["images"], batch["tokens"])
+    t0 = time.monotonic()
+    save_exported(path, export_step(forward_fn(model), args, platforms=("cuda",)))
+    export_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    loaded = load_exported(path)
+    load_s = time.monotonic() - t0
+    with torch.inference_mode():
+        got, counts, _ = counted(sa, ssl, lambda: loaded.call(*tree_leaves(args)))
+        want = model(batch["images"], batch["tokens"])[:2]
+    err = held_to_live(phase, got, want)
+    expect_counts(counts, phase, **expected)
+    return dict(export_s=export_s, load_s=load_s, artifact_bytes=os.path.getsize(path),
+                launches=counts, max_abs_err=err)
+
+
+def run_export_forward_path(args, sa, ssl, fa) -> dict:
+    """``export OUT --what forward --model b16 --batch 64 --check`` through
+    ``cli.main``, in bf16 and with ``--quant int8``; each artifact then
+    replayed by ``load_forward`` on a seeded batch of 64 between two reads of
+    the counts (24 K1 launches, 12 a tower, nothing else; int8: the 144
+    int8 products of ``int8_linear``), its embeddings against the live eager
+    forward of the same weights at ``--check``'s tolerance (int8: each row's
+    cosine with bf16's > INT8_MIN_COSINE), replay and live ms by CUDA
+    events; then the 512 px forward at batch 8 through ``export_step`` (12
+    K7 forwards and 12 K1 launches a replay)."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.train import load_forward
+
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    total, bf16_rows = None, None
+    for config, flags in (("b16", ()), ("b16_int8", ("--quant", "int8"))):
+        path = os.path.join(EXPORT_DIR, f"forward_{config}.pt2")
+        cli_run = export_cli(sa, ssl, ("export", path, "--what", "forward", "--model", "b16",
+                                       "--batch", str(EXPORT_BATCH), "--check") + flags)
+        total = add_counts(total, cli_run["counts"])
+        cfg = siglip_config(config)
+        model = SigLIP(cfg, device="cuda").eval()  # the command's weights: seed 0
+        params = dict(model.state_dict())
+        batch = export_inputs(cfg, EXPORT_BATCH, args.seed + 5)
+        t0 = time.monotonic()
+        fwd = load_forward(path)
+        load_s = time.monotonic() - t0
+        with torch.inference_mode():
+            got, counts, int_mm = counted(
+                sa, ssl, lambda: fwd(params, batch["images"], batch["tokens"]))
+            want = model(batch["images"], batch["tokens"])[:2]
+            replay_ms = time_ms(lambda: fwd(params, batch["images"], batch["tokens"]), 10, 2)
+            live_ms = time_ms(lambda: model(batch["images"], batch["tokens"]), 10, 2)
+        total = add_counts(total, counts)
+        err = held_to_live(f"export_forward {config}", got, want)
+        expect_counts(counts, f"export_forward {config}",
+                      short_attention_fwd=cfg.vision.depth + cfg.text.depth)
+        fields = {}
+        if flags:
+            if int_mm != 6 * (cfg.vision.depth + cfg.text.depth):
+                raise AssertionError(f"export_forward int8: {int_mm} int8 products, expected "
+                                     f"{6 * (cfg.vision.depth + cfg.text.depth)}")
+            cos = [float(torch.nn.functional.cosine_similarity(g.float(), r, dim=-1).min())
+                   for g, r in zip(got, bf16_rows)]
+            fields = dict(int8_products=int_mm,
+                          min_row_cosine_vs_bf16={"image": cos[0], "text": cos[1]})
+            if min(cos) <= INT8_MIN_COSINE:
+                raise AssertionError(f"export_forward int8: row cosine with bf16 {cos}")
+        else:
+            bf16_rows = [g.float() for g in got]
+        log("export_forward", config=config, batch=EXPORT_BATCH, export_s=cli_run["export_s"],
+            command_s=cli_run["seconds"], artifact_bytes=cli_run["bytes"], load_s=load_s,
+            replay_ms=replay_ms, live_ms=live_ms, launches=counts, max_abs_err=err, **fields)
+        del model, params, fwd
+        torch.cuda.empty_cache()
+    cfg = siglip_config("b16_512")
+    model = SigLIP(cfg, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(args.seed + 3)).eval()
+    batch = export_inputs(cfg, EXPORT_512_BATCH, args.seed + 6)
+    rec = export_forward_api(sa, ssl, model, batch, os.path.join(EXPORT_DIR, "forward_512.pt2"),
+                             "export_forward b16_512", flash_attention_fwd=cfg.vision.depth,
+                             short_attention_fwd=cfg.text.depth)
+    total = add_counts(total, rec["launches"])
+    log("export_forward", config="b16_512", batch=EXPORT_512_BATCH, **rec)
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_export_serve_path(args, sa, ssl, fa) -> dict:
+    """The bf16 forward artifact of ``[export_forward]`` served:
+    ``InferenceEngine`` over ``load_forward`` (one bucket of 64, zero
+    inputs for the other tower, so 24 K1 launches a tower call) behind
+    ``EmbeddingService`` and an exact ``RetrievalRouter``: a 256-image corpus
+    encoded and published, 16 text searches whose ids must equal a live
+    engine's on the same weights; then one hot swap through
+    ``SwapController`` (new weights and the corpus the live engine encodes
+    with them): ``compile_count`` unchanged, the corpus re-encoded by the
+    artifact equal to the live one at ``--check``'s tolerance, and 16 new
+    searches' ids equal to the live engine's on the new weights. Counts read
+    around the artifact's run."""
+    from distributed_sigmoid_loss_tpu_torch.eval.retrieval import topk_ids
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.serve import (
+        EmbeddingService,
+        InferenceEngine,
+        RetrievalRouter,
+        SwapController,
+    )
+    from distributed_sigmoid_loss_tpu_torch.train import load_forward
+
+    cfg = siglip_config("b16")
+    model = SigLIP(cfg, device="cuda").eval()  # the artifact's command built seed 0
+    params = dict(model.state_dict())
+    b, hw, ctx, vocab = EXPORT_BATCH, cfg.vision.image_size, cfg.text.context_length, \
+        cfg.text.vocab_size
+    fwd = load_forward(os.path.join(EXPORT_DIR, "forward_b16.pt2"))
+    zero_imgs = torch.zeros((b, hw, hw, 3), device="cuda")
+    zero_toks = torch.zeros((b, ctx), dtype=torch.int32, device="cuda")
+    art = InferenceEngine(lambda p, im: fwd(p, im, zero_toks)[0],
+                          lambda p, tk: fwd(p, zero_imgs, tk)[1], params,
+                          batch_buckets=(b,), text_len_buckets=(ctx,), image_shape=(hw, hw, 3))
+    live = InferenceEngine.from_model(model, batch_buckets=(b,))
+    rng = np.random.default_rng(args.seed + 7)
+    corpus = rng.random((256, hw, hw, 3), dtype=np.float32)
+    queries = [rng.integers(1, vocab, (16, ctx)).astype(np.int32) for _ in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 8)
+    new = {k: v + 0.05 * torch.randn(v.shape, device="cuda", generator=gen)
+           for k, v in params.items()}
+    def live_images(x):  # the engine takes at most one bucket a call
+        return np.concatenate([live.encode_image(x[i:i + b]) for i in range(0, len(x), b)])
+
+    # The live engine's answers, old weights then new, outside the count.
+    live_corpus, live_q = live_images(corpus), live.encode_text(queries[0])
+    live.swap_params(new)
+    live_corpus_new, live_q_new = live_images(corpus), live.encode_text(queries[1])
+    oracle = [topk_ids(live_q @ live_corpus.T, 10), topk_ids(live_q_new @ live_corpus_new.T, 10)]
+
+    router = RetrievalRouter(tier="exact")
+    svc = EmbeddingService(art, index=router, max_wait_ms=5.0, default_timeout=120.0)
+
+    def serve():
+        warmed = art.warmup()
+        router.publish(svc.encode_image(corpus))
+        before = [svc.search(q[None], k=10)[1][0] for q in queries[0]]
+        compiles = art.compile_count
+        t0 = time.monotonic()
+        SwapController(art, router).swap(params=new, embeddings=live_corpus_new)
+        swap_ms = 1e3 * (time.monotonic() - t0)
+        corpus_new = svc.encode_image(corpus)
+        after = [svc.search(q[None], k=10)[1][0] for q in queries[1]]
+        return warmed, compiles, before, after, corpus_new, swap_ms
+
+    t0 = time.monotonic()
+    (warmed, compiles, before, after, corpus_new, swap_ms), counts, _ = counted(sa, ssl, serve)
+    serve_s = time.monotonic() - t0
+    calls = dict(art.calls)
+    svc.close()
+    for tag, got, want in (("before", before, oracle[0]), ("after", after, oracle[1])):
+        if not np.array_equal(np.stack(got), want):
+            raise AssertionError(f"export_serve: search ids {tag} the swap differ from the "
+                                 f"live engine's: {np.stack(got)} != {want}")
+    if not np.allclose(corpus_new, live_corpus_new, rtol=EXPORT_RTOL, atol=EXPORT_ATOL):
+        raise AssertionError("export_serve: the artifact's corpus on the new weights differs "
+                             f"from the live engine's by {np.abs(corpus_new - live_corpus_new).max()}")
+    if not warmed == compiles == art.compile_count == art.bucket_space:
+        raise AssertionError(f"export_serve: compile_count {warmed} / {compiles} / "
+                             f"{art.compile_count} != bucket_space {art.bucket_space}")
+    expect_counts(counts, "export_serve",
+                  short_attention_fwd=(cfg.vision.depth + cfg.text.depth) * sum(calls.values()))
+    log("export_serve", corpus=len(corpus), searches=sum(len(q) for q in queries),
+        compile_count=art.compile_count, bucket_space=art.bucket_space, tower_calls=calls,
+        swap_ms=swap_ms, serve_s=serve_s, launches=counts,
+        corpus_max_abs_err_after_swap=float(np.abs(corpus_new - live_corpus_new).max()))
+    del model, params, new, fwd, art, live
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_export_train_step_path(args, sa, ssl, fa) -> dict:
+    """``export OUT --what train_step --model b16 --batch 64 --check``
+    (JAX's defaults: AdamW, warmup 2,000 of 100,000 steps, the ring loss)
+    through ``cli.main``; then the command's state and batch rebuilt here
+    with the count and step set to the warmup's end (rate 1e-3, so the
+    parameters move), the artifact loaded and replayed on copies between
+    two reads of the counts (K1 24 and K2 24: the traced towers run without
+    remat), its loss and every state tensor against the live eager step at
+    ``--check``'s tolerance, then its output state replayed again against
+    the live step's next call, and each one's device time and peak memory
+    above the state (the live step under B/16's full remat)."""
+    from torch.utils import _pytree as pytree
+
+    from distributed_sigmoid_loss_tpu_torch.data import SyntheticImageText
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        load_exported,
+        make_optimizer,
+        make_train_step,
+        train_state_tree,
+        tree_leaves,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
+
+    path = os.path.join(EXPORT_DIR, "train_step_b16.pt2")
+    cli_run = export_cli(sa, ssl, ("export", path, "--what", "train_step", "--model", "b16",
+                                   "--batch", str(EXPORT_BATCH), "--check"))
+    cfg = siglip_config("b16")
+    depth = cfg.vision.depth + cfg.text.depth
+    # The command's two replays (K1 24, K2 24 each) and its two live steps
+    # (full remat: K1 again in the backward, 48 and 24 each).
+    expect_counts(cli_run["counts"], "export_train_step command",
+                  short_attention_fwd=6 * depth, short_attention_bwd=4 * depth)
+    model = SigLIP(cfg, device="cuda")
+    warmup = 2000
+    tx = make_optimizer(TrainConfig(learning_rate=1e-3, warmup_steps=warmup,
+                                    total_steps=100_000))
+    state = create_train_state(model, tx)
+    # Past the warmup, so the schedule's rate is nonzero and the parameters
+    # move: at count 0 an update of rate 0 would show nothing of AdamW's.
+    state.step = state.opt_state.count = warmup
+    batch = {k: v.cuda() for k, v in next(iter(SyntheticImageText(cfg, EXPORT_BATCH))).items()}
+    t0 = time.monotonic()
+    loaded = load_exported(path)
+    load_s = time.monotonic() - t0
+    example = pytree.tree_map(torch.clone, (train_state_tree(state), batch))
+    leaves = tree_leaves(example)
+    n_state = len(tree_leaves(example[0]))
+
+    def peak_gib(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    (got, replay_gib), counts, _ = counted(sa, ssl, lambda: peak_gib(lambda: loaded.call(*leaves)))
+    expect_counts(counts, "export_train_step replay", short_attention_fwd=depth,
+                  short_attention_bwd=depth)
+    step = make_train_step(model, LossConfig(variant="ring"))
+    before = [p.detach().clone() for p in model.parameters()]
+    (new_state, metrics), live_gib = peak_gib(lambda: step(state, batch))
+    want = tree_leaves((train_state_tree(new_state), metrics))
+    err = held_to_live("export_train_step", got, want)
+    moved = max(float((p.detach() - p0).abs().max()) for p, p0 in zip(model.parameters(), before))
+    del before
+    # The replayed state fed back in: the step at count warmup + 1 against
+    # the live step's next call.
+    got2 = loaded.call(*got[:n_state], *leaves[n_state:])
+    new_state, metrics2 = step(new_state, batch)
+    err = max(err, held_to_live("export_train_step (second replay)", got2,
+                                tree_leaves((train_state_tree(new_state), metrics2))))
+    del got2
+    if not moved > 100 * EXPORT_ATOL:
+        raise AssertionError(f"export_train_step: past the warmup the live step moved the "
+                             f"parameters by {moved}, within 100x the tolerance")
+    replay_ms = time_ms(lambda: loaded.call(*leaves), iters=3, warmup=1)
+    live_ms = time_ms(lambda: step(state, batch), iters=3, warmup=1)
+    log("export_train_step", batch=EXPORT_BATCH, export_s=cli_run["export_s"],
+        command_s=cli_run["seconds"], artifact_bytes=cli_run["bytes"], load_s=load_s,
+        nodes=len(loaded.program.graph.nodes), leaves_in=len(leaves), leaves_out=len(got),
+        loss=float(metrics["loss"]), count=warmup, params_moved_max=moved,
+        replay_ms=replay_ms, live_ms=live_ms,
+        replay_peak_gib=replay_gib, live_peak_gib=live_gib, launches=counts, max_abs_err=err)
+    del model, state, new_state, example, leaves, got, loaded
+    torch.cuda.empty_cache()
+    return add_counts(cli_run["counts"], counts)
+
+
+def hf_state_dict(seed: int) -> dict:
+    """A ``transformers`` ``SiglipModel`` state dict at HF_SIGLIP_B16's widths
+    under its key names, random from ``seed`` (drawn on the card, kept on
+    the host as a loaded checkpoint is): weights and embeddings N(0, 0.02²),
+    LayerNorm scales 1 + N(0, 0.02²), the loss scalars log(10) and −10."""
+    v, t = HF_SIGLIP_B16["vision_config"], HF_SIGLIP_B16["text_config"]
+    w, n = v["hidden_size"], (v["image_size"] // v["patch_size"]) ** 2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = {
+        "vision_model.embeddings.patch_embedding.weight": (w, 3, v["patch_size"], v["patch_size"]),
+        "vision_model.embeddings.patch_embedding.bias": (w,),
+        "vision_model.embeddings.position_embedding.weight": (n, w),
+        "vision_model.head.probe": (1, 1, w),
+        "vision_model.head.attention.in_proj_weight": (3 * w, w),
+        "vision_model.head.attention.in_proj_bias": (3 * w,),
+        "text_model.embeddings.token_embedding.weight": (t["vocab_size"], t["hidden_size"]),
+        "text_model.embeddings.position_embedding.weight": (t["max_position_embeddings"],
+                                                            t["hidden_size"]),
+    }
+
+    def linear(prefix, d_in, d_out):
+        shapes[f"{prefix}.weight"], shapes[f"{prefix}.bias"] = (d_out, d_in), (d_out,)
+
+    def norm(prefix, width):
+        shapes[f"{prefix}.weight"], shapes[f"{prefix}.bias"] = (width,), (width,)
+
+    for tower, c in (("vision_model", v), ("text_model", t)):
+        width, hidden = c["hidden_size"], c["intermediate_size"]
+        for i in range(c["num_hidden_layers"]):
+            layer = f"{tower}.encoder.layers.{i}"
+            norm(f"{layer}.layer_norm1", width)
+            norm(f"{layer}.layer_norm2", width)
+            for x in ("q", "k", "v", "out"):
+                linear(f"{layer}.self_attn.{x}_proj", width, width)
+            linear(f"{layer}.mlp.fc1", width, hidden)
+            linear(f"{layer}.mlp.fc2", hidden, width)
+    norm("vision_model.post_layernorm", w)
+    linear("vision_model.head.attention.out_proj", w, w)
+    norm("vision_model.head.layernorm", w)
+    linear("vision_model.head.mlp.fc1", w, v["intermediate_size"])
+    linear("vision_model.head.mlp.fc2", v["intermediate_size"], w)
+    norm("text_model.final_layer_norm", t["hidden_size"])
+    linear("text_model.head", t["hidden_size"], t["projection_size"])
+    sd = {}
+    for name, shape in shapes.items():
+        x = 0.02 * torch.randn(shape, device="cuda", generator=gen)
+        if "norm" in name and name.endswith(".weight"):
+            x += 1.0
+        sd[name] = x.cpu()
+    sd["logit_scale"] = torch.tensor([float(np.log(10.0))])
+    sd["logit_bias"] = torch.tensor([-10.0])
+    return sd
+
+
+def run_hf_import_path(args, sa, ssl, fa) -> dict:
+    """Weights under ``transformers``' SigLIP names at
+    google/siglip-base-patch16-224's widths (random from the seed; nothing
+    downloaded, no ``transformers``): ``config_from_hf`` on a namespace,
+    ``params_from_hf``, an HF-shaped SigLIP in bf16 on the card, served as
+    ``[main]`` (``run_serve_path`` with SERVE_HF: search == oracle, K1 12 a
+    tower call, the towers against their plain attention); then its forward
+    artifact at batch 8 replayed against it (K1 24)."""
+    import types
+
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP, config_from_hf, params_from_hf
+
+    ns = types.SimpleNamespace(**{k: types.SimpleNamespace(**v) for k, v in HF_SIGLIP_B16.items()})
+    cfg = config_from_hf(ns)
+    sd = hf_state_dict(args.seed + 9)
+    t0 = time.monotonic()
+    state = params_from_hf(sd, cfg)
+    convert_s = time.monotonic() - t0
+    model = SigLIP(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    model.eval()
+    log("hf_import", tensors=len(sd), params=sum(p.numel() for p in model.parameters()),
+        convert_s=convert_s, vision=dataclasses.asdict(cfg.vision), text=dataclasses.asdict(cfg.text))
+    del sd, state
+    total = run_serve_path(args, sa, ssl, fa, SERVE_HF, model=model)
+    batch = export_inputs(cfg, EXPORT_512_BATCH, args.seed + 10)
+    rec = export_forward_api(sa, ssl, model, batch, os.path.join(EXPORT_DIR, "forward_hf.pt2"),
+                             "hf_import artifact",
+                             short_attention_fwd=cfg.vision.depth + cfg.text.depth)
+    log("hf_import", artifact_batch=EXPORT_512_BATCH, **rec)
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    return add_counts(total, rec["launches"])
+
+
 def global_norm_of(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
@@ -3493,7 +3969,7 @@ def main() -> int:
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
 
-    # Phases 4-16: the main paths, each between two reads of the counts.
+    # Phases 4-20: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
                       ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
@@ -3513,13 +3989,18 @@ def main() -> int:
                       ("train_data", lambda: run_train_data_path(args, sa, ssl, {
                           k: v / (ACCUM * TRAIN_PALLAS_STEPS)
                           for k, v in paths["train_pallas"].items()})),
-                      ("serve_bench", lambda: run_serve_bench_path(args, sa, ssl))):
+                      ("serve_bench", lambda: run_serve_bench_path(args, sa, ssl)),
+                      ("export_forward", lambda: run_export_forward_path(args, sa, ssl, fa)),
+                      ("export_serve", lambda: run_export_serve_path(args, sa, ssl, fa)),
+                      ("export_train_step",
+                       lambda: run_export_train_step_path(args, sa, ssl, fa)),
+                      ("hf_import", lambda: run_hf_import_path(args, sa, ssl, fa))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 17: the records.
+    # Phase 21: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"

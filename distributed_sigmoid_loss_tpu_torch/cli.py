@@ -14,6 +14,9 @@
   captions are the zero-shot classes); ``--ema``: the checkpoint's EMA
   weights.
 - ``tokenizer``: train a byte-level BPE vocab on a caption corpus.
+- ``export``: the train step or the forward as a ``torch.export`` artifact
+  that replays through the hand-written kernels (``train/export.py``);
+  ``--check`` replays it against the live step.
 - ``data-bench``: the input pipeline's stages and the composed pipeline
   against the synthetic loader (``data/data_bench.py``).
 - ``serve-bench``: concurrent clients through the serving stack (engine,
@@ -669,6 +672,137 @@ def cmd_tokenizer(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Export a traced step (``--what train_step``, the default, or
+    ``forward``) to a ``torch.export`` artifact through the hand-written
+    kernels' ops (``train/export.py``). The artifact replays with
+    ``train.load_exported(path).call(*leaves)`` on the device it was traced
+    on, with no model code. ``--check`` reloads the written file and replays
+    it on copies of the inputs against the live eager step; a train step
+    also past the warmup, where the parameters move."""
+    refusal = _unported(args)
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
+    if args.quant and args.what == "train_step":
+        print("--quant is inference-only (zero gradients through round); "
+              "use it with --what forward", file=sys.stderr)
+        return 2
+    if args.platform not in ("", "cuda", "cpu"):
+        print(f"--platform {args.platform}: the port traces for 'cuda' or 'cpu' (the device "
+              "the artifact replays on)", file=sys.stderr)
+        return 2
+    if args.platform == "cuda" and args.cpu_devices == 1:
+        print("--platform cuda conflicts with --cpu-devices 1", file=sys.stderr)
+        return 2
+    if args.platform == "cpu" and not args.cpu_devices:
+        args.cpu_devices = 1
+    device, code = _device(args)
+    if device is None:
+        return code
+
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from distributed_sigmoid_loss_tpu_torch.data import SyntheticImageText
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        export_step,
+        load_exported,
+        make_functional_train_step,
+        make_optimizer,
+        make_train_step,
+        save_exported,
+        train_state_tree,
+        tree_leaves,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
+
+    cfg = _model_config(args)
+    if args.loss_family != "sigmoid":
+        # Same family wiring as train: the model's t_prime init follows it.
+        cfg = dataclasses.replace(cfg, loss=LossConfig(family=args.loss_family))
+    model = SigLIP(cfg, device=device)
+    b = args.batch
+    batch = {k: v.to(device) for k, v in next(iter(SyntheticImageText(cfg, b))).items()}
+
+    if args.what == "train_step":
+        # The schedule is baked into the artifact: export the values the
+        # deployed job trains with (--lr etc.).
+        tx = make_optimizer(TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup_steps,
+                                        total_steps=args.total_steps))
+        state = create_train_state(model, tx)
+        loss_cfg = LossConfig(variant=args.variant, family=args.loss_family)
+        fn = make_functional_train_step(model, tx, loss_cfg)
+        example = (train_state_tree(state), batch)
+        live_step = make_train_step(model, loss_cfg)
+
+        def live(tree, batch):
+            new_state, metrics = live_step(state, batch)
+            return train_state_tree(new_state), metrics
+    else:  # forward
+        def fn(params, images, tokens):
+            zimg, ztxt, _ = torch.func.functional_call(model, params, (images, tokens))
+            return zimg, ztxt
+
+        example = (dict(model.state_dict()), batch["images"], batch["tokens"])
+        live = fn
+
+    t0 = time.monotonic()
+    exported = export_step(fn, example, platforms=(device.type,))
+    save_exported(args.out, exported)
+    seconds = time.monotonic() - t0
+    size = os.path.getsize(args.out)
+    model_name = "tiny" if args.tiny else args.model
+    print(f"exported {args.what} ({model_name}, batch {b}, 1 device(s), {device.type}) "
+          f"-> {args.out} ({size} bytes, {seconds:.1f} s)")
+
+    if args.check:
+        loaded = load_exported(args.out)
+
+        def replays_like_live(example) -> bool:
+            # Flat calling convention (train/export.py); the live step updates
+            # its state in place, so the artifact replays on copies first.
+            got = loaded.call(*tree_leaves(pytree.tree_map(torch.clone, example)))
+            with torch.no_grad() if args.what == "forward" else contextlib.nullcontext():
+                want = tree_leaves(live(*example))
+            if len(want) != len(got):
+                print(f"check failed: {len(got)} leaves replayed, {len(want)} live",
+                      file=sys.stderr)
+                return False
+            for w, g in zip(want, got):
+                np.testing.assert_allclose(g.detach().float().cpu().numpy(),
+                                           w.detach().float().cpu().numpy(), rtol=1e-5,
+                                           atol=1e-6)
+            return True
+
+        if not replays_like_live(example):
+            return 1
+        moved = ""
+        if args.what == "train_step":
+            # At count 0 the warmup's rate is 0 and no parameter moves: replay
+            # once more past the warmup, where the schedule's rate is the peak
+            # and AdamW's update moves the parameters.
+            state.step = state.opt_state.count = max(args.warmup_steps, 1)
+            before = [p.detach().clone() for p in model.parameters()]
+            if not replays_like_live((train_state_tree(state), batch)):
+                return 1
+            delta = max(float((p.detach() - p0).abs().max())
+                        for p, p0 in zip(model.parameters(), before))
+            if args.lr > 0 and not delta > 0:
+                print("check failed: past the warmup the live step left every parameter "
+                      "as it was", file=sys.stderr)
+                return 1
+            moved = f" (past the warmup the parameters moved by up to {delta:.3g})"
+        print(f"check ok: reloaded artifact replays identically{moved}")
+    return 0
+
+
 def _emit_serve_record(record: dict, *, strict_zero_drops: bool = False) -> int:
     """The serve-bench emit contract, shared by the snapshot and scenario
     paths: print the record (one JSON line, the JAX command's keys; the port
@@ -1130,6 +1264,40 @@ def _parser() -> argparse.ArgumentParser:
     db.add_argument("--cpu-devices", type=int, default=0,
                     help="1 = run augment and the commits on the CPU (default: cuda)")
 
+    ex = sub.add_parser("export", help="export a traced step (train or forward) to a "
+                                       "torch.export artifact through the kernels' ops")
+    ex.add_argument("out", help="output artifact path")
+    ex.add_argument("--quant", choices=["", "int8"], default="",
+                    help="quantize the towers for --what forward artifacts "
+                         "(int8 projection matmuls; rejected for train_step)")
+    ex.add_argument("--what", choices=["train_step", "forward"], default="train_step")
+    ex.add_argument("--model", choices=["b16", "l14", "so400m", "tiny"], default="b16")
+    ex.add_argument("--tiny", action="store_true", help="alias for --model tiny")
+    ex.add_argument("--moe-experts", type=int, default=0)
+    ex.add_argument("--ep", type=int, default=1)
+    ex.add_argument("--moe-aux-weight", type=float, default=None)
+    ex.add_argument("--moe-group-size", type=int, default=0)
+    ex.add_argument("--batch", type=int, default=64,
+                    help="global batch the artifact is shaped for")
+    ex.add_argument("--variant", choices=["all_gather", "ring"], default="ring")
+    ex.add_argument("--loss-family", choices=["sigmoid", "softmax"], default="sigmoid",
+                    help="loss family baked into the train_step artifact "
+                         "(match the train job's --loss-family)")
+    ex.add_argument("--lr", type=float, default=1e-3,
+                    help="learning rate baked into the train_step artifact")
+    ex.add_argument("--warmup-steps", type=int, default=2000,
+                    help="LR warmup steps baked into the train_step artifact")
+    ex.add_argument("--total-steps", type=int, default=100_000,
+                    help="LR schedule horizon baked into the train_step artifact")
+    ex.add_argument("--platform", default="",
+                    help="the device the artifact is traced for and replays on: cuda or "
+                         "cpu (default: the command's device)")
+    ex.add_argument("--check", action="store_true",
+                    help="reload the written artifact and replay it against the live "
+                         "eager step (a train step twice: at count 0 and past the warmup)")
+    ex.add_argument("--cpu-devices", type=int, default=0,
+                    help="1 = run on the CPU (default: cuda)")
+
     sb = sub.add_parser("serve-bench", help="online serving micro-bench: concurrent clients "
                                             "through the batched/cached/bucketed serve/ stack; "
                                             "prints the stats snapshot as JSON")
@@ -1209,7 +1377,8 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
     return {"train": cmd_train, "eval": cmd_eval, "tokenizer": cmd_tokenizer,
-            "data-bench": cmd_data_bench, "serve-bench": cmd_serve_bench}[args.cmd](args)
+            "export": cmd_export, "data-bench": cmd_data_bench,
+            "serve-bench": cmd_serve_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,7 @@ import torch
 from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
 
 __all__ = ["params_from_jax", "param_list_from_jax", "JaxLeaf", "jax_leaves",
-           "adafactor_stats_from_jax"]
+           "adafactor_stats_from_jax", "check_state_dict"]
 
 _BLOCK = re.compile(r"block(\d+)")
 
@@ -81,20 +81,26 @@ def params_from_jax(params, cfg: SigLIPConfig) -> dict[str, torch.Tensor]:
             renamed += ["blocks", m.group(1)] if m else [part]
         put(tuple(renamed), arr)
 
+    check_state_dict(out, cfg, "params_from_jax")
+    return out
+
+
+def check_state_dict(state: Mapping[str, torch.Tensor], cfg: SigLIPConfig, who: str) -> None:
+    """Raise ``ValueError`` (prefixed ``who``) unless ``state`` has exactly
+    the names and shapes of ``SigLIP(cfg)``'s state dict."""
     from distributed_sigmoid_loss_tpu_torch.models.siglip import SigLIP
 
     expected = {k: tuple(v.shape) for k, v in SigLIP(cfg, device="meta").state_dict().items()}
-    got = {k: tuple(v.shape) for k, v in out.items()}
+    got = {k: tuple(v.shape) for k, v in state.items()}
     if got != expected:
         missing = sorted(set(expected) - set(got))
         extra = sorted(set(got) - set(expected))
         shapes = sorted(k for k in set(got) & set(expected) if got[k] != expected[k])
         raise ValueError(
-            f"params_from_jax: tree does not match SigLIP(cfg): missing {missing[:5]}, "
+            f"{who}: tree does not match SigLIP(cfg): missing {missing[:5]}, "
             f"unexpected {extra[:5]}, shape mismatches "
             f"{[(k, got[k], expected[k]) for k in shapes[:5]]}"
         )
-    return out
 
 
 def param_list_from_jax(tree, model) -> list[torch.Tensor]:
@@ -123,11 +129,16 @@ class JaxLeaf:
         parts = [tensors[i].T if self.transposed else tensors[i] for i in self.members]
         return torch.stack(parts) if self.stacked else parts[0]
 
+    def parts(self, leaf: torch.Tensor) -> list[torch.Tensor]:
+        """``leaf`` (JAX layout) as the port's tensors of :attr:`members`
+        (views)."""
+        parts = [leaf[depth] for depth in range(len(self.members))] if self.stacked else [leaf]
+        return [part.T if self.transposed else part for part in parts]
+
     def scatter_(self, tensors, leaf: torch.Tensor) -> None:
         """Copy ``leaf`` (JAX layout) back into the port's ``tensors``."""
-        for depth, i in enumerate(self.members):
-            part = leaf[depth] if self.stacked else leaf
-            tensors[i].copy_(part.T if self.transposed else part)
+        for i, part in zip(self.members, self.parts(leaf)):
+            tensors[i].copy_(part)
 
 
 def _jax_path(parts: list[str], ndim: int, scanned: bool) -> tuple[str, int | None]:

@@ -266,7 +266,8 @@ class Block(nn.Module):
 class Encoder(nn.Module):
     """Stack of blocks followed by a final LayerNorm. With ``remat``, each
     block is recomputed in the backward under ``remat_policy`` (see the
-    module docstring); without gradients, blocks run plainly."""
+    module docstring); without gradients, and while ``torch.export`` traces
+    the encoder, blocks run plainly."""
 
     def __init__(self, width: int, depth: int, num_heads: int, mlp_ratio, dtype, *,
                  attn_impl="auto", causal=False, remat: bool = False,
@@ -289,7 +290,10 @@ class Encoder(nn.Module):
         self.ln_final = LayerNorm(width, dtype, device=device)
 
     def forward(self, x):
-        remat = self.remat and torch.is_grad_enabled()
+        # An exported step does not hold ``torch.utils.checkpoint``: under
+        # ``torch.export`` (train/export.py) the blocks run plainly, with the
+        # same values and more memory.
+        remat = self.remat and torch.is_grad_enabled() and not torch.compiler.is_exporting()
         for block in self.blocks:
             x = checkpoint(block, x, **self._checkpoint_kw) if remat else block(x)
         return self.ln_final(x)

@@ -39,7 +39,10 @@ The forward is registered as the custom op
 ``(out, stats)``, with ``stats`` the row statistics ``m`` and ``l``
 (b, h, 2, s) in f32 in place of a log-sum-exp, so the backward normalises as
 JAX does. Selective checkpointing keeps both outputs under ``save_hot``
-(``models/transformer.py``) and never launches the forward again.
+(``models/transformer.py``) and never launches the forward again. The
+two-pass backward is the custom op ``dsl_torch_port::flash_attention_bwd``.
+Both have fake versions, so ``torch.export`` records them in an artifact
+(``train/export.py``) and the artifact's replay launches the kernels.
 
 On CPU tensors :func:`flash_self_attention` runs the plain forward and, in
 the backward, the plain backward. On CUDA tensors it launches the kernels
@@ -443,7 +446,14 @@ def _forward(q, k, v, causal: bool, scale: float):
 @torch.library.custom_op("dsl_torch_port::flash_attention_fwd", mutates_args=())
 def _flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    return _forward(q, k, v, causal, scale)
+    return tuple(t.contiguous() for t in _forward(q, k, v, causal, scale))
+
+
+@_flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    b, s, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, 2, s), dtype=torch.float32))
 
 
 # K7's forward as selective checkpointing sees it (``attn_core``).
@@ -457,6 +467,12 @@ def flash_self_attention_bwd(q, k, v, out, do, stats, causal: bool = False,
     pass, then the dQ pass. CPU tensors run the plain versions (JAX's
     blocks); CUDA tensors run the kernels, or this raises."""
     scale = _resolve_scale(q, scale)
+    if torch.compiler.is_exporting():  # the op, which the trace records
+        return _flash_attention_bwd_op(q, k, v, out, do, stats, bool(causal), scale)
+    return _backward(q, k, v, out, do, stats, bool(causal), scale)
+
+
+def _backward(q, k, v, out, do, stats, causal: bool, scale: float):
     if q.device.type == "cpu":
         return flash_self_attention_bwd_plain(q, k, v, out, do, stats, causal, scale)
     do = do.contiguous()
@@ -471,6 +487,19 @@ def flash_self_attention_bwd(q, k, v, out, do, stats, causal: bool = False,
     dk, dv, di = _launch_bwd_dkv(q, k, v, out, do, stats, causal, scale)
     dq = _launch_bwd_dq(q, k, v, do, stats, di, causal, scale)
     return dq, dk, dv
+
+
+@torch.library.custom_op("dsl_torch_port::flash_attention_bwd", mutates_args=())
+def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, do: torch.Tensor, stats: torch.Tensor,
+                            causal: bool, scale: float
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(t.contiguous() for t in _backward(q, k, v, out, do, stats, causal, scale))
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, out, do, stats, causal, scale):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
 
 
 class FlashSelfAttention(torch.autograd.Function):
@@ -503,10 +532,12 @@ def flash_self_attention(q, k, v, *, causal: bool = False, scale: float | None =
     kernels, or this raises. A head dim that is not a multiple of 8 up to
     :data:`MAX_HEAD_DIM` raises ``ValueError`` on either device. A call that
     needs no gradient (serving) skips the autograd node and the custom op's
-    dispatch.
+    dispatch, except while ``torch.export`` traces it.
     """
     _check_head_dim("flash_self_attention", q.shape[-1])
     scale = _resolve_scale(q, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashSelfAttention.apply(q, k, v, bool(causal), scale)
+    if torch.compiler.is_exporting():
+        return _flash_attention_fwd_op(q, k, v, bool(causal), scale)[0]
     return _forward(q, k, v, bool(causal), scale)[0]

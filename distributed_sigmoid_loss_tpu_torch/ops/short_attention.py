@@ -50,7 +50,11 @@ as those roles.
 The forward is registered as the custom op ``dsl_torch_port::short_attention_fwd``
 (:data:`ATTN_CORE_OP`), so selective activation checkpointing can recognise
 the attention core by op and keep its output instead of launching K1 again in
-the backward (``models/transformer.py``, ``remat_policy="save_hot"``).
+the backward (``models/transformer.py``, ``remat_policy="save_hot"``). The
+backward, K2 or K3, is the custom op ``dsl_torch_port::short_attention_bwd``.
+Both have fake versions, so ``torch.export`` records them in an artifact
+(``train/export.py``) and the artifact's replay launches (and counts) the
+kernels.
 
 On CPU tensors :func:`short_self_attention` runs the plain forward and, in
 the backward, the plain backward (never autograd through the plain forward).
@@ -648,7 +652,12 @@ def _forward(q, k, v, causal: bool, scale: float):
 @torch.library.custom_op("dsl_torch_port::short_attention_fwd", mutates_args=())
 def _short_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             causal: bool, scale: float) -> torch.Tensor:
-    return _forward(q, k, v, causal, scale)
+    return _forward(q, k, v, causal, scale).contiguous()
+
+
+@_short_attention_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
 # The attention core as selective checkpointing sees it (``attn_core``).
@@ -677,6 +686,12 @@ def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | N
             f"batch_heads backward does not fit shared memory at s={s}, "
             f"width={h * dh}, h={h}; use the per-head loop"
         )
+    if torch.compiler.is_exporting():  # the op, which the trace records
+        return _short_attention_bwd_op(q, k, v, do, bool(causal), float(scale), batch_heads)
+    return _backward(q, k, v, do, bool(causal), float(scale), batch_heads)
+
+
+def _backward(q, k, v, do, causal: bool, scale: float, batch_heads: bool):
     if q.device.type == "cpu":
         if batch_heads:
             return short_self_attention_bwd_batched_plain(q, k, v, do, causal, scale)
@@ -694,6 +709,18 @@ def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | N
     if batch_heads:
         return _launch_bwd_batched(q, k, v, do, causal, scale)
     return _launch_bwd(q, k, v, do, causal, scale)
+
+
+@torch.library.custom_op("dsl_torch_port::short_attention_bwd", mutates_args=())
+def _short_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, causal: bool, scale: float,
+                            batch_heads: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(t.contiguous() for t in _backward(q, k, v, do, causal, scale, batch_heads))
+
+
+@_short_attention_bwd_op.register_fake
+def _(q, k, v, do, causal, scale, batch_heads):
+    return tuple(torch.empty_like(q, memory_format=torch.contiguous_format) for _ in range(3))
 
 
 class ShortSelfAttention(torch.autograd.Function):
@@ -728,9 +755,12 @@ def short_self_attention(q, k, v, causal: bool = False, scale: float | None = No
     bf16 or f32 of one shape that :func:`short_attention_fits`; they run the
     kernels, or this raises. A call that needs no gradient (serving) skips
     the autograd node and the custom op's dispatch, whose host time would
-    exceed K1's own at the text tower's shape.
+    exceed K1's own at the text tower's shape, except while ``torch.export``
+    traces it: then it is the op, which the trace records.
     """
     scale = _resolve_scale(q, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return ShortSelfAttention.apply(q, k, v, bool(causal), scale, batch_heads)
+    if torch.compiler.is_exporting():
+        return _short_attention_fwd_op(q, k, v, bool(causal), scale)
     return _forward(q, k, v, bool(causal), scale)

@@ -41,6 +41,10 @@ a block that fails :func:`pallas_compatible` (the TPU kernel's tiling) gets
 ``None`` and ``"xla"`` in :func:`traced_loss_kernels`, and the caller
 computes it with its plain block at the loss's ``precision``, as JAX's
 callers do.
+
+K4 and the K5/K6 pair are the custom ops ``dsl_torch_port::streaming_loss_fwd``
+and ``dsl_torch_port::streaming_loss_bwd``, with fake versions, so
+``torch.export`` records them in an artifact (``train/export.py``).
 """
 
 from __future__ import annotations
@@ -519,22 +523,63 @@ def _bwd(zimg, ztxt, t_prime, bias, pos_offset, g, quant=""):
     return dzimg, dtp, dbias, _launch_bwd_txt(zimg, ztxt, t_prime, bias, pos_offset, g)
 
 
+@torch.library.custom_op("dsl_torch_port::streaming_loss_fwd", mutates_args=())
+def _streaming_loss_fwd_op(zimg: torch.Tensor, ztxt: torch.Tensor, t_prime: torch.Tensor,
+                           bias: torch.Tensor, pos_offset: int, quant: str) -> torch.Tensor:
+    """K4 as a custom op (a fake version beside it), so ``torch.export``
+    records it and an artifact's replay launches it."""
+    return _fwd(zimg, ztxt, t_prime, bias, pos_offset, quant).float()
+
+
+@_streaming_loss_fwd_op.register_fake
+def _(zimg, ztxt, t_prime, bias, pos_offset, quant):
+    return zimg.new_empty((), dtype=torch.float32)
+
+
+@torch.library.custom_op("dsl_torch_port::streaming_loss_bwd", mutates_args=())
+def _streaming_loss_bwd_op(zimg: torch.Tensor, ztxt: torch.Tensor, t_prime: torch.Tensor,
+                           bias: torch.Tensor, pos_offset: int, g: torch.Tensor, quant: str
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5 then K6 as one custom op → ``(dzimg, dztxt, [dt′, dbias])``, f32."""
+    dzimg, dtp, dbias, dztxt = _bwd(zimg, ztxt, t_prime, bias, pos_offset, g, quant)
+    return (dzimg.float().contiguous(), dztxt.float().contiguous(),
+            torch.stack([dtp.reshape(()), dbias.reshape(())]).float())
+
+
+@_streaming_loss_bwd_op.register_fake
+def _(zimg, ztxt, t_prime, bias, pos_offset, g, quant):
+    return (zimg.new_empty(zimg.shape, dtype=torch.float32),
+            ztxt.new_empty(ztxt.shape, dtype=torch.float32),
+            zimg.new_empty((2,), dtype=torch.float32))
+
+
 class StreamingBlockLossSum(torch.autograd.Function):
     """K4 forward, K5 then K6 backward, as one autograd node, in f32 or the
     int8 mode. The forward saves only the embeddings and the scalars, as the
-    JAX ``custom_vjp`` does; the backward recomputes the logits from them."""
+    JAX ``custom_vjp`` does; the backward recomputes the logits from them.
+    Both launch the kernels directly, and through their custom ops only
+    while ``torch.export`` traces them (the op's dispatch is host time an
+    eager step need not pay)."""
 
     @staticmethod
     def forward(ctx, zimg, ztxt, t_prime, bias, pos_offset: int, quant: str = ""):
         ctx.save_for_backward(zimg, ztxt, t_prime, bias)
         ctx.pos_offset, ctx.quant = pos_offset, quant
+        if torch.compiler.is_exporting():
+            return _streaming_loss_fwd_op(zimg, ztxt, t_prime, bias, pos_offset, quant)
         return _fwd(zimg, ztxt, t_prime, bias, pos_offset, quant)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         zimg, ztxt, t_prime, bias = ctx.saved_tensors
-        dzimg, dtp, dbias, dztxt = _bwd(zimg, ztxt, t_prime, bias, ctx.pos_offset, g, ctx.quant)
+        if torch.compiler.is_exporting():
+            dzimg, dztxt, dscalars = _streaming_loss_bwd_op(zimg, ztxt, t_prime, bias,
+                                                            ctx.pos_offset, g, ctx.quant)
+            dtp, dbias = dscalars[0], dscalars[1]
+        else:
+            dzimg, dtp, dbias, dztxt = _bwd(zimg, ztxt, t_prime, bias, ctx.pos_offset, g,
+                                            ctx.quant)
         return (
             dzimg.to(zimg.dtype),
             dztxt.to(ztxt.dtype),

@@ -13,9 +13,11 @@ from distributed_sigmoid_loss_tpu_torch.train.train_step import (  # noqa: F401
     accum_zeros,
     create_train_state,
     make_optimizer,
+    make_functional_train_step,
     make_schedule,
     make_train_step,
     run_gradcache,
+    train_state_tree,
     validate_accum_args,
     validate_step_args,
 )
@@ -33,4 +35,13 @@ from distributed_sigmoid_loss_tpu_torch.train.resilience import (  # noqa: F401
     restore_latest,
     save_step,
     train_resilient,
+)
+from distributed_sigmoid_loss_tpu_torch.train.export import (  # noqa: F401
+    ExportedStep,
+    FlatProgram,
+    export_step,
+    load_exported,
+    load_forward,
+    save_exported,
+    tree_leaves,
 )

@@ -60,7 +60,7 @@ from distributed_sigmoid_loss_tpu_torch.parallel.api import all_reduce_mean_, ma
 from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
 from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_size
 from distributed_sigmoid_loss_tpu_torch.parallel.microbatch import microbatch_split
-from distributed_sigmoid_loss_tpu_torch.train.ema import init_ema, update_ema
+from distributed_sigmoid_loss_tpu_torch.train.ema import ema_decay_schedule, init_ema, update_ema
 from distributed_sigmoid_loss_tpu_torch.utils.config import (
     LossConfig,
     TrainConfig,
@@ -81,6 +81,8 @@ __all__ = [
     "make_schedule",
     "create_train_state",
     "make_train_step",
+    "make_functional_train_step",
+    "train_state_tree",
     "resolve_loss_quant",
     "validate_trainable_quant",
     "validate_accum_args",
@@ -100,11 +102,14 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+def make_schedule(cfg: TrainConfig) -> Callable:
     """``count -> learning rate``, in f32 as optax computes it: linear
     warmup then cosine decay (``warmup_cosine``), inverse square root
     (``rsqrt``) or constant (``constant``). ``warmup_steps=0`` means no
-    warmup in every branch."""
+    warmup in every branch. ``count`` is an int or a 0-d integer tensor (the
+    traced step's, :func:`make_functional_train_step`); the rate is a 0-d
+    f32 tensor on the count's device, taken without a host branch on the
+    count."""
     warmup, lr = cfg.warmup_steps, cfg.learning_rate
     timescale = max(warmup, 1)
     if cfg.schedule == "warmup_cosine":
@@ -115,24 +120,26 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
                 f"decay_steps={decay_steps}."
             )
 
-        def schedule(count: int) -> float:
-            if count < warmup:  # optax.linear_schedule(0, lr, warmup)
-                frac = 1 - torch.clamp(_f32(count), 0, warmup) / warmup
-                return float((0.0 - lr) * frac + lr)
-            t = torch.clamp(_f32(count - warmup), max=float(decay_steps))
-            cosine = 0.5 * (1 + torch.cos(_f32(math.pi) * t / decay_steps))
-            return float(lr * cosine)
+        def schedule(count):
+            c = torch.as_tensor(count).to(torch.float32)
+            t = torch.clamp(c - warmup, max=float(decay_steps))
+            pi = torch.tensor(math.pi, dtype=torch.float32, device=c.device)
+            rate = lr * (0.5 * (1 + torch.cos(pi * t / decay_steps)))
+            if warmup:  # optax.linear_schedule(0, lr, warmup) below it
+                warm = (0.0 - lr) * (1 - torch.clamp(c, 0, warmup) / warmup) + lr
+                rate = torch.where(c < warmup, warm, rate)
+            return rate
     elif cfg.schedule == "rsqrt":
-        def schedule(count: int) -> float:
-            step = _f32(count)
-            if count < warmup:
-                return float(lr * step / timescale)
-            return float(lr * torch.sqrt(timescale / torch.clamp(step, min=timescale)))
+        def schedule(count):
+            c = torch.as_tensor(count).to(torch.float32)
+            return torch.where(c < warmup, lr * c / timescale,
+                               lr * torch.sqrt(timescale / torch.clamp(c, min=timescale)))
     elif cfg.schedule == "constant":
-        def schedule(count: int) -> float:
+        def schedule(count):
+            c = torch.as_tensor(count).to(torch.float32)
             if warmup > 0:
-                return float(lr * torch.clamp(_f32(count) / warmup, max=1.0))
-            return float(_f32(lr))
+                return lr * torch.clamp(c / warmup, max=1.0)
+            return torch.full_like(c, lr)
     else:
         raise ValueError(f"unknown schedule: {cfg.schedule!r}")
     return schedule
@@ -174,6 +181,17 @@ class AdamW:
             nu=[torch.zeros_like(p) for p in params],
         )
 
+    def _leaf(self, p, g, mu, nu, bc1, bc2, step, *, nu_in_place: bool = False):
+        """One parameter's update → ``(p_new, mu_new, nu_new)``, ``mu_new``
+        unrounded (the update uses it; the stored moment is rounded).
+        ``nu_in_place`` updates ``nu`` itself (the eager state's tensor)."""
+        b1, b2 = self.b1, self.b2
+        mu_new = (1 - b1) * g + mu * torch.tensor(b1, dtype=mu.dtype, device=mu.device)
+        # nu stays f32: b2 * nu + (1 - b2) * g²
+        nu = (nu.mul_(b2) if nu_in_place else nu * b2).add_((1 - b2) * (g * g))
+        u = (mu_new / bc1.to(mu_new)) / (torch.sqrt(nu / bc2.to(nu)) + self.eps)
+        return p + (u + self.weight_decay * p) * step, mu_new, nu
+
     @torch.no_grad()
     def apply(self, params, grads, state: AdamWState) -> tuple[torch.Tensor, torch.Tensor]:
         """One update of ``params`` from ``grads`` (both lists, in the order of
@@ -182,35 +200,55 @@ class AdamW:
         ``grad_norm`` and ``update_ratio`` numerator)."""
         params, grads = list(params), list(grads)
         g_norm = global_norm(grads)
-        clip = not bool(g_norm < self.clip)
         count = state.count + 1
-        b1, b2 = self.b1, self.b2
-        bc1 = 1 - _f32(b1) ** count
-        bc2 = 1 - _f32(b2) ** count
-        step = -self.schedule(state.count)
+        bc1 = 1 - _f32(self.b1) ** count
+        bc2 = 1 - _f32(self.b2) ** count
+        step = -float(self.schedule(state.count))
         update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
-        for i, (p, g) in enumerate(zip(params, grads)):
-            if clip:
-                g = (g / g_norm.to(g.dtype)) * self.clip
-            mu, nu = state.mu[i], state.nu[i]
-            mu_new = (1 - b1) * g + mu * torch.tensor(b1, dtype=mu.dtype, device=mu.device)
-            nu.mul_(b2).add_((1 - b2) * (g * g))  # nu stays f32: b2 * nu + (1 - b2) * g²
-            u = (mu_new / bc1.to(mu_new)) / (torch.sqrt(nu / bc2.to(nu)) + self.eps)
-            u = (u + self.weight_decay * p) * step
-            new = p + u
+        for p, g, mu, nu in zip(params, _clip(grads, g_norm, self.clip), state.mu, state.nu):
+            new, mu_new, _ = self._leaf(p, g, mu, nu, bc1, bc2, step, nu_in_place=True)
             update_sq += (new - p).square().sum()
             p.copy_(new)
             mu.copy_(mu_new)
         state.count = count
         return g_norm, torch.sqrt(update_sq)
 
+    def update(self, params, grads, opt: dict):
+        """:meth:`apply` as a function of tensors, for a traced step: ``opt``
+        is :meth:`tree` of the state; returns ``(new_params, new_opt,
+        grad_norm, update_norm)`` and writes nothing. The count, the bias
+        corrections and the schedule are 0-d tensors on the device."""
+        g_norm = global_norm(grads)
+        count = opt["count"] + 1
+        bc1 = 1 - _f32(self.b1).to(count.device) ** count
+        bc2 = 1 - _f32(self.b2).to(count.device) ** count
+        step = -self.schedule(opt["count"])
+        new_params, mus, nus, update_sq = [], [], [], 0.0
+        for p, g, mu, nu in zip(params, _clip(grads, g_norm, self.clip), opt["mu"], opt["nu"]):
+            new, mu_new, nu_new = self._leaf(p, g, mu, nu, bc1, bc2, step)
+            update_sq = update_sq + (new - p).square().sum()
+            new_params.append(new)
+            mus.append(mu_new.to(mu.dtype))
+            nus.append(nu_new)
+        return (new_params, {"count": count, "mu": mus, "nu": nus}, g_norm,
+                torch.sqrt(update_sq))
 
-def _clip(grads, g_norm: torch.Tensor, max_norm: float):
-    """optax ``clip_by_global_norm``: the gradients unchanged below
-    ``max_norm``, else each divided by the global norm and scaled by it."""
-    if bool(g_norm < max_norm):
-        return grads
-    return [(g / g_norm.to(g.dtype)) * max_norm for g in grads]
+    def tree(self, state: AdamWState, device) -> dict:
+        """The state as a tree of tensors (the count a 0-d int64 on
+        ``device``), the form :meth:`update` takes."""
+        return {"count": torch.tensor(state.count, device=device), "mu": list(state.mu),
+                "nu": list(state.nu)}
+
+
+def _clip(grads, g_norm: torch.Tensor, max_norm: float) -> list[torch.Tensor]:
+    """optax ``clip_by_global_norm`` without a host branch: each gradient
+    divided by the global norm and scaled by ``max_norm`` where the norm is
+    at least ``max_norm``, else divided and scaled by 1 (unchanged, bit for
+    bit). Two multi-tensor ops, whatever the number of gradients; the
+    gradients are f32, as the parameters."""
+    keep = g_norm < max_norm
+    return torch._foreach_mul(torch._foreach_div(list(grads), torch.where(keep, 1.0, g_norm)),
+                              torch.where(keep, 1.0, max_norm))
 
 
 @dataclasses.dataclass
@@ -241,13 +279,20 @@ class Lion:
         return LionState(count=0, mu=[torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                                       for p in params])
 
+    def _leaf(self, p, g, mu, b1, b2, step):
+        """One parameter's update → ``(p_new, mu_new)``, ``b1``/``b2`` 0-d
+        tensors in μ's dtype."""
+        u = torch.sign((1.0 - self.b1) * g + b1 * mu)
+        mu_new = (1.0 - self.b2) * g + b2 * mu
+        return p + (u + self.weight_decay * p) * step, mu_new
+
     @torch.no_grad()
     def apply(self, params, grads, state: LionState) -> tuple[torch.Tensor, torch.Tensor]:
         """One update in place; returns the gradients' global norm (before
         clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`."""
         params, grads = list(params), list(grads)
         g_norm = global_norm(grads)
-        step = -self.schedule(state.count)
+        step = -float(self.schedule(state.count))
         update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
         betas = {}  # (dtype, device) -> (b1, b2) as 0-d tensors of that dtype
         for p, g, mu in zip(params, _clip(grads, g_norm, 1.0), state.mu):
@@ -255,14 +300,30 @@ class Lion:
             if key not in betas:
                 betas[key] = tuple(torch.tensor(b, dtype=mu.dtype, device=mu.device)
                                    for b in (self.b1, self.b2))
-            b1, b2 = betas[key]
-            u = torch.sign((1.0 - self.b1) * g + b1 * mu)
-            mu.copy_((1.0 - self.b2) * g + b2 * mu)
-            new = p + (u + self.weight_decay * p) * step
+            new, mu_new = self._leaf(p, g, mu, *betas[key], step)
             update_sq += (new - p).square().sum()
+            mu.copy_(mu_new)
             p.copy_(new)
         state.count += 1
         return g_norm, torch.sqrt(update_sq)
+
+    def update(self, params, grads, opt: dict):
+        """:meth:`apply` as a function of tensors, as :meth:`AdamW.update`."""
+        g_norm = global_norm(grads)
+        step = -self.schedule(opt["count"])
+        new_params, mus, update_sq = [], [], 0.0
+        for p, g, mu in zip(params, _clip(grads, g_norm, 1.0), opt["mu"]):
+            b1, b2 = (torch.tensor(b, dtype=mu.dtype, device=mu.device)
+                      for b in (self.b1, self.b2))
+            new, mu_new = self._leaf(p, g, mu, b1, b2, step)
+            update_sq = update_sq + (new - p).square().sum()
+            new_params.append(new)
+            mus.append(mu_new.to(mu.dtype))
+        return new_params, {"count": opt["count"] + 1, "mu": mus}, g_norm, torch.sqrt(update_sq)
+
+    def tree(self, state: LionState, device) -> dict:
+        """The state as a tree of tensors, as :meth:`AdamW.tree`."""
+        return {"count": torch.tensor(state.count, device=device), "mu": list(state.mu)}
 
 
 @dataclasses.dataclass
@@ -341,6 +402,26 @@ class Adafactor:
                 state.v.append(one.clone())
         return state
 
+    def _leaf(self, g, p, v_row, v_col, v, d, lr):
+        """One leaf's update (JAX layout) → ``(p_new, v_row, v_col, v)``,
+        the statistics a leaf does not use passed through."""
+        grad_sqr = g * g + self.EPS
+        dims = self.factored_dims(tuple(g.shape))
+        if dims is None:
+            v = d * v + (1.0 - d) * grad_sqr
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = d * v_row + (1.0 - d) * grad_sqr.mean(dim=d0)
+            v_col = d * v_col + (1.0 - d) * grad_sqr.mean(dim=d1)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        u = u / torch.clamp(torch.sqrt(u.square().mean()), min=1.0)  # block RMS at 1.0
+        u = lr.to(u.device) * u
+        u = -(u + self.weight_decay * p)
+        return p + u, v_row, v_col, v
+
     @torch.no_grad()
     def apply(self, params, grads, state: AdafactorState) -> tuple[torch.Tensor, torch.Tensor]:
         """One update in place; returns the gradients' global norm (before
@@ -350,33 +431,45 @@ class Adafactor:
         grads = _clip(grads, g_norm, 1.0)
         t = _f32(state.count + 1)
         decay = 1.0 - t ** (-self.DECAY_RATE)
-        lr = _f32(self.schedule(state.count))
+        lr = self.schedule(state.count)
         update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
         for i, leaf in enumerate(state.leaves):
             g, p = leaf.gather(grads), leaf.gather(params)
-            d = decay.to(g.device)
-            grad_sqr = g * g + self.EPS
-            dims = self.factored_dims(tuple(g.shape))
-            if dims is None:
-                v = d * state.v[i] + (1.0 - d) * grad_sqr
-                state.v[i] = v
-                u = g * v ** -0.5
-            else:
-                d1, d0 = dims
-                v_row = d * state.v_row[i] + (1.0 - d) * grad_sqr.mean(dim=d0)
-                v_col = d * state.v_col[i] + (1.0 - d) * grad_sqr.mean(dim=d1)
-                state.v_row[i], state.v_col[i] = v_row, v_col
-                reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-                u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-            u = u / torch.clamp(torch.sqrt(u.square().mean()), min=1.0)  # block RMS at 1.0
-            u = lr.to(u.device) * u
-            u = -(u + self.weight_decay * p)
-            new = p + u
+            new, state.v_row[i], state.v_col[i], state.v[i] = self._leaf(
+                g, p, state.v_row[i], state.v_col[i], state.v[i], decay.to(g.device), lr)
             update_sq += (new - p).square().sum()
             leaf.scatter_(params, new)
         state.count += 1
         return g_norm, torch.sqrt(update_sq)
+
+    def update(self, params, grads, opt: dict, leaves: list[JaxLeaf]):
+        """:meth:`apply` as a function of tensors, as :meth:`AdamW.update`;
+        ``leaves`` are those of the state :meth:`tree` was taken from."""
+        params, grads = list(params), list(grads)
+        g_norm = global_norm(grads)
+        grads = _clip(grads, g_norm, 1.0)
+        t = (opt["count"] + 1).to(torch.float32)
+        decay = 1.0 - t ** (-self.DECAY_RATE)
+        lr = self.schedule(opt["count"])
+        new_params = list(params)
+        stats = {"v_row": [], "v_col": [], "v": []}
+        update_sq = 0.0
+        for i, leaf in enumerate(leaves):
+            g, p = leaf.gather(grads), leaf.gather(params)
+            new, *vs = self._leaf(g, p, opt["v_row"][i], opt["v_col"][i], opt["v"][i], decay, lr)
+            for key, v in zip(("v_row", "v_col", "v"), vs):
+                stats[key].append(v)
+            update_sq = update_sq + (new - p).square().sum()
+            for i_param, part in zip(leaf.members, leaf.parts(new)):
+                new_params[i_param] = part.clone(memory_format=torch.contiguous_format)
+        return (new_params, {"count": opt["count"] + 1, **stats}, g_norm,
+                torch.sqrt(update_sq))
+
+    def tree(self, state: AdafactorState, device) -> dict:
+        """The state's tensors as a tree, as :meth:`AdamW.tree`; the leaf
+        layout (``leaves``) rides along and is not a tensor of the tree."""
+        return {"count": torch.tensor(state.count, device=device),
+                "v_row": list(state.v_row), "v_col": list(state.v_col), "v": list(state.v)}
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW | Lion | Adafactor:
@@ -796,5 +889,103 @@ def make_train_step(
             "update_ratio": update_norm / (param_norm + 1e-12),
         }
         return state, metrics
+
+    return step
+
+
+def train_state_tree(state: TrainState) -> dict:
+    """The tensors of ``state`` as the tree :func:`make_functional_train_step`
+    takes and returns: ``params`` (name → tensor, detached, sharing the
+    model's storage), ``opt_state`` (the optimizer's ``tree``), ``step`` (0-d
+    int64) and, with an EMA, ``ema`` (name → tensor)."""
+    names = [name for name, _ in state.model.named_parameters()]
+    params = [p.detach() for p in state.model.parameters()]
+    device = params[0].device
+    tree = {"params": dict(zip(names, params)),
+            "opt_state": state.tx.tree(state.opt_state, device),
+            "step": torch.tensor(state.step, device=device)}
+    if state.ema is not None:
+        tree["ema"] = dict(zip(names, state.ema))
+    return tree
+
+
+def make_functional_train_step(model: nn.Module, tx, loss_cfg: LossConfig = LossConfig(),
+                               ema_decay: float | None = None):
+    """:func:`make_train_step`'s step as a function of tensors, for
+    ``train.export.export_step``: ``step(tree, batch) -> (new_tree,
+    metrics)`` over :func:`train_state_tree` trees, writing nothing, with
+    the same values as the eager step (to rounding where a schedule or a
+    bias correction is taken on the device instead of the host).
+
+    How it differs from the eager step, so that ``torch.export`` can trace
+    and save it: the state comes in and goes out as leaves (the count and
+    the step are 0-d tensors); the gradients come from
+    ``torch.autograd.grad`` on detached copies of the parameters, so no
+    ``torch.no_grad`` region is needed; clipping and the schedule are taken
+    with ``torch.where``; and the towers run without
+    ``torch.utils.checkpoint`` under the trace (same values, more memory;
+    ROADMAP.md queue C), which ``torch.export`` cannot hold.
+
+    One batch a step (no accumulation), with ``ema_decay`` as the eager
+    step takes it. More than one process is refused: a single-process
+    artifact holds no collective.
+    """
+    validate_trainable_quant(model)
+    if axis_size() > 1:
+        raise NotImplementedError(
+            f"a functional train step over {axis_size()} processes: the step's collectives "
+            "(batch_isend_irecv, all_reduce) cannot be held in one process's artifact"
+        )
+    per_shard = make_per_shard_loss(
+        family=loss_cfg.family, variant=loss_cfg.variant, axis_name=loss_cfg.axis_name,
+        bidir=loss_cfg.bidir, precision=loss_cfg.precision,
+        use_pallas=loss_cfg.use_pallas, loss_impl=loss_cfg.loss_impl,
+        ring_overlap=loss_cfg.ring_overlap, quant=resolve_loss_quant(model, loss_cfg),
+    )
+    names = [name for name, _ in model.named_parameters()]
+    leaves = jax_leaves(model) if isinstance(tx, Adafactor) else None
+
+    def step(tree: dict, batch: dict):
+        params = [tree["params"][n] for n in names]
+        # Gradients of detached copies: the inputs stay plain tensors, so
+        # the update needs no torch.no_grad region. The export's trace runs
+        # with gradients off.
+        with torch.enable_grad():
+            req = {n: p.detach().requires_grad_() for n, p in zip(names, params)}
+            zimg, ztxt, lp = torch.func.functional_call(model, req, (batch["images"],
+                                                                     batch["tokens"]))
+            loss = per_shard(zimg, ztxt, lp["t_prime"], lp["bias"])
+            grads = torch.autograd.grad(loss, [req[n] for n in names], allow_unused=True,
+                                        materialize_grads=True)
+        loss = loss.detach().float()
+        extra = {"leaves": leaves} if leaves is not None else {}
+        new_params, new_opt, grad_norm, update_norm = tx.update(params, grads,
+                                                                tree["opt_state"], **extra)
+        out = {"params": dict(zip(names, new_params)), "opt_state": new_opt,
+               "step": tree["step"] + 1}
+        if ema_decay is not None:
+            if "ema" not in tree:
+                raise ValueError(
+                    "ema_decay is set but the state has no ema — create the train "
+                    "state with create_train_state(..., ema=True)"
+                )
+            d = ema_decay_schedule(tree["step"], ema_decay)
+            ema = {}
+            for n, p in zip(names, new_params):
+                e = tree["ema"][n]
+                df = d.to(device=e.device, dtype=e.dtype)
+                ema[n] = e * df + (torch.ones((), dtype=e.dtype, device=e.device) - df) * p.to(
+                    e.dtype)
+            out["ema"] = ema
+        param_norm = global_norm(new_params)
+        metrics = {
+            "loss": loss,
+            "t": torch.exp(tree["params"]["t_prime"]),
+            "bias": tree["params"]["bias"].clone(),
+            "grad_norm": grad_norm,
+            "param_norm": param_norm,
+            "update_ratio": update_norm / (param_norm + 1e-12),
+        }
+        return out, metrics
 
     return step

@@ -317,8 +317,29 @@ def _imports(path: pathlib.Path):
 def _forbidden(name: str) -> bool:
     return any(
         name == root or name.startswith(root + ".")
-        for root in ("jax", "jaxlib", "flax", "distributed_sigmoid_loss_tpu")
+        for root in ("jax", "jaxlib", "flax", "distributed_sigmoid_loss_tpu", "transformers")
     )
+
+
+def test_linear_tower_and_toy_tower_apply_match_jax():
+    """The reference harness's toy towers: JAX's flax ``LinearTower`` and
+    ``toy_tower_apply`` against the port's on one seeded weight."""
+    from distributed_sigmoid_loss_tpu.models.towers import LinearTower as JaxLinearTower
+    from distributed_sigmoid_loss_tpu.models.towers import toy_tower_apply as jax_toy_apply
+    from distributed_sigmoid_loss_tpu_torch.models import LinearTower, toy_tower_apply
+
+    x = np.random.default_rng(7).standard_normal((5, 12)).astype(np.float32)
+    tower = JaxLinearTower(output_dim=2)
+    kernel = np.asarray(tower.init(jax.random.PRNGKey(0), x)["params"]["proj"]["kernel"])
+    want = np.asarray(tower.apply({"params": {"proj": {"kernel": kernel}}}, x))
+    port = LinearTower(12, 2, device="cpu")
+    port.load_state_dict({"proj.weight": torch.from_numpy(kernel.T.copy())})
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    weight = kernel.T.copy()
+    np.testing.assert_allclose(toy_tower_apply(torch.from_numpy(weight), torch.from_numpy(x)).numpy(),
+                               np.asarray(jax_toy_apply(weight, x)), rtol=1e-6, atol=1e-6)
 
 
 def test_port_imports_nothing_of_jax():
@@ -332,11 +353,12 @@ def test_port_imports_nothing_of_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'distributed_sigmoid_loss_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'distributed_sigmoid_loss_tpu', 'transformers')]\n"
         "assert not bad, bad\n"
         "need = ['obs.metrics_schema', 'obs.telemetry', 'serve.admission', 'serve.siege', "
         "'serve.shard_index', 'serve.ann', 'serve.swap', 'serve.fleet.leases', "
-        "'serve.fleet.router', 'serve.fleet.waves', 'serve.fleet.scenarios']\n"
+        "'serve.fleet.router', 'serve.fleet.waves', 'serve.fleet.scenarios', "
+        "'models.hf_import', 'models.towers', 'train.export']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
