@@ -173,7 +173,20 @@ and nothing is caught:
    into an HF-shaped B/16 in bf16, served as phase 4 (search == oracle, 12
    K1 a tower call, the towers against their plain attention), then its
    forward artifact replayed equal to it; ``build/export`` deleted;
-21. a JSON line of the kernels' numbers and, last, the device record.
+21. sequence parallelism and compressed sync, after ``[context]``
+   (``[train_sp]``): the headline towers with every self-attention on the
+   ring, then on Ulysses, at sp = 1 with no process group (what one rank
+   computes when W = 1), 2 steps of 2 × 128 pairs under ``use_pallas``
+   (K4-K6 per microbatch, no attention kernel), timed with peak memory
+   beside sp off; the whole model's gradient against sp off with dense
+   attention (cosine >= 0.999) and an f32 microbatch, ring against dense,
+   within 1e-4 of the largest magnitude; ``[context]`` adds the ring at sp
+   = 1 (``ring_sp1``) beside dense and K7; ``[compression]`` runs the dcn
+   hop's local half on B/16's gradient tree (int8 payloads and scales
+   bitwise equal to the CPU's, top-k magnitudes equal, the mean of 4
+   synthetic slices within half a bucket of the f32 mean) with device ms
+   and wire bytes against f32's;
+22. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -535,6 +548,18 @@ HF_SIGLIP_B16 = {
 }
 # The context block: (s, b), the JAX bench's "--context" shapes.
 CONTEXT_CASES = ((1024, 16), (4096, 4))
+# [train_sp]: the headline towers with both towers' self-attention on a
+# sequence-parallel core at sp = 1 (no process group): 2 steps of 2 × 128
+# pairs under use_pallas, the whole model's gradient against sp off (dense
+# attention) on 32 pairs, and an f32 B/16 microbatch of 32, ring against
+# dense, within 1e-4 of the largest magnitude (TF32 off).
+TRAIN_SP_ACCUM, TRAIN_SP_STEPS, TRAIN_SP_CHECK = 2, 2, 32
+TRAIN_SP_MIN_COSINE = 0.999
+TRAIN_SP_F32_RTOL_OF_MAX = 1e-4
+# [compression]: B/16's gradient tree through the dcn hop's local half, the
+# top-k at 1%, and the mean of this many synthetic slices' int8 payloads.
+COMPRESSION_TOPK_FRAC = 0.01
+COMPRESSION_SLICES = 4
 
 
 def log(phase: str, **fields) -> None:
@@ -2544,13 +2569,18 @@ def run_context(sa, ssl, fa) -> dict:
     """The counterpart of the JAX bench's ``--context`` run: one transformer
     block of width 768 with 12 heads in bf16, forward and backward of
     ``sum(out²)``, at each (s, b) of CONTEXT_CASES, dense attention against
-    K7; ms per layer and peak memory. The K7 runs are counted."""
+    K7 and against the ring core at sp = 1 (``ring_sp1``); ms per layer,
+    peak memory and the cosine against dense. The K7 runs are counted."""
     from distributed_sigmoid_loss_tpu_torch.models.transformer import Block
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     blocks = {impl: Block(768, 12, 4, torch.bfloat16, attn_impl=impl, device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(6))
               for impl in ("dense", "flash")}
+    # ring_sp1: the same weights, self-attention on the ring core at sp = 1
+    # (no process group; the JAX bench's ring_sp1 row).
+    blocks["ring_sp1"] = Block(768, 12, 4, torch.bfloat16, sp_axis="sp", device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(6))
     xs = {s: torch.randn(b, s, 768, device="cuda", generator=gen).to(torch.bfloat16)
           for s, b in CONTEXT_CASES}
 
@@ -2574,7 +2604,7 @@ def run_context(sa, ssl, fa) -> dict:
     for s, b in CONTEXT_CASES:
         x = xs[s]
         row = {"s": s, "b": b}
-        for impl in ("dense", "flash"):
+        for impl in ("dense", "flash", "ring_sp1"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -2584,16 +2614,224 @@ def run_context(sa, ssl, fa) -> dict:
             row[f"{impl}_ms_per_layer"] = time_ms(lambda: fwd_bwd(impl, x), iters=5, warmup=1)
             if impl == "dense":
                 dense_out = out.detach()
+            if impl == "ring_sp1":
+                ring_out = out.detach()
         row["cosine_flash_vs_dense"] = float(torch.nn.functional.cosine_similarity(
             outs[s].float().flatten(), dense_out.float().flatten(), dim=0))
-        row["finite"] = bool(torch.isfinite(outs[s]).all())
+        row["cosine_ring_sp1_vs_dense"] = float(torch.nn.functional.cosine_similarity(
+            ring_out.float().flatten(), dense_out.float().flatten(), dim=0))
+        row["finite"] = bool(torch.isfinite(outs[s]).all() and torch.isfinite(ring_out).all())
         log("context", **row)
-        if not row["finite"] or row["cosine_flash_vs_dense"] <= 0.999:
-            raise AssertionError(f"context block at s={s}: K7 vs dense {row}")
-        del out, dense_out
+        if not row["finite"] or min(row["cosine_flash_vs_dense"],
+                                    row["cosine_ring_sp1_vs_dense"]) <= 0.999:
+            raise AssertionError(f"context block at s={s}: K7 or the ring vs dense {row}")
+        del out, dense_out, ring_out
     del blocks, xs, outs
     torch.cuda.empty_cache()
     return counts
+
+def sp_config(cfg, impl: str | None, **tower_kw):
+    """``cfg`` with both towers' self-attention on the sequence-parallel
+    core ``impl`` over the axis "sp" (None: sp off), and ``tower_kw``."""
+    sp = dict(sequence_parallel_axis="sp", sequence_parallel_impl=impl) if impl else {}
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **sp, **tower_kw),
+                               text=dataclasses.replace(cfg.text, **sp, **tower_kw))
+
+
+def run_train_sp_path(args, sa, ssl, fa) -> dict:
+    """Sequence-parallel attention in the towers at sp = 1 with no process
+    group (what one rank of a W-way ring computes when W = 1): the headline
+    config with ``use_pallas`` and both towers' self-attention on the ring,
+    then on Ulysses, TRAIN_SP_STEPS steps of TRAIN_SP_ACCUM × MICRO pairs
+    each between two reads of the counts (K4-K6 as ``[train_pallas]`` per
+    microbatch; no attention kernel), timed with peak memory beside the
+    same steps with sp off. Then the whole model's gradient on
+    TRAIN_SP_CHECK pairs against sp off with dense attention (cosine), and
+    an f32 B/16 microbatch, ring against dense, within
+    TRAIN_SP_F32_RTOL_OF_MAX of the largest magnitude."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
+
+    base = headline_config()
+    base = dataclasses.replace(base, loss=dataclasses.replace(base.loss, use_pallas=True))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 19)
+    batches = [random_batch(base, TRAIN_SP_ACCUM * MICRO, gen) for _ in range(TRAIN_SP_STEPS)]
+    weights = SigLIP(base, device="cuda", generator=gen).state_dict()
+    per_microbatch = dict.fromkeys(read_counts(sa, ssl), 0)
+    for kernel in ("sigmoid_loss_fwd", "sigmoid_loss_bwd_img", "sigmoid_loss_bwd_txt"):
+        per_microbatch[kernel] = 1
+    total = None
+    rows = {}
+    for impl in ("ring", "ulysses", None):
+        cfg = sp_config(base, impl)
+        model = SigLIP(cfg, device="cuda")
+        model.load_state_dict(weights)
+        state = create_train_state(model, make_optimizer(
+            TrainConfig(warmup_steps=100, total_steps=100_000, adam_mu_dtype="bfloat16")))
+        step = make_train_step(model, cfg.loss, accum_steps=TRAIN_SP_ACCUM,
+                               accum_dtype="bfloat16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # -- the sp training path, between the two reads of the counts -----
+        reset_counts(sa, ssl)
+        step_s, metrics = [], []
+        for batch in batches:
+            t0 = time.monotonic()
+            state, m = step(state, batch)
+            metrics.append({k: v.item() for k, v in m.items()})
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t0)
+        counts = read_counts(sa, ssl)
+        # -- end of the sp training path -----------------------------------
+        name = impl or "sp_off"
+        rows[name] = {"step_ms": [1e3 * t for t in step_s],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "loss": [m["loss"] for m in metrics]}
+        log("train_sp", impl=name, launches=counts, **rows[name])
+        if not all(np.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"train_sp {name}: non-finite metrics {metrics}")
+        if impl is not None:
+            expect = {k: v * TRAIN_SP_ACCUM * TRAIN_SP_STEPS for k, v in per_microbatch.items()}
+            if counts != expect:
+                raise AssertionError(f"train_sp {name} launches {counts} != {expect}")
+            total = add_counts(total, counts)
+        del state, step, model
+        torch.cuda.empty_cache()
+
+    # The whole model's gradient: sp on against sp off with dense attention.
+    per_shard = make_per_shard_loss(variant=base.loss.variant, use_pallas=True)
+    small = {k: v[:TRAIN_SP_CHECK] for k, v in batches[0].items()}
+    grads = {}
+    for name, cfg in (("dense", sp_config(base, None, attn_impl="dense")),
+                      ("ring", sp_config(base, "ring")), ("ulysses", sp_config(base, "ulysses"))):
+        model = SigLIP(cfg, device="cuda")
+        model.load_state_dict(weights)
+        g = tower_grads(model, per_shard, small)
+        grads[name] = torch.cat([g["visual"], g["textual"]])
+        del model
+    cos = {name: float(torch.nn.functional.cosine_similarity(grads[name], grads["dense"], dim=0))
+           for name in ("ring", "ulysses")}
+    del grads
+    # f32 towers (TF32 off): ring against dense on one microbatch.
+    f32 = {}
+    for name, cfg in (("dense", sp_config(base, None, dtype="float32", attn_impl="dense")),
+                      ("ring", sp_config(base, "ring", dtype="float32"))):
+        model = SigLIP(cfg, device="cuda")
+        model.load_state_dict(weights)
+        model.zero_grad(set_to_none=True)
+        zimg, ztxt, lp = model(small["images"], small["tokens"])
+        per_shard(zimg, ztxt, lp["t_prime"], lp["bias"]).backward()
+        f32[name] = (torch.cat([zimg.flatten(), ztxt.flatten()]).detach(),
+                     flat_grads(model))
+        del model
+    err = {what: float((f32["ring"][i] - f32["dense"][i]).abs().max()
+                       / f32["dense"][i].abs().max()) for i, what in enumerate(("emb", "grad"))}
+    log("train_sp", grad_cosine_vs_sp_off_dense=cos, f32_ring_vs_dense_of_max=err,
+        steady_step_ms={k: r["step_ms"][-1] for k, r in rows.items()},
+        peak_gib={k: r["peak_gib"] for k, r in rows.items()},
+        config=f"B/16 headline, use_pallas, {TRAIN_SP_STEPS} steps of "
+               f"{TRAIN_SP_ACCUM} x {MICRO} pairs, sp = 1, no process group")
+    if min(cos.values()) < TRAIN_SP_MIN_COSINE:
+        raise AssertionError(f"train_sp: gradient cosine against sp off {cos}")
+    if max(err.values()) > TRAIN_SP_F32_RTOL_OF_MAX:
+        raise AssertionError(f"train_sp: f32 ring against dense {err}")
+    del f32
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_compression(args, sa, ssl) -> dict:
+    """The dcn hop's local half (``parallel/compression.py``) on B/16's
+    whole gradient tree (its parameters' shapes, seeded normal values): int8
+    quantize, dequantize and the error-feedback residual, and the top-k at
+    COMPRESSION_TOPK_FRAC; the card's int8 payloads and scales bitwise equal
+    to the CPU's on the same tensors, the top-k magnitudes equal (ties
+    aside); the mean of COMPRESSION_SLICES synthetic slices' int8 payloads
+    within half a bucket of the f32 mean; device ms of each scheme and its
+    wire bytes against f32's. No kernel of the port runs here."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel import compression as comp
+
+    reset_counts(sa, ssl)
+    shapes = [p.shape for p in SigLIP(headline_config(), device="meta").parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 29)
+    grads = [torch.randn(s, device="cuda", generator=gen) * 1e-3 for s in shapes]
+    ef = [torch.randn(s, device="cuda", generator=gen) * 1e-5 for s in shapes]
+    n = sum(g.numel() for g in grads)
+
+    def int8_half():
+        out = []
+        for g, e in zip(grads, ef):
+            target = g + e
+            q, scale = comp.quantize_tensor_int8(target)
+            out.append((q, scale, target - comp.dequantize_tensor_int8(q, scale)))
+        return out
+
+    def topk_half():
+        out = []
+        for g, e in zip(grads, ef):
+            target = g + e
+            k = comp.topk_count(target.numel(), COMPRESSION_TOPK_FRAC)
+            vals, idx = comp.sparsify_topk(target, k)
+            out.append((vals, idx, target.reshape(-1) - comp.densify_topk(vals, idx,
+                                                                          target.numel())))
+        return out
+
+    rec = {"tensors": len(grads), "params": n,
+           "int8_ms": time_ms(int8_half, iters=5, warmup=1),
+           "topk_ms": time_ms(topk_half, iters=3, warmup=1),
+           "int8_device_ms": device_ms(int8_half, iters=3),
+           "topk_device_ms": device_ms(topk_half, iters=2)}
+    f32_bytes = 4 * n
+    for method in ("int8", "topk"):
+        wire = sum(comp.payload_bytes(g.numel(), method, COMPRESSION_TOPK_FRAC) for g in grads)
+        rec[f"{method}_wire_bytes"] = wire
+        rec[f"{method}_wire_over_f32"] = wire / f32_bytes
+    # The card's payloads against the CPU's on the same tensors.
+    mismatched_q, mismatched_scale, topk_off = 0, 0, 0
+    for (q, scale, _), g, e in zip(int8_half(), grads, ef):
+        q_cpu, s_cpu = comp.quantize_tensor_int8((g + e).cpu())
+        mismatched_q += int((q.cpu() != q_cpu).sum())
+        mismatched_scale += int(scale.cpu().view(torch.int32) != s_cpu.view(torch.int32))
+    for (vals, _, _), g, e in zip(topk_half(), grads, ef):
+        k = vals.numel()
+        cpu_vals, _ = comp.sparsify_topk((g + e).cpu(), k)
+        got = torch.sort(vals.abs().cpu()).values
+        topk_off += int((got != torch.sort(cpu_vals.abs()).values).sum())
+    # The post-gather mean of COMPRESSION_SLICES slices' payloads against
+    # their f32 mean: each dequantized entry is within half a bucket.
+    worst = 0.0
+    for g in grads:
+        slices = torch.stack([g * (1 + 0.1 * i) + 1e-4 * i for i in range(COMPRESSION_SLICES)])
+        payloads = [comp.quantize_tensor_int8(t) for t in slices]
+        qs = torch.stack([q for q, _ in payloads])
+        scales = torch.stack([s for _, s in payloads])
+        mean = comp.int8_payload_mean(qs, scales)
+        bound = scales.mean() / 2
+        worst = max(worst, float(((mean - slices.mean(dim=0)).abs().max() / bound)))
+    rec.update(int8_payload_mismatches=mismatched_q, int8_scale_mismatches=mismatched_scale,
+               topk_magnitude_mismatches=topk_off, slices=COMPRESSION_SLICES,
+               int8_mean_err_over_half_bucket=worst)
+    log("compression", **rec)
+    if mismatched_q or mismatched_scale:
+        raise AssertionError(f"compression: the card's int8 payloads differ from the CPU's {rec}")
+    if topk_off:
+        raise AssertionError(f"compression: top-k magnitudes differ from the CPU's {rec}")
+    if worst > 1.0 + 1e-3:
+        raise AssertionError(f"compression: the int8 mean is off the f32 mean {rec}")
+    counts = read_counts(sa, ssl)
+    if any(counts.values()):
+        raise AssertionError(f"compression launched kernels: {counts}")
+    del grads, ef
+    torch.cuda.empty_cache()
+    return counts
+
 
 def run_compat(sa, ssl, gen) -> dict:
     """The reference's loss classes (``compat.py``) at W = 1 on COMPAT_ROWS
@@ -3979,6 +4217,8 @@ def main() -> int:
                       ("serve_512", lambda: run_serve_path(args, sa, ssl, fa, SERVE_512)),
                       ("train_512", lambda: run_train_path(args, sa, ssl, fa, TRAIN_512)),
                       ("context", lambda: run_context(sa, ssl, fa)),
+                      ("train_sp", lambda: run_train_sp_path(args, sa, ssl, fa)),
+                      ("compression", lambda: run_compression(args, sa, ssl)),
                       ("f32_tower", lambda: run_f32_tower_path(args, sa, ssl, fa)),
                       ("serve_int8", lambda: run_serve_path(args, sa, ssl, fa, SERVE_INT8)),
                       ("train_int8", lambda: run_train_pallas_path(args, sa, ssl, fa, "int8")),

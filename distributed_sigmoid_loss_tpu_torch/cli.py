@@ -27,7 +27,9 @@
 
 The commands run on ``cuda``; ``--cpu-devices 1`` runs them on the CPU
 (serve-bench's ``hostloss`` and fleet drills touch no device and run on the
-host either way). A flag whose path the port does not have yet exits 2
+host either way). Run by every rank of an initialized process group,
+``train`` lays the ranks out on a ``parallel.mesh.ProcessGrid``: ``(dcn,
+dp)`` with ``--dcn-slices``, else ``(dp,)``. A flag whose path the port does not have yet exits 2
 with a message naming its ROADMAP.md queue A item.
 """
 
@@ -54,15 +56,10 @@ _UNPORTED = (
     ("coordinator", "", "--coordinator", "6.4", "multi-host training"),
     ("num_processes", 0, "--num-processes", "6.4", "multi-host training"),
     ("process_id", -1, "--process-id", "6.4", "multi-host training"),
-    ("grad_compression", "", "--grad-compression", "6.3", "compressed gradient sync"),
-    ("topk_frac", 0.01, "--topk-frac", "6.3", "compressed gradient sync"),
-    ("topk_exact", False, "--topk-exact", "6.3", "compressed gradient sync"),
-    ("dcn_budget_mbps", None, "--dcn-budget-mbps", "6.3", "compressed gradient sync"),
-    ("controller", None, "--controller", "6.3", "compressed gradient sync"),
-    ("emu_dcn_mbps", None, "--emu-dcn-mbps", "6.3", "compressed gradient sync"),
-    ("dcn_slices", 1, "--dcn-slices", "6.3", "the multi-slice dcn axis"),
-    ("force_dcn_emulation", False, "--force-dcn-emulation", "6.3", "the multi-slice dcn axis"),
-    ("zero1", False, "--zero1", "6.3", "sharded updates"),
+    ("dcn_budget_mbps", None, "--dcn-budget-mbps", "6.3 part 2",
+     "the adaptive compression controller"),
+    ("controller", None, "--controller", "6.3 part 2", "the adaptive compression controller"),
+    ("emu_dcn_mbps", None, "--emu-dcn-mbps", "6.3 part 2", "the emulated dcn link"),
     ("obs_dir", "", "--obs-dir", "6.5", "observability (spans, flight recorder)"),
 )
 
@@ -73,9 +70,9 @@ def _unported(args) -> str | None:
     for dest, off, flag, item, what in _UNPORTED:
         if getattr(args, dest, off) != off:
             return (f"{flag}: {what} not ported yet: ROADMAP.md queue A item {item}")
-    if getattr(args, "update_sharding", "") not in ("", "off"):
-        return ("--update-sharding: sharded updates not ported yet: "
-                "ROADMAP.md queue A item 6.3")
+    if getattr(args, "grad_compression", "") in ("adaptive", "learned"):
+        return (f"--grad-compression {args.grad_compression}: the adaptive compression "
+                "ladder not ported yet: ROADMAP.md queue A item 6.3 part 2")
     if getattr(args, "watchdog", "off") == "warn":
         return ("--watchdog warn: the health watchdog (obs/health.py) not ported yet: "
                 "ROADMAP.md queue A item 6.5")
@@ -302,7 +299,66 @@ def _train_config_conflicts(args) -> str | None:
                 "(there is nothing to save)")
     if args.eval_every < 0 or args.log_every < 1 or args.ckpt_every < 1:
         return "--eval-every must be >= 0, --log-every and --ckpt-every >= 1"
+    return _sync_conflicts(args)
+
+
+def _sync_conflicts(args) -> str | None:
+    """The refusals of the gradient-sync flags (JAX ``cli.py``: update
+    sharding, the dcn axis and compression), JAX's messages."""
+    update_mode = args.update_sharding or ""
+    if args.zero1 and update_mode not in ("", "zero1"):
+        return (f"--zero1 is the deprecated alias for --update-sharding "
+                f"zero1 and contradicts --update-sharding {update_mode}; "
+                "drop one of them")
+    if args.dcn_slices > 1 and not args.grad_compression:
+        return ("--dcn-slices without --grad-compression is a silent no-op: "
+                "the regular step already spans slices when the dp axis is "
+                "built dcn-outermost (parallel/multihost.py make_hybrid_mesh); "
+                "the separate dcn axis exists to compress its gradient hop")
+    if args.grad_compression:
+        reasons = []
+        if args.dcn_slices < 2:
+            reasons.append("--dcn-slices >= 2 (the dcn axis being compressed)")
+        if args.variant == "ring":
+            reasons.append("--variant all_gather or unset (ring ppermute has "
+                           "no joint-(dcn,dp) axis form)")
+        if args.ring_overlap:
+            reasons.append("no --ring-overlap (compressed sync is "
+                           "all_gather-only; there is no ring hop loop)")
+        if args.ema_decay is not None:
+            reasons.append("no --ema-decay")
+        if args.grad_compression == "topk" and not 0 < args.topk_frac <= 1:
+            reasons.append(
+                f"--topk-frac in (0, 1], got {args.topk_frac} (it is the "
+                f"fraction of gradient entries kept per tensor)"
+            )
+        if reasons:
+            return "--grad-compression requires: " + "; ".join(reasons)
+    if args.topk_frac != 0.01 and args.grad_compression != "topk":
+        return "--topk-frac without --grad-compression topk is a silent no-op"
+    if args.topk_exact and args.grad_compression != "topk":
+        return "--topk-exact without --grad-compression topk is a silent no-op"
     return None
+
+
+def _process_grid(args):
+    """The train command's process grid: ``(dcn, dp)`` with ``--dcn-slices``
+    (the dcn axis outermost: slice i is the ranks ``[i·W/dcn, (i+1)·W/dcn)``),
+    else ``(dp,)`` over the world. ``(grid, None)`` or ``(None, message)``."""
+    from distributed_sigmoid_loss_tpu_torch.parallel.mesh import ProcessGrid, axis_size
+
+    world = axis_size()
+    if args.dcn_slices > 1:
+        if world % args.dcn_slices:
+            return None, (f"--dcn-slices {args.dcn_slices} must divide the {world} processes "
+                          "of the run")
+        grid = ProcessGrid({"dcn": args.dcn_slices, "dp": world // args.dcn_slices})
+    else:
+        grid = ProcessGrid({"dp": world})
+    if args.update_sharding == "full" and grid.shape["dp"] < 2:
+        return None, ("update_sharding='full' requires a dp axis of size > 1, got "
+                      f"'dp'={grid.shape['dp']} on the process grid {grid.shape}")
+    return grid, None
 
 
 def cmd_train(args) -> int:
@@ -331,9 +387,14 @@ def cmd_train(args) -> int:
     model = SigLIP(cfg, device=device)
     tx = make_optimizer(TrainConfig(learning_rate=args.lr, warmup_steps=5,
                                     total_steps=max(args.steps, 10), optimizer=args.optimizer))
+    grid, problem = _process_grid(args)
+    if grid is None:
+        print(problem, file=sys.stderr)
+        return 2
     source, tokenize, native_decode = _train_source(args, cfg)
     try:
-        return _train(args, device, cfg, model, tx, source, tokenize, native_decode)
+        with grid:
+            return _train(args, device, cfg, model, tx, source, tokenize, native_decode)
     finally:
         close = getattr(source, "close", None)  # the native engine's threads
         if close is not None:
@@ -351,6 +412,9 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int
         shard_batch,
     )
     from distributed_sigmoid_loss_tpu_torch.eval import retrieval_metrics
+    from distributed_sigmoid_loss_tpu_torch.parallel.update_shard import (
+        opt_mem_bytes_per_replica,
+    )
     from distributed_sigmoid_loss_tpu_torch.train import (
         AsyncSaver,
         PreemptionGuard,
@@ -360,27 +424,43 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int
         make_train_step,
         train_resilient,
     )
+    from distributed_sigmoid_loss_tpu_torch.train.compressed_step import (
+        make_compressed_train_step,
+        with_error_feedback,
+    )
     from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig
     from distributed_sigmoid_loss_tpu_torch.utils.logging import MetricsLogger
 
     data = iter(source)
     first = next(data)
     resuming = bool(args.ckpt_dir) and latest_step(args.ckpt_dir) is not None
-    state = create_train_state(model, tx, ema=args.ema_decay is not None)
-    # --loss-impl chunked is an all_gather memory shape; an unset --variant
-    # follows it (an explicit ring was refused above).
-    variant = args.variant or ("all_gather" if args.loss_impl == "chunked" else "ring")
-    step_fn = make_train_step(
-        model,
-        LossConfig(variant=variant, family=args.loss_family, precision="default",
-                   loss_impl=args.loss_impl, ring_overlap=args.ring_overlap,
-                   use_pallas=args.use_pallas),
-        accum_steps=args.accum,
-        accum_negatives=args.accum_negatives,
-        accum_dtype="bfloat16" if args.accum_bf16 else None,
-        gradcache_embed_dtype="bfloat16" if args.gradcache_bf16 else None,
-        ema_decay=args.ema_decay,
-    )
+    update_mode = args.update_sharding or ("zero1" if args.zero1 else "off")
+    state = create_train_state(model, tx, ema=args.ema_decay is not None,
+                               update_sharding=update_mode)
+    # --loss-impl chunked and --grad-compression are all_gather shapes; an
+    # unset --variant follows them (an explicit ring was refused above).
+    all_gather = args.loss_impl == "chunked" or args.grad_compression
+    variant = args.variant or ("all_gather" if all_gather else "ring")
+    loss_cfg = LossConfig(variant=variant, family=args.loss_family, precision="default",
+                          loss_impl=args.loss_impl, ring_overlap=args.ring_overlap,
+                          use_pallas=args.use_pallas)
+    accum = dict(accum_steps=args.accum, accum_negatives=args.accum_negatives,
+                 accum_dtype="bfloat16" if args.accum_bf16 else None,
+                 gradcache_embed_dtype="bfloat16" if args.gradcache_bf16 else None)
+    if args.grad_compression:
+        # --topk-exact changes nothing below here: the port's top-k is
+        # always exact (ROADMAP.md, deliberate differences).
+        state = with_error_feedback(state)
+        step_fn = make_compressed_train_step(
+            model, loss_cfg, compression=args.grad_compression, topk_frac=args.topk_frac,
+            **accum)
+    else:
+        step_fn = make_train_step(model, loss_cfg, ema_decay=args.ema_decay, **accum)
+    # Every metrics line of a sharded update carries its mode and the
+    # optimizer's bytes on this rank, as JAX's do.
+    sharding_fields = {} if update_mode == "off" else {
+        "update_sharding": update_mode,
+        "opt_mem_bytes_per_replica": opt_mem_bytes_per_replica(state.opt_state)}
     logger = MetricsLogger(every=args.log_every)
 
     def host_batches(skip: int = 0):
@@ -404,7 +484,8 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int
 
     def log_metrics(step_i, m):
         logger.log(step_i, {**{k: float(v) for k, v in m.items()},
-                            "input_wait_frac": input_stats.input_wait_frac()})
+                            "input_wait_frac": input_stats.input_wait_frac(),
+                            **sharding_fields})
 
     eval_hook = None
     if args.eval_every:

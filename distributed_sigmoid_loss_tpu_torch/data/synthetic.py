@@ -16,7 +16,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_index, axis_size
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import batch_index, batch_size
 from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
 
 __all__ = ["SyntheticImageText", "shard_batch"]
@@ -24,11 +24,13 @@ __all__ = ["SyntheticImageText", "shard_batch"]
 
 def shard_batch(batch: dict, rank: int | None = None, world: int | None = None) -> dict:
     """This rank's rows of a global batch: rows ``[r·B/W, (r+1)·B/W)`` of
-    every entry (default: the rank and world size of the default process
-    group, one process without ``torch.distributed``). JAX places the whole
-    batch on its mesh instead; a process here holds only its own rows."""
-    rank = axis_index() if rank is None else rank
-    world = axis_size() if world is None else world
+    every entry (default: this rank's part over the ambient grid's batch
+    axes, ``parallel.mesh.batch_index`` / ``batch_size``; the world's rank
+    and size without a grid; one process without ``torch.distributed``).
+    JAX places the whole batch on its mesh instead; a process here holds
+    only its own rows."""
+    rank = batch_index() if rank is None else rank
+    world = batch_size() if world is None else world
     out = {}
     for k, v in batch.items():
         if v.shape[0] % world:

@@ -17,7 +17,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_sigmoid_loss_tpu_torch.parallel.collectives import all_gather
-from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_index, axis_size
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_index, axis_size, batch_group
 
 __all__ = ["topk_ids", "merge_topk", "retrieval_ranks", "recall_at_k", "retrieval_metrics",
            "global_mean"]
@@ -67,9 +67,10 @@ def _sharded_ranks(zimg: torch.Tensor, ztxt: torch.Tensor) -> torch.Tensor:
     """This rank's ranks of its diagonal positives against every rank's
     texts. Rows shard alike on both sides, so local image row i's positive
     is local text row i of this rank's own block, read out of the product."""
-    all_txt = all_gather(ztxt)  # (W, b_local, d)
+    group = batch_group()
+    all_txt = all_gather(ztxt, group=group)  # (W, b_local, d)
     sims = torch.einsum("id,wjd->iwj", zimg, all_txt)  # (b_local, W, b_local)
-    pos = torch.diagonal(sims[:, axis_index()])
+    pos = torch.diagonal(sims[:, axis_index(group)])
     return torch.sum(sims > pos[:, None, None], dim=(1, 2))
 
 
@@ -77,11 +78,12 @@ def global_mean(values: torch.Tensor) -> torch.Tensor:
     """The mean of ``values`` over every rank's rows (all ranks call it):
     one ``all_reduce`` of the sum and the count. At world size 1 the plain
     mean."""
-    if axis_size() == 1:
+    group = batch_group()
+    if axis_size(group) == 1:
         return torch.mean(values.float())
     both = torch.stack([values.float().sum(), torch.tensor(float(values.numel()),
                                                           device=values.device)])
-    dist.all_reduce(both, op=dist.ReduceOp.SUM)
+    dist.all_reduce(both, op=dist.ReduceOp.SUM, group=group)
     return both[0] / both[1]
 
 
@@ -92,10 +94,10 @@ def retrieval_metrics(
     ks: tuple[int, ...] = (1, 5, 10),
 ) -> dict[str, torch.Tensor]:
     """Image→text and text→image recall@K over the global batch, as 0-d
-    tensors. Every rank of the world calls it on its own rows; with one
-    rank, the single-device ranks. (JAX's takes a mesh and its axis name;
-    no caller of the port's picks another group.)"""
-    if axis_size() == 1:
+    tensors. Every rank calls it on its own rows; the rows are split over
+    the ambient grid's batch axes (the world without a grid); with one part,
+    the single-device ranks. (JAX's takes a mesh and its axis name.)"""
+    if axis_size(batch_group()) == 1:
         i2t, t2i = retrieval_ranks(zimg, ztxt), retrieval_ranks(ztxt, zimg)
     else:
         i2t, t2i = _sharded_ranks(zimg, ztxt), _sharded_ranks(ztxt, zimg)

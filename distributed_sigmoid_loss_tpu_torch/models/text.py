@@ -42,7 +42,8 @@ class TextTransformer(nn.Module):
         self.encoder = Encoder(cfg.width, cfg.depth, cfg.num_heads, cfg.mlp_ratio, dtype,
                                attn_impl=cfg.attn_impl, causal=cfg.causal, remat=cfg.remat,
                                remat_policy=cfg.remat_policy, quant=tower_quant_mode(cfg),
-                               **kw)
+                               sp_axis=cfg.sequence_parallel_axis,
+                               sp_impl=cfg.sequence_parallel_impl, **kw)
         if cfg.pool == "map":
             self.map_head = MapHead(cfg.width, cfg.num_heads, cfg.mlp_ratio, dtype, **kw)
         self.proj = Dense(cfg.width, cfg.embed_dim, dtype, init="lecun", **kw)

@@ -16,6 +16,10 @@
 - ``Attention`` keeps the JAX dispatch: for bf16 self-attention on a CUDA
   device the fused short-attention kernel (K1) where it fits and the flash
   kernel (K7) otherwise; dense attention for f32 and for cross-attention.
+  With ``sp_axis`` set, self-attention runs sequence-parallel over that axis
+  of the ambient process grid (``sp_impl``: the ring or Ulysses core of
+  ``parallel/``, plain PyTorch as in JAX); every rank of the axis computes
+  the projections, MLP and pooling on the whole sequence.
 - ``remat`` recomputes each block in the backward
   (``torch.utils.checkpoint``, non-reentrant), with the JAX package's
   ``remat_policy`` as a selective-checkpoint policy: ``"nothing"`` recomputes
@@ -190,13 +194,18 @@ class Attention(nn.Module):
     "auto" (the fused kernels for bf16 self-attention on CUDA, dense
     otherwise). The fused path takes the short kernel (K1) where
     ``short_attention_fits`` and the flash kernel (K7) otherwise, as JAX does.
+    With ``sp_axis`` set, self-attention takes the sequence-parallel core
+    ``sp_impl`` ("ring" or "ulysses") over that axis instead; cross-attention
+    keeps the path above.
     """
 
     def __init__(self, width: int, num_heads: int, dtype, *, attn_impl: str = "auto",
-                 causal: bool = False, quant: str = "", device=None, generator=None):
+                 causal: bool = False, quant: str = "", sp_axis: str | None = None,
+                 sp_impl: str = "ring", device=None, generator=None):
         super().__init__()
         self.width, self.num_heads, self.dtype = width, num_heads, dtype
         self.attn_impl, self.causal = attn_impl, causal
+        self.sp_axis, self.sp_impl = sp_axis, sp_impl
         kw = dict(quant=quant, device=device, generator=generator)
         self.q = Dense(width, width, dtype, **kw)
         self.k = Dense(width, width, dtype, **kw)
@@ -217,6 +226,10 @@ class Attention(nn.Module):
             k = split(self.k(x_kv))
         with checkpoint_name("v_proj"):
             v = split(self.v(x_kv))
+        if self.sp_axis is not None and is_self_attention:
+            out = ring_attention.sequence_parallel_attention(
+                q, k, v, impl=self.sp_impl, axis_name=self.sp_axis, causal=self.causal)
+            return self.out(out.reshape(out.shape[:-2] + (self.width,)))
         if self.attn_impl == "flash" and not is_self_attention:
             raise ValueError(
                 "attn_impl='flash' requires self-attention (the fused kernels "
@@ -250,11 +263,13 @@ class Block(nn.Module):
     """Pre-LN transformer block."""
 
     def __init__(self, width: int, num_heads: int, mlp_ratio, dtype, *, attn_impl="auto",
-                 causal=False, quant: str = "", device=None, generator=None):
+                 causal=False, quant: str = "", sp_axis: str | None = None,
+                 sp_impl: str = "ring", device=None, generator=None):
         super().__init__()
         kw = dict(quant=quant, device=device, generator=generator)
         self.ln1 = LayerNorm(width, dtype, device=device)
-        self.attn = Attention(width, num_heads, dtype, attn_impl=attn_impl, causal=causal, **kw)
+        self.attn = Attention(width, num_heads, dtype, attn_impl=attn_impl, causal=causal,
+                              sp_axis=sp_axis, sp_impl=sp_impl, **kw)
         self.ln2 = LayerNorm(width, dtype, device=device)
         self.mlp = Mlp(width, mlp_ratio, dtype, **kw)
 
@@ -271,10 +286,14 @@ class Encoder(nn.Module):
 
     def __init__(self, width: int, depth: int, num_heads: int, mlp_ratio, dtype, *,
                  attn_impl="auto", causal=False, remat: bool = False,
-                 remat_policy: str = "nothing", quant: str = "", device=None, generator=None):
+                 remat_policy: str = "nothing", quant: str = "", sp_axis: str | None = None,
+                 sp_impl: str = "ring", device=None, generator=None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy: {remat_policy!r}")
+        if sp_axis is not None and sp_impl not in ring_attention.SP_IMPLS:
+            raise ValueError(f"unknown sp_impl: {sp_impl!r} (expected one of "
+                             f"{sorted(ring_attention.SP_IMPLS)})")
         self.remat = remat
         saved = REMAT_POLICIES[remat_policy]
         self._checkpoint_kw = {"use_reentrant": False}
@@ -284,7 +303,8 @@ class Encoder(nn.Module):
             )
         self.blocks = nn.ModuleList(
             Block(width, num_heads, mlp_ratio, dtype, attn_impl=attn_impl, causal=causal,
-                  quant=quant, device=device, generator=generator)
+                  quant=quant, sp_axis=sp_axis, sp_impl=sp_impl, device=device,
+                  generator=generator)
             for _ in range(depth)
         )
         self.ln_final = LayerNorm(width, dtype, device=device)

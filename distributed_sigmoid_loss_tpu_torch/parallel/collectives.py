@@ -34,6 +34,10 @@ from distributed_sigmoid_loss_tpu_torch.parallel.mesh import (
 )
 
 __all__ = [
+    "exchange",
+    "all_to_all",
+    "seq_scatter",
+    "seq_gather",
     "ring_shift_right",
     "ring_shift_left",
     "neighbour_exchange",
@@ -133,17 +137,20 @@ def _start(sends, recvs, group):
     return dist.batch_isend_irecv(ops)
 
 
-def _exchange(payloads, shifts, group, box=None):
+def _exchange(payloads, shifts, group, box=None, axis_name=data_axis):
     """Send ``payloads[i]`` to ``rank + shifts[i]`` and receive one tensor
     of its shape from ``rank − shifts[i]``, for each i; returns the received
     tensors. With ``box`` (a list), the work handles are appended to it and
-    the transfers are left in flight."""
+    the transfers are left in flight. ``axis_name`` names the axis in the
+    ring's validation error."""
     w, r = axis_size(group), axis_index(group)
     if w == 1:  # every rank is its own neighbour
         return [p.clone(memory_format=torch.contiguous_format) for p in payloads]
     for s in shifts:
-        validate_ring_perm(_ring_perm(w, s), w, data_axis)
-    tags = [_TAG_RIGHT if s > 0 else _TAG_LEFT for s in shifts]
+        validate_ring_perm(_ring_perm(w, s), w, axis_name)
+    # One tag per payload: two payloads to one peer are never matched to
+    # each other's receives.
+    tags = [(_TAG_RIGHT if s > 0 else _TAG_LEFT) + 2 * i for i, s in enumerate(shifts)]
     sends = [(p.contiguous(), (r + s) % w, tag) for p, s, tag in zip(payloads, shifts, tags)]
     outs = [torch.empty_like(p, memory_format=torch.contiguous_format) for p in payloads]
     recvs = [(o, (r - s) % w, tag) for o, s, tag in zip(outs, shifts, tags)]
@@ -161,13 +168,14 @@ class _RingShift(torch.autograd.Function):
     shift``; the backward sends the gradient back the other way."""
 
     @staticmethod
-    def forward(ctx, x, shift: int, group, box):
-        ctx.shift, ctx.group = shift, group
-        return _exchange([x], [shift], group, box)[0]
+    def forward(ctx, x, shift: int, group, box, axis_name):
+        ctx.shift, ctx.group, ctx.axis_name = shift, group, axis_name
+        return _exchange([x], [shift], group, box, axis_name)[0]
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange([g], [-ctx.shift], ctx.group)[0], None, None, None
+        return (_exchange([g], [-ctx.shift], ctx.group, axis_name=ctx.axis_name)[0],
+                None, None, None, None)
 
 
 class _BidirExchange(torch.autograd.Function):
@@ -177,22 +185,23 @@ class _BidirExchange(torch.autograd.Function):
     from."""
 
     @staticmethod
-    def forward(ctx, to_left, to_right, group, box):
-        ctx.group = group
-        from_left, from_right = _exchange([to_right, to_left], [1, -1], group, box)
+    def forward(ctx, to_left, to_right, group, box, axis_name):
+        ctx.group, ctx.axis_name = group, axis_name
+        from_left, from_right = _exchange([to_right, to_left], [1, -1], group, box, axis_name)
         return from_right, from_left
 
     @staticmethod
     def backward(ctx, g_from_right, g_from_left):
         # g_from_right came from the right neighbour's to_left: it goes back
         # right; g_from_left goes back left.
-        d_to_left, d_to_right = _exchange([g_from_right, g_from_left], [1, -1], ctx.group)
-        return d_to_left, d_to_right, None, None
+        d_to_left, d_to_right = _exchange([g_from_right, g_from_left], [1, -1], ctx.group,
+                                          axis_name=ctx.axis_name)
+        return d_to_left, d_to_right, None, None, None
 
 
-def _shift(x, shift: int, group, async_op: bool):
+def _shift(x, shift: int, group, async_op: bool, axis_name=data_axis):
     box = [] if async_op else None
-    out = _RingShift.apply(x, shift, group, box)
+    out = _RingShift.apply(x, shift, group, box, axis_name)
     return Pending(box, out) if async_op else out
 
 
@@ -201,14 +210,14 @@ def ring_shift_right(x: torch.Tensor, axis_name: str = data_axis, *, group=None,
     """Every rank sends ``x`` to its right neighbour ``(i+1) % W`` and returns
     what it received from its left one. Differentiable: the backward is a
     left shift (``NeighbourExchange.backward``)."""
-    return _shift(x, +1, axis_group(axis_name, group), async_op)
+    return _shift(x, +1, axis_group(axis_name, group), async_op, axis_name)
 
 
 def ring_shift_left(x: torch.Tensor, axis_name: str = data_axis, *, group=None,
                     async_op: bool = False):
     """Mirror of :func:`ring_shift_right`: send to ``(i-1) % W``, receive
     from the right neighbour."""
-    return _shift(x, -1, axis_group(axis_name, group), async_op)
+    return _shift(x, -1, axis_group(axis_name, group), async_op, axis_name)
 
 
 def neighbour_exchange(x: torch.Tensor, axis_name: str = data_axis, *, to_right: bool = True,
@@ -227,7 +236,7 @@ def neighbour_exchange_bidir(to_left: torch.Tensor, to_right: torch.Tensor,
     ``batch_isend_irecv``, in the same order on every rank."""
     group = axis_group(axis_name, group)
     box = [] if async_op else None
-    out = _BidirExchange.apply(to_left, to_right, group, box)
+    out = _BidirExchange.apply(to_left, to_right, group, box, axis_name)
     return Pending(box, out) if async_op else out
 
 
@@ -334,3 +343,130 @@ def all_gather(x: torch.Tensor, axis_name: str = data_axis, *, group=None) -> to
     if axis_size(group) == 1:
         return x[None]
     return _AllGather.apply(x, group)
+
+
+class _Exchange(torch.autograd.Function):
+    """:func:`exchange`: each payload goes ``shift`` ranks on; the backward
+    sends each gradient back the way its payload came, in one batch."""
+
+    @staticmethod
+    def forward(ctx, shifts, group, axis_name, *payloads):
+        ctx.shifts, ctx.group, ctx.axis_name = shifts, group, axis_name
+        return tuple(_exchange(list(payloads), list(shifts), group, axis_name=axis_name))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = _exchange(list(grads), [-s for s in ctx.shifts], ctx.group,
+                         axis_name=ctx.axis_name)
+        return (None, None, None, *back)
+
+
+def exchange(payloads, shifts, axis_name: str = data_axis, *, group=None) -> tuple:
+    """Send ``payloads[i]`` ``shifts[i]`` ranks on along the axis and
+    receive its counterpart from ``shifts[i]`` ranks back, all in one
+    ``batch_isend_irecv``; differentiable (the backward is one batch the
+    other way). Ring attention shifts K and V together this way."""
+    group = axis_group(axis_name, group)
+    return _Exchange.apply(tuple(shifts), group, axis_name, *payloads)
+
+
+def _all_to_all(x, split_axis: int, concat_axis: int, group):
+    w = axis_size(group)
+    inp = torch.stack(x.chunk(w, dim=split_axis)).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    return torch.cat(out.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis: int, concat_axis: int, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return _all_to_all(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g.contiguous(), concat_axis, split_axis, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name: str = data_axis, *, split_axis: int,
+               concat_axis: int, group=None) -> torch.Tensor:
+    """``lax.all_to_all(x, axis_name, split_axis, concat_axis, tiled=True)``:
+    ``x`` is cut into W pieces along ``split_axis``, piece j goes to rank j,
+    and the pieces received are joined along ``concat_axis`` in rank order.
+    Differentiable: the backward is the reverse all-to-all. The identity at
+    axis size 1."""
+    group = axis_group(axis_name, group)
+    w = axis_size(group)
+    if w == 1:
+        return x
+    if x.shape[split_axis] % w:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} does not divide "
+                         f"by the {w} ranks of axis {axis_name!r}")
+    return _AllToAll.apply(x, split_axis, concat_axis, group)
+
+
+def _gather_blocks(x, dim: int, group):
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(axis_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _own_block(x, dim: int, group):
+    return x.chunk(axis_size(group), dim=dim)[axis_index(group)].contiguous()
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Replicated (b, S, ...) -> this rank's (b, S/W, ...) block; the
+    backward gathers every rank's cotangent block (no sum: each block of
+    the input feeds one rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_block(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_blocks(g, ctx.dim, ctx.group), None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """This rank's block -> the replicated whole, in rank order; the
+    backward keeps this rank's block of the (replicated) cotangent. A plain
+    all-gather's backward sums the ranks' cotangents, which would count a
+    replicated computation's gradient W times."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_blocks(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, ctx.dim, ctx.group), None, None
+
+
+def seq_scatter(x: torch.Tensor, axis_name: str, *, dim: int = 1, group=None) -> torch.Tensor:
+    """Enter a sequence-parallel region: this rank's block of ``x`` along
+    ``dim``, where ``x`` is the same on every rank of the axis. The
+    counterpart of ``shard_map``'s ``P(None, axis)`` in_spec."""
+    group = axis_group(axis_name, group)
+    w = axis_size(group)
+    if w == 1:
+        return x
+    if x.shape[dim] % w:
+        raise ValueError(f"sequence length {x.shape[dim]} does not divide by the {w} ranks of "
+                         f"axis {axis_name!r}")
+    return _SeqScatter.apply(x, dim, group)
+
+
+def seq_gather(x: torch.Tensor, axis_name: str, *, dim: int = 1, group=None) -> torch.Tensor:
+    """Leave a sequence-parallel region: the blocks of every rank joined
+    along ``dim`` (``shard_map``'s ``P(None, axis)`` out_spec)."""
+    group = axis_group(axis_name, group)
+    if axis_size(group) == 1:
+        return x
+    return _SeqGather.apply(x, dim, group)

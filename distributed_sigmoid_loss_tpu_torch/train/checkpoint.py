@@ -24,13 +24,17 @@ complete. Two ways to save:
 - :class:`AsyncSaver`: the tensors are copied to host memory, then written
   by a thread while training goes on.
 
-Derived state is never written: the error-feedback residual ``ef`` and the
-adaptive compression carry ``comp`` of the JAX package's compressed step
-(``_strip_ef``) are one step's carry that the controller rebuilds within a
-round or two, and writing them would make compressed runs' checkpoints
-unreadable by eval and by uncompressed resume. The port's ``TrainState`` has
-neither yet (ROADMAP.md queue A item 6.3); when they arrive they stay out of
-:func:`state_tensors`, and a restore keeps the target's.
+Derived state is never written: the error-feedback residual ``ef`` of the
+compressed step (JAX ``_strip_ef``) is one step's carry, and writing it
+would make compressed runs' checkpoints unreadable by eval and by
+uncompressed resume. It stays out of :func:`state_tensors`, and a restore
+keeps the target's (zeroed) residuals.
+
+Checkpoints are portable across update shardings: a state whose moments
+are sharded over the data axis (``TrainState.layout``) writes them gathered
+to their whole shape, and a restore takes the target's rows of each. With
+more than one process every rank takes part in the gather and rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ import time
 from typing import Any, Mapping
 
 import torch
+import torch.distributed as dist
 
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import is_distributed
 from distributed_sigmoid_loss_tpu_torch.train.train_step import (
     AdafactorState,
     AdamWState,
@@ -52,7 +58,8 @@ from distributed_sigmoid_loss_tpu_torch.train.train_step import (
     TrainState,
 )
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "AsyncSaver", "HostCopy", "state_tensors"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "AsyncSaver", "HostCopy", "state_tensors",
+           "checkpoint_tensors"]
 
 FORMAT = "dsl-torch-ckpt-v1"
 TENSORS_FILE = "tensors.pt"
@@ -97,6 +104,41 @@ def state_tensors(state: Any) -> dict[str, torch.Tensor]:
     return out
 
 
+def _sharded_moments(state: Any) -> dict[str, int]:
+    """Names of a sharded state's moments held as this rank's rows, with
+    their parameter's index in the layout."""
+    layout = getattr(state, "layout", None)
+    if not isinstance(state, TrainState) or layout is None:
+        return {}
+    names = [n for n, _ in state.model.named_parameters()]
+    fields = [f for f in ("mu", "nu") if getattr(state.opt_state, f, None) is not None]
+    return {f"opt.{f}.{n}": i for f in fields for i, n in enumerate(names)
+            if layout.sharded[i]}
+
+
+def checkpoint_tensors(state: Any) -> dict[str, torch.Tensor]:
+    """:func:`state_tensors` with a sharded state's moments gathered to
+    their whole shape (a collective over the data axis: every rank calls
+    it)."""
+    tensors = state_tensors(state)
+    sharded = _sharded_moments(state)
+    for field in ("mu", "nu"):
+        keys = [n for n in sharded if n.startswith(f"opt.{field}.")]
+        if not keys:
+            continue
+        parts = [torch.empty(0)] * len(state.layout.shapes)
+        for n in keys:
+            parts[sharded[n]] = tensors[n]
+        gathered = state.layout.gather(parts)
+        for n in keys:
+            tensors[n] = gathered[sharded[n]]
+    return tensors
+
+
+def _writer() -> bool:
+    return not is_distributed() or dist.get_rank() == 0
+
+
 def checkpoint_meta(state: Any, tensors: Mapping[str, torch.Tensor]) -> dict:
     """``meta.json``'s content: the format, the step, the optimizer's kind
     and update count (a train state), and each group's dtypes."""
@@ -136,9 +178,12 @@ def _write(path: str, host: Mapping[str, torch.Tensor], meta: dict) -> None:
 def save_checkpoint(path: str, state: Any) -> None:
     """Save a train state (or a dict of tensors) to the directory ``path``,
     synchronously, replacing a checkpoint already there."""
-    tensors = state_tensors(state)
-    host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
-    _write(os.path.abspath(path), host, checkpoint_meta(state, tensors))
+    tensors = checkpoint_tensors(state)
+    if _writer():
+        host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+        _write(os.path.abspath(path), host, checkpoint_meta(state, tensors))
+    if is_distributed():
+        dist.barrier()  # the checkpoint is complete on every rank's return
 
 
 class HostCopy:
@@ -188,7 +233,10 @@ class AsyncSaver:
     writer thread and returns: the write overlaps the following steps. A
     second ``save`` waits for the first's write. ``wait`` blocks until every
     write is durable and raises a writer's error; call it before reading
-    ``latest_step`` on the same directory (``__exit__`` waits too).
+    ``latest_step`` on the same directory (``__exit__`` waits too). With
+    several processes only rank 0 writes, every rank calls ``save`` and
+    ``wait`` at the same points, and ``wait`` returns on each once rank 0's
+    write is durable.
     ``timings`` lists each save's ``snapshot_s`` (the caller's stall),
     ``write_s`` (the thread's) and ``bytes``.
     """
@@ -202,7 +250,9 @@ class AsyncSaver:
     def save(self, path: str, state: Any) -> None:
         self.wait()
         t0 = time.perf_counter()
-        tensors = state_tensors(state)
+        tensors = checkpoint_tensors(state)
+        if not _writer():
+            return
         host = self._copy.take(tensors)
         self._copy.wait()
         timing = {"path": os.path.abspath(path), "snapshot_s": time.perf_counter() - t0,
@@ -230,6 +280,8 @@ class AsyncSaver:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if is_distributed():
+            dist.barrier()  # rank 0 writes: the others wait for its write too
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -263,6 +315,8 @@ def restore_checkpoint(path: str, target: Any) -> Any:
     stored = torch.load(os.path.join(path, TENSORS_FILE), map_location="cpu",
                         weights_only=True, mmap=True)
     want = state_tensors(target)
+    sharded = _sharded_moments(target)
+    shapes = {n: torch.Size(target.layout.shapes[i]) for n, i in sharded.items()}
     problems = []
     if isinstance(target, TrainState):
         kind = _OPTIMIZERS[type(target.opt_state)]
@@ -279,15 +333,19 @@ def restore_checkpoint(path: str, target: Any) -> Any:
                         "not in the target")
     for name in sorted(want.keys() & stored.keys()):
         w, s = want[name], stored[name]
-        if (w.shape, w.dtype) != (s.shape, s.dtype):
+        shape = shapes.get(name, w.shape)
+        if (shape, w.dtype) != (s.shape, s.dtype):
             problems.append(f"  {name}: checkpoint has {tuple(s.shape)}/{s.dtype}, target "
-                            f"expects {tuple(w.shape)}/{w.dtype}")
+                            f"expects {tuple(shape)}/{w.dtype}")
     if problems:
         raise ValueError(f"checkpoint at {path} does not match the target train state:\n"
                          + "\n".join(problems))
     with torch.no_grad():
         for name, t in want.items():
-            t.copy_(stored[name])
+            if name in sharded:  # the target's rows of the whole moment
+                t.copy_(target.layout.shard(sharded[name], stored[name]))
+            else:
+                t.copy_(stored[name])
     if isinstance(target, TrainState):
         target.step = meta["step"]
         target.opt_state.count = meta["count"]

@@ -34,9 +34,20 @@ works on the JAX tree's leaves (``models.convert.jax_leaves``), which under
 It updates the parameters, optimizer state, EMA and gradient accumulator in
 place, one tensor at a time, where JAX builds new arrays.
 
+Update sharding (``update_sharding="zero1" | "full"``,
+``parallel/update_shard.py``): AdamW's and Lion's moments of a sharded
+parameter are this rank's block of its rows, the update runs on those rows
+and one all-gather publishes the parameters; under ``"full"`` the gradients
+are reduce-scattered instead of all-reduced. Adafactor keeps its factored
+statistics whole on every rank: its per-leaf RMS and row/column means reach
+across a leaf's rows.
+
+Under a ``(dp, sp)`` process grid the batch is split over dp only, and the
+loss's collectives and the gradient mean run over the dp group; the ranks
+of an sp group compute the same gradients.
+
 Paths of the JAX step that are not ported raise ``NotImplementedError``
-naming their ROADMAP rows: the MoE aux loss, pipeline microbatches and
-update sharding.
+naming their ROADMAP rows: the MoE aux loss and pipeline microbatches.
 """
 
 from __future__ import annotations
@@ -58,7 +69,12 @@ from distributed_sigmoid_loss_tpu_torch.models.convert import (
 )
 from distributed_sigmoid_loss_tpu_torch.parallel.api import all_reduce_mean_, make_per_shard_loss
 from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
-from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_size
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_group, axis_size, data_axis
+from distributed_sigmoid_loss_tpu_torch.parallel.update_shard import (
+    UPDATE_SHARDING_MODES,
+    UpdateLayout,
+    resolve_update_sharding,
+)
 from distributed_sigmoid_loss_tpu_torch.parallel.microbatch import microbatch_split
 from distributed_sigmoid_loss_tpu_torch.train.ema import ema_decay_schedule, init_ema, update_ema
 from distributed_sigmoid_loss_tpu_torch.utils.config import (
@@ -92,9 +108,11 @@ __all__ = [
     "accum_add",
     "accum_finish",
     "global_norm",
+    "make_batch_grads",
+    "step_metrics",
+    "UPDATE_SHARDING_MODES",
 ]
 
-UPDATE_SHARDING_MODES = ("off", "zero1", "full")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -193,25 +211,28 @@ class AdamW:
         return p + (u + self.weight_decay * p) * step, mu_new, nu
 
     @torch.no_grad()
-    def apply(self, params, grads, state: AdamWState) -> tuple[torch.Tensor, torch.Tensor]:
+    def apply(self, params, grads, state: AdamWState, layout: UpdateLayout | None = None,
+              grads_sharded: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """One update of ``params`` from ``grads`` (both lists, in the order of
         :meth:`init`), in place. Returns the global norms of the gradients
         (before clipping) and of the change ``p_new − p_old`` (the step's
-        ``grad_norm`` and ``update_ratio`` numerator)."""
-        params, grads = list(params), list(grads)
-        g_norm = global_norm(grads)
+        ``grad_norm`` and ``update_ratio`` numerator). With ``layout``, the
+        sharded parameters' moments are this rank's rows (see
+        :func:`_sharded_apply`)."""
         count = state.count + 1
         bc1 = 1 - _f32(self.b1) ** count
         bc2 = 1 - _f32(self.b2) ** count
         step = -float(self.schedule(state.count))
-        update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
-        for p, g, mu, nu in zip(params, _clip(grads, g_norm, self.clip), state.mu, state.nu):
-            new, mu_new, _ = self._leaf(p, g, mu, nu, bc1, bc2, step, nu_in_place=True)
-            update_sq += (new - p).square().sum()
-            p.copy_(new)
-            mu.copy_(mu_new)
+
+        def leaf(i, p, g):
+            new, mu_new, _ = self._leaf(p, g, state.mu[i], state.nu[i], bc1, bc2, step,
+                                        nu_in_place=True)
+            state.mu[i].copy_(mu_new)
+            return new
+
+        out = _sharded_apply(params, grads, leaf, self.clip, layout, grads_sharded)
         state.count = count
-        return g_norm, torch.sqrt(update_sq)
+        return out
 
     def update(self, params, grads, opt: dict):
         """:meth:`apply` as a function of tensors, for a traced step: ``opt``
@@ -251,6 +272,39 @@ def _clip(grads, g_norm: torch.Tensor, max_norm: float) -> list[torch.Tensor]:
                               torch.where(keep, 1.0, max_norm))
 
 
+def _sharded_apply(params, grads, leaf, clip: float, layout: UpdateLayout | None,
+                   grads_sharded: bool):
+    """Clip ``grads`` by their global norm and run ``leaf(i, p, g) -> p_new``
+    on each parameter (which updates that parameter's optimizer state in
+    place); returns the gradients' global norm and the change's.
+
+    With a ``layout``, a sharded parameter's update runs on this rank's
+    rows only (``grads`` are those rows when ``grads_sharded``, else whole
+    and sliced here), the norms sum the rows' squares over the data axis,
+    and one all-gather per dtype publishes the new rows to every rank."""
+    params, grads = list(params), list(grads)
+    if layout is None:
+        g_norm = global_norm(grads)
+        update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
+        for i, (p, g) in enumerate(zip(params, _clip(grads, g_norm, clip))):
+            new = leaf(i, p, g)
+            update_sq += (new - p).square().sum()
+            p.copy_(new)
+        return g_norm, torch.sqrt(update_sq)
+    if not grads_sharded:
+        grads = [layout.shard(i, g) for i, g in enumerate(grads)]
+    g_norm = layout.norm(grads)
+    parts, deltas = [], []
+    for i, (p, g) in enumerate(zip(params, _clip(grads, g_norm, clip))):
+        rows = layout.shard(i, p)
+        new = leaf(i, rows, g)
+        parts.append(new)
+        deltas.append(new - rows)
+    update_norm = layout.norm(deltas)
+    layout.publish_(params, parts)
+    return g_norm, update_norm
+
+
 @dataclasses.dataclass
 class LionState:
     """optax's ``ScaleByLionState``: the update count and the moment, one
@@ -287,25 +341,26 @@ class Lion:
         return p + (u + self.weight_decay * p) * step, mu_new
 
     @torch.no_grad()
-    def apply(self, params, grads, state: LionState) -> tuple[torch.Tensor, torch.Tensor]:
+    def apply(self, params, grads, state: LionState, layout: UpdateLayout | None = None,
+              grads_sharded: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """One update in place; returns the gradients' global norm (before
         clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`."""
-        params, grads = list(params), list(grads)
-        g_norm = global_norm(grads)
         step = -float(self.schedule(state.count))
-        update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
         betas = {}  # (dtype, device) -> (b1, b2) as 0-d tensors of that dtype
-        for p, g, mu in zip(params, _clip(grads, g_norm, 1.0), state.mu):
+
+        def leaf(i, p, g):
+            mu = state.mu[i]
             key = (mu.dtype, mu.device)
             if key not in betas:
                 betas[key] = tuple(torch.tensor(b, dtype=mu.dtype, device=mu.device)
                                    for b in (self.b1, self.b2))
             new, mu_new = self._leaf(p, g, mu, *betas[key], step)
-            update_sq += (new - p).square().sum()
             mu.copy_(mu_new)
-            p.copy_(new)
+            return new
+
+        out = _sharded_apply(params, grads, leaf, 1.0, layout, grads_sharded)
         state.count += 1
-        return g_norm, torch.sqrt(update_sq)
+        return out
 
     def update(self, params, grads, opt: dict):
         """:meth:`apply` as a function of tensors, as :meth:`AdamW.update`."""
@@ -423,10 +478,15 @@ class Adafactor:
         return p + u, v_row, v_col, v
 
     @torch.no_grad()
-    def apply(self, params, grads, state: AdafactorState) -> tuple[torch.Tensor, torch.Tensor]:
+    def apply(self, params, grads, state: AdafactorState, layout: UpdateLayout | None = None,
+              grads_sharded: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """One update in place; returns the gradients' global norm (before
-        clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`."""
+        clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`.
+        Its statistics are whole on every rank under any ``layout``; sharded
+        gradients are gathered first."""
         params, grads = list(params), list(grads)
+        if layout is not None and grads_sharded:
+            grads = layout.gather(grads)
         g_norm = global_norm(grads)
         grads = _clip(grads, g_norm, 1.0)
         t = _f32(state.count + 1)
@@ -545,25 +605,6 @@ def validate_trainable_quant(model: nn.Module) -> None:
             )
 
 
-def resolve_update_sharding(update_sharding: str = "", zero1: bool = False) -> str:
-    """The mode from the flag and the deprecated ``zero1`` alias, with the
-    JAX package's refusals (``parallel/update_shard.py``)."""
-    if update_sharding in ("", None):
-        return "zero1" if zero1 else "off"
-    if update_sharding not in UPDATE_SHARDING_MODES:
-        raise ValueError(
-            f"update_sharding must be one of {UPDATE_SHARDING_MODES}, "
-            f"got {update_sharding!r}"
-        )
-    if zero1 and update_sharding == "off":
-        raise ValueError(
-            "zero1=True contradicts update_sharding='off' — drop the "
-            "deprecated zero1 flag (it is the same lever as "
-            "update_sharding='zero1')"
-        )
-    return update_sharding
-
-
 def validate_accum_args(accum_steps: int, accum_dtype: str | None):
     """Shared accum contract: returns the accumulator dtype (None = param
     dtype). Refuse, don't drop: an unaccumulated step has no accumulator."""
@@ -657,35 +698,60 @@ def accum_finish(acc, params, scale=None):
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are the trained state), the optimizer and
-    its state, the number of updates applied, and the parameters' EMA
-    (``None`` = disabled; one tensor per parameter, ``train/ema.py``)."""
+    its state, the number of updates applied, the parameters' EMA (``None``
+    = disabled; one tensor per parameter, ``train/ema.py``), the update
+    sharding's layout (``None`` = replicated; the sharded parameters'
+    moments are this rank's rows) and the compressed step's error-feedback
+    residuals (``None`` = none; derived state, never checkpointed)."""
 
     model: nn.Module
     tx: AdamW | Lion | Adafactor
     opt_state: AdamWState | LionState | AdafactorState
     step: int = 0
     ema: list[torch.Tensor] | None = None
+    layout: UpdateLayout | None = None
+    ef: list[torch.Tensor] | None = None
+
+    @property
+    def update_sharding(self) -> str:
+        return "off" if self.layout is None else self.layout.mode
 
     @property
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
 
 
-def create_train_state(model: nn.Module, tx, ema: bool = False) -> TrainState:
+def create_train_state(model: nn.Module, tx, ema: bool = False, zero1: bool = False,
+                       update_sharding: str = "", axis_name: str = data_axis) -> TrainState:
     """A train state over ``model``'s parameters (already initialized, on
     its device), with zeroed optimizer state, and with ``ema=True`` an EMA
     copy of the parameters (pair with ``ema_decay`` on
     :func:`make_train_step`). When ``torch.distributed`` runs more than one
     process, every rank first takes rank 0's parameters (one broadcast per
     dtype), so all start equal, as under DDP. Adafactor gets the JAX tree's
-    leaves of ``model`` (``models.convert.jax_leaves``)."""
+    leaves of ``model`` (``models.convert.jax_leaves``).
+
+    ``update_sharding`` ("off" | "zero1" | "full"; ``zero1=True`` is the
+    deprecated alias) lays the state out over ``axis_name``
+    (:class:`~distributed_sigmoid_loss_tpu_torch.parallel.update_shard.UpdateLayout`):
+    AdamW's and Lion's moments of a sharded parameter keep this rank's rows.
+    The steps read the mode from the state (``state.layout``)."""
     if axis_size() > 1:
         flat_collective_(model.parameters(), lambda flat: dist.broadcast(flat, src=0))
     params = list(model.parameters())
     opt_state = (tx.init(params, leaves=jax_leaves(model)) if isinstance(tx, Adafactor)
                  else tx.init(params))
+    mode = resolve_update_sharding(update_sharding, zero1)
+    layout = None
+    if mode != "off":
+        layout = UpdateLayout([p.shape for p in params], mode, axis_name)
+        for field in ("mu", "nu"):
+            moments = getattr(opt_state, field, None)
+            if moments is not None:
+                setattr(opt_state, field, [layout.shard(i, t).clone()
+                                           for i, t in enumerate(moments)])
     return TrainState(model=model, tx=tx, opt_state=opt_state,
-                      ema=init_ema(params) if ema else None)
+                      ema=init_ema(params) if ema else None, layout=layout)
 
 
 def _grads_of(params) -> list[torch.Tensor]:
@@ -745,18 +811,80 @@ def run_gradcache(model: nn.Module, micro_images, micro_tokens, island, accum_st
     return loss.detach().float(), lp, accum_finish(acc, params)
 
 
+def make_batch_grads(model: nn.Module, per_shard: Callable, axis_name, accum_steps: int = 1,
+                     cached_accum: bool = False, acc_dt=None,
+                     gradcache_embed_dtype: str | None = None) -> Callable:
+    """``grads_of(params, batch) -> (loss, lp, grads)``: this rank's loss
+    (the mean over its microbatches), the loss scalars before the update and
+    its gradients (f32, in ``params`` order), before any sync. One forward
+    and backward; with ``accum_steps > 1`` that many microbatches (rows
+    ``[i·c, (i+1)·c)``, JAX's split over ``axis_name``) summed into an
+    ``acc_dt`` accumulator by :func:`accum_add`, or with ``cached_accum``
+    :func:`run_gradcache`. ``per_shard(zimg, ztxt, t_prime, bias)`` is the
+    loss with its collectives. Shared by the regular and the compressed
+    step, which differ only in how they sync the result."""
+
+    def loss_and_grads(params, images, tokens):
+        for p in params:
+            p.grad = None
+        zimg, ztxt, lp = model(images, tokens)
+        loss = per_shard(zimg, ztxt, lp["t_prime"], lp["bias"])
+        loss.backward()
+        return (loss.detach().float(), {k: v.detach().clone() for k, v in lp.items()},
+                _grads_of(params))
+
+    def island(zis, zts, t_prime, bias):
+        """The loss of the stacked (M, mb, d) tables, on the flattened rows."""
+        return per_shard(zis.flatten(0, 1), zts.flatten(0, 1), t_prime, bias)
+
+    def grads_of(params, batch: dict):
+        device = params[0].device
+        images = torch.as_tensor(batch["images"], device=device)
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        if accum_steps == 1:
+            return loss_and_grads(params, images, tokens)
+        micro_images = microbatch_split(images, accum_steps, axis_name, what="accum_steps")
+        micro_tokens = microbatch_split(tokens, accum_steps, axis_name, what="accum_steps")
+        if cached_accum:
+            return run_gradcache(model, micro_images, micro_tokens, island, accum_steps,
+                                 acc_dt, gradcache_embed_dtype)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        acc = accum_zeros(params, acc_dt)
+        for i in range(accum_steps):
+            loss, lp, grads = loss_and_grads(params, micro_images[i], micro_tokens[i])
+            loss_sum = loss_sum + loss
+            accum_add(acc, grads)
+            del grads
+        return loss_sum / accum_steps, lp, accum_finish(acc, params, scale=accum_steps)
+
+    return grads_of
+
+
+def step_metrics(loss, lp: dict, grad_norm, update_norm, params) -> dict:
+    """The step's metrics: ``loss``, ``t`` (= exp(t_prime)) and ``bias``
+    before the update, ``grad_norm`` (before clipping), ``param_norm`` after
+    the update and ``update_ratio`` (the change's norm over ``param_norm``)."""
+    param_norm = global_norm(p.detach() for p in params)
+    return {
+        "loss": loss,
+        "t": torch.exp(lp["t_prime"]),
+        "bias": lp["bias"],
+        "grad_norm": grad_norm,
+        "param_norm": param_norm,
+        "update_ratio": update_norm / (param_norm + 1e-12),
+    }
+
+
 def make_train_step(
     model: nn.Module,
     loss_cfg: LossConfig = LossConfig(),
     accum_steps: int = 1,
-    zero1: bool = False,
     ema_decay: float | None = None,
     moe_aux_weight: float | None = None,
     pp_microbatches: int = 0,
     accum_negatives: str = "local",
     accum_dtype: str | None = None,
     gradcache_embed_dtype: str | None = None,
-    update_sharding: str = "",
 ):
     """Build ``step(state, batch) -> (state, metrics)``, run by every rank of
     the default process group (one process without ``torch.distributed``).
@@ -776,6 +904,10 @@ def make_train_step(
     embedding tables). The gradients are averaged over the ranks once, after
     accumulation.
 
+    The update sharding is the state's (``create_train_state(...,
+    update_sharding=...)``): under ``"full"`` the gradients are
+    reduce-scattered and each rank updates its rows.
+
     ``ema_decay`` keeps the parameters' EMA in ``state.ema`` (decay warmed
     up per ``train.ema.ema_decay_schedule`` at the pre-update step), updated
     after the optimizer; create the state with ``ema=True``.
@@ -784,11 +916,8 @@ def make_train_step(
     accumulates gradients already averaged over the ranks, the port each
     rank's own gradients (W times the size of its share) and averages after.
 
-    ``metrics``: ``loss`` (mean over microbatches and ranks), ``t`` (=
-    exp(t_prime)) and ``bias`` before the update, ``grad_norm`` (of the
-    averaged gradients, before clipping), ``param_norm`` after the update and
-    ``update_ratio`` (norm of the change over ``param_norm``), as 0-d f32
-    tensors on the model's device.
+    ``metrics``: :func:`step_metrics` (``loss`` is the mean over
+    microbatches and ranks), as 0-d f32 tensors on the model's device.
 
     Towers with ``quant_train="int8"`` train through the int8 STE, and with
     ``loss_cfg.use_pallas`` the loss's blocks take the kernel's int8 mode
@@ -801,10 +930,8 @@ def make_train_step(
         accum_dtype=accum_dtype,
         accum_negatives=accum_negatives,
         pp_microbatches=pp_microbatches,
-        zero1=zero1,
         moe_aux_weight=moe_aux_weight,
         gradcache_embed_dtype=gradcache_embed_dtype,
-        update_sharding=update_sharding,
     )
     if moe_aux_weight is not None:
         raise NotImplementedError(
@@ -814,63 +941,30 @@ def make_train_step(
         raise NotImplementedError(
             "pp_microbatches: the pipeline towers are not ported yet: ROADMAP.md queue A item 6.4"
         )
-    if resolve_update_sharding(update_sharding, zero1) != "off":
-        raise NotImplementedError(
-            "update_sharding / zero1: sharded updates are not ported yet: "
-            "ROADMAP.md queue A item 6.3"
-        )
     per_shard = make_per_shard_loss(
         family=loss_cfg.family, variant=loss_cfg.variant, axis_name=loss_cfg.axis_name,
         bidir=loss_cfg.bidir, precision=loss_cfg.precision,
         use_pallas=loss_cfg.use_pallas, loss_impl=loss_cfg.loss_impl,
         ring_overlap=loss_cfg.ring_overlap, quant=resolve_loss_quant(model, loss_cfg),
     )
-
-    def loss_and_grads(params, images, tokens):
-        """Forward and backward of one (micro)batch; returns the loss, the
-        pre-update loss scalars and the gradients (f32, in ``params`` order)."""
-        for p in params:
-            p.grad = None
-        zimg, ztxt, lp = model(images, tokens)
-        loss = per_shard(zimg, ztxt, lp["t_prime"], lp["bias"])
-        loss.backward()
-        return (loss.detach().float(), {k: v.detach().clone() for k, v in lp.items()},
-                _grads_of(params))
-
-    def island(zis, zts, t_prime, bias):
-        """The loss of the stacked (M, mb, d) tables, on the flattened rows."""
-        return per_shard(zis.flatten(0, 1), zts.flatten(0, 1), t_prime, bias)
+    grads_of = make_batch_grads(model, per_shard, loss_cfg.axis_name, accum_steps,
+                                cached_accum, acc_dt, gradcache_embed_dtype)
 
     def step(state: TrainState, batch: dict):
         params = state.params
-        device = params[0].device
-        images = torch.as_tensor(batch["images"], device=device)
-        tokens = torch.as_tensor(batch["tokens"], device=device)
-        if accum_steps == 1:
-            loss, lp, grads = loss_and_grads(params, images, tokens)
-        else:
-            micro_images = microbatch_split(images, accum_steps, loss_cfg.axis_name,
-                                            what="accum_steps")
-            micro_tokens = microbatch_split(tokens, accum_steps, loss_cfg.axis_name,
-                                            what="accum_steps")
-            if cached_accum:
-                loss, lp, grads = run_gradcache(model, micro_images, micro_tokens, island,
-                                                accum_steps, acc_dt, gradcache_embed_dtype)
-            else:
-                loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-                acc = accum_zeros(params, acc_dt)
-                for i in range(accum_steps):
-                    loss, lp, grads = loss_and_grads(params, micro_images[i], micro_tokens[i])
-                    loss_sum = loss_sum + loss
-                    accum_add(acc, grads)
-                    del grads
-                grads = accum_finish(acc, params, scale=accum_steps)
-                loss = loss_sum / accum_steps
-        # DDP: one average over the ranks per step, the loss riding along.
+        layout = state.layout
+        full = state.update_sharding == "full"
+        loss, lp, grads = grads_of(params, batch)
+        # DDP: one average over the data axis per step, the loss riding
+        # along; under full update sharding each rank keeps its rows.
         loss = loss.reshape(1)
-        all_reduce_mean_([*grads, loss])
-        loss = loss[0]
-        grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state)
+        if layout is None:
+            all_reduce_mean_([*grads, loss], axis_group(loss_cfg.axis_name))
+        else:
+            all_reduce_mean_([loss], axis_group(loss_cfg.axis_name))
+            grads = layout.mean_grads(grads, scatter=full)
+        grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state, layout,
+                                                grads_sharded=full)
         if ema_decay is not None:
             if state.ema is None:
                 raise ValueError(
@@ -879,16 +973,7 @@ def make_train_step(
                 )
             update_ema(state.ema, params, step=state.step, decay=ema_decay)
         state.step += 1
-        param_norm = global_norm(p.detach() for p in params)
-        metrics = {
-            "loss": loss,
-            "t": torch.exp(lp["t_prime"]),
-            "bias": lp["bias"],
-            "grad_norm": grad_norm,
-            "param_norm": param_norm,
-            "update_ratio": update_norm / (param_norm + 1e-12),
-        }
-        return state, metrics
+        return state, step_metrics(loss[0], lp, grad_norm, update_norm, params)
 
     return step
 

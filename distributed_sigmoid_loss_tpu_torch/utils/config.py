@@ -69,8 +69,8 @@ class ViTConfig:
     # "nothing" = full remat; "save_hot" = save attention-core + MLP-hidden
     # activations across backward (recompute only projections/elementwise).
     remat_policy: Literal["nothing", "save_hot", "save_all_hot", "save_mlp"] = "nothing"
-    # Long-context vision: shard the patch sequence over this mesh axis and
-    # run sequence-parallel attention in the blocks. Not ported yet.
+    # Long-context vision: run the blocks' self-attention sequence-parallel
+    # over this axis of the ambient process grid (parallel/mesh.py).
     sequence_parallel_axis: str | None = None
     sequence_parallel_impl: Literal["ring", "ulysses"] = "ring"
     # Mixture-of-experts: >0 swaps each block's dense MLP for that many
@@ -122,8 +122,8 @@ class TextConfig:
     scan_layers: bool = True
     attn_impl: Literal["auto", "dense", "flash"] = "auto"
     remat_policy: Literal["nothing", "save_hot", "save_all_hot", "save_mlp"] = "nothing"
-    # Long-context: shard the sequence over this mesh axis and run
-    # sequence-parallel attention inside the blocks. Not ported yet.
+    # Long-context: run the blocks' self-attention sequence-parallel over
+    # this axis of the ambient process grid (parallel/mesh.py).
     sequence_parallel_axis: str | None = None
     # "ring" (ppermute, O(s_local²) memory) or "ulysses" (all-to-all head scatter,
     # 2 collective hops; needs num_heads % axis_size == 0).
@@ -237,10 +237,6 @@ def check_supported(cfg: "ViTConfig | TextConfig") -> None:
     """Raise ``NotImplementedError`` for tower fields whose paths the port
     does not have yet (see ROADMAP.md, queue A), and ``ValueError`` for
     ``quant`` and ``quant_train`` set together."""
-    if cfg.sequence_parallel_axis is not None:
-        raise NotImplementedError(
-            "sequence_parallel_axis: sequence-parallel attention is not ported yet"
-        )
     if cfg.moe_experts > 0:
         raise NotImplementedError("moe_experts > 0: the MoE MLP is not ported yet")
     tower_quant_mode(cfg)  # quant and quant_train together raise

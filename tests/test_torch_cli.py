@@ -162,12 +162,11 @@ REFUSED = [
     (["--moe-aux-weight", "0.01"], "6.4"), (["--moe-group-size", "64"], "6.4"),
     (["--ep", "2"], "6.4"), (["--coordinator", "localhost:1234"], "6.4"),
     (["--num-processes", "2"], "6.4"), (["--process-id", "0"], "6.4"),
-    (["--grad-compression", "int8"], "6.3"), (["--topk-frac", "0.1"], "6.3"),
-    (["--topk-exact"], "6.3"), (["--dcn-budget-mbps", "100"], "6.3"),
-    (["--controller", "greedy"], "6.3"), (["--emu-dcn-mbps", "100"], "6.3"),
-    (["--dcn-slices", "2"], "6.3"), (["--force-dcn-emulation"], "6.3"),
-    (["--update-sharding", "zero1"], "6.3"), (["--update-sharding", "full"], "6.3"),
-    (["--zero1"], "6.3"), (["--obs-dir", "d"], "6.5"), (["--watchdog", "warn"], "6.5"),
+    (["--grad-compression", "adaptive"], "6.3 part 2"),
+    (["--grad-compression", "learned"], "6.3 part 2"),
+    (["--dcn-budget-mbps", "100"], "6.3 part 2"),
+    (["--controller", "greedy"], "6.3 part 2"), (["--emu-dcn-mbps", "100"], "6.3 part 2"),
+    (["--obs-dir", "d"], "6.5"), (["--watchdog", "warn"], "6.5"),
 ]
 
 
@@ -176,6 +175,94 @@ def test_train_refuses_unported_flags_naming_their_item(flags, item):
     rc, out, err = run(["train", *TINY, *flags])
     assert rc == 2 and f"ROADMAP.md queue A item {item}" in err and flags[0] in err
     assert out == ""
+
+
+# The gradient-sync flags that run since ID 6.3 part 1, on one process: the
+# incoherent sets exit 2 with JAX's messages.
+SYNC_REFUSED = [
+    (["--grad-compression", "int8"], "--grad-compression requires: --dcn-slices >= 2"),
+    (["--grad-compression", "topk", "--dcn-slices", "2", "--topk-frac", "1.5"],
+     "--topk-frac in (0, 1], got 1.5"),
+    (["--grad-compression", "int8", "--dcn-slices", "2", "--variant", "ring"],
+     "--variant all_gather or unset"),
+    (["--grad-compression", "int8", "--dcn-slices", "2", "--ema-decay", "0.9"],
+     "no --ema-decay"),
+    (["--topk-frac", "0.1"], "--topk-frac without --grad-compression topk"),
+    (["--topk-exact"], "--topk-exact without --grad-compression topk"),
+    (["--dcn-slices", "2"], "--dcn-slices without --grad-compression is a silent no-op"),
+    (["--zero1", "--update-sharding", "full"], "--zero1 is the deprecated alias"),
+    (["--update-sharding", "full"], "update_sharding='full' requires a dp axis of size > 1"),
+    (["--dcn-slices", "3", "--grad-compression", "int8"], "--dcn-slices 3 must divide"),
+]
+
+
+@pytest.mark.parametrize("flags,match", SYNC_REFUSED, ids=[" ".join(f) for f, _ in SYNC_REFUSED])
+def test_train_sync_flags_refuse_like_jax(flags, match):
+    rc, out, err = run(["train", *TINY, *flags])
+    assert rc == 2 and match in err, err
+    assert out == ""
+
+
+@pytest.mark.parametrize("flags", [f for f, _ in SYNC_REFUSED[:-2]],
+                         ids=[" ".join(f) for f, _ in SYNC_REFUSED[:-2]])
+def test_sync_refusals_are_jax_messages(flags):
+    """JAX's train exits 2 with the same last line for the same flags (the
+    last two refusals are the port's: its grid is the run's processes)."""
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        want_rc = jax_cli.main(["train", "--tiny", "--batch", "8", *flags])
+    rc, _, got = run(["train", *TINY, *flags])
+    assert want_rc == rc == 2
+    assert got.strip().splitlines()[-1] == err.getvalue().strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("flags", [["--zero1"], ["--update-sharding", "zero1"],
+                                   ["--force-dcn-emulation"]])
+def test_train_sync_flags_run_on_one_process(flags):
+    """zero1 on a dp axis of one rank shards nothing; --force-dcn-emulation
+    alone is JAX's no-op. The metrics lines of a sharded update carry its
+    mode and the optimizer's bytes."""
+    rc, out, err = run(["train", *TINY, "--steps", "2", *flags])
+    assert rc == 0, err
+    lines = json_lines(out)
+    assert len(lines) == 2 and all(np.isfinite(line["loss"]) for line in lines)
+    if "--force-dcn-emulation" not in flags:
+        assert {line["update_sharding"] for line in lines} == {"zero1"}
+        assert all(line["opt_mem_bytes_per_replica"] > 0 for line in lines)
+
+
+def test_train_compressed_and_sharded_on_gloo_ranks(tmp_path):
+    """``train --dcn-slices 2 --grad-compression int8|topk`` on four gloo
+    ranks (a (dcn, dp) = (2, 2) grid), and ``--update-sharding full`` on two
+    (dp = 2; with int8 compression on four): every rank exits 0 with the
+    same finite metrics lines; the compressed ones carry the dcn wire
+    bytes, the sharded ones the mode and the optimizer's bytes."""
+    import _torch_compression_workers as cw
+    import _torch_dist_worker as worker
+
+    base = ["train", *TINY, "--steps", "2", "--log-every", "1"]
+    runs = [("int8", base + ["--dcn-slices", "2", "--grad-compression", "int8"]),
+            ("topk", base + ["--dcn-slices", "2", "--grad-compression", "topk",
+                             "--topk-frac", "0.05", "--topk-exact"]),
+            ("int8_full", base + ["--dcn-slices", "2", "--grad-compression", "int8",
+                                  "--update-sharding", "full"]),
+            ("full4", base + ["--update-sharding", "full", "--variant", "all_gather"])]
+    ranks = worker.spawn(cw.cli_worker, 4, (runs,), tmp_path, timeout_s=240)
+    for name, _ in runs:
+        assert all(rec[name]["rc"] == 0 for rec in ranks), ranks[0][name]["stderr"]
+        # Each rank's own timing aside, every rank prints the same lines.
+        timing = ("input_wait_frac", "steps_per_sec")
+        lines = [[{k: v for k, v in line.items() if k not in timing}
+                  for line in rec[name]["lines"]] for rec in ranks]
+        assert all(len(ls) == 2 and ls == lines[0] for ls in lines), name
+        for line in lines[0]:
+            assert np.isfinite(line["loss"]) and np.isfinite(line["grad_norm"])
+            if name != "full4":
+                assert line["dcn_wire_bytes"] > 0 and line["ef_norm"] >= 0
+            if "full" in name:
+                assert line["update_sharding"] == "full"
+    assert (ranks[0]["topk"]["lines"][0]["dcn_wire_bytes"]
+            < ranks[0]["int8"]["lines"][0]["dcn_wire_bytes"])
 
 
 @pytest.mark.parametrize("flags,item", [(["--moe-experts", "4"], "6.4")])

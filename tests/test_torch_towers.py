@@ -188,7 +188,23 @@ def test_unsupported_configs_raise(overrides, match):
     """Tower fields whose paths are not ported raise ``NotImplementedError``
     naming the field. ``quant`` and ``quant_train`` (the int8 projections,
     ported since) now build and run: finite unit embeddings, with the
-    projections' dot swapped for the int8 one."""
+    projections' dot swapped for the int8 one. ``sequence_parallel_axis``
+    (ported since) builds and, in a world of one process, gives the dense
+    towers' embeddings."""
+    if match == "sequence_parallel_axis":
+        gen = np.random.default_rng(0)
+        jcfg = tiny(**overrides)
+        images = torch.from_numpy(gen.standard_normal(
+            (2, jcfg.vision.image_size, jcfg.vision.image_size, 3)).astype(np.float32))
+        tokens = torch.from_numpy(gen.integers(0, jcfg.text.vocab_size,
+                                               (2, jcfg.text.context_length)))
+        sp = SigLIP(port_config(jcfg), device="cpu", generator=torch.Generator().manual_seed(0))
+        dense = SigLIP(port_config(tiny()), device="cpu")
+        dense.load_state_dict(sp.state_dict())
+        assert sp.textual.encoder.blocks[0].attn.sp_axis == "sp"
+        for a, b in zip(sp(images, tokens)[:2], dense(images, tokens)[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        return
     if match != "quant":
         with pytest.raises(NotImplementedError, match=match):
             SigLIP(port_config(tiny(**overrides)), device="cpu")

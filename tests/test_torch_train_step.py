@@ -493,8 +493,6 @@ def test_step_arg_refusals_match_jax(kwargs):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(moe_aux_weight=0.01), "MoE"),
-    (dict(update_sharding="zero1"), "sharded updates"),
-    (dict(zero1=True), "sharded updates"),
 ])
 def test_unported_step_paths_raise(kwargs, match):
     model = SigLIP(port_config(tiny()), device="cpu")
