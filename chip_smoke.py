@@ -186,7 +186,26 @@ and nothing is caught:
    bitwise equal to the CPU's, top-k magnitudes equal, the mean of 4
    synthetic slices within half a bucket of the f32 mean) with device ms
    and wire bytes against f32's;
-22. a JSON line of the kernels' numbers and, last, the device record.
+22. the adaptive compression ladder, after ``[compression]``
+   (``[compression_adaptive]``): each rung's local half on B/16's gradient
+   tree in JAX's leaf layout (host and device ms, wire bytes against
+   f32's), the int4 and sign payloads bitwise equal to the CPU's and the
+   learned latents within one int8 step, the mean of 4 slices within each
+   rung's bound, the greedy and budgeted tables at three pinned budgets
+   within them, the int8 wire through the emulated dcn link (its measured
+   rate within 2x of the set one) and a short read raising; then
+   (``[train_adaptive]``) 3 headline steps of 2 x 128 pairs under
+   ``use_pallas`` with ``compression="learned"`` at n_dcn = 1, a
+   hand-staged table putting every rung on some tensors, the codec trainer
+   fed the card's block moments (K1 and K2 24 a microbatch, K4-K6 one),
+   beside the fixed int8 step;
+23. the MoE towers (``[moe]``): B/16 with 8 experts (k = 1) in both
+   towers, served at bucket 128 (12 K1 a tower call, images/s, the towers
+   against their plain attention, int8 projections and expert products
+   against bf16 row by row), and 2 headline steps of 2 x 128 pairs with
+   the router aux under ``use_pallas`` (launches, ``moe_aux`` near 1, step
+   ms, peak memory);
+24. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -398,7 +417,10 @@ LOSS_INT8_RTOL = 1e-5
 # int8 serving vs the same weights in bf16 (JAX's fidelity contract,
 # tests/test_quant.py): every embedding row's cosine above this.
 INT8_MIN_COSINE = 0.995
-TRAIN_INT8_STEPS = 2
+# One step (two before the MoE and adaptive phases joined the smoke): its
+# launches, int8 products and device time a step are what the phase holds;
+# its step ms is a first step's.
+TRAIN_INT8_STEPS = 1
 
 # The reference's loss classes at W = 1 (``[compat]``): rows of the ring hop.
 COMPAT_ROWS, COMPAT_DIM = 4096, 512
@@ -560,6 +582,16 @@ TRAIN_SP_F32_RTOL_OF_MAX = 1e-4
 # top-k at 1%, and the mean of this many synthetic slices' int8 payloads.
 COMPRESSION_TOPK_FRAC = 0.01
 COMPRESSION_SLICES = 4
+# [compression_adaptive]: the budgets the greedy and budgeted controllers
+# are pinned to, as a fraction of the all-int8 egress, and the emulated
+# link's rate as the seconds the int8 wire takes on it.
+ADAPTIVE_BUDGETS = (0.5, 0.1, 0.01)
+ADAPTIVE_EMU_SECONDS = 0.8
+# [train_adaptive]: the headline towers, steps of 2 x 128 pairs.
+TRAIN_ADAPTIVE_STEPS = 3
+# [moe]: B/16 with this many experts (k = 1) in both towers, as bench.py
+# --moe configures them; serving at one bucket, 2 training steps.
+MOE_EXPERTS, MOE_BUCKET, MOE_TRAIN_STEPS = 8, 128, 2
 
 
 def log(phase: str, **fields) -> None:
@@ -2134,11 +2166,11 @@ def run_train_pallas_path(args, sa, ssl, fa, quant_train: str = "") -> dict:
     (``LossConfig(use_pallas=True)``, ring at W = 1): TRAIN_PALLAS_STEPS
     steps between two reads of the counts, then the gradient through the
     whole model with the loss kernels against their plain versions.
-    ``quant_train="int8"`` (``[train_int8]``) trains both towers through the
-    int8 STE, so the loss's blocks take the kernels' int8 mode: the steps'
-    launches, ``traced_loss_kernels() == ("streaming_int8",)``, the int8
-    products (``int_mm_calls``) per step, peak memory, one step's device
-    time and idle share, and the gradient against the model with every
+    ``quant_train="int8"`` (``[train_int8]``, TRAIN_INT8_STEPS steps) trains
+    both towers through the int8 STE, so the loss's blocks take the kernels'
+    int8 mode: the steps' launches, ``traced_loss_kernels() ==
+    ("streaming_int8",)``, the int8 products (``int_mm_calls``) per step,
+    peak memory, one step's device time and idle share, and the gradient against the model with every
     kernel (loss and attention) swapped for its plain version."""
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
     from distributed_sigmoid_loss_tpu_torch.ops import quant
@@ -2831,6 +2863,386 @@ def run_compression(args, sa, ssl) -> dict:
     del grads, ef
     torch.cuda.empty_cache()
     return counts
+
+
+def _lying_sink(server) -> None:
+    """A sink that acks one byte fewer than it drained."""
+    conn, _ = server.accept()
+    server.close()
+    with conn:
+        hdr = struct.Struct("<q")
+        (length,) = hdr.unpack(conn.recv(hdr.size))
+        got = 0
+        while got < length:
+            buf = conn.recv(min(65536, length - got))
+            if not buf:
+                return
+            got += len(buf)
+        conn.sendall(hdr.pack(got - 1))
+
+
+def run_compression_adaptive(args, sa, ssl) -> dict:
+    """The adaptive ladder's local half (``parallel/adaptive_compression.py``)
+    on B/16's gradient tree as the adaptive sync sees it (the JAX leaves of
+    unrolled B/16: 429 tensors, linear weights in the flax kernel's layout):
+    each rung on every tensor through ``adaptive_axis_mean`` at n_dcn = 1,
+    host and device ms and wire bytes against f32's; int4 and sign payloads
+    bitwise equal to the CPU's, learned latents within one int8 step; the
+    mean of COMPRESSION_SLICES slices' decoded payloads within each rung's
+    bound; the greedy and budgeted tables at ADAPTIVE_BUDGETS, each within
+    its budget; the int8 wire through the emulated link (measured rate
+    within 2x of the set one) and a short read raising. No kernel of the
+    port runs here."""
+    import socket
+
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel import adaptive_compression as ac
+    from distributed_sigmoid_loss_tpu_torch.parallel.dcn_emu import DCNEmulator
+    from distributed_sigmoid_loss_tpu_torch.train.compressed_step import compression_leaves
+    from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
+
+    reset_counts(sa, ssl)
+    cfg = SigLIPConfig.b16()
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, scan_layers=False),
+                              text=dataclasses.replace(cfg.text, scan_layers=False))
+    meta = SigLIP(cfg, device="meta")
+    params = list(meta.parameters())
+    shapes = [tuple(leaf.gather(params).shape) for leaf in compression_leaves(meta)]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 31)
+    grads = [torch.randn(s, device="cuda", generator=gen) * 1e-3 for s in shapes]
+    zeros = [torch.zeros_like(g) for g in grads]
+    n_params = sum(g.numel() for g in grads)
+    sizes = ac.leaf_sizes(grads)
+    codec = {k: torch.as_tensor(v, device="cuda") for k, v in ac.default_codec().items()}
+    rec = {"tensors": len(grads), "params": n_params, "f32_wire_bytes": 4 * n_params}
+    stats = None
+    for code, name in enumerate(ac.SCHEME_NAMES):
+        table = [code] * len(grads)
+
+        def call():
+            return ac.adaptive_axis_mean(grads, "dcn", zeros, table,
+                                         topk_frac=COMPRESSION_TOPK_FRAC, codec=codec)
+
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, stats_c, _ = call()
+        torch.cuda.synchronize()
+        payload = ac.table_payload_bytes(sizes, table, COMPRESSION_TOPK_FRAC)
+        rec[name] = {"host_ms": 1e3 * (time.perf_counter() - t0),
+                     "device_ms": device_ms(call, iters=2), "wire_bytes": payload,
+                     "wire_over_f32": payload / (4 * n_params)}
+        if code == ac.SCHEME_INT8:
+            stats = {k: v.cpu().numpy() for k, v in stats_c.items()}
+    # The card's payloads against the CPU's on the same tensors.
+    int4_off = signs_off = latent_off = 0
+    sign_scale_rel = 0.0
+    for g in grads:
+        q, _ = ac.quantize_tensor_int4(g)
+        q_cpu, _ = ac.quantize_tensor_int4(g.cpu())
+        int4_off += int((ac.pack_int4(q).cpu() != ac.pack_int4(q_cpu)).sum())
+        signs_off += int((ac.pack_signs(g).cpu() != ac.pack_signs(g.cpu())).sum())
+        scale, scale_cpu = float(g.abs().mean()), float(g.cpu().abs().mean())
+        sign_scale_rel = max(sign_scale_rel, abs(scale - scale_cpu) / scale_cpu)
+        grp = ac.codec_group(g.shape)
+        lat = []
+        for x, enc in ((g, codec["enc"][grp]), (g.cpu(), codec["enc"][grp].cpu())):
+            z = ac.codec_blocks(x) @ enc
+            s_ = torch.clamp(z.abs().max(), min=1e-12) / torch.full((), 127.0, device=z.device)
+            lat.append(torch.clamp(torch.round(z / s_), -127, 127).cpu())
+        latent_off = max(latent_off, int((lat[0] - lat[1]).abs().max()))
+    rec.update(int4_payload_mismatches=int4_off, sign_payload_mismatches=signs_off,
+               sign_scale_rel_err=sign_scale_rel, learned_latent_max_step=latent_off)
+    # The mean of COMPRESSION_SLICES slices' decoded payloads (each rung's
+    # decode is linear) against their f32 mean, on every tensor: int8 and
+    # int4 within half a bucket, the rest within the mean of the slices'
+    # own errors, each of which is under the slice's norm.
+    bounds = {}
+    picks = grads[:: max(1, len(grads) // 24)]
+    for code, name in enumerate(ac.SCHEME_NAMES):
+        worst = 0.0
+        for g in picks:
+            slices = [g * (1 + 0.1 * i) + 1e-4 * i for i in range(COMPRESSION_SLICES)]
+            sent = [ac.adaptive_axis_mean([x], "dcn", [torch.zeros_like(x)], [code],
+                                          topk_frac=COMPRESSION_TOPK_FRAC, codec=codec)[0][0]
+                    for x in slices]
+            mean, exact = torch.stack(sent).mean(dim=0), torch.stack(slices).mean(dim=0)
+            if code in (ac.SCHEME_INT8, ac.SCHEME_INT4):
+                qmax = 127.0 if code == ac.SCHEME_INT8 else 7.0
+                bound = sum(float(x.abs().max()) / qmax for x in slices) / len(slices) / 2
+                worst = max(worst, float((mean - exact).abs().max()) / bound)
+            else:
+                errs = [float(torch.linalg.vector_norm(x - y)) for x, y in zip(slices, sent)]
+                norms = [float(torch.linalg.vector_norm(x)) for x in slices]
+                rel = [e / nrm for e, nrm in zip(errs, norms)]
+                # The mean's error is at most the slices' mean error (a
+                # kept tensor's is 0: then f32 rounding of the means).
+                bound = sum(errs) / len(errs) * (1 + 1e-5) + 1e-6 * max(norms)
+                worst = max(worst, float(torch.linalg.vector_norm(mean - exact)) / bound,
+                            max(rel))
+        bounds[name] = worst
+    rec["slices_mean_err_over_bound"] = bounds
+    # The controllers at pinned budgets on the int8 round's stats.
+    egress = ac.table_payload_bytes(sizes, [ac.SCHEME_INT8] * len(sizes), COMPRESSION_TOPK_FRAC)
+    tables = {}
+    for mode in ("greedy", "budgeted"):
+        for frac in ADAPTIVE_BUDGETS:
+            ctl = ac.BitController(sizes, n_dcn=2, topk_frac=COMPRESSION_TOPK_FRAC,
+                                   controller=mode, learned=True)
+            ctl.override_bandwidth(frac * egress * 8.0 / ctl.sync_budget_s / 1e6)
+            t0 = time.perf_counter()
+            table = ctl.decide(stats["ef_ratio"], gnorm=stats["gnorm"], gvar=stats["gvar"])
+            decide_ms = 1e3 * (time.perf_counter() - t0)
+            used = (ctl.n_dcn - 1) * ac.table_payload_bytes(sizes, table, COMPRESSION_TOPK_FRAC)
+            narrowest = all(c == ladder[-1] for c, ladder in zip(table, ctl.ladders))
+            tables[f"{mode}@{frac}"] = {
+                "egress_over_allowed": used / ctl.bytes_allowed(), "at_narrowest": narrowest,
+                "hist": np.bincount(table, minlength=ac.N_SCHEMES).tolist(),
+                "error_budget": ctl.last_error_budget, "decide_ms": decide_ms}
+    rec["tables"] = tables
+    # The int8 wire through the emulated link, and a short read.
+    wire = ac.table_payload_bytes(sizes, [ac.SCHEME_INT8] * len(sizes))
+    mbps = wire * 8.0 / ADAPTIVE_EMU_SECONDS / 1e6
+    with DCNEmulator(mbps) as emu:
+        emu.transfer(1 << 20)
+        dt = emu.transfer(wire)
+        measured = wire * 8.0 / dt / 1e6
+    server = socket.create_server(("127.0.0.1", 0))
+    sink = threading.Thread(target=_lying_sink, args=(server,), daemon=True)
+    sink.start()
+    liar = DCNEmulator(100.0)
+    liar._sock = socket.create_connection(server.getsockname())
+    try:
+        liar.transfer(10_000)
+        short_read_raised = False
+    except RuntimeError:
+        short_read_raised = True
+    finally:
+        liar._sock.close()
+        liar._sock = None
+        sink.join(timeout=5)
+    rec["emulated"] = {"wire_bytes": wire, "set_mbps": mbps, "measured_mbps": measured,
+                       "seconds": dt, "short_read_raised": short_read_raised}
+    log("compression_adaptive", **rec)
+    if int4_off or signs_off or sign_scale_rel > 1e-6 or latent_off > 1:
+        raise AssertionError(f"compression_adaptive: the card's payloads differ from the CPU's "
+                             f"{int4_off, signs_off, sign_scale_rel, latent_off}")
+    if max(bounds.values()) > 1.0:
+        raise AssertionError(f"compression_adaptive: a rung's mean is off its bound {bounds}")
+    for key, row in tables.items():
+        if row["egress_over_allowed"] > 1.0 and not row["at_narrowest"]:
+            raise AssertionError(f"compression_adaptive: {key} does not fit its budget {row}")
+    if not 0.5 <= measured / mbps <= 2.0 or not short_read_raised:
+        raise AssertionError(f"compression_adaptive: the emulated link {rec['emulated']}")
+    counts = read_counts(sa, ssl)
+    if any(counts.values()):
+        raise AssertionError(f"compression_adaptive launched kernels: {counts}")
+    del grads, zeros
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_train_adaptive_path(args, sa, ssl, fa) -> dict:
+    """The adaptive ladder's train step (``compression="learned"``) on the
+    headline towers under ``use_pallas`` at W = 1 with no process group
+    (what one rank computes): TRAIN_ADAPTIVE_STEPS steps of TRAIN_SP_ACCUM
+    x MICRO pairs between two reads of the counts (K1 and K2 24 a
+    microbatch, as ``[train_sp]``'s sp-off step; K4-K6 one a microbatch), a
+    hand-staged table putting every rung on some tensors, the codec trainer
+    fed the card's block moments and its codec staged once warm; finite
+    metrics; ms a step beside the fixed int8 step's on the same batches."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel import adaptive_compression as ac
+    from distributed_sigmoid_loss_tpu_torch.train import create_train_state, make_optimizer
+    from distributed_sigmoid_loss_tpu_torch.train.compressed_step import (
+        make_compressed_train_step,
+        stage_codec,
+        stage_scheme,
+        with_adaptive_compression,
+        with_error_feedback,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
+
+    base = headline_config()
+    cfg = dataclasses.replace(base, loss=dataclasses.replace(base.loss, use_pallas=True,
+                                                              variant="all_gather"))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 37)
+    batches = [random_batch(cfg, TRAIN_SP_ACCUM * MICRO, gen) for _ in range(TRAIN_ADAPTIVE_STEPS)]
+    weights = SigLIP(cfg, device="cuda", generator=gen).state_dict()
+    rows, total = {}, None
+    for compression in ("learned", "int8"):
+        model = SigLIP(cfg, device="cuda")
+        model.load_state_dict(weights)
+        state = create_train_state(model, make_optimizer(
+            TrainConfig(warmup_steps=100, total_steps=100_000, adam_mu_dtype="bfloat16")))
+        learned = compression == "learned"
+        state = (with_adaptive_compression(state, learned=True) if learned
+                 else with_error_feedback(state))
+        step = make_compressed_train_step(model, cfg.loss, compression=compression,
+                                          topk_frac=COMPRESSION_TOPK_FRAC,
+                                          accum_steps=TRAIN_SP_ACCUM, accum_dtype="bfloat16")
+        trainer = ac.CodecTrainer()
+        n = len(state.ef)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # -- the adaptive training path, between the two reads of the counts
+        reset_counts(sa, ssl)
+        step_s, metrics, staged = [], [], []
+        for i, batch in enumerate(batches):
+            if learned:
+                state = stage_scheme(state, [(j + i) % ac.N_SCHEMES for j in range(n)])
+            t0 = time.monotonic()
+            state, m = step(state, batch)
+            metrics.append({k: (v.item() if v.numel() == 1 else v.tolist())
+                            for k, v in m.items()})
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t0)
+            if learned:
+                codec = trainer.update(state.comp["blockmoment"].cpu().numpy())
+                if trainer.rounds >= trainer.warmup_rounds:
+                    state = stage_codec(state, codec)
+                    staged.append(i + 1)
+        counts = read_counts(sa, ssl)
+        # -- end of the adaptive training path ------------------------------
+        rows[compression] = {"step_ms": [1e3 * t for t in step_s],
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "loss": [m["loss"] for m in metrics]}
+        log("train_adaptive", compression=compression, launches=counts, **rows[compression],
+            metrics=metrics[-1], tensors=n,
+            codec_staged_before_step=[s + 1 for s in staged if s < TRAIN_ADAPTIVE_STEPS])
+        scalars = [v for m in metrics for k, v in m.items() if k != "compression_scheme_hist"]
+        if not all(np.isfinite(v) for v in scalars):
+            raise AssertionError(f"train_adaptive {compression}: non-finite metrics {metrics}")
+        if learned:
+            per_mb = {"short_attention_fwd": 24, "short_attention_bwd": 24,
+                      "sigmoid_loss_fwd": 1, "sigmoid_loss_bwd_img": 1, "sigmoid_loss_bwd_txt": 1}
+            expect = {k: per_mb.get(k, 0) * TRAIN_SP_ACCUM * TRAIN_ADAPTIVE_STEPS
+                      for k in counts}
+            if counts != expect:
+                raise AssertionError(f"train_adaptive launches {counts} != {expect}")
+            if not staged or any(m["compression_scheme_hist"][i] == 0
+                                 for m in metrics for i in range(ac.N_SCHEMES)):
+                raise AssertionError(f"train_adaptive: a rung unused or no codec staged {metrics}")
+            total = counts
+        del state, step, model
+        torch.cuda.empty_cache()
+    log("train_adaptive", steady_step_ms={k: r["step_ms"][-1] for k, r in rows.items()},
+        learned_over_int8=rows["learned"]["step_ms"][-1] / rows["int8"]["step_ms"][-1],
+        config=f"B/16 headline, use_pallas, {TRAIN_ADAPTIVE_STEPS} steps of "
+               f"{TRAIN_SP_ACCUM} x {MICRO} pairs, n_dcn = 1, no process group")
+    return total
+
+
+def run_moe_path(args, sa, ssl, fa) -> dict:
+    """B/16 with MOE_EXPERTS experts (k = 1) in both towers. Serving: the
+    engine at bucket MOE_BUCKET, one image and one text call between two
+    reads of the counts (12 K1 a tower call, nothing else), images/s and
+    texts/s; the towers against their plain attention (cosine > 0.999); the
+    same weights with int8 projections and expert products, each row's
+    cosine with bf16 > INT8_MIN_COSINE. Training: the headline towers with
+    MoE blocks, MOE_TRAIN_STEPS steps of TRAIN_SP_ACCUM x MICRO pairs with
+    ``moe_aux_weight=0.01`` under ``use_pallas`` between two reads of the
+    counts (K1 and K2 24 a microbatch, K4-K6 one), finite ``moe_aux`` near
+    1, step ms and peak memory."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.serve import InferenceEngine
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig, TrainConfig
+
+    def with_moe(cfg, **kw):
+        moe = dict(moe_experts=MOE_EXPERTS, moe_num_selected=1, **kw)
+        return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **moe),
+                                   text=dataclasses.replace(cfg.text, **moe))
+
+    serve_cfg = with_moe(SigLIPConfig.b16(), remat=False)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 41)
+    model = SigLIP(serve_cfg, device="cuda", generator=gen).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    b, hw = MOE_BUCKET, serve_cfg.vision.image_size
+    rng = np.random.default_rng(args.seed + 41)
+    imgs = rng.random((b, hw, hw, 3), dtype=np.float32)
+    toks = rng.integers(1, serve_cfg.text.vocab_size, (b, serve_cfg.text.context_length))
+    engine = InferenceEngine.from_model(model, batch_buckets=(b,))
+    engine.warmup()
+    # -- the MoE serving path, between the two reads of the counts ---------
+    reset_counts(sa, ssl)
+    zi = engine.encode_image(imgs)
+    zt = engine.encode_text(toks)
+    counts = read_counts(sa, ssl)
+    # -- end of the MoE serving path ---------------------------------------
+    expect = {k: 24 if k == "short_attention_fwd" else 0 for k in counts}
+    if counts != expect or not (np.isfinite(zi).all() and np.isfinite(zt).all()):
+        raise AssertionError(f"moe serving launches {counts} != {expect}, or non-finite")
+    total = dict(counts)
+    g_imgs, g_toks = torch.from_numpy(imgs).cuda(), torch.from_numpy(toks).cuda()
+    with torch.inference_mode():
+        image_ms = time_ms(lambda: model.encode_image(g_imgs), iters=5, warmup=2)
+        text_ms = time_ms(lambda: model.encode_text(g_toks), iters=5, warmup=2)
+        kernel_out = (model.encode_image(g_imgs[:8]), model.encode_text(g_toks[:8]))
+        with plain_attention(sa, fa):
+            plain_out = (model.encode_image(g_imgs[:8]), model.encode_text(g_toks[:8]))
+        cos = [float(torch.nn.functional.cosine_similarity(a, c, dim=-1).min())
+               for a, c in zip(kernel_out, plain_out)]
+        weights = model.state_dict()
+        q_model = SigLIP(with_moe(SigLIPConfig.b16(), remat=False, quant="int8"), device="meta")
+        q_model = q_model.to_empty(device="cuda").eval()
+        q_model.load_state_dict(weights)
+        fid = [torch.nn.functional.cosine_similarity(a.float(), c.float(), dim=-1)
+               for a, c in ((q_model.encode_image(g_imgs[:64]), model.encode_image(g_imgs[:64])),
+                            (q_model.encode_text(g_toks[:64]), model.encode_text(g_toks[:64])))]
+        int8_ms = time_ms(lambda: q_model.encode_image(g_imgs), iters=3, warmup=1)
+    fidelity = {"image": float(fid[0].min()), "text": float(fid[1].min())}
+    log("moe", serving=True, experts=MOE_EXPERTS, params=n_params, launches=counts,
+        **{f"tower_ms_b{b}": {"image": image_ms, "text": text_ms, "image_int8": int8_ms},
+           f"images_per_s_b{b}": b / image_ms * 1e3, f"texts_per_s_b{b}": b / text_ms * 1e3},
+        min_cosine_kernel_vs_plain={"image": cos[0], "text": cos[1]},
+        int8_min_row_cosine_vs_bf16=fidelity)
+    if min(cos) <= 0.999 or min(fidelity.values()) <= INT8_MIN_COSINE:
+        raise AssertionError(f"moe: kernels vs plain {cos}, int8 vs bf16 {fidelity}")
+    del model, q_model, engine, weights
+    torch.cuda.empty_cache()
+
+    base = headline_config()
+    cfg = with_moe(dataclasses.replace(base, loss=dataclasses.replace(base.loss,
+                                                                       use_pallas=True)))
+    model = SigLIP(cfg, device="cuda", generator=gen)
+    state = create_train_state(model, make_optimizer(
+        TrainConfig(warmup_steps=100, total_steps=100_000, adam_mu_dtype="bfloat16")))
+    step = make_train_step(model, cfg.loss, accum_steps=TRAIN_SP_ACCUM, accum_dtype="bfloat16",
+                           moe_aux_weight=0.01)
+    batches = [random_batch(cfg, TRAIN_SP_ACCUM * MICRO, gen) for _ in range(MOE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the MoE training path, between the two reads of the counts --------
+    reset_counts(sa, ssl)
+    step_s, metrics = [], []
+    for batch in batches:
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        metrics.append({k: v.item() for k, v in m.items()})
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+    counts = read_counts(sa, ssl)
+    # -- end of the MoE training path --------------------------------------
+    per_mb = {"short_attention_fwd": 24, "short_attention_bwd": 24, "sigmoid_loss_fwd": 1,
+              "sigmoid_loss_bwd_img": 1, "sigmoid_loss_bwd_txt": 1}
+    expect = {k: per_mb.get(k, 0) * TRAIN_SP_ACCUM * MOE_TRAIN_STEPS for k in counts}
+    log("moe", training=True, launches=counts, step_ms=[1e3 * t for t in step_s],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, metrics=metrics,
+        config=f"B/16 headline with {MOE_EXPERTS} experts (k = 1), use_pallas, "
+               f"{MOE_TRAIN_STEPS} steps of {TRAIN_SP_ACCUM} x {MICRO} pairs")
+    if counts != expect:
+        raise AssertionError(f"moe training launches {counts} != {expect}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()) or not all(
+            0.5 < m["moe_aux"] < 2.0 for m in metrics):
+        raise AssertionError(f"moe training metrics {metrics}")
+    del state, step, model
+    torch.cuda.empty_cache()
+    return add_counts(total, counts)
 
 
 def run_compat(sa, ssl, gen) -> dict:
@@ -4207,7 +4619,7 @@ def main() -> int:
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
 
-    # Phases 4-20: the main paths, each between two reads of the counts.
+    # Phases 4-23: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
                       ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
@@ -4219,6 +4631,9 @@ def main() -> int:
                       ("context", lambda: run_context(sa, ssl, fa)),
                       ("train_sp", lambda: run_train_sp_path(args, sa, ssl, fa)),
                       ("compression", lambda: run_compression(args, sa, ssl)),
+                      ("compression_adaptive", lambda: run_compression_adaptive(args, sa, ssl)),
+                      ("train_adaptive", lambda: run_train_adaptive_path(args, sa, ssl, fa)),
+                      ("moe", lambda: run_moe_path(args, sa, ssl, fa)),
                       ("f32_tower", lambda: run_f32_tower_path(args, sa, ssl, fa)),
                       ("serve_int8", lambda: run_serve_path(args, sa, ssl, fa, SERVE_INT8)),
                       ("train_int8", lambda: run_train_pallas_path(args, sa, ssl, fa, "int8")),
@@ -4240,7 +4655,7 @@ def main() -> int:
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 21: the records.
+    # Phase 24: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"

@@ -47,32 +47,28 @@ __all__ = ["main"]
 # Flags of paths not ported yet: (dest, the value that means "off", flag,
 # ROADMAP.md queue A item, what the flag needs).
 _UNPORTED = (
-    ("pp", 1, "--pp", "6.4", "the pipeline-parallel towers"),
-    ("pp_microbatches", 0, "--pp-microbatches", "6.4", "the pipeline-parallel towers"),
-    ("moe_experts", 0, "--moe-experts", "6.4", "the MoE towers"),
-    ("moe_aux_weight", None, "--moe-aux-weight", "6.4", "the MoE towers"),
-    ("moe_group_size", 0, "--moe-group-size", "6.4", "the MoE towers"),
-    ("ep", 1, "--ep", "6.4", "expert parallelism"),
-    ("coordinator", "", "--coordinator", "6.4", "multi-host training"),
-    ("num_processes", 0, "--num-processes", "6.4", "multi-host training"),
-    ("process_id", -1, "--process-id", "6.4", "multi-host training"),
-    ("dcn_budget_mbps", None, "--dcn-budget-mbps", "6.3 part 2",
-     "the adaptive compression controller"),
-    ("controller", None, "--controller", "6.3 part 2", "the adaptive compression controller"),
-    ("emu_dcn_mbps", None, "--emu-dcn-mbps", "6.3 part 2", "the emulated dcn link"),
+    ("pp", 1, "--pp", "6.4 part 2", "the pipeline-parallel towers"),
+    ("pp_microbatches", 0, "--pp-microbatches", "6.4 part 2", "the pipeline-parallel towers"),
+    ("ep", 1, "--ep", "6.4 part 2", "expert parallelism"),
+    ("coordinator", "", "--coordinator", "6.4 part 2", "multi-host training"),
+    ("num_processes", 0, "--num-processes", "6.4 part 2", "multi-host training"),
+    ("process_id", -1, "--process-id", "6.4 part 2", "multi-host training"),
     ("obs_dir", "", "--obs-dir", "6.5", "observability (spans, flight recorder)"),
+)
+# ... and of the export command, whose MoE artifacts wait with them.
+_EXPORT_UNPORTED = (
+    ("moe_experts", 0, "--moe-experts", "6.4 part 2", "exporting the MoE towers"),
+    ("moe_aux_weight", None, "--moe-aux-weight", "6.4 part 2", "exporting the MoE towers"),
+    ("moe_group_size", 0, "--moe-group-size", "6.4 part 2", "exporting the MoE towers"),
 )
 
 
-def _unported(args) -> str | None:
+def _unported(args, rows=_UNPORTED) -> str | None:
     """The first flag of an unported path the command line set, as its
     refusal message, or None."""
-    for dest, off, flag, item, what in _UNPORTED:
+    for dest, off, flag, item, what in rows:
         if getattr(args, dest, off) != off:
             return (f"{flag}: {what} not ported yet: ROADMAP.md queue A item {item}")
-    if getattr(args, "grad_compression", "") in ("adaptive", "learned"):
-        return (f"--grad-compression {args.grad_compression}: the adaptive compression "
-                "ladder not ported yet: ROADMAP.md queue A item 6.3 part 2")
     if getattr(args, "watchdog", "off") == "warn":
         return ("--watchdog warn: the health watchdog (obs/health.py) not ported yet: "
                 "ROADMAP.md queue A item 6.5")
@@ -115,6 +111,21 @@ def _model_config(args):
         return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **kw),
                                    text=dataclasses.replace(cfg.text, **kw))
 
+    moe = getattr(args, "moe_experts", 0)
+    if moe:
+        # Shared by train and eval: a checkpoint trained with --moe-experts
+        # restores only into an MoE model of the same shape.
+        if moe < 2:
+            raise SystemExit(f"--moe-experts must be >= 2, got {moe}")
+        group = getattr(args, "moe_group_size", 0)
+        tower_kw = {"moe_experts": moe}
+        if group:
+            if group < 1:
+                raise SystemExit(f"--moe-group-size must be >= 1, got {group}")
+            tower_kw["moe_group_size"] = group
+        cfg = towers(**tower_kw)
+    elif getattr(args, "moe_group_size", 0):
+        raise SystemExit("--moe-group-size without --moe-experts is a no-op")
     if getattr(args, "quant", ""):
         cfg = towers(quant=args.quant)  # eval only: inference int8 projections
     if getattr(args, "quant_train", ""):
@@ -267,6 +278,9 @@ def _train_source(args, cfg):
 def _train_config_conflicts(args) -> str | None:
     """The ``train`` command's refusals of incoherent flag sets among the
     ported flags (the JAX package's messages): the first, or None."""
+    if args.moe_aux_weight is not None and not args.moe_experts:
+        return ("--moe-aux-weight without --moe-experts would be a silent "
+                "no-op (a dense model has no routers to balance)")
     if args.accum_bf16 and args.accum == 1:
         return ("--accum-bf16 requires --accum > 1 (the unaccumulated step "
                 "has no accumulator)")
@@ -327,17 +341,32 @@ def _sync_conflicts(args) -> str | None:
                            "all_gather-only; there is no ring hop loop)")
         if args.ema_decay is not None:
             reasons.append("no --ema-decay")
-        if args.grad_compression == "topk" and not 0 < args.topk_frac <= 1:
+        if args.grad_compression in ("topk", "adaptive", "learned") and not (
+                0 < args.topk_frac <= 1):
             reasons.append(
                 f"--topk-frac in (0, 1], got {args.topk_frac} (it is the "
                 f"fraction of gradient entries kept per tensor)"
             )
         if reasons:
             return "--grad-compression requires: " + "; ".join(reasons)
-    if args.topk_frac != 0.01 and args.grad_compression != "topk":
+    ladder = ("topk", "adaptive", "learned")
+    if args.topk_frac != 0.01 and args.grad_compression not in ladder:
         return "--topk-frac without --grad-compression topk is a silent no-op"
-    if args.topk_exact and args.grad_compression != "topk":
+    if args.topk_exact and args.grad_compression not in ladder:
         return "--topk-exact without --grad-compression topk is a silent no-op"
+    if args.dcn_budget_mbps is not None and args.grad_compression not in ladder[1:]:
+        return ("--dcn-budget-mbps without --grad-compression adaptive is a "
+                "silent no-op: only the adaptive bit controller consumes the "
+                "bandwidth budget")
+    if args.controller and args.grad_compression not in ladder[1:]:
+        return ("--controller without --grad-compression adaptive/learned is "
+                "a silent no-op: the bit controller only exists inside the "
+                "adaptive step wrapper (a fixed scheme has no per-round "
+                "policy to select)")
+    if args.emu_dcn_mbps is not None and args.dcn_slices < 2:
+        return ("--emu-dcn-mbps without --dcn-slices >= 2 is a silent no-op: "
+                "the emulated pipe carries the dcn hop's payload, and there "
+                "is no dcn mesh axis (or compressed sync round) to emulate")
     return None
 
 
@@ -393,15 +422,107 @@ def cmd_train(args) -> int:
         return 2
     source, tokenize, native_decode = _train_source(args, cfg)
     try:
-        with grid:
-            return _train(args, device, cfg, model, tx, source, tokenize, native_decode)
+        with grid, contextlib.ExitStack() as cleanup:
+            return _train(args, device, cfg, model, tx, source, tokenize, native_decode,
+                          cleanup)
     finally:
         close = getattr(source, "close", None)  # the native engine's threads
         if close is not None:
             close()
 
 
-def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int:
+def _adaptive_step(args, step_fn, state, cleanup):
+    """JAX's host wrapper around the adaptive step: each step stages the
+    controller's table, times the step to a device sync, folds the round
+    into the bandwidth EWMA (through the emulated link under
+    ``--emu-dcn-mbps``, each rank its own), decides the next table from the
+    step's stats (one host copy), and under ``learned`` feeds the block
+    moment to the codec trainer; world rank 0's table, error budget and
+    codec are then every rank's (``adopt_rank0_decision``). The controller's
+    sizes are the compression view's (each rank's rows under ``--update-
+    sharding full``). Adds ``dcn_bw_est_mbps``, ``controller_mode`` and
+    ``error_budget`` to the metrics, and under emulation
+    ``dcn_measured_mbps`` and ``wire_savings_wallclock_ratio``."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from distributed_sigmoid_loss_tpu_torch.parallel.adaptive_compression import (
+        CODEC_BLOCK,
+        CODEC_GROUPS,
+        BitController,
+        CodecTrainer,
+        leaf_sizes,
+    )
+    from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_group, axis_size
+    from distributed_sigmoid_loss_tpu_torch.train.compressed_step import (
+        adopt_rank0_decision,
+        stage_codec,
+        stage_scheme,
+    )
+
+    sizes = leaf_sizes(state.ef)
+    learned = args.grad_compression == "learned"
+    n_dcn = axis_size(axis_group("dcn"))
+    controller = BitController(sizes, n_dcn=n_dcn, topk_frac=args.topk_frac,
+                               dcn_budget_mbps=args.dcn_budget_mbps,
+                               controller=args.controller or "greedy", learned=learned)
+    trainer = CodecTrainer() if learned else None
+    device = state.params[0].device
+    emulator = None
+    bf16_ref = {"dt": None}
+    if args.emu_dcn_mbps is not None:
+        from distributed_sigmoid_loss_tpu_torch.parallel.dcn_emu import DCNEmulator
+
+        emulator = DCNEmulator(args.emu_dcn_mbps).start()
+        cleanup.callback(emulator.close)
+        # The fixed-bf16 reference payload the wall-clock ratio compares
+        # against, measured through the same pipe.
+        bf16_ref_bytes = (n_dcn - 1) * 2 * int(sum(sizes))
+
+    def step(st, batch):
+        st = stage_scheme(st, controller.scheme)
+        t0 = time.perf_counter()
+        st, metrics = step_fn(st, batch)
+        wire = float(metrics["dcn_wire_bytes"])  # waits for the step's work
+        step_dt = time.perf_counter() - t0
+        metrics = dict(metrics)
+        if emulator is None:
+            controller.observe(step_dt, wire)
+        else:
+            transfer_dt = emulator.transfer(wire)
+            controller.observe(transfer_dt, wire)
+            if bf16_ref["dt"] is None or emulator.transfers <= 8:
+                ref = emulator.transfer(bf16_ref_bytes)
+                bf16_ref["dt"] = ref if bf16_ref["dt"] is None else 0.5 * ref + 0.5 * bf16_ref["dt"]
+            metrics["dcn_measured_mbps"] = emulator.measured_mbps or 0.0
+            metrics["wire_savings_wallclock_ratio"] = (
+                (step_dt + bf16_ref["dt"]) / (step_dt + transfer_dt))
+        n = len(sizes)
+        parts = [st.comp["ef_ratio"], st.comp["gnorm"], st.comp["gvar"]]
+        if trainer is not None:
+            parts.append(st.comp["blockmoment"].reshape(-1))
+        stats = torch.cat(parts).cpu().numpy()  # the controller's one host copy
+        controller.decide(stats[:n], gnorm=stats[n:2 * n], gvar=stats[2 * n:3 * n])
+        codec = None
+        if trainer is not None:
+            new_codec = trainer.update(
+                stats[3 * n:].reshape(CODEC_GROUPS, CODEC_BLOCK, CODEC_BLOCK))
+            if trainer.rounds >= trainer.warmup_rounds:
+                codec = new_codec
+        codec = adopt_rank0_decision(controller, device, codec)
+        if codec is not None:
+            st = stage_codec(st, codec)
+        metrics["dcn_bw_est_mbps"] = controller.bw_est_mbps or 0.0
+        metrics["controller_mode"] = controller.mode
+        metrics["error_budget"] = float(controller.last_error_budget)
+        return st, metrics
+
+    return step
+
+
+def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanup) -> int:
     import torch
 
     from distributed_sigmoid_loss_tpu_torch.data import (
@@ -426,6 +547,7 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int
     )
     from distributed_sigmoid_loss_tpu_torch.train.compressed_step import (
         make_compressed_train_step,
+        with_adaptive_compression,
         with_error_feedback,
     )
     from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig
@@ -444,16 +566,28 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int
     loss_cfg = LossConfig(variant=variant, family=args.loss_family, precision="default",
                           loss_impl=args.loss_impl, ring_overlap=args.ring_overlap,
                           use_pallas=args.use_pallas)
+    # One resolution of the router aux weight for both steps (JAX's: 0.01
+    # with experts unless given).
+    moe_aux_w = ((0.01 if args.moe_aux_weight is None else args.moe_aux_weight)
+                 if args.moe_experts else None)
     accum = dict(accum_steps=args.accum, accum_negatives=args.accum_negatives,
                  accum_dtype="bfloat16" if args.accum_bf16 else None,
-                 gradcache_embed_dtype="bfloat16" if args.gradcache_bf16 else None)
+                 gradcache_embed_dtype="bfloat16" if args.gradcache_bf16 else None,
+                 moe_aux_weight=moe_aux_w)
     if args.grad_compression:
         # --topk-exact changes nothing below here: the port's top-k is
         # always exact (ROADMAP.md, deliberate differences).
-        state = with_error_feedback(state)
+        adaptive = args.grad_compression in ("adaptive", "learned")
+        if adaptive:
+            state = with_adaptive_compression(state,
+                                              learned=args.grad_compression == "learned")
+        else:
+            state = with_error_feedback(state)
         step_fn = make_compressed_train_step(
             model, loss_cfg, compression=args.grad_compression, topk_frac=args.topk_frac,
             **accum)
+        if adaptive:
+            step_fn = _adaptive_step(args, step_fn, state, cleanup)
     else:
         step_fn = make_train_step(model, loss_cfg, ema_decay=args.ema_decay, **accum)
     # Every metrics line of a sharded update carries its mode and the
@@ -483,8 +617,9 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode) -> int
                         put=lambda b, d: put_batch(shard_batch(b), d), stats=input_stats)
 
     def log_metrics(step_i, m):
-        logger.log(step_i, {**{k: float(v) for k, v in m.items()},
-                            "input_wait_frac": input_stats.input_wait_frac(),
+        # Scalars as floats, the scheme histogram as a list, the controller's
+        # mode as a string (MetricsLogger).
+        logger.log(step_i, {**m, "input_wait_frac": input_stats.input_wait_frac(),
                             **sharding_fields})
 
     eval_hook = None
@@ -761,7 +896,7 @@ def cmd_export(args) -> int:
     on, with no model code. ``--check`` reloads the written file and replays
     it on copies of the inputs against the live eager step; a train step
     also past the warmup, where the parameters move."""
-    refusal = _unported(args)
+    refusal = _unported(args) or _unported(args, _EXPORT_UNPORTED)
     if refusal:
         print(refusal, file=sys.stderr)
         return 2
@@ -1279,10 +1414,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="'skip' routes a non-finite loss into the rollback-and-skip "
                          "path (requires --ckpt-dir); 'off' halts on it. 'warn' (the "
                          "JAX package's default) needs obs/health.py, not ported yet")
+    tr.add_argument("--moe-experts", type=int, default=0,
+                    help="swap tower MLPs for this many experts per block (mixture of "
+                         "experts, replicated)")
+    tr.add_argument("--moe-aux-weight", type=float, default=None,
+                    help="router load-balancing loss weight (requires --moe-experts; "
+                         "default 0.01 when MoE is on)")
+    tr.add_argument("--moe-group-size", type=int, default=0,
+                    help="GShard routing group size (with --moe-experts; default 512)")
     # Flags of paths not ported yet (each exits 2 naming its ROADMAP item).
-    tr.add_argument("--moe-experts", type=int, default=0)
-    tr.add_argument("--moe-aux-weight", type=float, default=None)
-    tr.add_argument("--moe-group-size", type=int, default=0)
     tr.add_argument("--pp", type=int, default=1)
     tr.add_argument("--pp-microbatches", type=int, default=0)
     tr.add_argument("--ep", type=int, default=1)
@@ -1292,9 +1432,16 @@ def _parser() -> argparse.ArgumentParser:
     tr.add_argument("--force-dcn-emulation", action="store_true")
     tr.add_argument("--grad-compression", "--compression",
                     choices=["int8", "topk", "adaptive", "learned"], default="")
-    tr.add_argument("--dcn-budget-mbps", type=float, default=None, metavar="MBPS")
-    tr.add_argument("--controller", choices=["greedy", "budgeted"], default=None)
-    tr.add_argument("--emu-dcn-mbps", type=float, default=None, metavar="MBPS")
+    tr.add_argument("--dcn-budget-mbps", type=float, default=None, metavar="MBPS",
+                    help="dcn egress budget for --grad-compression adaptive/learned: the "
+                         "bit controller narrows tensors until min(measured bandwidth, "
+                         "this) fits the sync round")
+    tr.add_argument("--controller", choices=["greedy", "budgeted"], default=None,
+                    help="bit-controller policy for --grad-compression adaptive/learned "
+                         "(default greedy)")
+    tr.add_argument("--emu-dcn-mbps", type=float, default=None, metavar="MBPS",
+                    help="ship each round's dcn payload through a throttled localhost pipe "
+                         "at this rate (parallel/dcn_emu.py); the controller times it")
     tr.add_argument("--topk-frac", type=float, default=0.01, metavar="F")
     tr.add_argument("--topk-exact", action="store_true")
     tr.add_argument("--obs-dir", default="", metavar="DIR")
@@ -1326,8 +1473,8 @@ def _parser() -> argparse.ArgumentParser:
     ev.add_argument("--data-shards", default="",
                     help="glob of webdataset-style tar shards (the loaders train uses); "
                          "mutually exclusive with --data-dir")
-    # Flags of paths not ported yet (each exits 2 naming its ROADMAP item).
-    ev.add_argument("--moe-experts", type=int, default=0)
+    ev.add_argument("--moe-experts", type=int, default=0,
+                    help="match a checkpoint trained with --moe-experts")
 
     tk = sub.add_parser("tokenizer", help="train a byte-level BPE vocab on a caption corpus")
     tk.add_argument("out", help="output vocab json path")

@@ -11,7 +11,10 @@ are read:
 
 Renames: a Dense ``kernel`` (in, out) becomes ``weight`` (out, in); a
 LayerNorm ``scale`` becomes ``weight``; the token table ``embedding`` becomes
-the ``token_embed`` parameter itself. The patch kernel keeps its HWIO shape.
+the ``token_embed`` parameter itself. The patch kernel keeps its HWIO shape,
+and an MoE layer's ``moe/router`` (d, E), ``moe/wi`` (E, d, h) and
+``moe/wo`` (E, h, d), plain parameters rather than Dense kernels, keep
+theirs.
 
 The same mapping, run the other way, is :func:`jax_leaves`: which of the
 port's tensors make up each leaf of the JAX tree. Adafactor's factoring and

@@ -3,11 +3,13 @@ embedding pair, with the learnable loss scalars ``t_prime`` and ``bias``."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 
+from distributed_sigmoid_loss_tpu_torch.models.moe import collect_aux
 from distributed_sigmoid_loss_tpu_torch.models.text import TextTransformer
 from distributed_sigmoid_loss_tpu_torch.models.vit import ViT
 from distributed_sigmoid_loss_tpu_torch.ops.sigmoid_loss import (
@@ -46,10 +48,17 @@ class SigLIP(nn.Module):
 
     def forward(self, images=None, token_ids=None):
         """→ (zimg, ztxt, loss_params): L2-normalized embeddings (None for a
-        tower given no input) and the loss scalars."""
-        zimg = None if images is None else self.encode_image(images)
-        ztxt = None if token_ids is None else self.encode_text(token_ids)
-        return zimg, ztxt, {"t_prime": self.t_prime, "bias": self.bias}
+        tower given no input) and the loss scalars. With MoE towers
+        ``loss_params["moe_aux"]`` is the mean of every MoE layer's router
+        aux loss in this call (JAX's ``_mean_moe_aux``)."""
+        moe = self.cfg.vision.moe_experts > 0 or self.cfg.text.moe_experts > 0
+        with collect_aux() if moe else contextlib.nullcontext() as auxes:
+            zimg = None if images is None else self.encode_image(images)
+            ztxt = None if token_ids is None else self.encode_text(token_ids)
+        lp = {"t_prime": self.t_prime, "bias": self.bias}
+        if auxes:
+            lp["moe_aux"] = torch.stack(auxes).mean()
+        return zimg, ztxt, lp
 
     def encode_image(self, images, normalize: bool = True):
         z = self.visual(images)

@@ -16,6 +16,7 @@ from distributed_sigmoid_loss_tpu_torch.models.transformer import (
 from distributed_sigmoid_loss_tpu_torch.utils.config import (
     TextConfig,
     check_supported,
+    moe_config,
     tower_quant_mode,
 )
 from distributed_sigmoid_loss_tpu_torch.utils.device import resolve_device
@@ -43,7 +44,7 @@ class TextTransformer(nn.Module):
                                attn_impl=cfg.attn_impl, causal=cfg.causal, remat=cfg.remat,
                                remat_policy=cfg.remat_policy, quant=tower_quant_mode(cfg),
                                sp_axis=cfg.sequence_parallel_axis,
-                               sp_impl=cfg.sequence_parallel_impl, **kw)
+                               sp_impl=cfg.sequence_parallel_impl, moe=moe_config(cfg), **kw)
         if cfg.pool == "map":
             self.map_head = MapHead(cfg.width, cfg.num_heads, cfg.mlp_ratio, dtype, **kw)
         self.proj = Dense(cfg.width, cfg.embed_dim, dtype, init="lecun", **kw)

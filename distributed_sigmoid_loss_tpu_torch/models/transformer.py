@@ -5,7 +5,8 @@
   each projection, as flax's ``Dense(dtype=...)`` does.
 - ``LayerNorm`` takes its statistics in f32 with eps 1e-6 and flax's fast
   variance ``E[x²] − E[x]²``, then casts back to the activation dtype.
-- The MLP uses the tanh approximation of GELU.
+- The MLP uses the tanh approximation of GELU. With ``moe_experts > 0`` a
+  block's MLP is the mixture-of-experts layer of ``models/moe.py``.
 - ``quant`` (from ``utils.config.tower_quant_mode``) swaps the dot of the
   blocks' projections (attention q, k, v, out and MLP wi, wo; not the MAP
   head's nor the towers' ``proj``, as in JAX) for the dynamic int8 product of
@@ -260,22 +261,33 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block. ``moe["moe_experts"] > 0`` swaps the dense
+    MLP (``mlp``) for the mixture-of-experts layer (``moe``,
+    ``models/moe.py``), as JAX names them."""
 
     def __init__(self, width: int, num_heads: int, mlp_ratio, dtype, *, attn_impl="auto",
                  causal=False, quant: str = "", sp_axis: str | None = None,
-                 sp_impl: str = "ring", device=None, generator=None):
+                 sp_impl: str = "ring", moe: dict | None = None, device=None, generator=None):
         super().__init__()
         kw = dict(quant=quant, device=device, generator=generator)
         self.ln1 = LayerNorm(width, dtype, device=device)
         self.attn = Attention(width, num_heads, dtype, attn_impl=attn_impl, causal=causal,
                               sp_axis=sp_axis, sp_impl=sp_impl, **kw)
         self.ln2 = LayerNorm(width, dtype, device=device)
-        self.mlp = Mlp(width, mlp_ratio, dtype, **kw)
+        if moe and moe.get("moe_experts", 0) > 0:
+            from distributed_sigmoid_loss_tpu_torch.models.moe import MoeMlp
+
+            self.moe = MoeMlp(width, mlp_ratio, moe["moe_experts"], dtype,
+                              num_selected=moe.get("moe_num_selected", 1),
+                              capacity_factor=moe.get("moe_capacity_factor", 1.25),
+                              group_size=moe.get("moe_group_size", 512), **kw)
+        else:
+            self.mlp = Mlp(width, mlp_ratio, dtype, **kw)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
+        return x + mlp(self.ln2(x))
 
 
 class Encoder(nn.Module):
@@ -287,7 +299,7 @@ class Encoder(nn.Module):
     def __init__(self, width: int, depth: int, num_heads: int, mlp_ratio, dtype, *,
                  attn_impl="auto", causal=False, remat: bool = False,
                  remat_policy: str = "nothing", quant: str = "", sp_axis: str | None = None,
-                 sp_impl: str = "ring", device=None, generator=None):
+                 sp_impl: str = "ring", moe: dict | None = None, device=None, generator=None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy: {remat_policy!r}")
@@ -303,7 +315,7 @@ class Encoder(nn.Module):
             )
         self.blocks = nn.ModuleList(
             Block(width, num_heads, mlp_ratio, dtype, attn_impl=attn_impl, causal=causal,
-                  quant=quant, sp_axis=sp_axis, sp_impl=sp_impl, device=device,
+                  quant=quant, sp_axis=sp_axis, sp_impl=sp_impl, moe=moe, device=device,
                   generator=generator)
             for _ in range(depth)
         )

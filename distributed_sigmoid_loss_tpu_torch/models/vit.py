@@ -15,6 +15,7 @@ from distributed_sigmoid_loss_tpu_torch.models.transformer import (
 from distributed_sigmoid_loss_tpu_torch.utils.config import (
     ViTConfig,
     check_supported,
+    moe_config,
     tower_quant_mode,
 )
 from distributed_sigmoid_loss_tpu_torch.utils.device import resolve_device
@@ -74,7 +75,7 @@ class ViT(nn.Module):
                                attn_impl=cfg.attn_impl, remat=cfg.remat,
                                remat_policy=cfg.remat_policy, quant=tower_quant_mode(cfg),
                                sp_axis=cfg.sequence_parallel_axis,
-                               sp_impl=cfg.sequence_parallel_impl, **kw)
+                               sp_impl=cfg.sequence_parallel_impl, moe=moe_config(cfg), **kw)
         if cfg.pool == "map":
             self.map_head = MapHead(cfg.width, cfg.num_heads, cfg.mlp_ratio, dtype, **kw)
         if cfg.use_proj:

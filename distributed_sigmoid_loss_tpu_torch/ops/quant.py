@@ -27,8 +27,9 @@ XLA outside any Pallas kernel; on a CUDA tensor it needs more than 16 rows
 and both widths a multiple of 8, which :func:`int8_matmul` checks and
 refuses rather than pads. :func:`sign_sketch` and :func:`sign_sketch_scores`
 (JAX's :159 and :167) are host numpy, the 1-bit coarse gear of the ANN tier
-(``serve/ann.py``). Not ported yet: ``int8_expert_matmul[_ste]`` waits for
-the MoE layer (ROADMAP queue A item 6.4).
+(``serve/ann.py``). :func:`int8_expert_matmul` (JAX's :83) runs the MoE
+layer's batched expert products in int8, one ``torch._int_mm`` an expert,
+and :class:`Int8ExpertMatmulSTE` (JAX's :236) is its straight-through twin.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ __all__ = [
     "int8_dot_general",
     "int8_linear",
     "Int8DenseSTE",
+    "int8_expert_matmul",
+    "Int8ExpertMatmulSTE",
     "int_mm_calls",
     "reset_int_mm_calls",
     "sign_sketch",
@@ -152,6 +155,71 @@ class Int8DenseSTE(torch.autograd.Function):
         dw = (g2.t() @ x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
         db = g2.sum(0) if ctx.needs_input_grad[2] else None
         return dx, dw, db
+
+
+# The smallest row count torch._int_mm takes on a CUDA device.
+_INT_MM_MIN_ROWS = 17
+
+
+@torch.library.custom_op("dsl_torch_port::int8_expert_matmul", mutates_args=())
+def _int8_expert_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    e, k, m = w.shape
+    xq, xs = quantize_int8(x, axis=-1)            # xs (E, ..., 1)
+    wq, ws = quantize_int8(w, axis=1)             # ws (E, 1, M)
+    rows = xq.reshape(e, -1, k)
+    n = rows.shape[1]
+    if x.is_cuda and n < _INT_MM_MIN_ROWS:
+        # Zero rows quantize to zeros and add nothing to the product.
+        rows = torch.cat([rows, rows.new_zeros(e, _INT_MM_MIN_ROWS - n, k)], dim=1)
+    acc = torch.stack([int8_matmul(rows[i], wq[i].t()) for i in range(e)])[:, :n]
+    acc = acc.reshape(x.shape[:-1] + (m,))
+    ws_b = ws.reshape((e,) + (1,) * (x.dim() - 2) + (m,))
+    return (acc.float() * xs * ws_b).to(out_dtype)
+
+
+@_int8_expert_matmul.register_fake
+def _(x, w, out_dtype):
+    return x.new_empty(x.shape[:-1] + (w.shape[-1],), dtype=out_dtype)
+
+
+def int8_expert_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Batched-expert int8 product ``(E, ..., K) @ (E, K, M) -> (E, ...,
+    M)`` (JAX's ``int8_expert_matmul``, the MoE layer's ``encd,edh->ench`` and
+    ``ench,ehd->encd``): activations quantized per row over K, the weight
+    per (expert, output channel), an exact int32 product per expert
+    (:func:`int8_matmul`), then ``f32(acc) · x_scale · w_scale`` cast to
+    ``out_dtype``. Zero rows (unused capacity slots) come out exactly zero.
+    One custom op, so selective checkpointing keeps its output alone. On a
+    CUDA tensor an expert's rows are padded with zero rows up to the 17
+    ``torch._int_mm`` needs. Inference only: train through
+    :class:`Int8ExpertMatmulSTE`."""
+    return _int8_expert_matmul(x, w, out_dtype)
+
+
+class Int8ExpertMatmulSTE(torch.autograd.Function):
+    """Trainable expert product (JAX's ``int8_expert_matmul_ste``): the
+    forward is :func:`int8_expert_matmul`, the backward the gradient of the
+    unquantized batched product taken in f32 (the cotangent cast to f32),
+    each gradient cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return int8_expert_matmul(x, w, out_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        e, k, m = w.shape
+        g32 = g.float().reshape(e, -1, m)
+        x32 = x.float().reshape(e, -1, k)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(g32, w.float().transpose(1, 2)).reshape(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(x32.transpose(1, 2), g32).to(w.dtype)
+        return dx, dw, None
 
 
 # Binary sign sketches: the 1-bit coarse gear of the serving ANN tier. For

@@ -25,10 +25,12 @@ complete. Two ways to save:
   by a thread while training goes on.
 
 Derived state is never written: the error-feedback residual ``ef`` of the
-compressed step (JAX ``_strip_ef``) is one step's carry, and writing it
-would make compressed runs' checkpoints unreadable by eval and by
-uncompressed resume. It stays out of :func:`state_tensors`, and a restore
-keeps the target's (zeroed) residuals.
+compressed step and the adaptive compression's carry ``comp`` (JAX
+``_strip_ef``) are one step's carry, and writing them would make compressed
+runs' checkpoints unreadable by eval and by uncompressed resume. They stay
+out of :func:`state_tensors`. A restore resets them (:func:`reset_derived`):
+the port's step updates its state in place, so after a poisoned step they
+hold that step's values, where JAX's restore keeps the pre-step ones.
 
 Checkpoints are portable across update shardings: a state whose moments
 are sharded over the data axis (``TrainState.layout``) writes them gathered
@@ -59,7 +61,7 @@ from distributed_sigmoid_loss_tpu_torch.train.train_step import (
 )
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "AsyncSaver", "HostCopy", "state_tensors",
-           "checkpoint_tensors"]
+           "checkpoint_tensors", "reset_derived"]
 
 FORMAT = "dsl-torch-ckpt-v1"
 TENSORS_FILE = "tensors.pt"
@@ -102,6 +104,27 @@ def state_tensors(state: Any) -> dict[str, torch.Tensor]:
     if state.ema is not None:
         out.update({f"ema.{n}": t for n, t in zip(names, state.ema)})
     return out
+
+
+# The adaptive carry's step-written stats; its scheme table and codec are
+# the host's decisions and stay.
+_COMP_STATS = ("gnorm", "gvar", "ef_ratio", "blockmoment", "codec_recon_err")
+
+
+@torch.no_grad()
+def reset_derived(state: Any) -> Any:
+    """Zero a ``TrainState``'s derived state in place: the residuals
+    ``ef`` and the stats of the adaptive carry ``comp`` (JAX's zeroed trees
+    after a restore). The carry's scheme table and codec weights stay, so
+    the next step runs as staged."""
+    if not isinstance(state, TrainState):
+        return state
+    for e in state.ef or ():
+        e.zero_()
+    for k in _COMP_STATS:
+        if state.comp is not None and k in state.comp:
+            state.comp[k].zero_()
+    return state
 
 
 def _sharded_moments(state: Any) -> dict[str, int]:
@@ -349,4 +372,5 @@ def restore_checkpoint(path: str, target: Any) -> Any:
     if isinstance(target, TrainState):
         target.step = meta["step"]
         target.opt_state.count = meta["count"]
+        reset_derived(target)
     return target

@@ -1,6 +1,7 @@
 """The train step with compressed gradient sync over the dcn axis, ported
-from the JAX package's ``train/compressed_step.py`` for its fixed schemes
-(``compression="int8" | "topk"``).
+from the JAX package's ``train/compressed_step.py``: the fixed schemes
+(``compression="int8" | "topk"``) and the adaptive ladder
+(``"adaptive" | "learned"``, ``parallel/adaptive_compression.py``).
 
 The step runs on a ``(dcn, dp)`` process grid (``parallel/mesh.py``); the
 batch's rows are split over both axes. Each rank computes its gradients
@@ -12,22 +13,44 @@ regular step), then the sync is split by link:
 - the dcn hop is :func:`~distributed_sigmoid_loss_tpu_torch.parallel.compression.compressed_axis_mean`:
   int8 payloads (or top-k values and indices) all-gathered over the dcn
   group and averaged, with each member's error-feedback residual carried
-  into its next step (``state.ef``, :func:`with_error_feedback`).
+  into its next step (``state.ef``, :func:`with_error_feedback`); or, for
+  the adaptive schemes, :func:`~distributed_sigmoid_loss_tpu_torch.parallel.adaptive_compression.adaptive_axis_mean`
+  with each tensor's rung from the table in ``state.comp``
+  (:func:`with_adaptive_compression`, :func:`stage_scheme`,
+  :func:`stage_codec`).
+
+The adaptive sync's tensors are the JAX params tree's leaves, in JAX's
+tree order (:func:`compression_leaves`): a tower's layers stacked into one
+tensor under ``scan_layers``, and a linear weight in the flax kernel's (in,
+out) layout, so the scheme table, the stats and the learned rung's blocks
+are JAX's. Under ``update_sharding="full"`` they are each parameter's own
+rows (the port's layout, as the fixed path's), in the same order.
 
 Gradient accumulation syncs the accumulated mean once a step, so the dcn
 wire carries one gradient a step however many microbatches. The loss's
 collectives run over the joint (dcn, dp) world (``variant="all_gather"``
-only, as in JAX). Not ported yet: the adaptive and learned schemes
-(ROADMAP.md queue A item 6.3 part 2), the pipeline and MoE compositions
-(item 6.4).
+only, as in JAX). MoE towers compose (``moe_aux_weight``, experts
+replicated). Not ported yet: the pipeline composition (ROADMAP.md queue A
+item 6.4 part 2).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from distributed_sigmoid_loss_tpu_torch.models.convert import JaxLeaf, jax_leaves
+from distributed_sigmoid_loss_tpu_torch.parallel.adaptive_compression import (
+    CODEC_BLOCK,
+    CODEC_GROUPS,
+    N_SCHEMES,
+    adaptive_axis_mean,
+    default_codec,
+    leaf_sizes,
+    table_payload_bytes,
+)
 from distributed_sigmoid_loss_tpu_torch.parallel.api import all_reduce_mean_, make_per_shard_loss
 from distributed_sigmoid_loss_tpu_torch.parallel.compression import (
     compressed_axis_mean,
@@ -37,6 +60,7 @@ from distributed_sigmoid_loss_tpu_torch.parallel.mesh import (
     axis_group,
     axis_size,
     dcn_axis as _dcn_axis,
+    is_distributed,
 )
 from distributed_sigmoid_loss_tpu_torch.parallel.update_shard import resolve_update_sharding
 from distributed_sigmoid_loss_tpu_torch.train.train_step import (
@@ -49,7 +73,9 @@ from distributed_sigmoid_loss_tpu_torch.train.train_step import (
 )
 from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig
 
-__all__ = ["make_compressed_train_step", "validate_compressed_step_args", "with_error_feedback"]
+__all__ = ["make_compressed_train_step", "validate_compressed_step_args", "with_error_feedback",
+           "with_adaptive_compression", "stage_scheme", "stage_codec", "compression_leaves",
+           "adopt_rank0_decision"]
 
 
 def with_error_feedback(state: TrainState) -> TrainState:
@@ -64,6 +90,130 @@ def with_error_feedback(state: TrainState) -> TrainState:
                             device=p.device)
                 for i, p in enumerate(state.params)]
     return state
+
+
+def compression_leaves(model: nn.Module, layout=None) -> list[JaxLeaf]:
+    """The adaptive sync's tensors, in the order its scheme table, stats
+    and ``compression_scheme_hist`` index them: the JAX params tree's leaves
+    (``models.convert.jax_leaves``) sorted as ``jax.tree.leaves`` orders a
+    dict tree (by key at every level). Under a ``"full"`` update-sharding
+    ``layout`` each member parameter is a leaf of its own (its rows, in the
+    port's layout), in that same order."""
+    leaves = sorted(jax_leaves(model), key=lambda leaf: tuple(leaf.path.split("/")))
+    if layout is None or layout.mode != "full":
+        return leaves
+    return [JaxLeaf(path=leaf.path, members=(i,), stacked=False, transposed=False)
+            for leaf in leaves for i in leaf.members]
+
+
+def _leaf_shape(leaf: JaxLeaf, shapes) -> tuple:
+    """The shape of ``leaf`` in its own layout, from its members' shapes."""
+    shape = tuple(shapes[leaf.members[0]])
+    if leaf.transposed:
+        shape = shape[::-1]
+    return ((len(leaf.members),) + shape) if leaf.stacked else shape
+
+
+def with_adaptive_compression(state: TrainState, learned: bool = False) -> TrainState:
+    """Attach error feedback and the adaptive compression's carry
+    ``state.comp`` (JAX's ``with_adaptive_compression``), for
+    ``make_compressed_train_step(compression="adaptive" | "learned")``.
+
+    ``state.ef``: zeroed f32 residuals, one per tensor of
+    :func:`compression_leaves` in its layout. ``state.comp``: ``scheme``
+    (int32[n_tensors] on the host, every tensor on int8 until
+    :func:`stage_scheme`; the step reads it on the host to pick each
+    tensor's rung) and the step-written stats ``gnorm``, ``gvar`` and
+    ``ef_ratio`` (f32[n_tensors] on the device). ``learned=True`` adds the
+    learned rung's slots: ``codec_enc`` (f32[G, B, L]) and ``codec_dec``
+    (f32[G, L, B]), the DCT cold start until :func:`stage_codec`, and the
+    stats ``blockmoment`` (f32[G, B, B]) and ``codec_recon_err`` (0-d). Both
+    are derived state: checkpoints leave them out, and a restore resets
+    their step-written parts (``train/checkpoint.py``)."""
+    layout = state.layout
+    full = state.update_sharding == "full"
+    params = state.params
+    device = params[0].device
+    leaves = compression_leaves(state.model, layout)
+    shapes = [layout.local_shape(i) if full else tuple(p.shape) for i, p in enumerate(params)]
+    state.ef = [torch.zeros(_leaf_shape(leaf, shapes), dtype=torch.float32, device=device)
+                for leaf in leaves]
+    n = len(leaves)
+    comp = {"scheme": torch.zeros(n, dtype=torch.int32),
+            **{k: torch.zeros(n, dtype=torch.float32, device=device)
+               for k in ("gnorm", "gvar", "ef_ratio")}}
+    if learned:
+        codec = default_codec()
+        comp["codec_enc"] = torch.as_tensor(codec["enc"], device=device)
+        comp["codec_dec"] = torch.as_tensor(codec["dec"], device=device)
+        comp["blockmoment"] = torch.zeros((CODEC_GROUPS, CODEC_BLOCK, CODEC_BLOCK),
+                                          dtype=torch.float32, device=device)
+        comp["codec_recon_err"] = torch.zeros((), dtype=torch.float32, device=device)
+    state.comp = comp
+    return state
+
+
+def stage_scheme(state: TrainState, scheme) -> TrainState:
+    """Stage a scheme table (int32[n_tensors], a controller's decision) into
+    ``state.comp`` for the next step. Every rank of the dcn group must stage
+    the same table (:func:`adopt_rank0_decision`)."""
+    if state.comp is None:
+        raise ValueError(
+            "state has no comp carry — create it with "
+            "with_adaptive_compression(state)"
+        )
+    table = torch.as_tensor(np.asarray(scheme, dtype=np.int32).reshape(-1))
+    if table.numel() != state.comp["scheme"].numel():
+        raise ValueError(f"scheme table has {table.numel()} entries, the carry "
+                         f"{state.comp['scheme'].numel()}")
+    state.comp = dict(state.comp, scheme=table)
+    return state
+
+
+def stage_codec(state: TrainState, codec) -> TrainState:
+    """Stage learned-rung weights (``{"enc": f32[G, B, L], "dec": f32[G, L,
+    B]}``, a ``CodecTrainer``'s) into ``state.comp`` for the next step."""
+    if state.comp is None or "codec_enc" not in state.comp:
+        raise ValueError(
+            "state has no codec carry — create it with "
+            "with_adaptive_compression(state, learned=True)"
+        )
+    device = state.comp["codec_enc"].device
+    state.comp = dict(state.comp,
+                      codec_enc=torch.as_tensor(np.asarray(codec["enc"], np.float32),
+                                                device=device),
+                      codec_dec=torch.as_tensor(np.asarray(codec["dec"], np.float32),
+                                                device=device))
+    return state
+
+
+def adopt_rank0_decision(controller, device, codec: dict | None = None) -> dict | None:
+    """World rank 0's table, error budget and (with ``codec``) codec on
+    every rank, in one broadcast: each rank's controller times its own steps,
+    so its bandwidth estimate, and with it its table, may differ from the
+    others', and members with different tables would gather payloads of
+    different sizes. Sets ``controller.scheme`` and
+    ``controller.last_error_budget``; returns the codec. A no-op on one
+    process."""
+    if not is_distributed() or dist.get_world_size() == 1:
+        return codec
+    parts = [np.asarray(controller.scheme, np.float64),
+             np.asarray([controller.last_error_budget], np.float64)]
+    if codec is not None:
+        parts += [np.asarray(codec["enc"], np.float64).ravel(),
+                  np.asarray(codec["dec"], np.float64).ravel()]
+    flat = torch.as_tensor(np.concatenate(parts), device=device)
+    dist.broadcast(flat, src=0)
+    flat = flat.cpu().numpy()
+    n = len(controller.scheme)
+    controller.scheme = flat[:n].astype(np.int32)
+    controller.last_error_budget = float(flat[n])
+    if codec is None:
+        return None
+    enc = np.asarray(codec["enc"])
+    m = enc.size
+    return {"enc": flat[n + 1:n + 1 + m].astype(np.float32).reshape(enc.shape),
+            "dec": flat[n + 1 + m:].astype(np.float32).reshape(np.asarray(codec["dec"]).shape)}
 
 
 def validate_compressed_step_args(
@@ -178,19 +328,30 @@ def make_compressed_train_step(
     """Build ``step(state, batch) -> (state, metrics)``, run by every rank of
     the ambient ``(dcn, dp)`` process grid on its own rows.
 
-    ``compression``: ``"int8"`` (4× fewer dcn bytes) or ``"topk"`` (keep the
+    ``compression``: ``"int8"`` (4× fewer dcn bytes), ``"topk"`` (keep the
     ``topk_frac`` largest-|g| entries of each tensor, exactly; needs error
-    feedback). With ``error_feedback`` create the state with
-    :func:`with_error_feedback`. The update sharding is the state's
+    feedback), or the adaptive ladder: ``"adaptive"`` (int8, int4, sign1,
+    top-k at ``topk_frac`` and at a quarter of it, per tensor by the table
+    in ``state.comp``) and ``"learned"`` (the ladder with the learned rung,
+    its codec in ``state.comp``). With ``error_feedback`` create the state
+    with :func:`with_error_feedback`, or for the adaptive ladder
+    :func:`with_adaptive_compression`. The update sharding is the state's
     (``create_train_state(..., update_sharding=...)``): ``"full"``
     reduce-scatters over dp, compresses this rank's rows, and updates and
     publishes them; ``"zero1"`` shards the moments only.
+
+    ``moe_aux_weight`` (MoE towers, experts replicated) adds that weight
+    times the mean router aux loss to the objective, each rank's over its
+    own tokens, as JAX's compressed step.
 
     Metrics: the regular step's (:func:`~distributed_sigmoid_loss_tpu_torch.train.train_step.step_metrics`),
     plus ``ef_norm`` / ``ef_residual_norm`` (the global norm of every
     member's residual) with error feedback, ``dcn_wire_bytes`` (one member's
     dcn egress a step: its payload times the n_dcn − 1 members that receive
-    it) and ``bits_per_param``.
+    it), ``bits_per_param`` and ``moe_aux`` with MoE. The adaptive ladder
+    adds ``compression_scheme_hist`` (tensors on each rung this step), with
+    ``"learned"`` ``codec_recon_err``, and writes the step's per-tensor
+    stats into ``state.comp`` for the controller.
     """
     validate_trainable_quant(model)
     cached_accum, acc_dt = validate_compressed_step_args(
@@ -199,19 +360,13 @@ def make_compressed_train_step(
         gradcache_embed_dtype=gradcache_embed_dtype, compression=compression,
         error_feedback=error_feedback, topk_frac=topk_frac, loss_variant=loss_cfg.variant,
     )
-    if compression in ("adaptive", "learned"):
-        raise NotImplementedError(
-            f"compression={compression!r}: the adaptive compression ladder is not ported yet: "
-            "ROADMAP.md queue A item 6.3 part 2"
-        )
-    if moe_aux_weight is not None:
-        raise NotImplementedError(
-            "moe_aux_weight: the MoE towers are not ported yet: ROADMAP.md queue A item 6.4"
-        )
     if pp_microbatches:
         raise NotImplementedError(
-            "pp_microbatches: the pipeline towers are not ported yet: ROADMAP.md queue A item 6.4"
+            "pp_microbatches: the pipeline towers are not ported yet: ROADMAP.md queue A item "
+            "6.4 part 2"
         )
+    adaptive = compression in ("adaptive", "learned")
+    learned = compression == "learned"
     axis = loss_cfg.axis_name
     per_shard = make_per_shard_loss(
         family=loss_cfg.family, variant="all_gather", axis_name=(dcn_axis, axis),
@@ -219,25 +374,61 @@ def make_compressed_train_step(
         loss_impl=loss_cfg.loss_impl, quant=resolve_loss_quant(model, loss_cfg),
     )
     grads_of = make_batch_grads(model, per_shard, axis, accum_steps, cached_accum, acc_dt,
-                                gradcache_embed_dtype)
+                                gradcache_embed_dtype, moe_aux_weight)
+    views = {}  # update-sharding mode -> compression_leaves
 
-    def wire_bytes(params, n_dcn: int, layout, full: bool) -> int:
-        """One member's fixed dcn egress a step (JAX ``_fixed_wire_bytes``):
-        each tensor's payload (its rows under full sharding) times the
-        n_dcn − 1 members that receive it."""
+    def fixed_payload(params, layout, full: bool) -> int:
+        """One member's fixed dcn payload a step (JAX ``_fixed_wire_bytes``
+        before its n_dcn − 1 fan-out): each tensor's, its rows under full
+        sharding."""
         total = 0
         for i, p in enumerate(params):
             size = p.numel()
             if full and layout.sharded[i]:
                 size = layout.rows(i) * (size // p.shape[0])
             total += payload_bytes(size, compression, topk_frac)
-        return (n_dcn - 1) * total
+        return total
+
+    def adaptive_hop(state, grads, dcn_group, dp_group, full):
+        """The adaptive dcn hop on the compression view of ``grads``; the
+        means back in parameter order, the residuals and stats into the
+        state. Returns ``(grads, wire_bytes, scheme_in, stats)``."""
+        if state.update_sharding not in views:
+            views[state.update_sharding] = compression_leaves(model, state.layout)
+        leaves = views[state.update_sharding]
+        comp = state.comp
+        codec = {"enc": comp["codec_enc"], "dec": comp["codec_dec"]} if learned else None
+        scheme_in = comp["scheme"]
+        means, new_ef, stats, wire = adaptive_axis_mean(
+            [leaf.gather(grads) for leaf in leaves], dcn_axis, state.ef,
+            scheme_in.numpy(), topk_frac=topk_frac, codec=codec, group=dcn_group)
+        if full:
+            # Each member's stats are of its rows: one figure per tensor is
+            # their mean over dp (JAX's pmean).
+            all_reduce_mean_(list(stats.values()), dp_group)
+        out = list(grads)
+        for leaf, mean in zip(leaves, means):
+            for i, part in zip(leaf.members, leaf.parts(mean)):
+                out[i] = part.contiguous()
+        state.ef = new_ef
+        state.comp = dict(comp, **stats)
+        return out, wire, scheme_in, stats
 
     def step(state: TrainState, batch: dict):
         if error_feedback and state.ef is None:
             raise ValueError(
                 "error_feedback=True but state.ef is None — create the state "
                 "with with_error_feedback(state, mesh)"
+            )
+        if adaptive and state.comp is None:
+            raise ValueError(
+                f"compression={compression!r} but state.comp is None — "
+                "create the state with with_adaptive_compression(state)"
+            )
+        if learned and "codec_enc" not in state.comp:
+            raise ValueError(
+                "compression='learned' but state.comp has no codec slots — "
+                "create the state with with_adaptive_compression(state, learned=True)"
             )
         dp_group, dcn_group = axis_group(axis), axis_group(dcn_axis)
         n_dcn = axis_size(dcn_group)
@@ -251,34 +442,54 @@ def make_compressed_train_step(
         else:
             all_reduce_mean_(grads, dp_group)
         # The dcn hop: compressed, with this member's residuals.
-        grads, new_ef = compressed_axis_mean(
-            grads, dcn_axis, state.ef if error_feedback else None, method=compression,
-            topk_frac=topk_frac, group=dcn_group)
-        loss = loss.reshape(1)
-        all_reduce_mean_([loss], axis_group((dcn_axis, axis)))
+        if adaptive:
+            grads, wire, scheme_in, stats = adaptive_hop(state, grads, dcn_group, dp_group, full)
+            new_ef = state.ef
+        else:
+            grads, new_ef = compressed_axis_mean(
+                grads, dcn_axis, state.ef if error_feedback else None, method=compression,
+                topk_frac=topk_frac, group=dcn_group)
+        scalars = torch.stack([loss, lp["moe_aux"]]) if "moe_aux" in lp else loss.reshape(1)
+        all_reduce_mean_([scalars], axis_group((dcn_axis, axis)))
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state, layout,
                                                 grads_sharded=full)
         state.step += 1
-        metrics = step_metrics(loss[0], lp, grad_norm, update_norm, params)
+        metrics = step_metrics(scalars[0], lp, grad_norm, update_norm, params)
+        if moe_aux_weight is not None:
+            metrics["moe_aux"] = scalars[1]
         device = params[0].device
         if error_feedback:
             state.ef = new_ef
             # Every member's residual once: summed over dcn, and over dp for
             # the residuals of which each rank holds only its rows.
+            if adaptive:
+                rows = [full and layout.sharded[leaf.members[0]]
+                        for leaf in views[state.update_sharding]]
+            else:
+                rows = [full and layout.sharded[i] for i in range(len(new_ef))]
             sq = torch.zeros(2, dtype=torch.float32, device=device)
-            for i, e in enumerate(new_ef):
-                sq[int(full and layout.sharded[i])] += e.square().sum()
+            for e, sharded in zip(new_ef, rows):
+                sq[int(sharded)] += e.square().sum()
             if n_dcn > 1:
                 dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=dcn_group)
             if full:
                 dist.all_reduce(sq[1:], op=dist.ReduceOp.SUM, group=dp_group)
             metrics["ef_norm"] = torch.sqrt(sq.sum())
             metrics["ef_residual_norm"] = metrics["ef_norm"]
-        fixed = wire_bytes(params, n_dcn, layout, full)
-        n_params = sum(p.numel() for p in params)
-        metrics["dcn_wire_bytes"] = torch.tensor(float(fixed), device=device)
-        metrics["bits_per_param"] = torch.tensor(fixed * 8.0, device=device) / (
-            (n_dcn - 1) * n_params)
+        if adaptive:
+            payload = table_payload_bytes(leaf_sizes(state.ef), scheme_in.numpy(), topk_frac)
+            metrics["compression_scheme_hist"] = torch.bincount(
+                scheme_in.clamp(0, N_SCHEMES - 1).long(), minlength=N_SCHEMES)
+            if learned:
+                metrics["codec_recon_err"] = stats["codec_recon_err"]
+        else:
+            payload = fixed_payload(params, layout, full)
+            wire = (n_dcn - 1) * payload
+        metrics["dcn_wire_bytes"] = torch.tensor(float(wire), dtype=torch.float32, device=device)
+        # One member's payload bits a parameter: JAX's wire · 8 / ((n_dcn − 1)
+        # · n_params), defined at n_dcn = 1 too.
+        metrics["bits_per_param"] = torch.tensor(payload * 8.0 / sum(leaf_sizes(params)),
+                                                 dtype=torch.float32, device=device)
         return state, metrics
 
     return step

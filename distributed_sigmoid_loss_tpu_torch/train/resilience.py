@@ -32,6 +32,7 @@ import torch.distributed as dist
 from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_size, is_distributed
 from distributed_sigmoid_loss_tpu_torch.train.checkpoint import (
     HostCopy,
+    reset_derived,
     restore_checkpoint,
     save_checkpoint,
     state_tensors,
@@ -238,7 +239,9 @@ def train_resilient(
     and the optimizer's ``count``), taken before each step that is checked,
     and puts both back. The copy is taken only under ``"skip"`` and only
     while no checkpoint exists; its cost is one device-to-host copy of the
-    state a checked step.
+    state a checked step. Either rollback zeroes the compressed step's
+    derived state (``checkpoint.reset_derived``: the residuals and the
+    adaptive carry's stats), which the poisoned step overwrote.
 
     ``check_finite_every``: the check reads the loss on the host, which
     waits for the device; 1 checks every step, k every k-th (a divergence is
@@ -324,6 +327,7 @@ def train_resilient(
                             t.copy_(pre_tensors[k])
                     if pre_counters is not None:
                         state.step, state.opt_state.count = pre_counters
+                    reset_derived(state)
                 # "skip": drop the poisoned update, go on with the next batch.
                 step += 1
                 continue

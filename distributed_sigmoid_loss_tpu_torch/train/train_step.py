@@ -46,8 +46,8 @@ Under a ``(dp, sp)`` process grid the batch is split over dp only, and the
 loss's collectives and the gradient mean run over the dp group; the ranks
 of an sp group compute the same gradients.
 
-Paths of the JAX step that are not ported raise ``NotImplementedError``
-naming their ROADMAP rows: the MoE aux loss and pipeline microbatches.
+Pipeline microbatches, the one path of the JAX step not ported, raise
+``NotImplementedError`` naming its ROADMAP row.
 """
 
 from __future__ import annotations
@@ -701,8 +701,10 @@ class TrainState:
     its state, the number of updates applied, the parameters' EMA (``None``
     = disabled; one tensor per parameter, ``train/ema.py``), the update
     sharding's layout (``None`` = replicated; the sharded parameters'
-    moments are this rank's rows) and the compressed step's error-feedback
-    residuals (``None`` = none; derived state, never checkpointed)."""
+    moments are this rank's rows), the compressed step's error-feedback
+    residuals (``None`` = none) and the adaptive compression's carry
+    ``comp`` (``None`` = none; ``train.compressed_step.with_adaptive_compression``).
+    ``ef`` and ``comp`` are derived state, never checkpointed."""
 
     model: nn.Module
     tx: AdamW | Lion | Adafactor
@@ -711,6 +713,7 @@ class TrainState:
     ema: list[torch.Tensor] | None = None
     layout: UpdateLayout | None = None
     ef: list[torch.Tensor] | None = None
+    comp: dict | None = None
 
     @property
     def update_sharding(self) -> str:
@@ -764,11 +767,15 @@ def _grads_of(params) -> list[torch.Tensor]:
 
 
 def run_gradcache(model: nn.Module, micro_images, micro_tokens, island, accum_steps: int,
-                  acc_dt=None, embed_dtype: str | None = None):
+                  acc_dt=None, embed_dtype: str | None = None,
+                  moe_aux_weight: float | None = None):
     """The GradCache recipe (Gao et al. 2021), ported from the JAX
     package's ``run_gradcache``: returns ``(loss, lp, grads)``, this rank's
     loss of the whole (M·mb) table, the loss scalars of the last microbatch
     and the gradients of that loss (f32, in ``model.parameters()`` order).
+    With ``moe_aux_weight`` the gradients also carry that weight times the
+    mean router aux loss (each microbatch's 1/M of it, in pass 2), and
+    ``lp["moe_aux"]`` is that mean; ``loss`` leaves it out, as JAX's.
 
     ``micro_images`` / ``micro_tokens``: (M, mb, ...) microbatches.
     ``island(zis, zts, t_prime, bias)`` is the loss of the stacked (M, mb, d)
@@ -802,18 +809,37 @@ def run_gradcache(model: nn.Module, micro_images, micro_tokens, island, accum_st
         for x, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))
     )
     acc = accum_zeros(params, acc_dt)
+    auxes = []
     for i in range(accum_steps):
         zi, zt, lp_ = model(micro_images[i], micro_tokens[i])
         surrogate = (zi * g_zis[i].to(zi.dtype)).sum() + (zt * g_zts[i].to(zt.dtype)).sum()
         surrogate = surrogate + (lp_["t_prime"] * g_tp + lp_["bias"] * g_bias) / accum_steps
+        if moe_aux_weight is not None:
+            aux = _moe_aux(lp_)
+            surrogate = surrogate + moe_aux_weight * aux / accum_steps
+            auxes.append(aux.detach().float())
         surrogate.backward()
         accum_add(acc, _grads_of(params))
+    if auxes:
+        lp["moe_aux"] = torch.stack(auxes).mean()
     return loss.detach().float(), lp, accum_finish(acc, params)
+
+
+def _moe_aux(lp: dict) -> torch.Tensor:
+    """The towers' mean router aux loss (``SigLIP.forward``'s
+    ``lp["moe_aux"]``); JAX's refusal when the model has no MoE layer."""
+    if "moe_aux" not in lp:
+        raise ValueError(
+            "moe_aux_weight is set but the model sowed no moe_aux_loss — "
+            "enable moe_experts on the tower configs"
+        )
+    return lp["moe_aux"]
 
 
 def make_batch_grads(model: nn.Module, per_shard: Callable, axis_name, accum_steps: int = 1,
                      cached_accum: bool = False, acc_dt=None,
-                     gradcache_embed_dtype: str | None = None) -> Callable:
+                     gradcache_embed_dtype: str | None = None,
+                     moe_aux_weight: float | None = None) -> Callable:
     """``grads_of(params, batch) -> (loss, lp, grads)``: this rank's loss
     (the mean over its microbatches), the loss scalars before the update and
     its gradients (f32, in ``params`` order), before any sync. One forward
@@ -821,14 +847,19 @@ def make_batch_grads(model: nn.Module, per_shard: Callable, axis_name, accum_ste
     ``[i·c, (i+1)·c)``, JAX's split over ``axis_name``) summed into an
     ``acc_dt`` accumulator by :func:`accum_add`, or with ``cached_accum``
     :func:`run_gradcache`. ``per_shard(zimg, ztxt, t_prime, bias)`` is the
-    loss with its collectives. Shared by the regular and the compressed
-    step, which differ only in how they sync the result."""
+    loss with its collectives. With ``moe_aux_weight`` the objective (and
+    the loss returned) adds that weight times the towers' mean router aux
+    loss, and ``lp["moe_aux"]`` is its mean over the microbatches. Shared by
+    the regular and the compressed step, which differ only in how they sync
+    the result."""
 
     def loss_and_grads(params, images, tokens):
         for p in params:
             p.grad = None
         zimg, ztxt, lp = model(images, tokens)
         loss = per_shard(zimg, ztxt, lp["t_prime"], lp["bias"])
+        if moe_aux_weight is not None:
+            loss = loss + moe_aux_weight * _moe_aux(lp)
         loss.backward()
         return (loss.detach().float(), {k: v.detach().clone() for k, v in lp.items()},
                 _grads_of(params))
@@ -846,15 +877,25 @@ def make_batch_grads(model: nn.Module, per_shard: Callable, axis_name, accum_ste
         micro_images = microbatch_split(images, accum_steps, axis_name, what="accum_steps")
         micro_tokens = microbatch_split(tokens, accum_steps, axis_name, what="accum_steps")
         if cached_accum:
-            return run_gradcache(model, micro_images, micro_tokens, island, accum_steps,
-                                 acc_dt, gradcache_embed_dtype)
+            loss, lp, grads = run_gradcache(model, micro_images, micro_tokens, island,
+                                            accum_steps, acc_dt, gradcache_embed_dtype,
+                                            moe_aux_weight)
+            if moe_aux_weight is not None:
+                # The objective's aux term, reported as the other paths do.
+                loss = loss + moe_aux_weight * lp["moe_aux"]
+            return loss, lp, grads
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         acc = accum_zeros(params, acc_dt)
+        auxes = []
         for i in range(accum_steps):
             loss, lp, grads = loss_and_grads(params, micro_images[i], micro_tokens[i])
             loss_sum = loss_sum + loss
+            if "moe_aux" in lp:
+                auxes.append(lp["moe_aux"].float())
             accum_add(acc, grads)
             del grads
+        if auxes:
+            lp["moe_aux"] = torch.stack(auxes).mean()
         return loss_sum / accum_steps, lp, accum_finish(acc, params, scale=accum_steps)
 
     return grads_of
@@ -923,6 +964,13 @@ def make_train_step(
     ``loss_cfg.use_pallas`` the loss's blocks take the kernel's int8 mode
     (:func:`resolve_loss_quant`); ``quant="int8"`` towers are refused
     (:func:`validate_trainable_quant`).
+
+    ``moe_aux_weight`` (with ``moe_experts > 0`` towers) adds that weight
+    times the mean router aux loss of every MoE layer to the objective, and
+    the metric ``moe_aux`` (its mean over microbatches and ranks). Each rank
+    takes Switch eq. 4 over its own tokens (the per-replica estimator, as
+    JAX's compressed step); JAX's regular step takes it over the global
+    batch, which differs at W > 1 (ROADMAP.md, deliberate differences).
     """
     validate_trainable_quant(model)
     cached_accum, acc_dt = validate_step_args(
@@ -933,13 +981,10 @@ def make_train_step(
         moe_aux_weight=moe_aux_weight,
         gradcache_embed_dtype=gradcache_embed_dtype,
     )
-    if moe_aux_weight is not None:
-        raise NotImplementedError(
-            "moe_aux_weight: the MoE towers are not ported yet: ROADMAP.md queue A item 6.4"
-        )
     if pp_microbatches:
         raise NotImplementedError(
-            "pp_microbatches: the pipeline towers are not ported yet: ROADMAP.md queue A item 6.4"
+            "pp_microbatches: the pipeline towers are not ported yet: ROADMAP.md queue A item "
+            "6.4 part 2"
         )
     per_shard = make_per_shard_loss(
         family=loss_cfg.family, variant=loss_cfg.variant, axis_name=loss_cfg.axis_name,
@@ -948,20 +993,21 @@ def make_train_step(
         ring_overlap=loss_cfg.ring_overlap, quant=resolve_loss_quant(model, loss_cfg),
     )
     grads_of = make_batch_grads(model, per_shard, loss_cfg.axis_name, accum_steps,
-                                cached_accum, acc_dt, gradcache_embed_dtype)
+                                cached_accum, acc_dt, gradcache_embed_dtype, moe_aux_weight)
 
     def step(state: TrainState, batch: dict):
         params = state.params
         layout = state.layout
         full = state.update_sharding == "full"
         loss, lp, grads = grads_of(params, batch)
-        # DDP: one average over the data axis per step, the loss riding
-        # along; under full update sharding each rank keeps its rows.
-        loss = loss.reshape(1)
+        # DDP: one average over the data axis per step, the loss (and the
+        # router aux) riding along; under full update sharding each rank
+        # keeps its rows.
+        scalars = torch.stack([loss, lp["moe_aux"]]) if "moe_aux" in lp else loss.reshape(1)
         if layout is None:
-            all_reduce_mean_([*grads, loss], axis_group(loss_cfg.axis_name))
+            all_reduce_mean_([*grads, scalars], axis_group(loss_cfg.axis_name))
         else:
-            all_reduce_mean_([loss], axis_group(loss_cfg.axis_name))
+            all_reduce_mean_([scalars], axis_group(loss_cfg.axis_name))
             grads = layout.mean_grads(grads, scatter=full)
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state, layout,
                                                 grads_sharded=full)
@@ -973,7 +1019,10 @@ def make_train_step(
                 )
             update_ema(state.ema, params, step=state.step, decay=ema_decay)
         state.step += 1
-        return state, step_metrics(loss[0], lp, grad_norm, update_norm, params)
+        metrics = step_metrics(scalars[0], lp, grad_norm, update_norm, params)
+        if moe_aux_weight is not None:
+            metrics["moe_aux"] = scalars[1]
+        return state, metrics
 
     return step
 

@@ -6,9 +6,10 @@ field so one config means the same model and run in both packages.
 ``remat`` and ``remat_policy`` shape the backward (``models/transformer.py``);
 ``scan_layers`` names the JAX parameter layout, which
 ``models.convert.params_from_jax`` reads either way; Adafactor's per-leaf
-statistics follow it (``models.convert.jax_leaves``). Fields whose paths are
-not ported yet are refused by :func:`check_supported` and, for training, by
-``train.make_optimizer`` / ``train.make_train_step``.
+statistics follow it (``models.convert.jax_leaves``), as does the adaptive
+compression's tensor order. :func:`check_supported` refuses ``quant`` and
+``quant_train`` together; :func:`moe_config` hands a tower's MoE fields to
+its blocks.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ class ViTConfig:
     sequence_parallel_axis: str | None = None
     sequence_parallel_impl: Literal["ring", "ulysses"] = "ring"
     # Mixture-of-experts: >0 swaps each block's dense MLP for that many
-    # experts. Not ported yet.
+    # experts (models/moe.py, experts replicated).
     moe_experts: int = 0
     moe_num_selected: int = 1  # 1 = Switch top-1, 2 = top-2 with renormalized gates
     moe_capacity_factor: float = 1.25
@@ -234,9 +235,15 @@ class TrainConfig:
 
 
 def check_supported(cfg: "ViTConfig | TextConfig") -> None:
-    """Raise ``NotImplementedError`` for tower fields whose paths the port
-    does not have yet (see ROADMAP.md, queue A), and ``ValueError`` for
-    ``quant`` and ``quant_train`` set together."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("moe_experts > 0: the MoE MLP is not ported yet")
+    """Raise ``ValueError`` for ``quant`` and ``quant_train`` set together."""
     tower_quant_mode(cfg)  # quant and quant_train together raise
+
+
+def moe_config(cfg: "ViTConfig | TextConfig") -> dict | None:
+    """A tower's MoE fields as the blocks take them, or None when its MLPs
+    are dense."""
+    if cfg.moe_experts <= 0:
+        return None
+    return {"moe_experts": cfg.moe_experts, "moe_num_selected": cfg.moe_num_selected,
+            "moe_capacity_factor": cfg.moe_capacity_factor,
+            "moe_group_size": cfg.moe_group_size}

@@ -8,8 +8,10 @@ on the CPU (``--cpu-devices 1``), in process, beside the JAX package's CLI.
   uninterrupted run does, bit for bit; ``eval`` restores it with and without
   ``--ema`` (the EMA weights are the ones evaluated), and refuses ``--ema``
   on a checkpoint without them.
-- Every flag of an unported path exits 2 naming its ROADMAP.md item; without
-  ``--cpu-devices 1`` and without CUDA the commands exit non-zero.
+- Every flag of an unported path exits 2 naming its ROADMAP.md item; the
+  adaptive compression and MoE flags refuse incoherent sets with JAX's
+  messages and run on gloo ranks, every rank printing the same lines;
+  without ``--cpu-devices 1`` and without CUDA the commands exit non-zero.
 - ``tokenizer`` writes the JAX command's vocab JSON byte for byte.
 
 The JAX CLI runs twice in this file (one train, one tokenizer), each in a
@@ -158,14 +160,9 @@ def test_eval_refuses_ema_on_a_checkpoint_without_it(runs):
 
 
 REFUSED = [
-    (["--pp", "2"], "6.4"), (["--pp-microbatches", "4"], "6.4"), (["--moe-experts", "4"], "6.4"),
-    (["--moe-aux-weight", "0.01"], "6.4"), (["--moe-group-size", "64"], "6.4"),
+    (["--pp", "2"], "6.4"), (["--pp-microbatches", "4"], "6.4"),
     (["--ep", "2"], "6.4"), (["--coordinator", "localhost:1234"], "6.4"),
     (["--num-processes", "2"], "6.4"), (["--process-id", "0"], "6.4"),
-    (["--grad-compression", "adaptive"], "6.3 part 2"),
-    (["--grad-compression", "learned"], "6.3 part 2"),
-    (["--dcn-budget-mbps", "100"], "6.3 part 2"),
-    (["--controller", "greedy"], "6.3 part 2"), (["--emu-dcn-mbps", "100"], "6.3 part 2"),
     (["--obs-dir", "d"], "6.5"), (["--watchdog", "warn"], "6.5"),
 ]
 
@@ -265,10 +262,84 @@ def test_train_compressed_and_sharded_on_gloo_ranks(tmp_path):
             < ranks[0]["int8"]["lines"][0]["dcn_wire_bytes"])
 
 
-@pytest.mark.parametrize("flags,item", [(["--moe-experts", "4"], "6.4")])
-def test_eval_refuses_unported_flags_naming_their_item(flags, item):
-    rc, _, err = run(["eval", "--tiny", "--cpu-devices", "1", *flags])
-    assert rc == 2 and f"ROADMAP.md queue A item {item}" in err
+def test_train_adaptive_and_moe_on_gloo_ranks(tmp_path):
+    """``train --dcn-slices 2 --grad-compression adaptive|learned`` (with
+    ``--dcn-budget-mbps``, ``--controller budgeted``, ``--emu-dcn-mbps``)
+    and ``train --moe-experts 4`` on four gloo ranks: every rank exits 0
+    with the same lines but for its own timing (``steps_per_sec``,
+    ``input_wait_frac``, ``dcn_bw_est_mbps``, ``dcn_measured_mbps``,
+    ``wire_savings_wallclock_ratio``); the adaptive lines carry JAX's wire
+    accounting and controller fields, and a starved budget narrows the
+    wire by the second step."""
+    import _torch_compression_workers as cw
+    import _torch_dist_worker as worker
+
+    base = ["train", *TINY, "--steps", "3", "--log-every", "1", "--dcn-slices", "2"]
+    runs = [("adaptive", base + ["--grad-compression", "adaptive", "--dcn-budget-mbps", "0.05"]),
+            ("learned", base + ["--grad-compression", "learned", "--controller", "budgeted",
+                                "--dcn-budget-mbps", "0.05"]),
+            ("emu", base + ["--grad-compression", "adaptive", "--emu-dcn-mbps", "50"]),
+            ("moe", ["train", *TINY, "--steps", "2", "--moe-experts", "4",
+                     "--moe-group-size", "8"])]
+    ranks = worker.spawn(cw.cli_worker, 4, (runs,), tmp_path, timeout_s=240)
+    timing = ("input_wait_frac", "steps_per_sec", "dcn_bw_est_mbps", "dcn_measured_mbps",
+              "wire_savings_wallclock_ratio")
+    for name, _ in runs:
+        assert all(rec[name]["rc"] == 0 for rec in ranks), ranks[0][name]["stderr"]
+        lines = [[{k: v for k, v in line.items() if k not in timing}
+                  for line in rec[name]["lines"]] for rec in ranks]
+        assert all(ls == lines[0] for ls in lines), name
+        assert len(lines[0]) == (2 if name == "moe" else 3)
+    for name in ("adaptive", "learned", "emu"):
+        recs = ranks[0][name]["lines"]
+        for line in recs:
+            assert len(line["compression_scheme_hist"]) == 6
+            for field in ("dcn_wire_bytes", "bits_per_param", "ef_residual_norm",
+                          "dcn_bw_est_mbps", "controller_mode", "error_budget"):
+                assert field in line, (name, field)
+        if name != "emu":
+            assert recs[1]["bits_per_param"] < recs[0]["bits_per_param"], name
+    assert {line["controller_mode"] for line in ranks[0]["learned"]["lines"]} == {"budgeted"}
+    assert all("codec_recon_err" in line for line in ranks[0]["learned"]["lines"])
+    for line in ranks[0]["emu"]["lines"]:
+        assert line["dcn_measured_mbps"] > 0 and line["wire_savings_wallclock_ratio"] > 0
+    for line in ranks[0]["moe"]["lines"]:
+        assert np.isfinite(line["loss"]) and line["moe_aux"] > 0
+
+
+@pytest.mark.parametrize("flags", [["--moe-experts", "4"]])
+def test_eval_runs_the_moe_towers(flags):
+    """``eval --moe-experts`` (ported since) scores MoE towers, JAX's keys."""
+    rc, out, err = run(["eval", "--tiny", "--cpu-devices", "1", "--batch", "8", *flags])
+    assert rc == 0, err
+    rec = ast.literal_eval(out.strip().splitlines()[-1])
+    assert {"i2t_recall@1", "t2i_recall@1", "zeroshot_top@1"} <= rec.keys()
+
+
+# The adaptive compression and MoE flags (ported since) on one process: the
+# incoherent sets exit with JAX's messages and codes.
+LADDER_REFUSED = [
+    ["--grad-compression", "adaptive"], ["--grad-compression", "learned"],
+    ["--dcn-budget-mbps", "100"], ["--controller", "greedy"], ["--emu-dcn-mbps", "100"],
+    ["--moe-aux-weight", "0.01"], ["--moe-group-size", "64"], ["--moe-experts", "1"],
+    ["--grad-compression", "adaptive", "--dcn-slices", "2", "--topk-frac", "1.5"],
+]
+
+
+@pytest.mark.parametrize("flags", LADDER_REFUSED, ids=[" ".join(f) for f in LADDER_REFUSED])
+def test_ladder_and_moe_flags_refuse_like_jax(flags):
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        try:
+            want_rc = jax_cli.main(["train", "--tiny", "--batch", "8", *flags])
+        except SystemExit as e:  # _model_config's refusals
+            want_rc = e.code
+    rc, out, got = run(["train", *TINY, *flags])
+    assert rc == want_rc and out == ""
+    if isinstance(want_rc, str):
+        return
+    assert want_rc == 2
+    assert got.strip().splitlines()[-1] == err.getvalue().strip().splitlines()[-1]
 
 
 @pytest.mark.parametrize("flags,match", [

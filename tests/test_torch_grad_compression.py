@@ -14,8 +14,8 @@
   metrics, parameters, the residuals' shard-local shapes and the wire
   bytes; its int8 gradient within JAX's int8 bound of the uncompressed one
   per tensor.
-- The refusals: JAX's config refusals word for word, and the schemes of
-  ROADMAP.md queue A item 6.3 part 2 and 6.4 raising NotImplementedError.
+- The refusals: JAX's config refusals word for word; the adaptive ladder
+  and the MoE composition (ported since) run a step on one process.
 """
 
 import dataclasses
@@ -344,15 +344,31 @@ def test_compressed_step_arg_refusals_match_jax(kwargs):
     assert str(perr.value) == str(jerr.value)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(compression="adaptive"), "6.3 part 2"),
-    (dict(compression="learned"), "6.3 part 2"),
-    (dict(moe_aux_weight=0.01), "6.4"),
+@pytest.mark.parametrize("kwargs,metric", [
+    (dict(compression="adaptive"), "compression_scheme_hist"),
+    (dict(compression="learned"), "codec_recon_err"),
+    (dict(moe_aux_weight=0.01), "moe_aux"),
 ])
-def test_unported_compressed_paths_raise(kwargs, match):
-    model = SigLIP(port_config(jax_config()), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        pcs.make_compressed_train_step(model, pc.LossConfig(variant="all_gather"), **kwargs)
+def test_ported_compressed_paths_run_on_one_process(kwargs, metric):
+    """The adaptive ladder and the MoE composition (no longer refused) run a
+    step at n_dcn = 1: finite metrics, the path's own among them
+    (``tests/test_torch_{adaptive_compression,learned_codec,moe}.py`` hold
+    them to JAX at W = 4)."""
+    from distributed_sigmoid_loss_tpu_torch.train import train_step as pts
+
+    jcfg = jax_config()
+    if "moe_aux_weight" in kwargs:
+        jcfg = dataclasses.replace(jcfg, vision=dataclasses.replace(jcfg.vision, moe_experts=2),
+                                   text=dataclasses.replace(jcfg.text, moe_experts=2))
+    model = SigLIP(port_config(jcfg), device="cpu")
+    state = pts.create_train_state(model, pts.make_optimizer(pc.TrainConfig(**TRAIN_CFG)))
+    adaptive = kwargs.get("compression") in ("adaptive", "learned")
+    state = (pcs.with_adaptive_compression(state, learned=kwargs.get("compression") == "learned")
+             if adaptive else pcs.with_error_feedback(state))
+    step = pcs.make_compressed_train_step(model, pc.LossConfig(variant="all_gather"), **kwargs)
+    state, m = step(state, {k: torch.from_numpy(v) for k, v in batch_np(jcfg, 4).items()})
+    assert metric in m
+    assert all(np.isfinite(v.float().numpy()).all() for v in m.values())
 
 
 def test_step_without_residuals_refuses_like_jax():

@@ -29,7 +29,7 @@ from distributed_sigmoid_loss_tpu.ops import flash_attention as jax_flash_module
 from distributed_sigmoid_loss_tpu.ops import pallas_short_attention as jax_short_module
 from distributed_sigmoid_loss_tpu.ops.sigmoid_loss import init_loss_params
 from distributed_sigmoid_loss_tpu.utils.config import SigLIPConfig as JaxSigLIPConfig
-from distributed_sigmoid_loss_tpu_torch.models import SigLIP, params_from_jax
+from distributed_sigmoid_loss_tpu_torch.models import MoeMlp, SigLIP, params_from_jax
 from distributed_sigmoid_loss_tpu_torch.models import transformer
 from distributed_sigmoid_loss_tpu_torch.ops import flash_attention, short_attention
 from distributed_sigmoid_loss_tpu_torch.utils import config as pc
@@ -190,7 +190,16 @@ def test_unsupported_configs_raise(overrides, match):
     ported since) now build and run: finite unit embeddings, with the
     projections' dot swapped for the int8 one. ``sequence_parallel_axis``
     (ported since) builds and, in a world of one process, gives the dense
-    towers' embeddings."""
+    towers' embeddings. ``moe_experts`` (ported since) builds each block's
+    MLP as the MoE layer and matches JAX's towers."""
+    if match == "moe_experts":
+        (zimg, ztxt), port, (images, tokens) = both_towers(tiny(**overrides))
+        assert isinstance(port.visual.encoder.blocks[0].moe, MoeMlp)
+        assert not hasattr(port.textual.encoder.blocks[0], "mlp")
+        pimg, ptxt = port_embed(port, images, tokens)
+        np.testing.assert_allclose(pimg, zimg, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(ptxt, ztxt, rtol=1e-4, atol=1e-5)
+        return
     if match == "sequence_parallel_axis":
         gen = np.random.default_rng(0)
         jcfg = tiny(**overrides)
@@ -374,7 +383,8 @@ def test_port_imports_nothing_of_jax():
         "need = ['obs.metrics_schema', 'obs.telemetry', 'serve.admission', 'serve.siege', "
         "'serve.shard_index', 'serve.ann', 'serve.swap', 'serve.fleet.leases', "
         "'serve.fleet.router', 'serve.fleet.waves', 'serve.fleet.scenarios', "
-        "'models.hf_import', 'models.towers', 'train.export']\n"
+        "'models.hf_import', 'models.towers', 'train.export', 'models.moe', "
+        "'parallel.adaptive_compression', 'parallel.dcn_emu']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"

@@ -495,9 +495,19 @@ def test_step_arg_refusals_match_jax(kwargs):
     (dict(moe_aux_weight=0.01), "MoE"),
 ])
 def test_unported_step_paths_raise(kwargs, match):
+    """``moe_aux_weight`` (ported since, with the MoE towers) builds, and on
+    a dense model refuses at the first step with JAX's message; on MoE
+    towers it trains (``tests/test_torch_moe.py`` holds it to JAX)."""
     model = SigLIP(port_config(tiny()), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        pts.make_train_step(model, **kwargs)
+    state = pts.create_train_state(model, pts.make_optimizer(pc.TrainConfig()))
+    step = pts.make_train_step(model, **kwargs)
+    batch = {k: torch.from_numpy(v) for k, v in batch_np(tiny(), 4).items()}
+    with pytest.raises(ValueError, match="sowed no moe_aux_loss"):
+        step(state, batch)
+    moe = SigLIP(port_config(tiny(moe_experts=2)), device="cpu")
+    state = pts.create_train_state(moe, pts.make_optimizer(pc.TrainConfig()))
+    state, metrics = pts.make_train_step(moe, **kwargs)(state, batch)
+    assert match == "MoE" and np.isfinite(float(metrics["moe_aux"]))
 
 
 # --- the int8 path ---------------------------------------------------------------
