@@ -10,7 +10,11 @@ and nothing is caught:
 
 1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``);
 2. build every kernel from ``distributed_sigmoid_loss_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, started together);
+   ``nvcc`` (one process per source, started together), while the export
+   commands of phases 17, 19 and 24 trace in processes of their own, the
+   five side by side (``[export_commands]``), joined, with the train-step
+   and MoE artifacts loaded here as their commands end, before anything
+   else runs on the card;
 3. hold each kernel (K1, the attention forward; K2, its backward, within
    one bf16 ulp, run twice for bitwise repeatability, its two kernels' p
    and ds bit for bit equal where the warpgroup body runs; K3, the
@@ -41,7 +45,7 @@ and nothing is caught:
 5. the training path (``run_train_path`` with ``TRAIN``): the headline
    train step (B/16, 16 accumulated
    microbatches of 128 pairs, ``save_hot`` remat, bf16 accumulator and Adam
-   first moment, ring loss at precision "default") for 3 steps, with the
+   first moment, ring loss at precision "default") for 2 steps, with the
    launch counts read around them; then one step's and one microbatch's
    device time by kernel, the gradient through the whole model with the kernels against
    both plain versions, and a 10-step fit of one fixed batch;
@@ -52,8 +56,8 @@ and nothing is caught:
 7. the headline step with ``LossConfig(use_pallas=True)`` for 2 steps, with
    the launch counts read around them, and the gradient through the whole
    model with the loss kernels against their plain versions;
-8. the training recipes (``[train_recipes]``): the headline step with the
-   head-batched backward K3, the softmax (InfoNCE) ring loss, GradCache's
+8. the training recipes (``[train_recipes]``): the headline step, its towers
+   at RECIPE_DEPTH, with the head-batched backward K3, the softmax (InfoNCE) ring loss, GradCache's
    exact global negatives over 16 × 128 with a bf16 stash and the EMA, for
    2 steps with Lion and 2 with Adafactor, with the launch counts read
    around them; then GradCache at 4 × 128 against one 512-pair batch and
@@ -127,7 +131,7 @@ and nothing is caught:
 15. real image-text data (``[train_data]``, ``cli.main`` in this process):
    BMP tar shards written here with ``struct`` (240 x 320 sinusoid mixes: 2
    train shards of 160 pairs, an eval shard of 256), each
-   ``decode_and_resize`` at 224 px timed; B/16 trained on them for 3 steps
+   ``decode_and_resize`` at 224 px timed; B/16 trained on them for 2 steps
    (TRAIN_DATA_FLAGS, a shuffle buffer, ``--eval-data``, an eval every 2
    steps), the counts read around the run against ``[train_pallas]``'s per
    microbatch plus K1 for each eval forward; the real-data convergence
@@ -150,9 +154,10 @@ and nothing is caught:
    512 small-integer rows (2 GiB) in 4 shards on cuda:0 with planted exact
    ties: ids and scores equal to the host's exact index, and its search
    time;
-17. AOT export (``[export_forward]``, ``cli.main`` in this process): the
-   ``export --what forward --model b16 --batch 64 --check`` command, in bf16
-   and with ``--quant int8``, each artifact replayed by ``load_forward``
+17. AOT export (``[export_forward]``): the ``export --what forward --model
+   b16 --batch 64 --check`` command (run in phase 2, through ``cli.main`` in
+   a process of its own), in bf16 and with ``--quant int8``, each artifact
+   replayed by ``load_forward``
    between two reads of the counts (24 K1 launches, nothing else; int8: 144
    int8 products and each row's cosine with bf16 > 0.995), equal to the
    live forward at ``--check``'s rtol 1e-5 / atol 1e-6, its export seconds,
@@ -163,8 +168,8 @@ and nothing is caught:
    ids equal to a live engine's on the same weights before and after one
    hot swap, ``compile_count`` unchanged;
 19. the train step exported (``[export_train_step]``): ``export --what
-   train_step --model b16 --batch 64 --check`` (JAX's defaults), then the
-   artifact replayed between two reads of the counts (K1 24, K2 24), loss
+   train_step --model b16 --batch 64 --check`` (JAX's defaults; the command
+   ran in phase 2), then the artifact replayed between two reads of the counts (K1 24, K2 24), loss
    and every state tensor equal to the live step's, device ms and peak
    memory of each;
 20. HF import (``[hf_import]``): a state dict under ``transformers``'
@@ -205,7 +210,23 @@ and nothing is caught:
    against bf16 row by row), and 2 headline steps of 2 x 128 pairs with
    the router aux under ``use_pallas`` (launches, ``moe_aux`` near 1, step
    ms, peak memory);
-24. a JSON line of the kernels' numbers and, last, the device record.
+24. the pipeline, expert parallelism, the MoE export and multi-process
+   start-up, each at the one-rank size of its code (what exists only across
+   ranks runs on gloo in the CPU tests): ``[export_moe]``, ``export
+   --model b16 --moe-experts 8 --batch 64 --check`` for the forward and the
+   train step (run in phase 2), each artifact replayed between two reads of the counts
+   (forward: K1 24; train step: K1 24, K2 24) against the live call;
+   ``[train_pp]``, 2 headline steps of 2 x 128 pairs at pp = 1 with 4
+   pipeline microbatches through GPipe and through 1F1B (every kernel
+   pinned), beside the non-pp step, and the whole model's gradient against
+   the non-pp one (bf16 cosine, f32 within 1e-4 of the largest magnitude);
+   ``[moe_ep]``, the MoE image tower at bucket 128 replicated, on the ep
+   code path at ep = 1 (the all-to-all path, its collectives the identity)
+   and with an ep = 2 layout emulated in one process
+   (K1 12 a tower call, rows at cosine >= 0.9999); ``[multihost]``, ``train
+   --coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0`` for one
+   B/16 step on NCCL, its launches equal to the plain command's;
+25. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -213,6 +234,7 @@ Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -245,6 +267,9 @@ K3_ULPS = 1
 # The training recipes: 2 steps with Lion, then 2 with Adafactor; GradCache
 # checked at 4 × 128 against one batch of 512 pairs.
 RECIPE_STEPS = 2
+# The recipes' towers: B/16 at full width, at this depth for the smoke's
+# time limit.
+RECIPE_DEPTH = 6
 GRADCACHE_CHECK = (4, 128)
 GRADCACHE_MIN_COSINE = 0.999
 K3_VS_K2_MIN_COSINE = 0.99999
@@ -440,10 +465,10 @@ TRAIN_CLI_MIN_COSINE, TRAIN_CLI_LOSS_RTOL = 0.999999, 1e-5
 TRAIN_CLI_KERNELS = ("short_attention_fwd", "short_attention_bwd", "sigmoid_loss_fwd",
                      "sigmoid_loss_bwd_img", "sigmoid_loss_bwd_txt")
 # Steps timed with and without an asynchronous save in flight.
-SAVE_IN_FLIGHT_STEPS = 3
+SAVE_IN_FLIGHT_STEPS = 2
 # Steps through the resilient loop with and without the skip rollback's
 # host copy; the NaN batch's position under "skip".
-SKIP_LOOP_STEPS, SKIP_POISON = 6, 3
+SKIP_LOOP_STEPS, SKIP_POISON = 5, 3
 # Real image-text data (``[train_data]``): BMP tar shards of HW sinusoid
 # mixes, SHARDS train shards of PAIRS pairs and one eval shard of a whole
 # batch (the holdout is one batch of --batch rows); B/16 as TRAIN_CLI_FLAGS
@@ -453,7 +478,7 @@ TRAIN_DATA_BATCH, TRAIN_DATA_ACCUM = 256, 2
 TRAIN_DATA_FLAGS = ("--model", "b16", "--batch", str(TRAIN_DATA_BATCH), "--accum",
                     str(TRAIN_DATA_ACCUM), "--accum-bf16", "--remat-policy", "save_hot",
                     "--use-pallas")
-TRAIN_DATA_STEPS, TRAIN_DATA_EVAL_EVERY, TRAIN_DATA_NATIVE_STEPS = 3, 2, 2
+TRAIN_DATA_STEPS, TRAIN_DATA_EVAL_EVERY, TRAIN_DATA_NATIVE_STEPS = 2, 2, 2
 # Images timed through decode_and_resize at 224 px.
 TRAIN_DATA_DECODE_TIMED = 64
 # The real-data convergence oracle (the JAX package's
@@ -472,7 +497,7 @@ JPEG_FIXTURE = os.path.join("tests", "fixtures", "jpeg_pairs.tar")
 # scenarios on the engine, the host-loss and split-brain drills, one scrape
 # of the live /metrics; then the sharded index alone on the card at 1M rows.
 SERVE_BENCH_FLAGS = ("--model", "b16", "--batch-buckets", "1,8,32,128", "--pool", "256",
-                     "--index-size", "256", "--requests", "512", "--clients", "8")
+                     "--index-size", "256", "--requests", "256", "--clients", "8")
 SERVE_BENCH_DRILL = ("--duration-s", "2")
 SERVE_BENCH_RUNS = (
     ("exact", ("--metrics-port", "0")),
@@ -539,16 +564,16 @@ class Training:
 K1_K2 = ("short_attention_fwd", "short_attention_bwd")
 K7 = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 # B/16 at 224 px: 256 images and 64 requests from 8 threads; the headline
-# step, 3 steps, then a 10-step fit. B/16 at 512 px: buckets to 32 (a 512 px
-# batch of 128 is 400 MB of f32 pixels), 64 images and 16 requests from 4
-# threads; 2 steps of 4 × 32 pairs.
+# step, 2 steps (the smoke's time limit), then a 10-step fit. B/16 at 512
+# px: buckets to 32 (a 512 px batch of 128 is 400 MB of f32 pixels), 64
+# images and 16 requests from 4 threads; 2 steps of 4 × 32 pairs.
 SERVE = Serving("main", "b16", (1, 8, 32, 128), 256, 64, 8, 0, "short_attention_fwd")
 SERVE_512 = Serving("serve_512", "b16_512", (1, 8, 32), 64, 16, 4, 3, "flash_attention_fwd")
 # B/16 at 224 px with int8 projections in both towers, the same seed (so the
 # same weights) as SERVE, held against them in bf16.
 SERVE_INT8 = Serving("serve_int8", "b16_int8", (1, 8, 32, 128), 256, 64, 8, 0,
                      "short_attention_fwd", reference="b16")
-TRAIN = Training("train", "headline", ACCUM, MICRO, 3, 0, "bfloat16", "bfloat16", K1_K2, 10)
+TRAIN = Training("train", "headline", ACCUM, MICRO, 2, 0, "bfloat16", "bfloat16", K1_K2, 10)
 TRAIN_512 = Training("train_512", "b16_512", 4, 32, 2, 4, None, None, K7, 0)
 # B/16 with weights imported under transformers' SigLIP names
 # ([hf_import]), served as SERVE.
@@ -558,6 +583,14 @@ SERVE_HF = Serving("hf_import", "hf_b16", (1, 8, 32, 128), 256, 64, 8, 9, "short
 # --check's tolerance (JAX's).
 EXPORT_DIR = os.path.join("build", "export")
 EXPORT_BATCH, EXPORT_512_BATCH = 64, 8
+# The train-step and MoE exports' commands, minutes of tracing on the host
+# each, run side by side with the forward ones from the smoke's start and
+# are joined before the kernels' checks (their artifacts under
+# build/export_cmd, deleted by [export_moe]).
+COMMANDS_DIR = os.path.join("build", "export_cmd")
+EXPORT_TRAIN_STEP_COMMAND = ("export", os.path.join(COMMANDS_DIR, "train_step_b16.pt2"),
+                             "--what", "train_step", "--model", "b16", "--batch",
+                             str(EXPORT_BATCH), "--check")
 EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6
 # google/siglip-base-patch16-224's published config (transformers'
 # SiglipConfig fields), for [hf_import].
@@ -592,6 +625,36 @@ TRAIN_ADAPTIVE_STEPS = 3
 # [moe]: B/16 with this many experts (k = 1) in both towers, as bench.py
 # --moe configures them; serving at one bucket, 2 training steps.
 MOE_EXPERTS, MOE_BUCKET, MOE_TRAIN_STEPS = 8, 128, 2
+# [train_pp]: the headline towers at pp = 1, steps of 2 x 128 pairs, each
+# accumulation microbatch in 4 pipeline microbatches; the gradient check on
+# 32 pairs (bf16 cosine) and one f32 microbatch of 32 (within 1e-4 of the
+# largest magnitude).
+TRAIN_PP_ACCUM, TRAIN_PP_STEPS, TRAIN_PP_MICRO, TRAIN_PP_CHECK = 2, 2, 4, 32
+TRAIN_PP_MIN_COSINE = 0.999
+TRAIN_PP_F32_RTOL_OF_MAX = 1e-4
+# [moe_ep]: the emulated expert-parallel layout's shards, and its rows'
+# least cosine with the replicated layer.
+MOE_EP_SHARDS, MOE_EP_MIN_COSINE = 2, 0.9999
+# [export_moe]: the command's flags.
+EXPORT_MOE_FLAGS = ("--model", "b16", "--moe-experts", str(MOE_EXPERTS), "--batch",
+                    str(EXPORT_BATCH), "--check")
+EXPORT_MOE_COMMANDS = (
+    ("export", os.path.join(COMMANDS_DIR, "forward_moe.pt2"), "--what", "forward",
+     *EXPORT_MOE_FLAGS),
+    ("export", os.path.join(COMMANDS_DIR, "train_step_moe.pt2"), "--what", "train_step",
+     "--moe-aux-weight", "0.01", *EXPORT_MOE_FLAGS))
+# [export_forward]: the forward commands, bf16 and int8.
+EXPORT_FORWARD_COMMANDS = {
+    config: ("export", os.path.join(EXPORT_DIR, f"forward_{config}.pt2"), "--what", "forward",
+             "--model", "b16", "--batch", str(EXPORT_BATCH), "--check", *flags)
+    for config, flags in (("b16", ()), ("b16_int8", ("--quant", "int8")))}
+# Every export command, started together at the smoke's start; the forward
+# ones at this niceness, so the train steps' (the longest) keep their cores.
+EXPORT_COMMANDS = (*EXPORT_FORWARD_COMMANDS.values(), EXPORT_TRAIN_STEP_COMMAND,
+                   *EXPORT_MOE_COMMANDS)
+EXPORT_NICE = 10
+# [multihost]: the one-process run of the train command.
+MULTIHOST_FLAGS = ("--model", "b16", "--batch", "32", "--steps", "1")
 
 
 def log(phase: str, **fields) -> None:
@@ -726,13 +789,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof) -> dict[str, list]:
+    """``{name: [calls, device us]}`` of the device events ``prof`` (a
+    finished ``torch.profiler.profile``) recorded, summed as
+    ``key_averages()`` sums its device rows (an event on the device counts its
+    span, an asynchronous one nothing), from the profiler's raw events:
+    ``key_averages()`` first builds the host's event tree in Python, which
+    takes tens of seconds for a step of 10^5 kernels."""
+    from torch.autograd import DeviceType
+
+    rows: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_async() \
+                or e.start_thread_id() != e.end_thread_id() \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        row = rows.setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return rows
+
+
 def device_ms(fn, iters: int = 5, by_kernel: bool = False):
     """Mean device time of the kernels of one call of ``fn`` over ``iters``
     calls (torch.profiler), without the host's launch gaps that a CUDA-event
     time includes; None ("not measured") when the profiler records no
     kernel, which it has done for a whole call. ``by_kernel``: a dict of the
     same by kernel name instead."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -741,12 +824,35 @@ def device_ms(fn, iters: int = 5, by_kernel: bool = False):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     if not kernels:
         return None
     if by_kernel:
-        return {e.key[:60]: e.self_device_time_total / 1e3 / iters for e in kernels}
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+        return {name[:60]: us / 1e3 / iters for name, (_, us) in kernels.items()}
+    return sum(us for _, us in kernels.values()) / 1e3 / iters
+
+
+def check_device_events() -> dict:
+    """:func:`device_events` against ``key_averages()`` on one profiled
+    call of a few kernels: the same names, calls and device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(1024, 1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            y = (x @ x).relu_().sum()
+        torch.cuda.synchronize()
+    raw = device_events(prof)
+    averaged = {e.key: [e.count, e.self_device_time_total] for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+    same = raw.keys() == averaged.keys() and all(
+        raw[k][0] == averaged[k][0] and abs(raw[k][1] - averaged[k][1]) <= 1e-3 * raw[k][1] + 0.01
+        for k in raw)
+    if not raw or not same:
+        raise AssertionError(f"device events {raw} != key_averages {averaged}")
+    del y
+    return {"kernels": len(raw), "launches": sum(c for c, _ in raw.values())}
 
 
 def attention_bound_ms(b, s, h, dh, causal=False, tensors=4, products=2) -> tuple[float, str]:
@@ -774,34 +880,33 @@ def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
     into K1, K2, K3, K7, matrix products and the rest, with the device's idle share
     against ``wall_ms`` (the call's time unprofiled). ``host_ops=False``
     traces the device alone, for calls of ~10^5 kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     if not kernels:
         raise AssertionError("the profiler saw no kernel on the device")
     groups = {"short_attention_fwd": 0.0, "short_attention_bwd": 0.0,
               "short_attention_bwd_batched": 0.0, "flash_attention": 0.0, "matmul": 0.0,
               "other": 0.0}
-    for e in kernels:
-        name = e.key.lower()
-        group = next((g for key, g in KERNEL_GROUPS if key in name), None)
+    for name, (_, us) in kernels.items():
+        low = name.lower()
+        group = next((g for key, g in KERNEL_GROUPS if key in low), None)
         if group is None:
-            matmul = any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
+            matmul = any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma"))
             group = "matmul" if matmul else "other"
-        groups[group] += e.self_device_time_total / 1e3
+        groups[group] += us / 1e3
     total = sum(groups.values())
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
     return {
         "kernel_ms": total,
-        "kernel_launches": sum(e.count for e in kernels),
+        "kernel_launches": sum(calls for calls, _ in kernels.values()),
         "ms_by_group": groups,
         "idle_share": max(0.0, 1.0 - total / wall_ms),
-        "top": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top],
+        "top": [[name[:70], calls, us / 1e3] for name, (calls, us) in top],
     }
 
 
@@ -2241,9 +2346,12 @@ def run_train_pallas_path(args, sa, ssl, fa, quant_train: str = "") -> dict:
         raise AssertionError(f"{phase} launches {counts} != {expect}")
     if traced != (("streaming_int8",) if quant_train else ("streaming",)):
         raise AssertionError(f"{phase}: loss blocks traced {traced}")
-    if quant_train and int_mm < forward_int8:
-        raise AssertionError(f"{phase}: {int_mm} int8 products, fewer than the forwards' "
-                             f"{forward_int8}")
+    # save_hot's recompute runs q, k, v and out again, as JAX's remat does:
+    # wi's product is kept and nothing reads wo's.
+    recomputed_int8 = 4 * (cfg.vision.depth + cfg.text.depth) * ACCUM * steps if quant_train else 0
+    if quant_train and int_mm != forward_int8 + recomputed_int8:
+        raise AssertionError(f"{phase}: {int_mm} int8 products, not the forwards' "
+                             f"{forward_int8} and the recompute's {recomputed_int8}")
     if quant_train:
         log("profile", path=f"{phase} step", accum_steps=ACCUM, batch=ACCUM * MICRO,
             **device_breakdown(lambda: step(state, batches[0]),
@@ -2279,7 +2387,7 @@ def flat_grads(model) -> torch.Tensor:
 
 
 def run_train_recipes_path(args, sa, ssl) -> dict:
-    """The headline step with the item-4 recipes: K3 as the attention
+    """The headline step (towers at RECIPE_DEPTH) with the item-4 recipes: K3 as the attention
     backward (``set_bwd_batch_heads(True)``), the softmax ring loss,
     GradCache over 16 × 128 with a bf16 stash, the EMA at 0.9999, and
     RECIPE_STEPS steps with Lion, then as many with Adafactor, between two
@@ -2296,7 +2404,9 @@ def run_train_recipes_path(args, sa, ssl) -> dict:
     from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
 
     cfg = headline_config()
-    cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, family="softmax"))
+    cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, family="softmax"),
+                              vision=dataclasses.replace(cfg.vision, depth=RECIPE_DEPTH),
+                              text=dataclasses.replace(cfg.text, depth=RECIPE_DEPTH))
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
     model = SigLIP(cfg, device="cuda", generator=gen)
     step = make_train_step(model, cfg.loss, accum_steps=ACCUM, accum_dtype="bfloat16",
@@ -2307,7 +2417,8 @@ def run_train_recipes_path(args, sa, ssl) -> dict:
     optimizers = {"lion": TrainConfig(optimizer="lion", adam_mu_dtype="bfloat16", **schedule),
                   "adafactor": TrainConfig(optimizer="adafactor", **schedule)}
     torch.cuda.synchronize()
-    log("train_recipes", config="SigLIP-B/16", remat_policy=cfg.vision.remat_policy,
+    log("train_recipes", config=f"SigLIP-B/16 at depth {RECIPE_DEPTH}",
+        remat_policy=cfg.vision.remat_policy,
         attention_backward="K3 (set_bwd_batch_heads(True))",
         loss="LossConfig(family='softmax', variant='ring', precision='default'), W = 1",
         accum_steps=ACCUM, microbatch=MICRO, accum_negatives="global",
@@ -2783,8 +2894,8 @@ def run_compression(args, sa, ssl) -> dict:
     whole gradient tree (its parameters' shapes, seeded normal values): int8
     quantize, dequantize and the error-feedback residual, and the top-k at
     COMPRESSION_TOPK_FRAC; the card's int8 payloads and scales bitwise equal
-    to the CPU's on the same tensors, the top-k magnitudes equal (ties
-    aside); the mean of COMPRESSION_SLICES synthetic slices' int8 payloads
+    to the CPU's on the same tensors (one of each shape), the top-k
+    magnitudes equal (ties aside); the mean of COMPRESSION_SLICES synthetic slices' int8 payloads
     within half a bucket of the f32 mean; device ms of each scheme and its
     wire bytes against f32's. No kernel of the port runs here."""
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
@@ -2825,15 +2936,21 @@ def run_compression(args, sa, ssl) -> dict:
         wire = sum(comp.payload_bytes(g.numel(), method, COMPRESSION_TOPK_FRAC) for g in grads)
         rec[f"{method}_wire_bytes"] = wire
         rec[f"{method}_wire_over_f32"] = wire / f32_bytes
-    # The card's payloads against the CPU's on the same tensors.
+    # The card's payloads against the CPU's on the same tensors: one
+    # tensor of each shape, for the smoke's time limit.
+    checked = one_of_each_shape(grads)
     mismatched_q, mismatched_scale, topk_off = 0, 0, 0
-    for (q, scale, _), g, e in zip(int8_half(), grads, ef):
-        q_cpu, s_cpu = comp.quantize_tensor_int8((g + e).cpu())
+    for i, (q, scale, _) in enumerate(int8_half()):
+        if i not in checked:
+            continue
+        q_cpu, s_cpu = comp.quantize_tensor_int8((grads[i] + ef[i]).cpu())
         mismatched_q += int((q.cpu() != q_cpu).sum())
         mismatched_scale += int(scale.cpu().view(torch.int32) != s_cpu.view(torch.int32))
-    for (vals, _, _), g, e in zip(topk_half(), grads, ef):
+    for i, (vals, _, _) in enumerate(topk_half()):
+        if i not in checked:
+            continue
         k = vals.numel()
-        cpu_vals, _ = comp.sparsify_topk((g + e).cpu(), k)
+        cpu_vals, _ = comp.sparsify_topk((grads[i] + ef[i]).cpu(), k)
         got = torch.sort(vals.abs().cpu()).values
         topk_off += int((got != torch.sort(cpu_vals.abs()).values).sum())
     # The post-gather mean of COMPRESSION_SLICES slices' payloads against
@@ -2847,7 +2964,8 @@ def run_compression(args, sa, ssl) -> dict:
         mean = comp.int8_payload_mean(qs, scales)
         bound = scales.mean() / 2
         worst = max(worst, float(((mean - slices.mean(dim=0)).abs().max() / bound)))
-    rec.update(int8_payload_mismatches=mismatched_q, int8_scale_mismatches=mismatched_scale,
+    rec.update(cpu_checked_tensors=len(checked),
+               int8_payload_mismatches=mismatched_q, int8_scale_mismatches=mismatched_scale,
                topk_magnitude_mismatches=topk_off, slices=COMPRESSION_SLICES,
                int8_mean_err_over_half_bucket=worst)
     log("compression", **rec)
@@ -2863,6 +2981,14 @@ def run_compression(args, sa, ssl) -> dict:
     del grads, ef
     torch.cuda.empty_cache()
     return counts
+
+
+def one_of_each_shape(tensors) -> set[int]:
+    """The index of the first tensor of each shape in ``tensors``."""
+    first: dict[tuple, int] = {}
+    for i, t in enumerate(tensors):
+        first.setdefault(tuple(t.shape), i)
+    return set(first.values())
 
 
 def _lying_sink(server) -> None:
@@ -2887,7 +3013,8 @@ def run_compression_adaptive(args, sa, ssl) -> dict:
     unrolled B/16: 429 tensors, linear weights in the flax kernel's layout):
     each rung on every tensor through ``adaptive_axis_mean`` at n_dcn = 1,
     host and device ms and wire bytes against f32's; int4 and sign payloads
-    bitwise equal to the CPU's, learned latents within one int8 step; the
+    bitwise equal to the CPU's, learned latents within one int8 step (one
+    tensor of each shape); the
     mean of COMPRESSION_SLICES slices' decoded payloads within each rung's
     bound; the greedy and budgeted tables at ADAPTIVE_BUDGETS, each within
     its budget; the int8 wire through the emulated link (measured rate
@@ -2934,10 +3061,12 @@ def run_compression_adaptive(args, sa, ssl) -> dict:
                      "wire_over_f32": payload / (4 * n_params)}
         if code == ac.SCHEME_INT8:
             stats = {k: v.cpu().numpy() for k, v in stats_c.items()}
-    # The card's payloads against the CPU's on the same tensors.
+    # The card's payloads against the CPU's on the same tensors: one tensor
+    # of each shape, for the smoke's time limit.
+    checked = one_of_each_shape(grads)
     int4_off = signs_off = latent_off = 0
     sign_scale_rel = 0.0
-    for g in grads:
+    for g in (grads[i] for i in sorted(checked)):
         q, _ = ac.quantize_tensor_int4(g)
         q_cpu, _ = ac.quantize_tensor_int4(g.cpu())
         int4_off += int((ac.pack_int4(q).cpu() != ac.pack_int4(q_cpu)).sum())
@@ -2951,7 +3080,8 @@ def run_compression_adaptive(args, sa, ssl) -> dict:
             s_ = torch.clamp(z.abs().max(), min=1e-12) / torch.full((), 127.0, device=z.device)
             lat.append(torch.clamp(torch.round(z / s_), -127, 127).cpu())
         latent_off = max(latent_off, int((lat[0] - lat[1]).abs().max()))
-    rec.update(int4_payload_mismatches=int4_off, sign_payload_mismatches=signs_off,
+    rec.update(cpu_checked_tensors=len(checked),
+               int4_payload_mismatches=int4_off, sign_payload_mismatches=signs_off,
                sign_scale_rel_err=sign_scale_rel, learned_latent_max_step=latent_off)
     # The mean of COMPRESSION_SLICES slices' decoded payloads (each rung's
     # decode is linear) against their f32 mean, on every tensor: int8 and
@@ -4025,11 +4155,105 @@ def run_serve_bench_path(args, sa, ssl) -> dict:
     return totals
 
 
+# The export commands run side by side from the smoke's start
+# (:func:`start_export_commands`): their records, and the artifacts loaded as
+# their commands ended with the seconds each load took, by output path, each
+# read once by its phase.
+COMMAND_RECORDS: dict[str, dict] = {}
+LOADED: dict[str, tuple] = {}
+# A command's process: at the niceness of its second argument, and with the
+# first kernel call of each library waiting until the smoke's build has
+# written it (the build runs while the commands trace).
+_COMMAND_SCRIPT = """
+import json, os, sys, time
+os.nice(int(sys.argv[2]))
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+from distributed_sigmoid_loss_tpu_torch.ops import _cuda, short_attention, streaming_sigmoid_loss
+_load = _cuda.load
+def load_when_built(name):
+    while not _cuda.library_path(name).exists():
+        time.sleep(0.5)
+    return _load(name)
+_cuda.load = load_when_built
+rec = chip_smoke.run_cli(short_attention, streaming_sigmoid_loss, json.loads(sys.argv[1]))
+print("RECORD " + json.dumps(rec), flush=True)
+"""
+
+
+def start_export_commands() -> dict:
+    """Every export command of ``[export_forward]``, ``[export_train_step]``
+    and ``[export_moe]`` (EXPORT_COMMANDS) in a process of its own (``python
+    -c`` of :func:`run_cli` from this checkout, its counts its own), all
+    started together before the kernels are built: they trace for minutes
+    on the host. The forward commands run at EXPORT_NICE, below the train
+    steps', the longest. Returns ``{output path: (argv, process)}``."""
+    os.makedirs(COMMANDS_DIR, exist_ok=True)
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    return {argv[1]: (argv, subprocess.Popen(
+        [sys.executable, "-c", _COMMAND_SCRIPT, json.dumps(argv),
+         str(EXPORT_NICE if argv[3] == "forward" else 0)],
+        stdout=subprocess.PIPE, text=True)) for argv in EXPORT_COMMANDS}
+
+
+def stop_export_commands(procs: dict) -> None:
+    for _, proc in procs.values():
+        proc.kill()
+        proc.wait()
+    procs.clear()
+
+
+def join_export_commands(procs: dict, t0: float) -> None:
+    """Waits for every command of :func:`start_export_commands` (started at
+    ``t0``): their records into ``COMMAND_RECORDS``, and the train-step and
+    MoE artifacts loaded here (``load_exported``) as soon as each command has
+    ended, while the others run, into ``LOADED``; logs the wall seconds from
+    ``t0`` and from this call."""
+    from distributed_sigmoid_loss_tpu_torch.train import load_exported
+
+    load = {argv[1] for argv in (EXPORT_TRAIN_STEP_COMMAND, *EXPORT_MOE_COMMANDS)}
+    t1 = time.monotonic()
+    while procs:
+        ended = [path for path, (_, proc) in procs.items() if proc.poll() is not None]
+        if not ended:
+            time.sleep(0.5)
+        for path in ended:
+            argv, proc = procs.pop(path)
+            out, _ = proc.communicate()
+            recs = [json.loads(line[len("RECORD "):]) for line in out.splitlines()
+                    if line.startswith("RECORD ")]
+            if not recs:
+                raise AssertionError(f"{' '.join(argv)}: exit {proc.returncode}, no record")
+            COMMAND_RECORDS[path] = recs[0]
+            if path in load and recs[0]["rc"] == 0:
+                t2 = time.monotonic()
+                LOADED[path] = (load_exported(path), time.monotonic() - t2)
+    log("export_commands", side_by_side=[" ".join(argv) for argv in EXPORT_COMMANDS],
+        seconds=time.monotonic() - t0, after_build_s=time.monotonic() - t1,
+        command_s={path: rec["seconds"] for path, rec in COMMAND_RECORDS.items()},
+        loaded_as_they_ended={path: LOADED[path][1] for path in sorted(LOADED)})
+
+
+def loaded_artifact(path):
+    """The artifact at ``path`` and the seconds its load took: loaded by
+    :func:`join_export_commands` as its command ended, or now."""
+    from distributed_sigmoid_loss_tpu_torch.train import load_exported
+
+    if path in LOADED:
+        return LOADED.pop(path)
+    t0 = time.monotonic()
+    loaded = load_exported(path)
+    return loaded, time.monotonic() - t0
+
+
 def export_cli(sa, ssl, argv) -> dict:
-    """``cli.main(["export", ...])`` through :func:`run_cli`: exit 0 and
-    ``--check``'s line, or this fails; adds the artifact's bytes and the
-    export seconds the command printed."""
-    run = run_cli(sa, ssl, argv)
+    """``cli.main(["export", ...])`` through :func:`run_cli` (in this process,
+    or the record of :func:`start_export_commands`' process for its output
+    path): exit 0 and ``--check``'s line, or this fails; adds the artifact's
+    bytes and the export seconds the command printed."""
+    run = COMMAND_RECORDS.pop(argv[1]) if argv[1] in COMMAND_RECORDS else run_cli(sa, ssl, argv)
     if run["rc"] != 0 or "check ok" not in run["out"]:
         raise AssertionError(f"{' '.join(argv)}: exit {run['rc']}\n{run['out']}\n{run['err']}")
     m = re.search(r"\((\d+) bytes, ([0-9.]+) s\)", run["out"])
@@ -4119,8 +4343,9 @@ def export_forward_api(sa, ssl, model, batch, path: str, phase: str, **expected)
 
 
 def run_export_forward_path(args, sa, ssl, fa) -> dict:
-    """``export OUT --what forward --model b16 --batch 64 --check`` through
-    ``cli.main``, in bf16 and with ``--quant int8``; each artifact then
+    """``export OUT --what forward --model b16 --batch 64 --check``, in
+    bf16 and with ``--quant int8`` (EXPORT_FORWARD_COMMANDS, run from the
+    smoke's start by :func:`start_export_commands`); each artifact then
     replayed by ``load_forward`` on a seeded batch of 64 between two reads of
     the counts (24 K1 launches, 12 a tower, nothing else; int8: the 144
     int8 products of ``int8_linear``), its embeddings against the live eager
@@ -4132,11 +4357,12 @@ def run_export_forward_path(args, sa, ssl, fa) -> dict:
     from distributed_sigmoid_loss_tpu_torch.train import load_forward
 
     os.makedirs(EXPORT_DIR, exist_ok=True)
+    forward = EXPORT_FORWARD_COMMANDS
     total, bf16_rows = None, None
-    for config, flags in (("b16", ()), ("b16_int8", ("--quant", "int8"))):
-        path = os.path.join(EXPORT_DIR, f"forward_{config}.pt2")
-        cli_run = export_cli(sa, ssl, ("export", path, "--what", "forward", "--model", "b16",
-                                       "--batch", str(EXPORT_BATCH), "--check") + flags)
+    for config, argv in forward.items():
+        path = argv[1]
+        flags = argv[9:]
+        cli_run = export_cli(sa, ssl, argv)
         total = add_counts(total, cli_run["counts"])
         cfg = siglip_config(config)
         model = SigLIP(cfg, device="cuda").eval()  # the command's weights: seed 0
@@ -4280,9 +4506,11 @@ def run_export_serve_path(args, sa, ssl, fa) -> dict:
 def run_export_train_step_path(args, sa, ssl, fa) -> dict:
     """``export OUT --what train_step --model b16 --batch 64 --check``
     (JAX's defaults: AdamW, warmup 2,000 of 100,000 steps, the ring loss)
-    through ``cli.main``; then the command's state and batch rebuilt here
-    with the count and step set to the warmup's end (rate 1e-3, so the
-    parameters move), the artifact loaded and replayed on copies between
+    through ``cli.main`` in a process of its own (its counts its own), run
+    by ``[export_forward]`` with the other export commands; then the
+    command's state and batch rebuilt here with the count and step set to
+    the warmup's end (rate 1e-3, so the parameters move), the artifact
+    (loaded as its command ended) replayed on copies between
     two reads of the counts (K1 24 and K2 24: the traced towers run without
     remat), its loss and every state tensor against the live eager step at
     ``--check``'s tolerance, then its output state replayed again against
@@ -4294,7 +4522,6 @@ def run_export_train_step_path(args, sa, ssl, fa) -> dict:
     from distributed_sigmoid_loss_tpu_torch.models import SigLIP
     from distributed_sigmoid_loss_tpu_torch.train import (
         create_train_state,
-        load_exported,
         make_optimizer,
         make_train_step,
         train_state_tree,
@@ -4302,9 +4529,8 @@ def run_export_train_step_path(args, sa, ssl, fa) -> dict:
     )
     from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
 
-    path = os.path.join(EXPORT_DIR, "train_step_b16.pt2")
-    cli_run = export_cli(sa, ssl, ("export", path, "--what", "train_step", "--model", "b16",
-                                   "--batch", str(EXPORT_BATCH), "--check"))
+    path = EXPORT_TRAIN_STEP_COMMAND[1]
+    cli_run = export_cli(sa, ssl, EXPORT_TRAIN_STEP_COMMAND)
     cfg = siglip_config("b16")
     depth = cfg.vision.depth + cfg.text.depth
     # The command's two replays (K1 24, K2 24 each) and its two live steps
@@ -4320,9 +4546,7 @@ def run_export_train_step_path(args, sa, ssl, fa) -> dict:
     # move: at count 0 an update of rate 0 would show nothing of AdamW's.
     state.step = state.opt_state.count = warmup
     batch = {k: v.cuda() for k, v in next(iter(SyntheticImageText(cfg, EXPORT_BATCH))).items()}
-    t0 = time.monotonic()
-    loaded = load_exported(path)
-    load_s = time.monotonic() - t0
+    loaded, load_s = loaded_artifact(path)
     example = pytree.tree_map(torch.clone, (train_state_tree(state), batch))
     leaves = tree_leaves(example)
     n_state = len(tree_leaves(example[0]))
@@ -4458,6 +4682,310 @@ def run_hf_import_path(args, sa, ssl, fa) -> dict:
     return add_counts(total, rec["launches"])
 
 
+def replay_counted(sa, ssl, loaded, leaves, phase: str, **expected):
+    """``loaded.call(*leaves)`` between two reads of the counts, which must
+    be ``expected``: its leaves and the counts."""
+    got, counts, _ = counted(sa, ssl, lambda: loaded.call(*leaves))
+    expect_counts(counts, phase, **expected)
+    return got, counts
+
+
+def run_export_moe_path(args, sa, ssl, fa) -> dict:
+    """The MoE export at ep = 1 (``[export_moe]``): ``export --what forward
+    --model b16 --moe-experts MOE_EXPERTS --batch 64 --check`` and the same
+    with ``--what train_step --moe-aux-weight 0.01``, through ``cli.main`` in
+    processes of their own (its counts its own), run by
+    ``[export_forward]`` with the other export commands; then each
+    artifact (loaded as its command ended) replayed on the command's weights and
+    batch between two reads of the counts (forward: K1 24; train step past
+    the warmup: K1 24, K2 24), against the live call at ``--check``'s
+    tolerance, with replay and live milliseconds."""
+    from torch.utils import _pytree as pytree
+
+    from distributed_sigmoid_loss_tpu_torch.data import SyntheticImageText
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        train_state_tree,
+        tree_leaves,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import LossConfig, TrainConfig
+
+    fwd_argv, step_argv = EXPORT_MOE_COMMANDS
+    fwd_path, step_path = fwd_argv[1], step_argv[1]
+    fwd_cli = export_cli(sa, ssl, fwd_argv)
+    step_cli = export_cli(sa, ssl, step_argv)
+    base = siglip_config("b16")
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, moe_experts=MOE_EXPERTS),
+        text=dataclasses.replace(base.text, moe_experts=MOE_EXPERTS))
+    depth = cfg.vision.depth + cfg.text.depth
+    model = SigLIP(cfg, device="cuda")  # the command's weights (seed 0)
+    batch = {k: v.cuda() for k, v in next(iter(SyntheticImageText(cfg, EXPORT_BATCH))).items()}
+    total = add_counts(fwd_cli["counts"], step_cli["counts"])
+
+    # -- the forward artifact, between the two reads of the counts ---------
+    loaded, _ = loaded_artifact(fwd_path)
+    args_fwd = (dict(model.state_dict()), batch["images"], batch["tokens"])
+    with torch.inference_mode():
+        got, counts = replay_counted(sa, ssl, loaded, tree_leaves(args_fwd),
+                                     "export_moe forward replay", short_attention_fwd=depth)
+        want = forward_fn(model)(*args_fwd)
+        replay_ms = time_ms(lambda: loaded.call(*tree_leaves(args_fwd)), iters=5, warmup=1)
+        live_ms = time_ms(lambda: forward_fn(model)(*args_fwd), iters=5, warmup=1)
+    err = held_to_live("export_moe forward", got, want)
+    total = add_counts(total, counts)
+    log("export_moe", what="forward", experts=MOE_EXPERTS, batch=EXPORT_BATCH,
+        export_s=fwd_cli["export_s"], command_s=fwd_cli["seconds"],
+        artifact_bytes=fwd_cli["bytes"], launches=counts, max_abs_err=err,
+        replay_ms=replay_ms, live_ms=live_ms)
+    del loaded, got, want
+
+    # -- the train-step artifact past the warmup ---------------------------
+    warmup = 2000
+    tx = make_optimizer(TrainConfig(learning_rate=1e-3, warmup_steps=warmup,
+                                    total_steps=100_000))
+    state = create_train_state(model, tx)
+    state.step = state.opt_state.count = warmup
+    loaded, _ = loaded_artifact(step_path)
+    leaves = tree_leaves(pytree.tree_map(torch.clone, (train_state_tree(state), batch)))
+    got, counts = replay_counted(sa, ssl, loaded, leaves, "export_moe train_step replay",
+                                 short_attention_fwd=depth, short_attention_bwd=depth)
+    total = add_counts(total, counts)
+    step = make_train_step(model, LossConfig(variant="ring"), moe_aux_weight=0.01)
+    new_state, metrics = step(state, batch)
+    err = held_to_live("export_moe train_step",
+                       got, tree_leaves((train_state_tree(new_state), metrics)))
+    del got
+    replay_ms = time_ms(lambda: loaded.call(*leaves), iters=2, warmup=1)
+    live_ms = time_ms(lambda: step(new_state, batch), iters=2, warmup=1)
+    log("export_moe", what="train_step", experts=MOE_EXPERTS, batch=EXPORT_BATCH,
+        export_s=step_cli["export_s"], command_s=step_cli["seconds"],
+        artifact_bytes=step_cli["bytes"], launches=counts, max_abs_err=err,
+        moe_aux=float(metrics["moe_aux"]), replay_ms=replay_ms, live_ms=live_ms)
+    del model, state, new_state, loaded, leaves, step
+    torch.cuda.empty_cache()
+    shutil.rmtree(COMMANDS_DIR, ignore_errors=True)
+    return total
+
+
+def run_train_pp_path(args, sa, ssl, fa) -> dict:
+    """The pipeline towers at pp = 1 (``[train_pp]``): inside a (dp, pp) =
+    (1, 1) process grid, the headline config under ``use_pallas`` with
+    ``pp_microbatches=TRAIN_PP_MICRO``, TRAIN_PP_STEPS steps of
+    TRAIN_PP_ACCUM x MICRO pairs through GPipe and through 1F1B, each
+    between two reads of the counts: K1 and K2 (vision depth + text depth) x
+    pp microbatches x accumulation steps a step (1F1B's forward runs twice,
+    so twice the K1), K4-K6 one an accumulation microbatch; step ms and peak
+    memory beside the non-pp step. Then the whole model's gradient on
+    TRAIN_PP_CHECK pairs, pipelined against the model's own forward (bf16
+    cosine for both schedules; f32 towers within TRAIN_PP_F32_RTOL_OF_MAX
+    of the largest magnitude)."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
+    from distributed_sigmoid_loss_tpu_torch.parallel.mesh import ProcessGrid
+    from distributed_sigmoid_loss_tpu_torch.parallel.pp_towers import siglip_forward_pp
+    from distributed_sigmoid_loss_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from distributed_sigmoid_loss_tpu_torch.utils.config import TrainConfig
+
+    base = headline_config()
+    cfg = dataclasses.replace(base, loss=dataclasses.replace(base.loss, use_pallas=True))
+    depth = cfg.vision.depth + cfg.text.depth
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 23)
+    batches = [random_batch(cfg, TRAIN_PP_ACCUM * MICRO, gen) for _ in range(TRAIN_PP_STEPS)]
+    weights = SigLIP(cfg, device="cuda", generator=gen).state_dict()
+    total, rows = None, {}
+    with ProcessGrid({"dp": 1, "pp": 1}):
+        for schedule in ("gpipe", "1f1b", None):
+            model = SigLIP(cfg, device="cuda")
+            model.load_state_dict(weights)
+            state = create_train_state(model, make_optimizer(
+                TrainConfig(warmup_steps=100, total_steps=100_000, adam_mu_dtype="bfloat16")),
+                pp_axis="pp" if schedule else None)
+            pp = dict(pp_microbatches=TRAIN_PP_MICRO, pp_schedule=schedule) if schedule else {}
+            step = make_train_step(model, cfg.loss, accum_steps=TRAIN_PP_ACCUM,
+                                   accum_dtype="bfloat16", **pp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # -- the pipeline training path, between the two reads ---------
+            reset_counts(sa, ssl)
+            step_s, metrics = [], []
+            for batch in batches:
+                t0 = time.monotonic()
+                state, m = step(state, batch)
+                metrics.append({k: v.item() for k, v in m.items()})
+                torch.cuda.synchronize()
+                step_s.append(time.monotonic() - t0)
+            counts = read_counts(sa, ssl)
+            # -- end of the pipeline training path -------------------------
+            name = schedule or "non_pp"
+            rows[name] = {"step_ms": [1e3 * t for t in step_s],
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "loss": [m["loss"] for m in metrics]}
+            log("train_pp", schedule=name, launches=counts, **rows[name])
+            if not all(np.isfinite(v) for m in metrics for v in m.values()):
+                raise AssertionError(f"train_pp {name}: non-finite metrics {metrics}")
+            if schedule:
+                mb = TRAIN_PP_ACCUM * TRAIN_PP_STEPS
+                fwd_runs = 2 if schedule == "1f1b" else 1
+                expect_counts(counts, f"train_pp {name}",
+                              short_attention_fwd=fwd_runs * depth * TRAIN_PP_MICRO * mb,
+                              short_attention_bwd=depth * TRAIN_PP_MICRO * mb,
+                              sigmoid_loss_fwd=mb, sigmoid_loss_bwd_img=mb,
+                              sigmoid_loss_bwd_txt=mb)
+                total = add_counts(total, counts)
+            del state, step, model
+            torch.cuda.empty_cache()
+
+        # The whole model's gradient, pipelined against the plain forward.
+        per_shard = make_per_shard_loss(variant=cfg.loss.variant, use_pallas=True)
+        small = {k: v[:TRAIN_PP_CHECK] for k, v in batches[0].items()}
+
+        def grads(model_cfg, forward):
+            model = SigLIP(model_cfg, device="cuda")
+            model.load_state_dict(weights)
+            model.zero_grad(set_to_none=True)
+            zimg, ztxt, lp = (forward(model, small) if forward
+                              else model(small["images"], small["tokens"]))
+            per_shard(zimg, ztxt, lp["t_prime"], lp["bias"]).backward()
+            return flat_grads(model)
+
+        def piped(schedule):
+            return lambda m, b: siglip_forward_pp(m, b["images"], b["tokens"],
+                                                  num_microbatches=TRAIN_PP_MICRO,
+                                                  schedule=schedule)
+
+        plain = grads(cfg, None)
+        cos = {s_: float(torch.nn.functional.cosine_similarity(grads(cfg, piped(s_)), plain,
+                                                                dim=0))
+               for s_ in ("gpipe", "1f1b")}
+        del plain
+        f32_cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision,
+                                                                      dtype="float32"),
+                                      text=dataclasses.replace(cfg.text, dtype="float32"))
+        f32_plain = grads(f32_cfg, None)
+        err = {s_: float((grads(f32_cfg, piped(s_)) - f32_plain).abs().max()
+                         / f32_plain.abs().max()) for s_ in ("gpipe", "1f1b")}
+        del f32_plain
+    log("train_pp", grad_cosine_vs_non_pp=cos, f32_grad_err_of_max=err,
+        steady_step_ms={k: r["step_ms"][-1] for k, r in rows.items()},
+        peak_gib={k: r["peak_gib"] for k, r in rows.items()},
+        config=f"B/16 headline, use_pallas, pp = 1, {TRAIN_PP_STEPS} steps of "
+               f"{TRAIN_PP_ACCUM} x {MICRO} pairs, {TRAIN_PP_MICRO} pipeline microbatches")
+    if min(cos.values()) < TRAIN_PP_MIN_COSINE:
+        raise AssertionError(f"train_pp: gradient cosine against the non-pp step {cos}")
+    if max(err.values()) > TRAIN_PP_F32_RTOL_OF_MAX:
+        raise AssertionError(f"train_pp: f32 pipelined gradient against the plain one {err}")
+    torch.cuda.empty_cache()
+    return total
+
+
+@contextlib.contextmanager
+def emulated_expert_shards(n_shards: int):
+    """Every MoE layer's experts split into ``n_shards`` shards after the
+    layer's own routing: ``models.moe.expert_apply`` runs once a shard on
+    its experts' slice of the slots, and the shards' outputs are summed (an
+    ep = ``n_shards`` layout in one process)."""
+    from distributed_sigmoid_loss_tpu_torch.models import moe
+
+    whole = moe.expert_apply
+
+    def sharded(xg, dispatch, combine, wi, wo, dtype, quant="", ep_axis=None):
+        per = wi.shape[0] // n_shards
+        return sum(whole(xg, dispatch[..., j * per:(j + 1) * per, :],
+                         combine[..., j * per:(j + 1) * per, :], wi[j * per:(j + 1) * per],
+                         wo[j * per:(j + 1) * per], dtype, quant=quant, ep_axis=ep_axis)
+                   for j in range(n_shards))
+
+    moe.expert_apply = sharded
+    try:
+        yield
+    finally:
+        moe.expert_apply = whole
+
+
+def run_moe_ep_path(args, sa, ssl, fa) -> dict:
+    """Expert parallelism at one rank (``[moe_ep]``): B/16 with MOE_EXPERTS
+    experts (k = 1), the image tower at bucket MOE_BUCKET with the experts
+    replicated (``[moe]``'s layer), on the ep code path (``shard_experts``
+    in a grid of ep = 1: ``expert_apply``'s all-to-all path, its collectives
+    the identity at one rank), and with an ep = MOE_EP_SHARDS layout
+    emulated in one process (:func:`emulated_expert_shards`), each call
+    between two reads of the counts (K1 12) and timed; each row's cosine
+    with the replicated tower >= MOE_EP_MIN_COSINE."""
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP, moe
+    from distributed_sigmoid_loss_tpu_torch.parallel.mesh import ProcessGrid
+    from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
+
+    base = SigLIPConfig.b16()
+    kw = dict(moe_experts=MOE_EXPERTS, moe_num_selected=1, remat=False)
+    cfg = dataclasses.replace(base, vision=dataclasses.replace(base.vision, **kw),
+                              text=dataclasses.replace(base.text, **kw))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 41)
+    model = SigLIP(cfg, device="cuda", generator=gen).eval()
+    images = torch.rand((MOE_BUCKET, 224, 224, 3), device="cuda", generator=gen)
+    total, rows, out = None, {}, {}
+    with torch.inference_mode(), ProcessGrid({"ep": 1}):
+        for name in ("replicated", f"emulated_ep{MOE_EP_SHARDS}", "ep1_code_path"):
+            if name == "ep1_code_path":
+                moe.shard_experts(model)
+            emulate = (emulated_expert_shards(MOE_EP_SHARDS) if name.startswith("emulated")
+                       else contextlib.nullcontext())
+            with emulate:
+                out[name], counts, _ = counted(sa, ssl, lambda: model.encode_image(images))
+                ms = time_ms(lambda: model.encode_image(images), iters=10, warmup=3)
+            expect_counts(counts, f"moe_ep {name}", short_attention_fwd=cfg.vision.depth)
+            total = add_counts(total, counts)
+            rows[name] = {"tower_ms": ms, "images_per_s": MOE_BUCKET / ms * 1e3}
+    cos = {name: float(torch.nn.functional.cosine_similarity(
+        out[name].float(), out["replicated"].float(), dim=-1).min())
+        for name in out if name != "replicated"}
+    log("moe_ep", experts=MOE_EXPERTS, bucket=MOE_BUCKET, rows=rows, min_row_cosine=cos,
+        config="B/16 image tower, k = 1, bf16; the emulated layout sums each expert shard's "
+               "combine")
+    if min(cos.values()) < MOE_EP_MIN_COSINE:
+        raise AssertionError(f"moe_ep: rows against the replicated layer {cos}")
+    del model, out
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_multihost_path(args, sa, ssl) -> dict:
+    """Multi-process start-up at one process (``[multihost]``): ``train
+    --coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0`` with
+    MULTIHOST_FLAGS through ``cli.main`` (a TCP rendezvous, NCCL), exit 0,
+    its launches equal to the same command's without the flags; the
+    process group destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    joined = run_cli(sa, ssl, ("train", *MULTIHOST_FLAGS, "--coordinator", f"127.0.0.1:{port}",
+                               "--num-processes", "1", "--process-id", "0"))
+    backend = dist.get_backend() if dist.is_initialized() else None
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    plain = run_cli(sa, ssl, ("train", *MULTIHOST_FLAGS))
+    log("multihost", rc=joined["rc"], backend=backend, seconds=joined["seconds"],
+        plain_seconds=plain["seconds"], launches=joined["counts"],
+        plain_launches=plain["counts"])
+    if joined["rc"] != 0 or plain["rc"] != 0 or backend != "nccl":
+        raise AssertionError(f"multihost: exit {joined['rc']} (plain {plain['rc']}), backend "
+                             f"{backend}\n{joined['err']}")
+    if joined["counts"] != plain["counts"] or not joined["counts"]["short_attention_fwd"]:
+        raise AssertionError(f"multihost launches {joined['counts']} != {plain['counts']}")
+    return add_counts(joined["counts"], plain["counts"])
+
+
 def global_norm_of(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
@@ -4485,6 +5013,12 @@ def main() -> int:
         cuda=torch.version.cuda, python=sys.version.split()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # The export commands trace on the host while the kernels build; they
+    # are joined before anything else runs on the card.
+    exports_t0 = time.monotonic()
+    exports = start_export_commands()
+    atexit.register(stop_export_commands, exports)
 
     # Phase 2: build every kernel from the checkout's sources.
     t0 = time.monotonic()
@@ -4608,7 +5142,10 @@ def main() -> int:
         if loss_lib.sigmoid_loss_fwd_smem_bytes(q) != ssl.fwd_smem_bytes(bool(q)):
             raise AssertionError(f"sigmoid_loss K4 smem (int8 {q}) != python mirror")
 
+    join_export_commands(exports, exports_t0)
+
     # Phase 3: each kernel against its plain version.
+    log("profiler", **check_device_events())
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_short_attention(sa, gen)
     k2 = check_short_attention_bwd(sa, gen)
@@ -4619,7 +5156,7 @@ def main() -> int:
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
 
-    # Phases 4-23: the main paths, each between two reads of the counts.
+    # Phases 4-24: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
                       ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
@@ -4649,13 +5186,17 @@ def main() -> int:
                       ("export_serve", lambda: run_export_serve_path(args, sa, ssl, fa)),
                       ("export_train_step",
                        lambda: run_export_train_step_path(args, sa, ssl, fa)),
-                      ("hf_import", lambda: run_hf_import_path(args, sa, ssl, fa))):
+                      ("hf_import", lambda: run_hf_import_path(args, sa, ssl, fa)),
+                      ("export_moe", lambda: run_export_moe_path(args, sa, ssl, fa)),
+                      ("train_pp", lambda: run_train_pp_path(args, sa, ssl, fa)),
+                      ("moe_ep", lambda: run_moe_ep_path(args, sa, ssl, fa)),
+                      ("multihost", lambda: run_multihost_path(args, sa, ssl))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 24: the records.
+    # Phase 25: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"

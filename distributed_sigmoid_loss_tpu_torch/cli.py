@@ -27,10 +27,13 @@
 
 The commands run on ``cuda``; ``--cpu-devices 1`` runs them on the CPU
 (serve-bench's ``hostloss`` and fleet drills touch no device and run on the
-host either way). Run by every rank of an initialized process group,
-``train`` lays the ranks out on a ``parallel.mesh.ProcessGrid``: ``(dcn,
-dp)`` with ``--dcn-slices``, else ``(dp,)``. A flag whose path the port does not have yet exits 2
-with a message naming its ROADMAP.md queue A item.
+host either way). Run by every rank of an initialized process group
+(``train --coordinator HOST:PORT --num-processes N --process-id I`` joins
+one, ``parallel/multihost.py``), ``train`` lays the ranks out on a
+``parallel.mesh.ProcessGrid`` by JAX's rules: ``(dcn, dp[, pp])`` with
+``--dcn-slices``, ``(dp, pp)`` with ``--pp``, ``(dp, ep)`` with ``--ep``,
+else ``(dp,)``. A flag whose path the port does not have yet exits 2 with a
+message naming its ROADMAP.md queue A item.
 """
 
 from __future__ import annotations
@@ -47,26 +50,14 @@ __all__ = ["main"]
 # Flags of paths not ported yet: (dest, the value that means "off", flag,
 # ROADMAP.md queue A item, what the flag needs).
 _UNPORTED = (
-    ("pp", 1, "--pp", "6.4 part 2", "the pipeline-parallel towers"),
-    ("pp_microbatches", 0, "--pp-microbatches", "6.4 part 2", "the pipeline-parallel towers"),
-    ("ep", 1, "--ep", "6.4 part 2", "expert parallelism"),
-    ("coordinator", "", "--coordinator", "6.4 part 2", "multi-host training"),
-    ("num_processes", 0, "--num-processes", "6.4 part 2", "multi-host training"),
-    ("process_id", -1, "--process-id", "6.4 part 2", "multi-host training"),
     ("obs_dir", "", "--obs-dir", "6.5", "observability (spans, flight recorder)"),
 )
-# ... and of the export command, whose MoE artifacts wait with them.
-_EXPORT_UNPORTED = (
-    ("moe_experts", 0, "--moe-experts", "6.4 part 2", "exporting the MoE towers"),
-    ("moe_aux_weight", None, "--moe-aux-weight", "6.4 part 2", "exporting the MoE towers"),
-    ("moe_group_size", 0, "--moe-group-size", "6.4 part 2", "exporting the MoE towers"),
-)
 
 
-def _unported(args, rows=_UNPORTED) -> str | None:
+def _unported(args) -> str | None:
     """The first flag of an unported path the command line set, as its
     refusal message, or None."""
-    for dest, off, flag, item, what in rows:
+    for dest, off, flag, item, what in _UNPORTED:
         if getattr(args, dest, off) != off:
             return (f"{flag}: {what} not ported yet: ROADMAP.md queue A item {item}")
     if getattr(args, "watchdog", "off") == "warn":
@@ -76,7 +67,9 @@ def _unported(args, rows=_UNPORTED) -> str | None:
 
 
 def _device(args):
-    """``(device, None)``, or ``(None, exit code)`` after a message."""
+    """``(device, None)``, or ``(None, exit code)`` after a message. On
+    CUDA, each rank of a process group takes device ``rank %
+    device_count``."""
     import torch
 
     if args.cpu_devices > 1:
@@ -89,6 +82,10 @@ def _device(args):
         print("CUDA is not available: the commands run on cuda; pass --cpu-devices 1 to run "
               "on the CPU", file=sys.stderr)
         return None, 1
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return torch.device("cuda", dist.get_rank() % torch.cuda.device_count()), None
     return torch.device("cuda"), None
 
 
@@ -278,12 +275,37 @@ def _train_source(args, cfg):
 def _train_config_conflicts(args) -> str | None:
     """The ``train`` command's refusals of incoherent flag sets among the
     ported flags (the JAX package's messages): the first, or None."""
+    if args.ep < 1:
+        return f"--ep must be >= 1, got {args.ep}"
     if args.moe_aux_weight is not None and not args.moe_experts:
         return ("--moe-aux-weight without --moe-experts would be a silent "
                 "no-op (a dense model has no routers to balance)")
+    if args.pp > 1 and args.moe_experts:
+        return "--pp with --moe-experts is not supported (pp towers are dense)"
+    update_mode = args.update_sharding or ""
+    if args.zero1 and update_mode not in ("", "zero1"):
+        return (f"--zero1 is the deprecated alias for --update-sharding "
+                f"zero1 and contradicts --update-sharding {update_mode}; "
+                "drop one of them")
+    if args.zero1 and not update_mode:
+        update_mode = "zero1"
+    if update_mode == "off":
+        update_mode = ""
+    if args.pp > 1 and update_mode:
+        return (f"--pp with --update-sharding {update_mode} is not supported "
+                "(the sharded update — zero1's constrain and full's "
+                "reduce-scatter alike — would re-shard the stage-local "
+                "moments dp-wise every step)")
+    if args.pp_microbatches and args.pp <= 1:
+        return "--pp-microbatches without --pp > 1 would be a silent no-op"
+    if args.pp_microbatches < 0:
+        return f"--pp-microbatches must be >= 1, got {args.pp_microbatches}"
     if args.accum_bf16 and args.accum == 1:
         return ("--accum-bf16 requires --accum > 1 (the unaccumulated step "
                 "has no accumulator)")
+    if args.pp > 1 and args.accum > 1 and args.accum_negatives == "global":
+        return ("--accum-negatives global with --pp is not supported (the pp "
+                "forward is already whole-batch per accumulation step)")
     if args.gradcache_bf16 and (args.accum == 1 or args.accum_negatives != "global"):
         return ("--gradcache-bf16 requires --accum > 1 with "
                 "--accum-negatives global (only the GradCache path stashes "
@@ -317,13 +339,8 @@ def _train_config_conflicts(args) -> str | None:
 
 
 def _sync_conflicts(args) -> str | None:
-    """The refusals of the gradient-sync flags (JAX ``cli.py``: update
-    sharding, the dcn axis and compression), JAX's messages."""
-    update_mode = args.update_sharding or ""
-    if args.zero1 and update_mode not in ("", "zero1"):
-        return (f"--zero1 is the deprecated alias for --update-sharding "
-                f"zero1 and contradicts --update-sharding {update_mode}; "
-                "drop one of them")
+    """The refusals of the gradient-sync flags (JAX ``cli.py``: the dcn
+    axis and compression), JAX's messages."""
     if args.dcn_slices > 1 and not args.grad_compression:
         return ("--dcn-slices without --grad-compression is a silent no-op: "
                 "the regular step already spans slices when the dp axis is "
@@ -336,6 +353,8 @@ def _sync_conflicts(args) -> str | None:
         if args.variant == "ring":
             reasons.append("--variant all_gather or unset (ring ppermute has "
                            "no joint-(dcn,dp) axis form)")
+        if args.ep > 1:
+            reasons.append("no --ep (expert parallelism needs the regular step)")
         if args.ring_overlap:
             reasons.append("no --ring-overlap (compressed sync is "
                            "all_gather-only; there is no ring hop loop)")
@@ -346,6 +365,12 @@ def _sync_conflicts(args) -> str | None:
             reasons.append(
                 f"--topk-frac in (0, 1], got {args.topk_frac} (it is the "
                 f"fraction of gradient entries kept per tensor)"
+            )
+        if args.grad_compression in ("adaptive", "learned") and args.pp > 1:
+            reasons.append(
+                "no --pp (the adaptive controller's scheme table is per "
+                "GLOBAL tensor; pp shards block grads stage-locally — use "
+                "int8/topk under pp)"
             )
         if reasons:
             return "--grad-compression requires: " + "; ".join(reasons)
@@ -371,23 +396,73 @@ def _sync_conflicts(args) -> str | None:
 
 
 def _process_grid(args):
-    """The train command's process grid: ``(dcn, dp)`` with ``--dcn-slices``
-    (the dcn axis outermost: slice i is the ranks ``[i·W/dcn, (i+1)·W/dcn)``),
-    else ``(dp,)`` over the world. ``(grid, None)`` or ``(None, message)``."""
+    """The train (and export) command's process grid, by JAX's
+    ``_make_training_mesh`` rules over the run's processes: ``(dcn, dp[,
+    pp])`` with ``--dcn-slices`` (the dcn axis outermost: slice i is the
+    ranks ``[i·W/dcn, (i+1)·W/dcn)``), ``(dp, pp)`` with ``--pp``, ``(dp,
+    ep)`` with ``--ep``, else ``(dp,)``. ``(grid, None)`` or ``(None,
+    message)``."""
     from distributed_sigmoid_loss_tpu_torch.parallel.mesh import ProcessGrid, axis_size
 
     world = axis_size()
-    if args.dcn_slices > 1:
-        if world % args.dcn_slices:
-            return None, (f"--dcn-slices {args.dcn_slices} must divide the {world} processes "
-                          "of the run")
-        grid = ProcessGrid({"dcn": args.dcn_slices, "dp": world // args.dcn_slices})
+    pp, ep = getattr(args, "pp", 1), args.ep
+    if getattr(args, "dcn_slices", 1) > 1:
+        dcn = args.dcn_slices
+        if ep > 1:
+            return None, "--dcn-slices composes with dp/pp only (no --ep)"
+        if world % (dcn * pp):
+            return None, f"--dcn-slices {dcn} x --pp {pp} must divide process count {world}"
+        axes = {"dcn": dcn, "dp": world // (dcn * pp)}
+        grid = ProcessGrid({**axes, "pp": pp} if pp > 1 else axes)
+    elif pp > 1:
+        if ep > 1:
+            return None, "--pp with --ep is not supported (pp towers are dense)"
+        if world % pp:
+            return None, f"--pp {pp} must divide process count {world}"
+        grid = ProcessGrid({"dp": world // pp, "pp": pp})
+    elif ep > 1:
+        if not args.moe_experts:
+            return None, ("--ep > 1 without --moe-experts would only shrink data "
+                          "parallelism (a dense model has no ep-sharded params)")
+        if world % ep:
+            return None, f"--ep {ep} must divide process count {world}"
+        if args.moe_experts % ep:
+            return None, (f"--ep {ep} must divide --moe-experts {args.moe_experts} "
+                          f"(expert kernels are stacked (E, ...) and sharded over ep)")
+        grid = ProcessGrid({"dp": world // ep, "ep": ep})
     else:
         grid = ProcessGrid({"dp": world})
-    if args.update_sharding == "full" and grid.shape["dp"] < 2:
+    if getattr(args, "update_sharding", "") == "full" and grid.shape["dp"] < 2:
         return None, ("update_sharding='full' requires a dp axis of size > 1, got "
                       f"'dp'={grid.shape['dp']} on the process grid {grid.shape}")
     return grid, None
+
+
+def _join_processes(args) -> int | None:
+    """``--coordinator``: JAX's checks (exit 2), then the rendezvous of every
+    process of the run (exit 3 if it fails); None when it went through or
+    was not asked for."""
+    if not args.coordinator:
+        return None
+    if args.num_processes < 1 or args.process_id < 0:
+        print("--coordinator requires --num-processes >= 1 and --process-id >= 0 "
+              "(every process runs the same command with its own --process-id)",
+              file=sys.stderr)
+        return 2
+    if args.batch % args.num_processes:
+        print(f"--batch {args.batch} must be divisible by --num-processes "
+              f"{args.num_processes} (batch is GLOBAL; each process contributes "
+              f"batch/num_processes rows)", file=sys.stderr)
+        return 2
+    from distributed_sigmoid_loss_tpu_torch.parallel.multihost import initialize_multihost
+
+    try:
+        initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                             device="cpu" if args.cpu_devices == 1 else "cuda")
+    except Exception as e:  # the environment's (ports, devices): its own exit code
+        print(f"INIT_FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        return 3
+    return None
 
 
 def cmd_train(args) -> int:
@@ -395,6 +470,9 @@ def cmd_train(args) -> int:
     if refusal:
         print(refusal, file=sys.stderr)
         return 2
+    code = _join_processes(args)
+    if code is not None:
+        return code
     device, code = _device(args)
     if device is None:
         return code
@@ -411,6 +489,19 @@ def cmd_train(args) -> int:
     if args.loss_family != "sigmoid":
         # t_prime's init depends on the family (CLIP: log(1/0.07)).
         cfg = dataclasses.replace(cfg, loss=LossConfig(family=args.loss_family))
+    if args.pp > 1:
+        # Pipeline stages need scanned towers (JAX's rule; --tiny's are not).
+        from distributed_sigmoid_loss_tpu_torch.parallel.pp_towers import validate_pp_tower
+
+        cfg = dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, scan_layers=True),
+            text=dataclasses.replace(cfg.text, scan_layers=True))
+        try:
+            validate_pp_tower(cfg.vision, args.pp, "vision")
+            validate_pp_tower(cfg.text, args.pp, "text")
+        except ValueError as e:
+            print(f"--pp {args.pp}: {e}", file=sys.stderr)
+            return 2
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""), file=sys.stderr)
     model = SigLIP(cfg, device=device)
@@ -545,6 +636,7 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
         make_train_step,
         train_resilient,
     )
+    from distributed_sigmoid_loss_tpu_torch.train.train_step import pp_forward
     from distributed_sigmoid_loss_tpu_torch.train.compressed_step import (
         make_compressed_train_step,
         with_adaptive_compression,
@@ -557,8 +649,28 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
     first = next(data)
     resuming = bool(args.ckpt_dir) and latest_step(args.ckpt_dir) is not None
     update_mode = args.update_sharding or ("zero1" if args.zero1 else "off")
+    # JAX's default: twice the stages, which keeps the bubble (S-1)/(S+M-1)
+    # under a third.
+    pp_micro = (args.pp_microbatches or 2 * args.pp) if args.pp > 1 else 0
+    if args.grad_compression and pp_micro:
+        from distributed_sigmoid_loss_tpu_torch.parallel.mesh import current_grid
+
+        shape = current_grid().shape
+        groups = shape["dcn"] * shape["dp"]
+        ok = args.batch % groups == 0
+        local = args.batch // groups if ok else 0
+        ok = ok and local % args.accum == 0
+        micro_rows = local // args.accum if ok else 0
+        if not ok or micro_rows % pp_micro:
+            print(f"--grad-compression with --pp: global batch {args.batch} "
+                  f"must divide as (dcn*dp = {groups}) x accum = {args.accum} "
+                  f"x pp-microbatches = {pp_micro}; "
+                  f"need batch % {groups * args.accum * pp_micro} == 0", file=sys.stderr)
+            return 2
     state = create_train_state(model, tx, ema=args.ema_decay is not None,
-                               update_sharding=update_mode)
+                               update_sharding=update_mode,
+                               pp_axis="pp" if args.pp > 1 else None,
+                               ep_axis="ep" if args.ep > 1 else None)
     # --loss-impl chunked and --grad-compression are all_gather shapes; an
     # unset --variant follows them (an explicit ring was refused above).
     all_gather = args.loss_impl == "chunked" or args.grad_compression
@@ -573,7 +685,7 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
     accum = dict(accum_steps=args.accum, accum_negatives=args.accum_negatives,
                  accum_dtype="bfloat16" if args.accum_bf16 else None,
                  gradcache_embed_dtype="bfloat16" if args.gradcache_bf16 else None,
-                 moe_aux_weight=moe_aux_w)
+                 moe_aux_weight=moe_aux_w, pp_microbatches=pp_micro)
     if args.grad_compression:
         # --topk-exact changes nothing below here: the port's top-k is
         # always exact (ROADMAP.md, deliberate differences).
@@ -596,6 +708,8 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
         "update_sharding": update_mode,
         "opt_mem_bytes_per_replica": opt_mem_bytes_per_replica(state.opt_state)}
     logger = MetricsLogger(every=args.log_every)
+    # A pipeline stage holds its blocks only: its evals run the pipeline too.
+    embed = pp_forward(model, pp_micro) if pp_micro else model
 
     def host_batches(skip: int = 0):
         # Every stream is deterministic per position (seeded): on resume,
@@ -654,7 +768,7 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
 
         def eval_hook(step_i, st):
             with torch.no_grad():
-                zi, zt, _ = model(eval_batch["images"], eval_batch["tokens"])
+                zi, zt, _ = embed(eval_batch["images"], eval_batch["tokens"])
             rm = retrieval_metrics(zi, zt, ks=(1, 5))
             # force: out of band of --log-every, the steps/sec clock untouched.
             logger.log(step_i, {f"eval/{k}": float(v) for k, v in rm.items()}, force=True)
@@ -708,7 +822,7 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
     # Retrieval on the stream's next batch (the embeddings come normalized).
     held_out = put_batch(shard_batch(next(data)), device)
     with torch.no_grad():
-        zimg, ztxt, _ = model(held_out["images"], held_out["tokens"])
+        zimg, ztxt, _ = embed(held_out["images"], held_out["tokens"])
     rm = retrieval_metrics(zimg, ztxt, ks=(1, 5))
     print({k: round(float(v), 4) for k, v in rm.items()}, file=sys.stderr)
     return 0
@@ -896,10 +1010,6 @@ def cmd_export(args) -> int:
     on, with no model code. ``--check`` reloads the written file and replays
     it on copies of the inputs against the live eager step; a train step
     also past the warmup, where the parameters move."""
-    refusal = _unported(args) or _unported(args, _EXPORT_UNPORTED)
-    if refusal:
-        print(refusal, file=sys.stderr)
-        return 2
     if args.quant and args.what == "train_step":
         print("--quant is inference-only (zero gradients through round); "
               "use it with --what forward", file=sys.stderr)
@@ -920,7 +1030,6 @@ def cmd_export(args) -> int:
     import dataclasses
     import time
 
-    import numpy as np
     import torch
     from torch.utils import _pytree as pytree
 
@@ -944,6 +1053,16 @@ def cmd_export(args) -> int:
         # Same family wiring as train: the model's t_prime init follows it.
         cfg = dataclasses.replace(cfg, loss=LossConfig(family=args.loss_family))
     model = SigLIP(cfg, device=device)
+    if args.what == "forward" and args.ep > 1:
+        print("--ep applies to --what train_step only (the forward export is "
+              "a single-device inference program)", file=sys.stderr)
+        return 2
+    # The train command's topology rules: --ep must divide the processes
+    # (and a grid of more than one process is refused below).
+    grid, problem = _process_grid(args)
+    if grid is None:
+        print(problem, file=sys.stderr)
+        return 2
     b = args.batch
     batch = {k: v.to(device) for k, v in next(iter(SyntheticImageText(cfg, b))).items()}
 
@@ -954,9 +1073,10 @@ def cmd_export(args) -> int:
                                         total_steps=args.total_steps))
         state = create_train_state(model, tx)
         loss_cfg = LossConfig(variant=args.variant, family=args.loss_family)
-        fn = make_functional_train_step(model, tx, loss_cfg)
+        moe_aux = args.moe_aux_weight if args.moe_experts else None
+        fn = make_functional_train_step(model, tx, loss_cfg, moe_aux_weight=moe_aux)
         example = (train_state_tree(state), batch)
-        live_step = make_train_step(model, loss_cfg)
+        live_step = make_train_step(model, loss_cfg, moe_aux_weight=moe_aux)
 
         def live(tree, batch):
             new_state, metrics = live_step(state, batch)
@@ -991,10 +1111,11 @@ def cmd_export(args) -> int:
                 print(f"check failed: {len(got)} leaves replayed, {len(want)} live",
                       file=sys.stderr)
                 return False
+            # On the leaves' device: a B/16 MoE state's ~3 × 0.9B entries
+            # would take minutes through host numpy.
             for w, g in zip(want, got):
-                np.testing.assert_allclose(g.detach().float().cpu().numpy(),
-                                           w.detach().float().cpu().numpy(), rtol=1e-5,
-                                           atol=1e-6)
+                torch.testing.assert_close(g.detach().float(), w.detach().float(), rtol=1e-5,
+                                           atol=1e-6, equal_nan=True)
             return True
 
         if not replays_like_live(example):
@@ -1416,16 +1537,18 @@ def _parser() -> argparse.ArgumentParser:
                          "JAX package's default) needs obs/health.py, not ported yet")
     tr.add_argument("--moe-experts", type=int, default=0,
                     help="swap tower MLPs for this many experts per block (mixture of "
-                         "experts, replicated)")
+                         "experts; sharded over --ep ranks)")
     tr.add_argument("--moe-aux-weight", type=float, default=None,
                     help="router load-balancing loss weight (requires --moe-experts; "
                          "default 0.01 when MoE is on)")
     tr.add_argument("--moe-group-size", type=int, default=0,
                     help="GShard routing group size (with --moe-experts; default 512)")
-    # Flags of paths not ported yet (each exits 2 naming its ROADMAP item).
-    tr.add_argument("--pp", type=int, default=1)
-    tr.add_argument("--pp-microbatches", type=int, default=0)
-    tr.add_argument("--ep", type=int, default=1)
+    tr.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages: each rank holds depth/pp blocks of each tower")
+    tr.add_argument("--pp-microbatches", type=int, default=0,
+                    help="pipeline microbatches per step (with --pp > 1; default 2 x pp)")
+    tr.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel ranks (with --moe-experts): each holds E/ep experts")
     tr.add_argument("--update-sharding", choices=["off", "zero1", "full"], default="")
     tr.add_argument("--zero1", action="store_true")
     tr.add_argument("--dcn-slices", type=int, default=1, metavar="N")
@@ -1444,8 +1567,10 @@ def _parser() -> argparse.ArgumentParser:
                          "at this rate (parallel/dcn_emu.py); the controller times it")
     tr.add_argument("--topk-frac", type=float, default=0.01, metavar="F")
     tr.add_argument("--topk-exact", action="store_true")
-    tr.add_argument("--obs-dir", default="", metavar="DIR")
-    tr.add_argument("--coordinator", default="")
+    tr.add_argument("--obs-dir", default="", metavar="DIR")  # not ported yet (6.5)
+    tr.add_argument("--coordinator", default="", metavar="HOST:PORT",
+                    help="join a multi-process run at this TCP rendezvous (NCCL on cuda, "
+                         "gloo with --cpu-devices 1); every process runs the same command")
     tr.add_argument("--num-processes", type=int, default=0)
     tr.add_argument("--process-id", type=int, default=-1)
 

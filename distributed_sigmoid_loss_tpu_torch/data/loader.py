@@ -10,8 +10,8 @@ keeps batches in flight ahead of the step.
 
 JAX's ``batch_shardings`` (a ``NamedSharding`` per leaf over the mesh's data
 axis) and ``global_batch_from_local`` (a global array from each host's rows,
-ROADMAP.md queue A item 6.4 part 2, multi-host input) have no counterpart: each
-rank places its own rows.
+for multi-host input) have no counterpart: each rank, on whichever host,
+places its own rows (``parallel/multihost.py`` joins the processes).
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
-"""Mixture-of-experts MLP, ported from the JAX package's ``models/moe.py``
-with the experts replicated (no expert parallelism: ROADMAP.md queue A item
-6.4 part 2).
+"""Mixture-of-experts MLP, ported from the JAX package's ``models/moe.py``,
+with the experts replicated or sharded over an ``ep`` axis.
 
 GShard/Switch routing as JAX writes it, einsums and not gathers:
 
@@ -21,7 +20,27 @@ GShard/Switch routing as JAX writes it, einsums and not gathers:
   to the innermost :func:`collect_aux` context, and ``SigLIP.forward``
   returns the mean of every layer's as ``loss_params["moe_aux"]``.
 
-``EP_AXIS`` keeps JAX's axis name; nothing shards over it in the port.
+Expert parallelism (:func:`shard_experts`): JAX shards the stacked expert
+weights (E, d, h) over the ``ep`` mesh axis and leaves GSPMD to insert the
+all-to-alls. The port makes them explicit over the ``ep`` axis of the
+ambient process grid (``EP_AXIS``). The ranks of an ep group hold the same
+rows (the batch is split over dp only, as JAX's step shards it), and rank j
+holds experts ``[j·E/ep, (j+1)·E/ep)``:
+
+- every rank routes all of its tokens (the router and the aux loss are
+  replicated, so the aux loss is taken over the same tokens as at ep = 1);
+- the groups are split over the ranks (padded with empty groups to a
+  multiple of ep), each rank dispatches its groups' token slots, and one
+  differentiable ``all_to_all`` takes each expert's slots to the rank that
+  holds it;
+- each rank runs its experts on the slots of every rank's groups, a second
+  ``all_to_all`` brings the outputs back, each rank combines its groups,
+  and ``seq_gather`` joins the groups on every rank.
+
+Entering by ``seq_scatter`` and leaving by ``seq_gather`` counts the
+replicated part's gradient once, so every rank's gradient of the router and
+of the layers around is JAX's global one, and an expert's gradient is the
+sum over the slots of the whole ep group.
 """
 
 from __future__ import annotations
@@ -36,6 +55,17 @@ from torch import nn
 
 from distributed_sigmoid_loss_tpu_torch.models.transformer import checkpoint_name
 from distributed_sigmoid_loss_tpu_torch.ops import quant as quant_ops
+from distributed_sigmoid_loss_tpu_torch.parallel.collectives import (
+    all_to_all,
+    seq_gather,
+    seq_scatter,
+)
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import (
+    axis_group,
+    axis_index,
+    axis_size,
+    expert_axis,
+)
 
 __all__ = [
     "MoeMlp",
@@ -46,9 +76,11 @@ __all__ = [
     "moe_capacity",
     "moe_group",
     "collect_aux",
+    "shard_experts",
+    "expert_params",
 ]
 
-EP_AXIS = "ep"
+EP_AXIS = expert_axis
 
 _AUX = contextvars.ContextVar("moe_aux", default=None)
 
@@ -117,14 +149,8 @@ def build_dispatch(gates: torch.Tensor, idx: torch.Tensor, e: int, capacity: int
     return per_choice.sum(dim=1), combine
 
 
-def expert_apply(xg, dispatch, combine, wi, wo, dtype, quant: str = ""):
-    """Dispatch einsum, each expert's MLP (tanh GELU), combine einsum, in the
-    model dtype. ``quant``: ``"int8"`` runs the two expert products through
-    :func:`~distributed_sigmoid_loss_tpu_torch.ops.quant.int8_expert_matmul`
-    (inference), ``"int8_ste"`` through its straight-through twin; the
-    one-hot einsums stay in the model dtype. The hidden activation carries
-    the ``mlp_hidden`` tag, as the dense MLP's."""
-    expert_in = torch.einsum("ntec,ntd->encd", dispatch.to(dtype), xg.to(dtype))
+def _experts(expert_in, wi, wo, dtype, quant: str):
+    """Each expert's MLP on its slots (E, n, C, d) → (E, n, C, d)."""
     if quant:
         if quant == "int8_ste":
             def matmul(a, b):
@@ -134,14 +160,45 @@ def expert_apply(xg, dispatch, combine, wi, wo, dtype, quant: str = ""):
                 return quant_ops.int8_expert_matmul(a, b, dtype)
         with checkpoint_name("mlp_hidden"):
             hidden = matmul(expert_in, wi)
-        h = F.gelu(hidden, approximate="tanh")
-        return torch.einsum("ntec,encd->ntd", combine.to(dtype), matmul(h, wo))
-    wi_d, wo_d = wi.to(dtype), wo.to(dtype)
+        return matmul(F.gelu(hidden, approximate="tanh"), wo)
     with checkpoint_name("mlp_hidden"):
-        hidden = torch.einsum("encd,edh->ench", expert_in, wi_d)
-    h = F.gelu(hidden, approximate="tanh")
-    expert_out = torch.einsum("ench,ehd->encd", h, wo_d)
-    return torch.einsum("ntec,encd->ntd", combine.to(dtype), expert_out)
+        hidden = torch.einsum("encd,edh->ench", expert_in, wi.to(dtype))
+    return torch.einsum("ench,ehd->encd", F.gelu(hidden, approximate="tanh"), wo.to(dtype))
+
+
+def expert_apply(xg, dispatch, combine, wi, wo, dtype, quant: str = "", ep_axis=None):
+    """Dispatch einsum, each expert's MLP (tanh GELU), combine einsum, in the
+    model dtype. ``quant``: ``"int8"`` runs the two expert products through
+    :func:`~distributed_sigmoid_loss_tpu_torch.ops.quant.int8_expert_matmul`
+    (inference), ``"int8_ste"`` through its straight-through twin; the
+    one-hot einsums stay in the model dtype. The hidden activation carries
+    the ``mlp_hidden`` tag, as the dense MLP's.
+
+    With ``ep_axis``, ``wi`` and ``wo`` are this rank's experts and the
+    slots travel by all-to-all (see the module docstring; over an axis of
+    one rank the collectives are identities); ``xg``, ``dispatch`` and
+    ``combine`` are the same on every rank of the axis, and so is the
+    result."""
+    if ep_axis is None:
+        expert_in = torch.einsum("ntec,ntd->encd", dispatch.to(dtype), xg.to(dtype))
+        expert_out = _experts(expert_in, wi, wo, dtype, quant)
+        return torch.einsum("ntec,encd->ntd", combine.to(dtype), expert_out)
+    group = axis_group(ep_axis)
+    ep = axis_size(group)
+    n = xg.shape[0]
+    pad = -n % ep
+
+    def mine(t):  # this rank's groups of a replicated (n, ...) tensor
+        t = F.pad(t, (0, 0) * (t.dim() - 1) + (0, pad)) if pad else t
+        return seq_scatter(t, ep_axis, dim=0, group=group)
+
+    expert_in = torch.einsum("ntec,ntd->encd", mine(dispatch.to(dtype)), mine(xg.to(dtype)))
+    # (E, n/ep, C, d) -> this rank's E/ep experts over every rank's groups.
+    expert_in = all_to_all(expert_in, ep_axis, split_axis=0, concat_axis=1, group=group)
+    expert_out = _experts(expert_in, wi, wo, dtype, quant)
+    expert_out = all_to_all(expert_out, ep_axis, split_axis=1, concat_axis=0, group=group)
+    y = torch.einsum("ntec,encd->ntd", mine(combine.to(dtype)), expert_out)
+    return seq_gather(y, ep_axis, dim=0, group=group)[:n]
 
 
 class MoeMlp(nn.Module):
@@ -164,6 +221,7 @@ class MoeMlp(nn.Module):
         self.width, self.num_experts, self.dtype = width, num_experts, dtype
         self.num_selected, self.capacity_factor = num_selected, capacity_factor
         self.group_size, self.quant = group_size, quant
+        self.ep_axis = None  # set by shard_experts
         hidden = int(round(width * mlp_ratio))
         e = num_experts
         self.router = nn.Parameter(torch.empty(width, e, device=device))
@@ -195,5 +253,39 @@ class MoeMlp(nn.Module):
         auxes = _AUX.get()
         if auxes is not None:
             auxes.append(aux)
-        y = expert_apply(xg, dispatch, combine, self.wi, self.wo, self.dtype, quant=self.quant)
+        y = expert_apply(xg, dispatch, combine, self.wi, self.wo, self.dtype, quant=self.quant,
+                         ep_axis=self.ep_axis)
         return y.reshape(*lead, d)
+
+
+def shard_experts(model: nn.Module, axis_name: str = EP_AXIS, group=None) -> nn.Module:
+    """Keep this rank's experts of every MoE layer of ``model``, in place:
+    rank j of the axis keeps experts ``[j·E/ep, (j+1)·E/ep)`` of ``wi`` and
+    ``wo``, and the layers route through the axis. Every rank must hold the
+    same whole model before (as :func:`~distributed_sigmoid_loss_tpu_torch.train.create_train_state`
+    makes it). Returns ``model``."""
+    group = axis_group(axis_name, group)
+    ep, j = axis_size(group), axis_index(group)
+    for layer in model.modules():
+        if not isinstance(layer, MoeMlp):
+            continue
+        if layer.ep_axis is not None:
+            raise ValueError("the experts are already sharded")
+        if layer.num_experts % ep:
+            raise ValueError(
+                f"--ep {ep} must divide --moe-experts {layer.num_experts} "
+                f"(expert kernels are stacked (E, ...) and sharded over ep)"
+            )
+        per = layer.num_experts // ep
+        for name in ("wi", "wo"):
+            whole = getattr(layer, name)
+            setattr(layer, name, nn.Parameter(whole.detach()[j * per:(j + 1) * per].clone()))
+        layer.ep_axis = axis_name
+    return model
+
+
+def expert_params(model: nn.Module) -> set[str]:
+    """The names of ``model``'s parameters sharded over ep by
+    :func:`shard_experts`."""
+    return {f"{mod_name}.{p}" for mod_name, layer in model.named_modules()
+            if isinstance(layer, MoeMlp) and layer.ep_axis is not None for p in ("wi", "wo")}

@@ -306,7 +306,7 @@ class Encoder(nn.Module):
         if sp_axis is not None and sp_impl not in ring_attention.SP_IMPLS:
             raise ValueError(f"unknown sp_impl: {sp_impl!r} (expected one of "
                              f"{sorted(ring_attention.SP_IMPLS)})")
-        self.remat = remat
+        self.remat, self.depth = remat, depth
         saved = REMAT_POLICIES[remat_policy]
         self._checkpoint_kw = {"use_reentrant": False}
         if saved:
@@ -326,7 +326,15 @@ class Encoder(nn.Module):
         # ``torch.export`` (train/export.py) the blocks run plainly, with the
         # same values and more memory.
         remat = self.remat and torch.is_grad_enabled() and not torch.compiler.is_exporting()
-        for block in self.blocks:
+        blocks = self.blocks
+        if isinstance(blocks, nn.ModuleDict):  # one pipeline stage's (parallel/pp_towers.py)
+            if len(blocks) != self.depth:
+                raise ValueError(
+                    f"this encoder holds {len(blocks)} of its {self.depth} blocks, one "
+                    "pipeline stage's: run it through parallel.pp_towers"
+                )
+            blocks = blocks.values()
+        for block in blocks:
             x = checkpoint(block, x, **self._checkpoint_kw) if remat else block(x)
         return self.ln_final(x)
 

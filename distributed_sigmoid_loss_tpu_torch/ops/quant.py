@@ -135,16 +135,16 @@ def _(x, weight, bias):
     return x.new_empty(x.shape[:-1] + (weight.shape[0],))
 
 
-class Int8DenseSTE(torch.autograd.Function):
-    """Trainable int8 Dense: the forward is :func:`int8_linear`, the backward
-    ``F.linear``'s gradient on the saved full-precision x and weight (JAX's
-    ``int8_dot_general_ste``: the gradient the unquantized layer would give
-    for the same cotangent)."""
+class _LinearGrad(torch.autograd.Function):
+    """The STE's saving half: it saves the full-precision x and weight and
+    returns a placeholder of the output's shape (a broadcast zero, no
+    memory), whose cotangent is the layer's; its backward is ``F.linear``'s
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
         ctx.save_for_backward(x, weight)
-        return int8_linear(x, weight, bias)
+        return x.new_zeros(()).expand(x.shape[:-1] + (weight.shape[0],))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -155,6 +155,40 @@ class Int8DenseSTE(torch.autograd.Function):
         dw = (g2.t() @ x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
         db = g2.sum(0) if ctx.needs_input_grad[2] else None
         return dx, dw, db
+
+
+class _Int8Value(torch.autograd.Function):
+    """The STE's product half: the value is :func:`int8_linear` of the
+    operands (taken without gradient), the cotangent passes to the
+    placeholder unchanged. It saves nothing."""
+
+    @staticmethod
+    def forward(ctx, placeholder, x, weight, bias):
+        return int8_linear(x, weight, bias)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class Int8DenseSTE:
+    """Trainable int8 Dense: the forward is :func:`int8_linear`, the backward
+    ``F.linear``'s gradient on the saved full-precision x and weight (JAX's
+    ``int8_dot_general_ste``: the gradient the unquantized layer would give
+    for the same cotangent).
+
+    Saving the operands and running the product are two autograd functions,
+    the save first. A custom function's tensors are saved once its forward
+    has returned, so with one function the early stop of non-reentrant
+    checkpointing could only come after the product, and ``save_hot``'s
+    recompute ran the MLP's ``wo`` product again although nothing reads it.
+    Split, the recompute stops at the save, as JAX's remat does."""
+
+    @staticmethod
+    def apply(x, weight, bias):
+        placeholder = _LinearGrad.apply(x, weight, bias)
+        return _Int8Value.apply(placeholder, x.detach(), weight.detach(), bias.detach())
 
 
 # The smallest row count torch._int_mm takes on a CUDA device.

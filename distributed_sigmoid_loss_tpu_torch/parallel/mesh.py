@@ -20,7 +20,7 @@ from typing import Sequence
 import torch.distributed as dist
 
 __all__ = [
-    "data_axis", "model_axis", "sequence_axis", "dcn_axis",
+    "data_axis", "model_axis", "sequence_axis", "dcn_axis", "pipeline_axis", "expert_axis",
     "ProcessGrid", "current_grid", "axis_group", "axis_index", "axis_size",
     "batch_group", "batch_index", "batch_size", "is_distributed",
 ]
@@ -30,9 +30,11 @@ data_axis = "dp"  # batch / replica axis: the reference's "world" of DDP ranks
 model_axis = "tp"  # tensor-parallel axis of the JAX towers (not used by the port)
 sequence_axis = "sp"  # sequence-parallel axis of long-context attention
 dcn_axis = "dcn"  # the slow cross-slice axis of compressed gradient sync
+pipeline_axis = "pp"  # pipeline stages (parallel/pipeline.py)
+expert_axis = "ep"  # expert parallelism (models/moe.py)
 
 # The axes a batch's rows are split over; the ranks along any other axis
-# (sp) hold the same rows.
+# (sp, pp, ep) hold the same rows.
 _BATCH_AXES = (dcn_axis, data_axis)
 
 # The ambient grids, innermost last. A module-level stack, not a context
@@ -80,6 +82,21 @@ class ProcessGrid:
                 group = dist.new_group(ranks) if is_distributed() else None
                 if rank in ranks:
                     self._groups[name] = group
+        # The batch axes together (dcn × dp), when other axes share the grid.
+        batch = [i for i, n in enumerate(self.names) if n in _BATCH_AXES]
+        self._batch_group = None
+        if len(batch) > 1 and len(batch) < len(self.names):
+            others = [range(s) if i not in batch else range(1) for i, s in enumerate(self.sizes)]
+            for fixed in itertools.product(*others):
+                ranks = []
+                for sub in itertools.product(*(range(self.sizes[i]) for i in batch)):
+                    coord = list(fixed)
+                    for i, k in zip(batch, sub):
+                        coord[i] = k
+                    ranks.append(sum(c * st for c, st in zip(coord, strides)))
+                group = dist.new_group(ranks) if is_distributed() else None
+                if rank in ranks:
+                    self._batch_group = group
 
     @property
     def shape(self) -> dict[str, int]:
@@ -93,8 +110,10 @@ class ProcessGrid:
                 return dist.group.WORLD if is_distributed() else None
             if len(axis_name) == 1:
                 return self.group(axis_name[0])
+            if set(axis_name) == {n for n in self.names if n in _BATCH_AXES}:
+                return self._batch_group
             raise ValueError(f"axes {tuple(axis_name)}: the port resolves one axis of the grid "
-                             f"{self.shape}, or all of them together")
+                             f"{self.shape}, its batch axes together, or all of them together")
         if axis_name not in self._groups:
             raise ValueError(f"unknown axis {axis_name!r}: the process grid has {self.shape}")
         return self._groups[axis_name]

@@ -7,6 +7,8 @@ all-to-all). A process here holds only its own rows, so each rank splits
 them itself: microbatch i is rows ``[i·c, (i+1)·c)`` of the local batch.
 Over the ranks together that is exactly JAX's dp-interleaved split: rank
 r's share of JAX's microbatch i is the i-th chunk of rank r's rows.
+:func:`microbatch_merge` is the exact inverse, for callers that need the
+rows back in order (the pipeline towers: the loss's positive pairs).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_group, axis_size, data_axis
 
-__all__ = ["microbatch_split"]
+__all__ = ["microbatch_split", "microbatch_merge"]
 
 
 def microbatch_split(x: torch.Tensor, m: int, axis_name: str = data_axis,
@@ -29,3 +31,9 @@ def microbatch_split(x: torch.Tensor, m: int, axis_name: str = data_axis,
         w = axis_size(axis_group(axis_name))
         raise ValueError(f"batch {b * w} must divide by mesh {axis_name}={w} x {what}={m}")
     return x.reshape(m, b // m, *x.shape[1:])
+
+
+def microbatch_merge(y: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`microbatch_split`: ``(m, B/m, ...) -> (B,
+    ...)``, the rows in their order before the split."""
+    return y.reshape(y.shape[0] * y.shape[1], *y.shape[2:])

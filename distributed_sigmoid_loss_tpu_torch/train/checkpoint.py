@@ -36,13 +36,18 @@ Checkpoints are portable across update shardings: a state whose moments
 are sharded over the data axis (``TrainState.layout``) writes them gathered
 to their whole shape, and a restore takes the target's rows of each. With
 more than one process every rank takes part in the gather and rank 0
-writes.
+writes. So are they across the parts a rank holds (``TrainState.part_axes``):
+experts sharded over ep are written whole (a restore takes the target's
+experts), and a pipeline stage's blocks are written with every other
+stage's under their names in the whole model (a restore takes the target's
+stage). A checkpoint written at ep = 2 or pp = 2 restores at 1.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import tempfile
 import threading
@@ -52,7 +57,12 @@ from typing import Any, Mapping
 import torch
 import torch.distributed as dist
 
-from distributed_sigmoid_loss_tpu_torch.parallel.mesh import is_distributed
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import (
+    axis_group,
+    axis_index,
+    axis_size,
+    is_distributed,
+)
 from distributed_sigmoid_loss_tpu_torch.train.train_step import (
     AdafactorState,
     AdamWState,
@@ -139,9 +149,110 @@ def _sharded_moments(state: Any) -> dict[str, int]:
             if layout.sharded[i]}
 
 
+_PREFIXES = ("model.", "opt.mu.", "opt.nu.", "ema.")
+_BLOCK = re.compile(r"^(.*\.encoder\.blocks\.)(\d+)(\..*)$")
+
+
+def _parts(state: Any, axis: str) -> list[str]:
+    """The names of ``state``'s tensors held in parts over ``axis``, in
+    :func:`state_tensors` order."""
+    part_axes = getattr(state, "part_axes", None)
+    if not isinstance(state, TrainState) or part_axes is None:
+        return []
+    names = {f"{pre}{n}" for n, a in zip((n for n, _ in state.model.named_parameters()),
+                                         part_axes) if a == axis for pre in _PREFIXES}
+    return [k for k in state_tensors(state) if k in names]
+
+
+def _stat_parts(state: Any) -> dict[str, tuple[str, int]]:
+    """Adafactor's statistics of leaves held in parts: name → (axis, the
+    dimension the parts join along: a stage's layers along the stack, a
+    rank's experts along the expert axis, after the stack when stacked)."""
+    part_axes = getattr(state, "part_axes", None)
+    if not isinstance(state, TrainState) or part_axes is None or \
+            not isinstance(state.opt_state, AdafactorState):
+        return {}
+    opt, out = state.opt_state, {}
+    for i, leaf in enumerate(opt.leaves):
+        axis = part_axes[leaf.members[0]]
+        if axis is None:
+            continue
+        dim = 1 if axis == "ep" and leaf.stacked else 0
+        for field in ("v_row", "v_col", "v"):
+            if getattr(opt, field)[i].shape != (1,):  # (1,): the slot a leaf does not use
+                out[f"opt.{field}.{leaf.path}"] = (axis, dim)
+    return out
+
+
+def _joins(state: Any) -> dict[str, tuple[str, int]]:
+    """The tensors a checkpoint joins from their parts: name → (axis, the
+    dimension the parts join along): the experts held over ep and their
+    moments and EMA, and Adafactor's statistics of such leaves."""
+    out = dict.fromkeys(_parts(state, "ep"), ("ep", 0))
+    out.update(_stat_parts(state))
+    return out
+
+
+def _flat_gather(tensors: list[torch.Tensor], group) -> list[list[torch.Tensor]]:
+    """Every rank's ``tensors`` (the same shapes and dtypes on each), by
+    rank: one all-gather per dtype."""
+    w = axis_size(group)
+    out = [[None] * len(tensors) for _ in range(w)]
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx]).contiguous()
+        ranks = [torch.empty_like(flat) for _ in range(w)]
+        dist.all_gather(ranks, flat, group=group)
+        for r in range(w):
+            off = 0
+            for i in idx:
+                n = tensors[i].numel()
+                out[r][i] = ranks[r][off:off + n].view(tensors[i].shape)
+                off += n
+    return out
+
+
+def _stage_name(model, name: str, stage: int, to: int, stages: int) -> str:
+    """``name`` of a block of stage ``stage`` as the same block of stage
+    ``to``: moved on by ``to - stage`` times its own tower's layers a
+    stage."""
+    m = _BLOCK.match(name)
+    tower = m.group(1).split(".")[-4]  # "visual" or "textual"
+    per = getattr(model, tower).encoder.depth // stages
+    return f"{m.group(1)}{int(m.group(2)) + (to - stage) * per}{m.group(3)}"
+
+
+def _gather_parts(state: Any, tensors: dict) -> dict:
+    """``tensors`` with the parts held over ep and pp made whole: the
+    :func:`_joins` joined along their dimension, every stage's blocks
+    added under their names."""
+    joins = _joins(state)
+    for axis in ("ep", "pp"):
+        names = [k for k, (a, _) in joins.items() if a == axis]
+        group = axis_group(axis) if names else None
+        if names and axis_size(group) > 1:
+            got = _flat_gather([tensors[k] for k in names], group)
+            for i, k in enumerate(names):
+                tensors[k] = torch.cat([got[r][i] for r in range(len(got))], dim=joins[k][1])
+    pp = _parts(state, "pp")
+    if pp:
+        group = axis_group("pp")
+        stages, stage = axis_size(group), axis_index(group)
+        if stages > 1:
+            got = _flat_gather([tensors[k] for k in pp], group)
+            for s in range(stages):
+                if s != stage:
+                    for i, k in enumerate(pp):
+                        tensors[_stage_name(state.model, k, stage, s, stages)] = got[s][i]
+    return tensors
+
+
 def checkpoint_tensors(state: Any) -> dict[str, torch.Tensor]:
     """:func:`state_tensors` with a sharded state's moments gathered to
-    their whole shape (a collective over the data axis: every rank calls
+    their whole shape, and the parts of parameters held over ep or pp
+    joined (collectives over the data, ep and pp axes: every rank calls
     it)."""
     tensors = state_tensors(state)
     sharded = _sharded_moments(state)
@@ -155,7 +266,7 @@ def checkpoint_tensors(state: Any) -> dict[str, torch.Tensor]:
         gathered = state.layout.gather(parts)
         for n in keys:
             tensors[n] = gathered[sharded[n]]
-    return tensors
+    return _gather_parts(state, tensors)
 
 
 def _writer() -> bool:
@@ -340,6 +451,17 @@ def restore_checkpoint(path: str, target: Any) -> Any:
     want = state_tensors(target)
     sharded = _sharded_moments(target)
     shapes = {n: torch.Size(target.layout.shapes[i]) for n, i in sharded.items()}
+    # Tensors held in parts (experts, their Adafactor statistics): the
+    # checkpoint has them whole.
+    joins = _joins(target)
+    for n, (axis, dim) in joins.items():
+        shape = list(shapes.get(n, want[n].shape))
+        shape[dim] *= axis_size(axis_group(axis))
+        shapes[n] = torch.Size(shape)
+    # A pipeline stage's target: the other stages' blocks are not its own.
+    other_stages = set()
+    if _parts(target, "pp"):
+        other_stages = {k for k in stored.keys() - want.keys() if _BLOCK.match(k)}
     problems = []
     if isinstance(target, TrainState):
         kind = _OPTIMIZERS[type(target.opt_state)]
@@ -350,7 +472,7 @@ def restore_checkpoint(path: str, target: Any) -> Any:
         t = want[name]
         problems.append(f"  {name}: missing from the checkpoint, target expects "
                         f"{tuple(t.shape)}/{t.dtype}")
-    for name in sorted(stored.keys() - want.keys()):
+    for name in sorted(stored.keys() - want.keys() - other_stages):
         t = stored[name]
         problems.append(f"  {name}: in the checkpoint ({tuple(t.shape)}/{t.dtype}), "
                         "not in the target")
@@ -365,10 +487,15 @@ def restore_checkpoint(path: str, target: Any) -> Any:
                          + "\n".join(problems))
     with torch.no_grad():
         for name, t in want.items():
+            src = stored[name]
+            if name in joins:  # the target's experts (or their statistics)
+                axis, dim = joins[name]
+                group = axis_group(axis)
+                n = shapes[name][dim] // axis_size(group)
+                src = src.narrow(dim, axis_index(group) * n, n)
             if name in sharded:  # the target's rows of the whole moment
-                t.copy_(target.layout.shard(sharded[name], stored[name]))
-            else:
-                t.copy_(stored[name])
+                src = target.layout.shard(sharded[name], src)
+            t.copy_(src)
     if isinstance(target, TrainState):
         target.step = meta["step"]
         target.opt_state.count = meta["count"]

@@ -30,8 +30,10 @@ Gradient accumulation syncs the accumulated mean once a step, so the dcn
 wire carries one gradient a step however many microbatches. The loss's
 collectives run over the joint (dcn, dp) world (``variant="all_gather"``
 only, as in JAX). MoE towers compose (``moe_aux_weight``, experts
-replicated). Not ported yet: the pipeline composition (ROADMAP.md queue A
-item 6.4 part 2).
+replicated: expert parallelism needs the regular step, as in JAX), and so
+do the pipeline towers on a ``(dcn, dp, pp)`` grid with the fixed schemes
+(``pp_microbatches``; create the state with ``pp_axis="pp"``): each rank
+syncs its stage's gradients over its dp and dcn groups.
 """
 
 from __future__ import annotations
@@ -65,7 +67,9 @@ from distributed_sigmoid_loss_tpu_torch.parallel.mesh import (
 from distributed_sigmoid_loss_tpu_torch.parallel.update_shard import resolve_update_sharding
 from distributed_sigmoid_loss_tpu_torch.train.train_step import (
     TrainState,
+    grid_axis_names,
     make_batch_grads,
+    pp_forward,
     resolve_loss_quant,
     step_metrics,
     validate_accum_args,
@@ -340,9 +344,12 @@ def make_compressed_train_step(
     reduce-scatters over dp, compresses this rank's rows, and updates and
     publishes them; ``"zero1"`` shards the moments only.
 
-    ``moe_aux_weight`` (MoE towers, experts replicated) adds that weight
-    times the mean router aux loss to the objective, each rank's over its
-    own tokens, as JAX's compressed step.
+    ``moe_aux_weight`` (MoE towers, experts replicated: no ep axis here, as
+    in JAX) adds that weight times the mean router aux loss to the
+    objective, each rank's over its own tokens, as JAX's compressed step.
+
+    ``pp_microbatches`` pipelines both towers over the grid's ``pp`` axis
+    (fixed schemes only, as in JAX; create the state with ``pp_axis="pp"``).
 
     Metrics: the regular step's (:func:`~distributed_sigmoid_loss_tpu_torch.train.train_step.step_metrics`),
     plus ``ef_norm`` / ``ef_residual_norm`` (the global norm of every
@@ -359,12 +366,8 @@ def make_compressed_train_step(
         pp_microbatches=pp_microbatches, moe_aux_weight=moe_aux_weight,
         gradcache_embed_dtype=gradcache_embed_dtype, compression=compression,
         error_feedback=error_feedback, topk_frac=topk_frac, loss_variant=loss_cfg.variant,
+        mesh_axis_names=grid_axis_names() if pp_microbatches else (_dcn_axis, "dp"),
     )
-    if pp_microbatches:
-        raise NotImplementedError(
-            "pp_microbatches: the pipeline towers are not ported yet: ROADMAP.md queue A item "
-            "6.4 part 2"
-        )
     adaptive = compression in ("adaptive", "learned")
     learned = compression == "learned"
     axis = loss_cfg.axis_name
@@ -374,7 +377,8 @@ def make_compressed_train_step(
         loss_impl=loss_cfg.loss_impl, quant=resolve_loss_quant(model, loss_cfg),
     )
     grads_of = make_batch_grads(model, per_shard, axis, accum_steps, cached_accum, acc_dt,
-                                gradcache_embed_dtype, moe_aux_weight)
+                                gradcache_embed_dtype, moe_aux_weight,
+                                pp_forward(model, pp_microbatches))
     views = {}  # update-sharding mode -> compression_leaves
 
     def fixed_payload(params, layout, full: bool) -> int:
@@ -452,9 +456,10 @@ def make_compressed_train_step(
         scalars = torch.stack([loss, lp["moe_aux"]]) if "moe_aux" in lp else loss.reshape(1)
         all_reduce_mean_([scalars], axis_group((dcn_axis, axis)))
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state, layout,
-                                                grads_sharded=full)
+                                                grads_sharded=full, part_axes=state.part_axes)
         state.step += 1
-        metrics = step_metrics(scalars[0], lp, grad_norm, update_norm, params)
+        metrics = step_metrics(scalars[0], lp, grad_norm, update_norm, params,
+                               state.part_axes)
         if moe_aux_weight is not None:
             metrics["moe_aux"] = scalars[1]
         device = params[0].device
@@ -467,13 +472,18 @@ def make_compressed_train_step(
                         for leaf in views[state.update_sharding]]
             else:
                 rows = [full and layout.sharded[i] for i in range(len(new_ef))]
-            sq = torch.zeros(2, dtype=torch.float32, device=device)
-            for e, sharded in zip(new_ef, rows):
-                sq[int(sharded)] += e.square().sum()
+            # A pipeline stage's residuals are summed over pp too (slot 2).
+            staged = (state.part_axes if state.part_axes is not None and not adaptive
+                      else [None] * len(new_ef))
+            sq = torch.zeros(3, dtype=torch.float32, device=device)
+            for e, sharded, part in zip(new_ef, rows, staged):
+                sq[2 if part is not None else int(sharded)] += e.square().sum()
             if n_dcn > 1:
                 dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=dcn_group)
             if full:
-                dist.all_reduce(sq[1:], op=dist.ReduceOp.SUM, group=dp_group)
+                dist.all_reduce(sq[1:2], op=dist.ReduceOp.SUM, group=dp_group)
+            if state.part_axes is not None and axis_size(axis_group("pp")) > 1:
+                dist.all_reduce(sq[2:], op=dist.ReduceOp.SUM, group=axis_group("pp"))
             metrics["ef_norm"] = torch.sqrt(sq.sum())
             metrics["ef_residual_norm"] = metrics["ef_norm"]
         if adaptive:

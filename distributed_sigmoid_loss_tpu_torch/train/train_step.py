@@ -44,10 +44,13 @@ across a leaf's rows.
 
 Under a ``(dp, sp)`` process grid the batch is split over dp only, and the
 loss's collectives and the gradient mean run over the dp group; the ranks
-of an sp group compute the same gradients.
-
-Pipeline microbatches, the one path of the JAX step not ported, raise
-``NotImplementedError`` naming its ROADMAP row.
+of an sp group compute the same gradients. So do the ranks of an ``ep``
+group (expert parallelism, ``models/moe.py``) and of a ``pp`` group
+(``pp_microbatches``, ``parallel/pp_towers.py``), each holding its own part
+of the parameters: its experts, or its pipeline stage's blocks
+(``TrainState.part_axes``). The global norms (clipping, ``grad_norm``,
+``param_norm``, ``update_ratio``) sum those parts' squares over their axis,
+so they are the whole model's, as JAX's.
 """
 
 from __future__ import annotations
@@ -69,7 +72,12 @@ from distributed_sigmoid_loss_tpu_torch.models.convert import (
 )
 from distributed_sigmoid_loss_tpu_torch.parallel.api import all_reduce_mean_, make_per_shard_loss
 from distributed_sigmoid_loss_tpu_torch.parallel.collectives import flat_collective_
-from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_group, axis_size, data_axis
+from distributed_sigmoid_loss_tpu_torch.parallel.mesh import (
+    axis_group,
+    axis_size,
+    current_grid,
+    data_axis,
+)
 from distributed_sigmoid_loss_tpu_torch.parallel.update_shard import (
     UPDATE_SHARDING_MODES,
     UpdateLayout,
@@ -170,6 +178,38 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
+def partitioned_norm(parts, part_axes=None, layout: UpdateLayout | None = None) -> torch.Tensor:
+    """The global norm of the whole parameters that ``parts`` are this
+    rank's parts of: ``part_axes[i]`` names the axis whose ranks hold the
+    other parts of tensor i (``"pp"``: the other stages' blocks, ``"ep"``:
+    the other experts; None: whole), and ``layout`` the update sharding's
+    rows (summed over its data axis). Each class of parts sums its squares
+    over its axes; :func:`global_norm` when nothing is partitioned."""
+    parts = list(parts)
+    if part_axes is None:
+        return global_norm(parts) if layout is None else layout.norm(parts)
+    sq = torch.stack(torch._foreach_norm(parts)).float().square()
+    return torch.sqrt(_partitioned_sum(sq, part_axes, layout))
+
+
+def _partitioned_sum(sq: torch.Tensor, part_axes, layout: UpdateLayout | None = None):
+    """Σ of the per-tensor sums ``sq`` over the whole tensors: see
+    :func:`partitioned_norm`. The same collectives in the same order on
+    every rank."""
+    rows = [bool(layout is not None and layout.sharded[i]) for i in range(len(sq))]
+    total = torch.zeros((), dtype=torch.float32, device=sq.device)
+    for axis in (None, *sorted({a for a in part_axes if a is not None})):
+        for sharded_rows in ((False, True) if layout is not None else (False,)):
+            mask = [a == axis and r == sharded_rows for a, r in zip(part_axes, rows)]
+            part = sq[torch.tensor(mask, device=sq.device)].sum()
+            if sharded_rows and layout.w > 1:
+                dist.all_reduce(part, op=dist.ReduceOp.SUM, group=layout.group)
+            if axis is not None and axis_size(axis_group(axis)) > 1:
+                dist.all_reduce(part, op=dist.ReduceOp.SUM, group=axis_group(axis))
+            total = total + part
+    return total
+
+
 @dataclasses.dataclass
 class AdamWState:
     """optax's ``ScaleByAdamState``: the update count and the moments, one
@@ -212,13 +252,13 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, params, grads, state: AdamWState, layout: UpdateLayout | None = None,
-              grads_sharded: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              grads_sharded: bool = False, part_axes=None) -> tuple[torch.Tensor, torch.Tensor]:
         """One update of ``params`` from ``grads`` (both lists, in the order of
         :meth:`init`), in place. Returns the global norms of the gradients
         (before clipping) and of the change ``p_new − p_old`` (the step's
         ``grad_norm`` and ``update_ratio`` numerator). With ``layout``, the
         sharded parameters' moments are this rank's rows (see
-        :func:`_sharded_apply`)."""
+        :func:`_sharded_apply`); ``part_axes``: see :func:`partitioned_norm`."""
         count = state.count + 1
         bc1 = 1 - _f32(self.b1) ** count
         bc2 = 1 - _f32(self.b2) ** count
@@ -230,7 +270,7 @@ class AdamW:
             state.mu[i].copy_(mu_new)
             return new
 
-        out = _sharded_apply(params, grads, leaf, self.clip, layout, grads_sharded)
+        out = _sharded_apply(params, grads, leaf, self.clip, layout, grads_sharded, part_axes)
         state.count = count
         return out
 
@@ -273,7 +313,7 @@ def _clip(grads, g_norm: torch.Tensor, max_norm: float) -> list[torch.Tensor]:
 
 
 def _sharded_apply(params, grads, leaf, clip: float, layout: UpdateLayout | None,
-                   grads_sharded: bool):
+                   grads_sharded: bool, part_axes=None):
     """Clip ``grads`` by their global norm and run ``leaf(i, p, g) -> p_new``
     on each parameter (which updates that parameter's optimizer state in
     place); returns the gradients' global norm and the change's.
@@ -281,26 +321,34 @@ def _sharded_apply(params, grads, leaf, clip: float, layout: UpdateLayout | None
     With a ``layout``, a sharded parameter's update runs on this rank's
     rows only (``grads`` are those rows when ``grads_sharded``, else whole
     and sliced here), the norms sum the rows' squares over the data axis,
-    and one all-gather per dtype publishes the new rows to every rank."""
+    and one all-gather per dtype publishes the new rows to every rank.
+    ``part_axes``: the parameters held in parts over other axes
+    (:func:`partitioned_norm`)."""
     params, grads = list(params), list(grads)
     if layout is None:
-        g_norm = global_norm(grads)
+        g_norm = partitioned_norm(grads, part_axes)
         update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
+        squares = []
         for i, (p, g) in enumerate(zip(params, _clip(grads, g_norm, clip))):
             new = leaf(i, p, g)
-            update_sq += (new - p).square().sum()
+            if part_axes is None:
+                update_sq += (new - p).square().sum()
+            else:
+                squares.append((new - p).square().sum())
             p.copy_(new)
+        if part_axes is not None:
+            update_sq = _partitioned_sum(torch.stack(squares), part_axes)
         return g_norm, torch.sqrt(update_sq)
     if not grads_sharded:
         grads = [layout.shard(i, g) for i, g in enumerate(grads)]
-    g_norm = layout.norm(grads)
+    g_norm = partitioned_norm(grads, part_axes, layout)
     parts, deltas = [], []
     for i, (p, g) in enumerate(zip(params, _clip(grads, g_norm, clip))):
         rows = layout.shard(i, p)
         new = leaf(i, rows, g)
         parts.append(new)
         deltas.append(new - rows)
-    update_norm = layout.norm(deltas)
+    update_norm = partitioned_norm(deltas, part_axes, layout)
     layout.publish_(params, parts)
     return g_norm, update_norm
 
@@ -342,7 +390,7 @@ class Lion:
 
     @torch.no_grad()
     def apply(self, params, grads, state: LionState, layout: UpdateLayout | None = None,
-              grads_sharded: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              grads_sharded: bool = False, part_axes=None) -> tuple[torch.Tensor, torch.Tensor]:
         """One update in place; returns the gradients' global norm (before
         clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`."""
         step = -float(self.schedule(state.count))
@@ -358,7 +406,7 @@ class Lion:
             mu.copy_(mu_new)
             return new
 
-        out = _sharded_apply(params, grads, leaf, 1.0, layout, grads_sharded)
+        out = _sharded_apply(params, grads, leaf, 1.0, layout, grads_sharded, part_axes)
         state.count += 1
         return out
 
@@ -457,9 +505,11 @@ class Adafactor:
                 state.v.append(one.clone())
         return state
 
-    def _leaf(self, g, p, v_row, v_col, v, d, lr):
+    def _leaf(self, g, p, v_row, v_col, v, d, lr, axis: str | None = None):
         """One leaf's update (JAX layout) → ``(p_new, v_row, v_col, v)``,
-        the statistics a leaf does not use passed through."""
+        the statistics a leaf does not use passed through. ``axis``: the
+        axis whose ranks hold the leaf's other layers or experts (its block
+        RMS is taken over the whole leaf)."""
         grad_sqr = g * g + self.EPS
         dims = self.factored_dims(tuple(g.shape))
         if dims is None:
@@ -472,33 +522,44 @@ class Adafactor:
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
             u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-        u = u / torch.clamp(torch.sqrt(u.square().mean()), min=1.0)  # block RMS at 1.0
+        u = u / torch.clamp(_block_rms(u, axis), min=1.0)  # block RMS at 1.0
         u = lr.to(u.device) * u
         u = -(u + self.weight_decay * p)
         return p + u, v_row, v_col, v
 
     @torch.no_grad()
     def apply(self, params, grads, state: AdafactorState, layout: UpdateLayout | None = None,
-              grads_sharded: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+              grads_sharded: bool = False, part_axes=None) -> tuple[torch.Tensor, torch.Tensor]:
         """One update in place; returns the gradients' global norm (before
         clipping) and the norm of ``p_new − p_old``, as :meth:`AdamW.apply`.
         Its statistics are whole on every rank under any ``layout``; sharded
-        gradients are gathered first."""
+        gradients are gathered first. A leaf held in parts over pp or ep
+        (``part_axes``: a stage's layers, a rank's experts) keeps its parts'
+        statistics, which are separable by layer and expert, and takes its
+        block RMS over the whole leaf."""
         params, grads = list(params), list(grads)
         if layout is not None and grads_sharded:
             grads = layout.gather(grads)
-        g_norm = global_norm(grads)
+        g_norm = partitioned_norm(grads, part_axes)
         grads = _clip(grads, g_norm, 1.0)
         t = _f32(state.count + 1)
         decay = 1.0 - t ** (-self.DECAY_RATE)
         lr = self.schedule(state.count)
         update_sq = torch.zeros((), dtype=torch.float32, device=g_norm.device)
+        squares = []
         for i, leaf in enumerate(state.leaves):
             g, p = leaf.gather(grads), leaf.gather(params)
+            axis = None if part_axes is None else part_axes[leaf.members[0]]
             new, state.v_row[i], state.v_col[i], state.v[i] = self._leaf(
-                g, p, state.v_row[i], state.v_col[i], state.v[i], decay.to(g.device), lr)
-            update_sq += (new - p).square().sum()
+                g, p, state.v_row[i], state.v_col[i], state.v[i], decay.to(g.device), lr, axis)
+            if part_axes is None:
+                update_sq += (new - p).square().sum()
+            else:
+                squares.append((new - p).square().sum())
             leaf.scatter_(params, new)
+        if part_axes is not None:
+            update_sq = _partitioned_sum(
+                torch.stack(squares), [part_axes[leaf.members[0]] for leaf in state.leaves])
         state.count += 1
         return g_norm, torch.sqrt(update_sq)
 
@@ -530,6 +591,17 @@ class Adafactor:
         layout (``leaves``) rides along and is not a tensor of the tree."""
         return {"count": torch.tensor(state.count, device=device),
                 "v_row": list(state.v_row), "v_col": list(state.v_col), "v": list(state.v)}
+
+
+def _block_rms(u: torch.Tensor, axis: str | None) -> torch.Tensor:
+    """``sqrt(mean(u²))`` of a leaf; with ``axis``, of the whole leaf whose
+    parts the axis's ranks hold (their sums and counts all-reduced)."""
+    group = None if axis is None else axis_group(axis)
+    if axis is None or axis_size(group) == 1:
+        return torch.sqrt(u.square().mean())
+    parts = torch.stack([u.square().sum(), torch.tensor(float(u.numel()), device=u.device)])
+    dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
+    return torch.sqrt(parts[0] / parts[1])
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW | Lion | Adafactor:
@@ -704,7 +776,10 @@ class TrainState:
     moments are this rank's rows), the compressed step's error-feedback
     residuals (``None`` = none) and the adaptive compression's carry
     ``comp`` (``None`` = none; ``train.compressed_step.with_adaptive_compression``).
-    ``ef`` and ``comp`` are derived state, never checkpointed."""
+    ``ef`` and ``comp`` are derived state, never checkpointed.
+    ``part_axes`` (``None`` = every parameter whole on every rank) names,
+    for each parameter, the axis whose ranks hold its other parts: ``"pp"``
+    for a pipeline stage's blocks, ``"ep"`` for sharded experts."""
 
     model: nn.Module
     tx: AdamW | Lion | Adafactor
@@ -714,6 +789,7 @@ class TrainState:
     layout: UpdateLayout | None = None
     ef: list[torch.Tensor] | None = None
     comp: dict | None = None
+    part_axes: list[str | None] | None = None
 
     @property
     def update_sharding(self) -> str:
@@ -725,7 +801,8 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, tx, ema: bool = False, zero1: bool = False,
-                       update_sharding: str = "", axis_name: str = data_axis) -> TrainState:
+                       update_sharding: str = "", axis_name: str = data_axis,
+                       pp_axis: str | None = None, ep_axis: str | None = None) -> TrainState:
     """A train state over ``model``'s parameters (already initialized, on
     its device), with zeroed optimizer state, and with ``ema=True`` an EMA
     copy of the parameters (pair with ``ema_decay`` on
@@ -738,9 +815,30 @@ def create_train_state(model: nn.Module, tx, ema: bool = False, zero1: bool = Fa
     deprecated alias) lays the state out over ``axis_name``
     (:class:`~distributed_sigmoid_loss_tpu_torch.parallel.update_shard.UpdateLayout`):
     AdamW's and Lion's moments of a sharded parameter keep this rank's rows.
-    The steps read the mode from the state (``state.layout``)."""
+    The steps read the mode from the state (``state.layout``).
+
+    After the broadcast, the model keeps its part on this rank: with
+    ``pp_axis`` (JAX's ``create_train_state(..., pp_axis="pp")``, for
+    ``pp_microbatches``) its pipeline stage's blocks
+    (``parallel.pp_towers.keep_stage_blocks``), and with ``ep_axis`` (the
+    sharding of JAX's stacked experts over its mesh's ``ep`` axis) its
+    experts (``models.moe.shard_experts``; without it every rank keeps
+    every expert); ``state.part_axes`` records which."""
     if axis_size() > 1:
         flat_collective_(model.parameters(), lambda flat: dist.broadcast(flat, src=0))
+    part = {}
+    if pp_axis is not None:
+        from distributed_sigmoid_loss_tpu_torch.parallel.pp_towers import keep_stage_blocks
+
+        keep_stage_blocks(model, pp_axis)
+        part.update({n: pp_axis for n, _ in model.named_parameters()
+                     if ".encoder.blocks." in n})
+    if ep_axis is not None:
+        from distributed_sigmoid_loss_tpu_torch.models.moe import expert_params, shard_experts
+
+        shard_experts(model, ep_axis)
+        part.update(dict.fromkeys(expert_params(model), ep_axis))
+    part_axes = [part.get(n) for n, _ in model.named_parameters()] if part else None
     params = list(model.parameters())
     opt_state = (tx.init(params, leaves=jax_leaves(model)) if isinstance(tx, Adafactor)
                  else tx.init(params))
@@ -754,7 +852,7 @@ def create_train_state(model: nn.Module, tx, ema: bool = False, zero1: bool = Fa
                 setattr(opt_state, field, [layout.shard(i, t).clone()
                                            for i, t in enumerate(moments)])
     return TrainState(model=model, tx=tx, opt_state=opt_state,
-                      ema=init_ema(params) if ema else None, layout=layout)
+                      ema=init_ema(params) if ema else None, layout=layout, part_axes=part_axes)
 
 
 def _grads_of(params) -> list[torch.Tensor]:
@@ -839,7 +937,7 @@ def _moe_aux(lp: dict) -> torch.Tensor:
 def make_batch_grads(model: nn.Module, per_shard: Callable, axis_name, accum_steps: int = 1,
                      cached_accum: bool = False, acc_dt=None,
                      gradcache_embed_dtype: str | None = None,
-                     moe_aux_weight: float | None = None) -> Callable:
+                     moe_aux_weight: float | None = None, forward=None) -> Callable:
     """``grads_of(params, batch) -> (loss, lp, grads)``: this rank's loss
     (the mean over its microbatches), the loss scalars before the update and
     its gradients (f32, in ``params`` order), before any sync. One forward
@@ -849,14 +947,17 @@ def make_batch_grads(model: nn.Module, per_shard: Callable, axis_name, accum_ste
     :func:`run_gradcache`. ``per_shard(zimg, ztxt, t_prime, bias)`` is the
     loss with its collectives. With ``moe_aux_weight`` the objective (and
     the loss returned) adds that weight times the towers' mean router aux
-    loss, and ``lp["moe_aux"]`` is its mean over the microbatches. Shared by
-    the regular and the compressed step, which differ only in how they sync
-    the result."""
+    loss, and ``lp["moe_aux"]`` is its mean over the microbatches.
+    ``forward(images, tokens) -> (zimg, ztxt, lp)`` stands in for the
+    model's forward (the pipelined towers, ``parallel/pp_towers.py``).
+    Shared by the regular and the compressed step, which differ only in how
+    they sync the result."""
+    forward = model if forward is None else forward
 
     def loss_and_grads(params, images, tokens):
         for p in params:
             p.grad = None
-        zimg, ztxt, lp = model(images, tokens)
+        zimg, ztxt, lp = forward(images, tokens)
         loss = per_shard(zimg, ztxt, lp["t_prime"], lp["bias"])
         if moe_aux_weight is not None:
             loss = loss + moe_aux_weight * _moe_aux(lp)
@@ -901,11 +1002,12 @@ def make_batch_grads(model: nn.Module, per_shard: Callable, axis_name, accum_ste
     return grads_of
 
 
-def step_metrics(loss, lp: dict, grad_norm, update_norm, params) -> dict:
+def step_metrics(loss, lp: dict, grad_norm, update_norm, params, part_axes=None) -> dict:
     """The step's metrics: ``loss``, ``t`` (= exp(t_prime)) and ``bias``
     before the update, ``grad_norm`` (before clipping), ``param_norm`` after
-    the update and ``update_ratio`` (the change's norm over ``param_norm``)."""
-    param_norm = global_norm(p.detach() for p in params)
+    the update and ``update_ratio`` (the change's norm over ``param_norm``).
+    ``part_axes``: the state's (:func:`partitioned_norm`)."""
+    param_norm = partitioned_norm([p.detach() for p in params], part_axes)
     return {
         "loss": loss,
         "t": torch.exp(lp["t_prime"]),
@@ -926,6 +1028,7 @@ def make_train_step(
     accum_negatives: str = "local",
     accum_dtype: str | None = None,
     gradcache_embed_dtype: str | None = None,
+    pp_schedule: str = "gpipe",
 ):
     """Build ``step(state, batch) -> (state, metrics)``, run by every rank of
     the default process group (one process without ``torch.distributed``).
@@ -971,6 +1074,13 @@ def make_train_step(
     takes Switch eq. 4 over its own tokens (the per-replica estimator, as
     JAX's compressed step); JAX's regular step takes it over the global
     batch, which differs at W > 1 (ROADMAP.md, deliberate differences).
+
+    ``pp_microbatches > 0`` runs both towers' block stacks as pipeline
+    stages over the ambient grid's ``pp`` axis with that many microbatches
+    (each accumulation microbatch pipelined), in the ``pp_schedule``
+    ("gpipe" or "1f1b", ``parallel/pipeline.py``); create the state with
+    ``pp_axis="pp"``, so each rank holds its stage's blocks. Dense towers
+    only, as in JAX.
     """
     validate_trainable_quant(model)
     cached_accum, acc_dt = validate_step_args(
@@ -980,12 +1090,9 @@ def make_train_step(
         pp_microbatches=pp_microbatches,
         moe_aux_weight=moe_aux_weight,
         gradcache_embed_dtype=gradcache_embed_dtype,
+        mesh_axis_names=grid_axis_names(),
     )
-    if pp_microbatches:
-        raise NotImplementedError(
-            "pp_microbatches: the pipeline towers are not ported yet: ROADMAP.md queue A item "
-            "6.4 part 2"
-        )
+    forward = pp_forward(model, pp_microbatches, pp_schedule)
     per_shard = make_per_shard_loss(
         family=loss_cfg.family, variant=loss_cfg.variant, axis_name=loss_cfg.axis_name,
         bidir=loss_cfg.bidir, precision=loss_cfg.precision,
@@ -993,7 +1100,8 @@ def make_train_step(
         ring_overlap=loss_cfg.ring_overlap, quant=resolve_loss_quant(model, loss_cfg),
     )
     grads_of = make_batch_grads(model, per_shard, loss_cfg.axis_name, accum_steps,
-                                cached_accum, acc_dt, gradcache_embed_dtype, moe_aux_weight)
+                                cached_accum, acc_dt, gradcache_embed_dtype, moe_aux_weight,
+                                forward)
 
     def step(state: TrainState, batch: dict):
         params = state.params
@@ -1010,7 +1118,7 @@ def make_train_step(
             all_reduce_mean_([scalars], axis_group(loss_cfg.axis_name))
             grads = layout.mean_grads(grads, scatter=full)
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state, layout,
-                                                grads_sharded=full)
+                                                grads_sharded=full, part_axes=state.part_axes)
         if ema_decay is not None:
             if state.ema is None:
                 raise ValueError(
@@ -1019,12 +1127,45 @@ def make_train_step(
                 )
             update_ema(state.ema, params, step=state.step, decay=ema_decay)
         state.step += 1
-        metrics = step_metrics(scalars[0], lp, grad_norm, update_norm, params)
+        metrics = step_metrics(scalars[0], lp, grad_norm, update_norm, params,
+                               state.part_axes)
         if moe_aux_weight is not None:
             metrics["moe_aux"] = scalars[1]
         return state, metrics
 
     return step
+
+
+def grid_axis_names() -> tuple:
+    """The ambient grid's axis names (JAX's ``mesh.axis_names``); ``("dp",)``
+    without a grid."""
+    grid = current_grid()
+    return (data_axis,) if grid is None else grid.names
+
+
+def pp_forward(model: nn.Module, pp_microbatches: int, pp_schedule: str = "gpipe"):
+    """The forward of a step with ``pp_microbatches``: ``None`` (the model's
+    own) at 0, else both towers pipelined over the grid's ``pp`` axis after
+    JAX's build-time checks of the towers."""
+    if not pp_microbatches:
+        return None
+    from distributed_sigmoid_loss_tpu_torch.parallel.pp_towers import (
+        PP_SCHEDULES,
+        siglip_forward_pp,
+        validate_pp_tower,
+    )
+
+    if pp_schedule not in PP_SCHEDULES:
+        raise ValueError(f"unknown pp_schedule {pp_schedule!r} (expected one of {PP_SCHEDULES})")
+    stages = axis_size(axis_group("pp"))
+    validate_pp_tower(model.cfg.vision, stages, "vision")
+    validate_pp_tower(model.cfg.text, stages, "text")
+
+    def forward(images, tokens):
+        return siglip_forward_pp(model, images, tokens, num_microbatches=pp_microbatches,
+                                 schedule=pp_schedule)
+
+    return forward
 
 
 def train_state_tree(state: TrainState) -> dict:
@@ -1044,7 +1185,8 @@ def train_state_tree(state: TrainState) -> dict:
 
 
 def make_functional_train_step(model: nn.Module, tx, loss_cfg: LossConfig = LossConfig(),
-                               ema_decay: float | None = None):
+                               ema_decay: float | None = None,
+                               moe_aux_weight: float | None = None):
     """:func:`make_train_step`'s step as a function of tensors, for
     ``train.export.export_step``: ``step(tree, batch) -> (new_tree,
     metrics)`` over :func:`train_state_tree` trees, writing nothing, with
@@ -1060,9 +1202,10 @@ def make_functional_train_step(model: nn.Module, tx, loss_cfg: LossConfig = Loss
     ``torch.utils.checkpoint`` under the trace (same values, more memory;
     ROADMAP.md queue C), which ``torch.export`` cannot hold.
 
-    One batch a step (no accumulation), with ``ema_decay`` as the eager
-    step takes it. More than one process is refused: a single-process
-    artifact holds no collective.
+    One batch a step (no accumulation), with ``ema_decay`` and
+    ``moe_aux_weight`` (the metric ``moe_aux`` too) as the eager step takes
+    them. More than one process is refused: a single-process artifact holds
+    no collective.
     """
     validate_trainable_quant(model)
     if axis_size() > 1:
@@ -1089,6 +1232,8 @@ def make_functional_train_step(model: nn.Module, tx, loss_cfg: LossConfig = Loss
             zimg, ztxt, lp = torch.func.functional_call(model, req, (batch["images"],
                                                                      batch["tokens"]))
             loss = per_shard(zimg, ztxt, lp["t_prime"], lp["bias"])
+            if moe_aux_weight is not None:
+                loss = loss + moe_aux_weight * _moe_aux(lp)
             grads = torch.autograd.grad(loss, [req[n] for n in names], allow_unused=True,
                                         materialize_grads=True)
         loss = loss.detach().float()
@@ -1120,6 +1265,8 @@ def make_functional_train_step(model: nn.Module, tx, loss_cfg: LossConfig = Loss
             "param_norm": param_norm,
             "update_ratio": update_norm / (param_norm + 1e-12),
         }
+        if moe_aux_weight is not None:
+            metrics["moe_aux"] = lp["moe_aux"].detach().float()
         return out, metrics
 
     return step

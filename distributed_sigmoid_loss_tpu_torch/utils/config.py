@@ -75,7 +75,7 @@ class ViTConfig:
     sequence_parallel_axis: str | None = None
     sequence_parallel_impl: Literal["ring", "ulysses"] = "ring"
     # Mixture-of-experts: >0 swaps each block's dense MLP for that many
-    # experts (models/moe.py, experts replicated).
+    # experts (models/moe.py; sharded over the grid's ep axis when it has one).
     moe_experts: int = 0
     moe_num_selected: int = 1  # 1 = Switch top-1, 2 = top-2 with renormalized gates
     moe_capacity_factor: float = 1.25

@@ -160,9 +160,6 @@ def test_eval_refuses_ema_on_a_checkpoint_without_it(runs):
 
 
 REFUSED = [
-    (["--pp", "2"], "6.4"), (["--pp-microbatches", "4"], "6.4"),
-    (["--ep", "2"], "6.4"), (["--coordinator", "localhost:1234"], "6.4"),
-    (["--num-processes", "2"], "6.4"), (["--process-id", "0"], "6.4"),
     (["--obs-dir", "d"], "6.5"), (["--watchdog", "warn"], "6.5"),
 ]
 
@@ -189,7 +186,7 @@ SYNC_REFUSED = [
     (["--dcn-slices", "2"], "--dcn-slices without --grad-compression is a silent no-op"),
     (["--zero1", "--update-sharding", "full"], "--zero1 is the deprecated alias"),
     (["--update-sharding", "full"], "update_sharding='full' requires a dp axis of size > 1"),
-    (["--dcn-slices", "3", "--grad-compression", "int8"], "--dcn-slices 3 must divide"),
+    (["--dcn-slices", "3", "--grad-compression", "int8"], "--dcn-slices 3 x --pp 1 must divide"),
 ]
 
 
@@ -317,6 +314,41 @@ def test_eval_runs_the_moe_towers(flags):
 
 
 # The adaptive compression and MoE flags (ported since) on one process: the
+# The pipeline, expert-parallel and multi-process flags (ID 6.4 part 2): the
+# incoherent sets exit 2 as JAX's do, with JAX's last line where the
+# refusal does not depend on the device count (JAX's CLI sees 8 virtual
+# devices here, the port's grid the run's one process).
+PP_EP_REFUSED = [
+    (["--ep", "0"], True),
+    (["--pp", "2", "--moe-experts", "4"], True),
+    (["--pp", "2", "--ep", "2", "--moe-experts", "4"], True),
+    (["--pp", "2", "--update-sharding", "zero1"], True),
+    (["--pp", "2", "--zero1"], True),
+    (["--pp-microbatches", "4"], True),
+    (["--pp", "2", "--pp-microbatches", "-1"], True),
+    (["--pp", "2", "--accum", "2", "--accum-negatives", "global"], True),
+    (["--grad-compression", "int8", "--dcn-slices", "2", "--ep", "2"], True),
+    (["--grad-compression", "adaptive", "--dcn-slices", "2", "--pp", "2"], True),
+    (["--ep", "2"], True),
+    (["--ep", "3", "--moe-experts", "4"], False),
+    (["--ep", "3", "--moe-experts", "6"], False),
+    (["--pp", "3"], False),
+]
+
+
+@pytest.mark.parametrize("flags,same_words", PP_EP_REFUSED,
+                         ids=[" ".join(f) for f, _ in PP_EP_REFUSED])
+def test_pp_ep_flags_refuse_like_jax(flags, same_words):
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        want_rc = jax_cli.main(["train", "--tiny", "--batch", "8", *flags])
+    rc, out, got = run(["train", *TINY, *flags])
+    assert want_rc == rc == 2 and out == ""
+    assert "6.4" not in got
+    if same_words:
+        assert got.strip().splitlines()[-1] == err.getvalue().strip().splitlines()[-1]
+
+
 # incoherent sets exit with JAX's messages and codes.
 LADDER_REFUSED = [
     ["--grad-compression", "adaptive"], ["--grad-compression", "learned"],

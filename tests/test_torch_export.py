@@ -116,6 +116,8 @@ def test_export_train_step_replays_through_the_kernel_ops(tmp_path, monkeypatch)
     passes ``pallas_compatible``: 8 rows, d = 128); the graph holds each
     op, and the returned tree counts one step."""
     monkeypatch.setattr(flash_attention, "flash_attention_available", lambda x: True)
+    # The record is process-wide: only this test's backwards count.
+    short_attention.reset_traced_bwd_batch_heads()
     short_attention.set_bwd_batch_heads(True)
     try:
         cfg = towers(SigLIPConfig.tiny_test(), dtype="bfloat16", embed_dim=128, depth=1)
@@ -227,14 +229,15 @@ def test_cli_export_quant_forward_artifact(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv, code, words", [
     (["--quant", "int8"], 2, "inference-only"),
-    (["--moe-experts", "4"], 2, "6.4"),
-    (["--ep", "2"], 2, "6.4"),
-    (["--moe-aux-weight", "0.01"], 2, "6.4"),
-    (["--moe-group-size", "64"], 2, "6.4"),
+    (["--moe-experts", "4", "--ep", "3"], 2, "--ep 3 must divide process count 1"),
+    (["--ep", "2"], 2, "--ep > 1 without --moe-experts"),
+    (["--what", "forward", "--moe-experts", "4", "--ep", "2"], 2, "--what train_step only"),
+    (["--moe-experts", "4", "--ep", "2"], 2, "--ep 2 must divide process count 1"),
     (["--cpu-devices", "2"], 2, "--cpu-devices 2"),
     (["--platform", "tpu"], 2, "'cuda' or 'cpu'"),
     (["--platform", "cuda", "--cpu-devices", "1"], 2, "conflicts"),
-], ids=["quant_train_step", "moe_experts", "ep", "moe_aux_weight", "moe_group_size",
+], ids=["quant_train_step", "moe_experts_ep3", "ep_without_moe", "forward_ep",
+        "moe_experts_ep2",
         "cpu_devices_2", "platform_tpu", "platform_cuda_on_cpu"])
 def test_cli_export_refusals(tmp_path, capsys, argv, code, words):
     argv = ["export", str(tmp_path / "x.pt2"), "--tiny"] + argv

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from test_torch_towers import both_towers, inputs, port_config, port_embed, tiny
 
+from distributed_sigmoid_loss_tpu.models.siglip import SigLIP as JaxSigLIP
 from distributed_sigmoid_loss_tpu.ops import quant as jq
 from distributed_sigmoid_loss_tpu_torch.models import SigLIP, transformer
 from distributed_sigmoid_loss_tpu_torch.ops import flash_attention, quant
@@ -188,3 +189,61 @@ def test_int8_ste_tower_gradient_is_the_full_precision_vjp_at_the_int8_point():
     for n, p in ref_model.named_parameters():
         if n in got:
             torch.testing.assert_close(got[n], p.grad, rtol=1e-5, atol=1e-7, msg=n)
+
+
+def _int8_dot_generals(jaxpr) -> int:
+    """The ``dot_general``s with int8 operands in a closed jaxpr, nested
+    jaxprs (remat, scan bodies, custom rules) included."""
+    n = 0
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general" and all(
+                v.aval.dtype == jnp.int8 for v in eqn.invars):
+            n += 1
+        for value in eqn.params.values():
+            for sub in value if isinstance(value, (list, tuple)) else (value,):
+                if hasattr(sub, "eqns"):
+                    n += _int8_dot_generals(sub)
+                elif hasattr(sub, "jaxpr") and hasattr(sub.jaxpr, "eqns"):
+                    n += _int8_dot_generals(sub.jaxpr)
+    return n
+
+
+@pytest.mark.parametrize("scan_layers", [False, True])
+def test_save_hot_recomputes_the_int8_products_jax_recomputes(monkeypatch, scan_layers):
+    """Under ``remat_policy="save_hot"`` with both towers training in int8,
+    the port runs as many int8 products a layer as JAX's jaxpr holds: six
+    in the forward (q, k, v, out, wi, wo) and four again in the backward's
+    recompute (q, k, v and out; nothing reads wo's product there, and wi's
+    is kept). The gradients stay bitwise those without remat."""
+    jcfg = tiny(quant_train="int8", dtype="bfloat16", remat=True, remat_policy="save_hot",
+                scan_layers=scan_layers)
+    images, tokens = inputs(jcfg)
+    jmodel = JaxSigLIP(jcfg)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), images, tokens)["params"]
+
+    def jloss(p):
+        zi, zt, _ = jmodel.apply({"params": p}, images, tokens)
+        return jnp.sum(zi.astype(jnp.float32)) + jnp.sum(zt.astype(jnp.float32))
+
+    jfwd = _int8_dot_generals(jax.make_jaxpr(jloss)(params).jaxpr)
+    jgrad = _int8_dot_generals(jax.make_jaxpr(jax.value_and_grad(jloss))(params).jaxpr)
+    # A scanned tower's jaxpr holds its layer body once.
+    layers = 2 if scan_layers else jcfg.vision.depth + jcfg.text.depth
+    assert (jfwd / layers, (jgrad - jfwd) / layers) == (6, 4)
+
+    monkeypatch.setattr(flash_attention, "flash_attention_available", lambda x: True)
+    depth = jcfg.vision.depth + jcfg.text.depth
+    grads = {}
+    for remat in (True, False):
+        cfg = port_config(tiny(quant_train="int8", dtype="bfloat16", remat=remat,
+                               remat_policy="save_hot"))
+        model = SigLIP(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        quant.reset_int_mm_calls()
+        zi, zt, _ = model(torch.from_numpy(images), torch.from_numpy(tokens))
+        fwd = quant.int_mm_calls()
+        (zi.float().sum() + zt.float().sum()).backward()
+        if remat:
+            assert (fwd / depth, (quant.int_mm_calls() - fwd) / depth) == (6, 4)
+        grads[remat] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    for n, g in grads[False].items():
+        assert torch.equal(grads[True][n], g), n
