@@ -252,6 +252,8 @@ import time
 import numpy as np
 import torch
 
+from distributed_sigmoid_loss_tpu_torch.utils.profiling import device_events, kernel_group
+
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 and bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -469,6 +471,15 @@ SAVE_IN_FLIGHT_STEPS = 2
 # Steps through the resilient loop with and without the skip rollback's
 # host copy; the NaN batch's position under "skip".
 SKIP_LOOP_STEPS, SKIP_POISON = 5, 3
+# [obs]: [train_cli]'s run c writes its host spans and telemetry into OBS_DIR
+# (and its line and output into OBS_RUN), the NaN step of the flight check
+# the flight record; the phase then profiles one B/16 image-tower forward at
+# OBS_BUCKET rows into OBS_DIR/device, and `obs summarize OBS_DIR` must hold
+# the kernels' device time to device_events' within OBS_DEVICE_RTOL.
+OBS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "obs")
+OBS_RUN: dict = {}
+OBS_BUCKET, OBS_DEVICE_RTOL = 128, 0.05
+OBS_SPANS = ("fetch", "step", "checkpoint", "eval", "h2d_commit")
 # Real image-text data (``[train_data]``): BMP tar shards of HW sinusoid
 # mixes, SHARDS train shards of PAIRS pairs and one eval shard of a whole
 # batch (the holdout is one batch of --batch rows); B/16 as TRAIN_CLI_FLAGS
@@ -789,27 +800,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(prof) -> dict[str, list]:
-    """``{name: [calls, device us]}`` of the device events ``prof`` (a
-    finished ``torch.profiler.profile``) recorded, summed as
-    ``key_averages()`` sums its device rows (an event on the device counts its
-    span, an asynchronous one nothing), from the profiler's raw events:
-    ``key_averages()`` first builds the host's event tree in Python, which
-    takes tens of seconds for a step of 10^5 kernels."""
-    from torch.autograd import DeviceType
-
-    rows: dict[str, list] = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA or e.is_async() \
-                or e.start_thread_id() != e.end_thread_id() \
-                or getattr(e, "is_hidden_event", lambda: False)():
-            continue
-        row = rows.setdefault(e.name(), [0, 0.0])
-        row[0] += 1
-        row[1] += (e.end_ns() - e.start_ns()) / 1e3
-    return rows
-
-
 def device_ms(fn, iters: int = 5, by_kernel: bool = False):
     """Mean device time of the kernels of one call of ``fn`` over ``iters``
     calls (torch.profiler), without the host's launch gaps that a CUDA-event
@@ -867,14 +857,6 @@ def attention_bound_ms(b, s, h, dh, causal=False, tensors=4, products=2) -> tupl
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-KERNEL_GROUPS = (
-    ("flash_attention", "flash_attention"),  # K7: fwd, di, dkv and dq
-    ("short_attention_bwd_batched", "short_attention_bwd_batched"),
-    ("short_attention_bwd", "short_attention_bwd"),
-    ("short_attention", "short_attention_fwd"),
-)
-
-
 def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
     """Device time of one call of ``fn`` by kernel (torch.profiler), grouped
     into K1, K2, K3, K7, matrix products and the rest, with the device's idle share
@@ -893,12 +875,7 @@ def device_breakdown(fn, wall_ms: float, host_ops: bool = True) -> dict:
               "short_attention_bwd_batched": 0.0, "flash_attention": 0.0, "matmul": 0.0,
               "other": 0.0}
     for name, (_, us) in kernels.items():
-        low = name.lower()
-        group = next((g for key, g in KERNEL_GROUPS if key in low), None)
-        if group is None:
-            matmul = any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma"))
-            group = "matmul" if matmul else "other"
-        groups[group] += us / 1e3
+        groups[kernel_group(name)] += us / 1e3
     total = sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
     return {
@@ -1909,6 +1886,16 @@ def run_serve_path(args, sa, ssl, fa, run: Serving, model=None) -> dict:
     if errors:
         raise errors[0]
     stats = svc.stats()
+    if run.phase == "main" and os.environ.get("DSL_LOCKWATCH") != "1":
+        # Without the witness the named locks are threading's own.
+        raw = type(threading.Lock())
+        locks = {"service": svc._lock, "engine": engine._lock, "engine_call": engine._call_lock,
+                 "index": svc.index._lock, "cache": svc.cache._lock,
+                 **{f"batcher_{k}": b._hist_lock for k, b in svc._batchers.items()}}
+        wrapped = {k: type(v).__name__ for k, v in locks.items() if type(v) is not raw}
+        log(run.phase, raw_locks=sorted(locks), wrapped=wrapped)
+        if wrapped:
+            raise AssertionError(f"[main] locks wrapped with DSL_LOCKWATCH unset: {wrapped}")
 
     checked = 0
     for (kind, x), res in zip(plans, results):
@@ -3503,6 +3490,7 @@ def run_train_cli_path(args, sa, ssl, per_microbatch: dict) -> dict:
     t_phase = time.monotonic()
     cfg = dataclasses.replace(headline_config(), loss=LossConfig())
     layers = cfg.vision.depth + cfg.text.depth
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_cli")
     d_dir, e_dir = os.path.join(root, "D"), os.path.join(root, "E")
     shutil.rmtree(root, ignore_errors=True)
@@ -3516,6 +3504,8 @@ def run_train_cli_path(args, sa, ssl, per_microbatch: dict) -> dict:
                                                          ("c", 4, 4, e_dir, 0)):
             argv = ["train", *TRAIN_CLI_FLAGS, "--steps", str(steps), "--ckpt-every",
                     str(ckpt_every), "--ckpt-dir", ckpt_dir]
+            if name == "c":
+                argv += ["--obs-dir", OBS_DIR, "--watchdog", "warn"]
             run = run_cli(sa, ssl, argv)
             lines = [json.loads(x) for x in run["out"].splitlines() if x.startswith("{")]
             report = report_re.search(run["err"])
@@ -3547,6 +3537,8 @@ def run_train_cli_path(args, sa, ssl, per_microbatch: dict) -> dict:
             if len(losses) != steps - start or not all(np.isfinite(list(losses.values()))):
                 raise AssertionError(f"[train_cli] run {name}: step losses {losses}")
             runs[name] = dict(losses=losses, saves=saves, seconds=run["seconds"])
+            if name == "c":
+                OBS_RUN.update(lines=lines, err=run["err"])
             totals = run["counts"] if totals is None else {
                 k: totals[k] + v for k, v in run["counts"].items()}
 
@@ -3649,6 +3641,88 @@ def run_train_cli_path(args, sa, ssl, per_microbatch: dict) -> dict:
     return totals
 
 
+def run_obs_path(args, sa, ssl) -> dict:
+    """The observability records of [train_cli]'s run c (``--obs-dir
+    OBS_DIR --watchdog warn``): its host spans (OBS_SPANS), its telemetry
+    file, every step line's ``mfu_est`` in (0, 1] on the card's own row of
+    ``CHIP_SPECS`` and ``comm_bytes_total`` 0 (one process), the static
+    attribution's FLOPs and host seconds, and the flight record of the NaN
+    step. Then one B/16 image-tower forward at OBS_BUCKET rows under
+    ``utils.profiling.trace`` into OBS_DIR/device, between two reads of the
+    counts (K1: one launch a layer, nothing else), and ``obs summarize
+    OBS_DIR`` on host and device records together: it must list K1's group
+    with those launches and the call's device time within OBS_DEVICE_RTOL of
+    ``device_events``' sum over the same profile."""
+    from distributed_sigmoid_loss_tpu_torch import cli
+    from distributed_sigmoid_loss_tpu_torch.models import SigLIP
+    from distributed_sigmoid_loss_tpu_torch.obs.attribution import CHIP_SPECS
+    from distributed_sigmoid_loss_tpu_torch.utils.profiling import trace
+
+    t_phase = time.monotonic()
+    card = torch.cuda.get_device_name(0)
+    lines = [x for x in OBS_RUN["lines"] if "loss" in x]
+    att = re.search(r"obs attribution: comm_bytes_total=(\S+) mfu_est=(\S+) "
+                    r"flops_est=(\S+) \(([\d.]+) s\)", OBS_RUN["err"])
+    with open(os.path.join(OBS_DIR, "host_spans.trace.json"), encoding="utf-8") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    span_counts = {n: sum(1 for e in events if e["name"] == n) for n in OBS_SPANS}
+    with open(os.path.join(OBS_DIR, "telemetry.json"), encoding="utf-8") as f:
+        telemetry = json.load(f)
+    bad = [x["step"] for x in lines
+           if not (np.isfinite(x.get("mfu_est", np.nan)) and 0.0 < x["mfu_est"] <= 1.0)
+           or x.get("comm_bytes_total") != 0.0]
+    log("obs", run="train_cli c", attribution=att.groups() if att else None,
+        flops_est=float(att.group(3)) if att else None,
+        mfu_est=float(att.group(2)) if att else None,
+        attribution_s=float(att.group(4)) if att else None,
+        card_in_chip_specs=card in CHIP_SPECS, host_spans=span_counts,
+        telemetry_step=telemetry["step"], telemetry_env=telemetry["env"],
+        health_events=[x for x in OBS_RUN["lines"] if x.get("metric") == "health_event"])
+    if att is None or card not in CHIP_SPECS or bad or not lines \
+            or any(span_counts[n] == 0 for n in OBS_SPANS) or telemetry["step"] != 4:
+        raise AssertionError(f"[obs] run c: attribution {att and att.groups()}, card {card!r}, "
+                             f"lines without a ceiling {bad}, spans {span_counts}, "
+                             f"telemetry step {telemetry['step']}")
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 31)
+    model = SigLIP(siglip_config("b16"), device="cuda", generator=gen).eval()
+    hw = model.cfg.vision.image_size
+    images = torch.rand(OBS_BUCKET, hw, hw, 3, device="cuda", generator=gen)
+    with torch.no_grad():
+        model.encode_image(images)
+        torch.cuda.synchronize()
+        reset_counts(sa, ssl)
+        with trace(os.path.join(OBS_DIR, "device")) as prof:
+            model.encode_image(images)
+    counts = read_counts(sa, ssl)
+    raw_ms = sum(us for _, us in device_events(prof).values()) / 1e3
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["obs", "summarize", OBS_DIR, "--top", "8"])
+    report = out.getvalue()
+    total = re.search(r"== device time by kernel group \(([\d.]+) ms\)", report)
+    k1 = re.search(r"^\s+short_attention_fwd\s+([\d.]+)\s+[\d.]+%\s+(\d+)$", report, re.M)
+    depth = model.cfg.vision.depth
+    log("obs", profiled=f"B/16 image tower forward, {OBS_BUCKET} images", rc=rc,
+        launches={k: v for k, v in counts.items() if v}, device_events_ms=raw_ms,
+        summarize_ms=float(total.group(1)) if total else None,
+        k1=k1.groups() if k1 else None, report=report.splitlines()[:40],
+        phase_seconds=time.monotonic() - t_phase)
+    expect = dict.fromkeys(counts, 0)
+    expect["short_attention_fwd"] = depth
+    if rc != 0 or counts != expect or total is None or k1 is None \
+            or int(k1.group(2)) != depth \
+            or abs(float(total.group(1)) - raw_ms) > OBS_DEVICE_RTOL * raw_ms \
+            or any(f"  {n} " not in report for n in OBS_SPANS):
+        raise AssertionError(f"[obs] summarize: rc {rc}, launches {counts} != {expect}, "
+                             f"device ms {total and total.group(1)} vs {raw_ms}, K1 "
+                             f"{k1 and k1.groups()}:\n{report}")
+    del model, images
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def check_skip_rollback(state, step, batch, root) -> None:
     """The resilient loop under ``--watchdog skip`` before the first
     checkpoint, on the B/16 train state: SKIP_LOOP_STEPS steps through
@@ -3713,6 +3787,32 @@ def check_skip_rollback(state, step, batch, root) -> None:
                    updates=advanced, finite=finite, rolled_back=rolled_back)
         if got != want:
             raise AssertionError(f"[train_cli] the loop under {mode}: {got} != {want}")
+
+    # The flight recorder (obs/health.py) wired into the loop under "halt": a
+    # good step, then the NaN step dumps the last lines and raises. The state
+    # keeps the NaN update (no checkpoint to roll back to); the caller drops it.
+    from distributed_sigmoid_loss_tpu_torch.obs import FlightRecorder
+    from distributed_sigmoid_loss_tpu_torch.train import TrainingDiverged
+
+    os.makedirs(OBS_DIR, exist_ok=True)
+    flight = FlightRecorder(path=os.path.join(OBS_DIR, "flight.json"))
+    diverged = None
+    try:
+        train_resilient(state, step, [batch, poisoned], total_steps=2,
+                        ckpt_dir=os.path.join(root, "G_flight"), ckpt_every=SKIP_LOOP_STEPS,
+                        on_divergence="halt",
+                        on_metrics=lambda s_, m: flight.note_metrics(
+                            s_, {k: float(v) for k, v in m.items()}),
+                        flight=flight)
+    except TrainingDiverged as e:
+        diverged = e
+    with open(flight.path, encoding="utf-8") as f:
+        record = json.load(f)["flight_recorder"]
+    log("obs", flight=dict(reason=record["reason"], steps=[m["step"] for m in record["metrics"]],
+                           dumps=flight.dumps, diverged_at=getattr(diverged, "step", None)))
+    if diverged is None or not record["reason"].startswith("divergence") \
+            or [m["step"] for m in record["metrics"]] != [1] or flight.dumps != 1:
+        raise AssertionError(f"[obs] the flight record of the NaN step: {record}")
 
 
 def bmp_bytes(rgb: np.ndarray) -> bytes:
@@ -5178,6 +5278,7 @@ def main() -> int:
                       ("train_cli", lambda: run_train_cli_path(args, sa, ssl, {
                           k: v / (ACCUM * TRAIN_PALLAS_STEPS)
                           for k, v in paths["train_pallas"].items()})),
+                      ("obs", lambda: run_obs_path(args, sa, ssl)),
                       ("train_data", lambda: run_train_data_path(args, sa, ssl, {
                           k: v / (ACCUM * TRAIN_PALLAS_STEPS)
                           for k, v in paths["train_pallas"].items()})),

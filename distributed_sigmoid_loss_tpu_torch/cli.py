@@ -24,6 +24,11 @@
   hot swaps, ``/metrics`` under ``--metrics-port``), or a chaos scenario
   (``--scenario``, ``--fleet-scenario``); one JSON record with the JAX
   command's keys.
+- ``obs``: offline reports of a run's records: ``obs summarize DIR`` merges
+  the host spans a ``train --obs-dir`` run recorded with any device trace
+  under DIR (``utils.profiling.trace``), ``obs ledger`` summarizes the run
+  ledger's trajectories, ``obs diff A B`` diffs two records or two runs'
+  spans. It reads files only and touches no device.
 
 The commands run on ``cuda``; ``--cpu-devices 1`` runs them on the CPU
 (serve-bench's ``hostloss`` and fleet drills touch no device and run on the
@@ -32,8 +37,8 @@ host either way). Run by every rank of an initialized process group
 one, ``parallel/multihost.py``), ``train`` lays the ranks out on a
 ``parallel.mesh.ProcessGrid`` by JAX's rules: ``(dcn, dp[, pp])`` with
 ``--dcn-slices``, ``(dp, pp)`` with ``--pp``, ``(dp, ep)`` with ``--ep``,
-else ``(dp,)``. A flag whose path the port does not have yet exits 2 with a
-message naming its ROADMAP.md queue A item.
+else ``(dp,)``. A command whose path the port does not have yet (``obs
+regress``) exits 2 with a message naming its ROADMAP.md queue A item.
 """
 
 from __future__ import annotations
@@ -46,25 +51,6 @@ import shutil
 import sys
 
 __all__ = ["main"]
-
-# Flags of paths not ported yet: (dest, the value that means "off", flag,
-# ROADMAP.md queue A item, what the flag needs).
-_UNPORTED = (
-    ("obs_dir", "", "--obs-dir", "6.5", "observability (spans, flight recorder)"),
-)
-
-
-def _unported(args) -> str | None:
-    """The first flag of an unported path the command line set, as its
-    refusal message, or None."""
-    for dest, off, flag, item, what in _UNPORTED:
-        if getattr(args, dest, off) != off:
-            return (f"{flag}: {what} not ported yet: ROADMAP.md queue A item {item}")
-    if getattr(args, "watchdog", "off") == "warn":
-        return ("--watchdog warn: the health watchdog (obs/health.py) not ported yet: "
-                "ROADMAP.md queue A item 6.5")
-    return None
-
 
 def _device(args):
     """``(device, None)``, or ``(None, exit code)`` after a message. On
@@ -466,7 +452,7 @@ def _join_processes(args) -> int | None:
 
 
 def cmd_train(args) -> int:
-    refusal = _unported(args) or _train_config_conflicts(args) or _data_conflicts(args)
+    refusal = _train_config_conflicts(args) or _data_conflicts(args)
     if refusal:
         print(refusal, file=sys.stderr)
         return 2
@@ -613,6 +599,59 @@ def _adaptive_step(args, step_fn, state, cleanup):
     return step
 
 
+def _host_values(metrics: dict) -> dict:
+    """The metrics as host values: 0-d tensors as floats through one copy,
+    vectors as lists of floats, strings and numbers as they are."""
+    import torch
+
+    scalars = {k: v for k, v in metrics.items() if isinstance(v, torch.Tensor) and v.dim() == 0}
+    out = {}
+    if scalars:
+        values = torch.stack([v.detach().float() for v in scalars.values()]).tolist()
+        out.update(zip(scalars, values))
+    for k, v in metrics.items():
+        if k in out:
+            continue
+        if isinstance(v, torch.Tensor):
+            out[k] = [float(x) for x in v.detach().float().flatten().tolist()]
+        else:
+            out[k] = v if isinstance(v, str) else float(v)
+    return {k: out[k] for k in metrics}
+
+
+def _attribution_fields(step_fn, state, batch, device) -> dict:
+    """``mfu_est`` and ``comm_bytes_total`` of the step that will run
+    (``obs/attribution.py``): a trace on tensors without storage, which
+    launches nothing and sends nothing. Empty, with a warning, for a step
+    it cannot trace (the compressed steps) or on a failure: attribution
+    never stops a run."""
+    from distributed_sigmoid_loss_tpu_torch.obs.attribution import metrics_line_fields
+    from distributed_sigmoid_loss_tpu_torch.train.train_step import step_attribution
+
+    try:
+        import time
+
+        import torch
+
+        t0 = time.perf_counter()
+        costs = step_attribution(step_fn, state,
+                                 {k: torch.as_tensor(v) for k, v in batch.items()})
+        if costs is None:
+            print("obs attribution: not available for this step (the compressed steps); "
+                  "metrics lines carry no mfu_est/comm_bytes_total", file=sys.stderr)
+            return {}
+        kind = torch.cuda.get_device_name(device) if device.type == "cuda" else None
+        fields = metrics_line_fields(costs, device_kind=kind)
+        print("obs attribution: " + " ".join(f"{k}={v}" for k, v in sorted(fields.items()))
+              + f" flops_est={costs['flops_est']:.6g} ({time.perf_counter() - t0:.2f} s)",
+              file=sys.stderr)
+        return fields
+    except Exception as e:  # noqa: BLE001 — attribution must never kill a run
+        print(f"WARNING: static attribution failed ({type(e).__name__}: {e}); metrics "
+              "lines will not carry mfu_est/comm_bytes_total", file=sys.stderr)
+        return {}
+
+
 def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanup) -> int:
     import torch
 
@@ -707,7 +746,28 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
     sharding_fields = {} if update_mode == "off" else {
         "update_sharding": update_mode,
         "opt_mem_bytes_per_replica": opt_mem_bytes_per_replica(state.opt_state)}
-    logger = MetricsLogger(every=args.log_every)
+    # The observability wiring (JAX's): schema-checked metrics lines, host
+    # spans (recorded only under --obs-dir; disabled spans are a shared
+    # no-op), the health watchdog and the flight recorder.
+    from distributed_sigmoid_loss_tpu_torch.obs import (
+        HEALTH_EVENT_FIELDS,
+        TRAIN_METRICS_FIELDS,
+        TRAIN_METRICS_PREFIXES,
+        FlightRecorder,
+        HealthWatchdog,
+        SpanRecorder,
+    )
+
+    logger = MetricsLogger(every=args.log_every, schema=TRAIN_METRICS_FIELDS,
+                           schema_prefixes=TRAIN_METRICS_PREFIXES)
+    if args.obs_dir:
+        os.makedirs(args.obs_dir, exist_ok=True)
+    spans = SpanRecorder(enabled=bool(args.obs_dir))
+    flight = FlightRecorder(path=os.path.join(args.obs_dir, "flight.json")
+                            if args.obs_dir else None)
+    watchdog = (None if args.watchdog == "off"
+                else HealthWatchdog(policy="warn" if args.watchdog == "warn" else "skip"))
+    att_fields = _attribution_fields(step_fn, state, shard_batch(first), device)
     # A pipeline stage holds its blocks only: its evals run the pipeline too.
     embed = pp_forward(model, pp_micro) if pp_micro else model
 
@@ -726,15 +786,49 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
     # step, and input_wait_frac on every line says whether it kept up.
     input_stats = PrefetchStats()
 
+    def put_spanned(b, d):
+        # On the prefetch worker's thread: its own track of the host timeline.
+        with spans.span("h2d_commit"):
+            return put_batch(shard_batch(b), d)
+
     def device_batches(skip: int = 0):
-        return prefetch(host_batches(skip), device, size=2,
-                        put=lambda b, d: put_batch(shard_batch(b), d), stats=input_stats)
+        return prefetch(host_batches(skip), device, size=2, put=put_spanned,
+                        stats=input_stats)
+
+    # Under --obs-dir the newest metrics line is also written to
+    # DIR/telemetry.json each log interval (an atomic rename).
+    telemetry_env = None
+    if args.obs_dir:
+        from distributed_sigmoid_loss_tpu_torch.obs.ledger import environment_fingerprint
+
+        telemetry_env = environment_fingerprint()
+
+    def write_telemetry(step_i, line):
+        if not args.obs_dir or step_i % args.log_every:
+            return
+        import time
+
+        from distributed_sigmoid_loss_tpu_torch.obs.telemetry import write_telemetry_file
+
+        try:
+            write_telemetry_file(os.path.join(args.obs_dir, "telemetry.json"),
+                                 {"step": step_i, "ts": round(time.time(), 3),
+                                  "metrics": line, "env": telemetry_env})
+        except OSError as e:  # telemetry must never kill a training run
+            print(f"WARNING: telemetry write failed: {e}", file=sys.stderr)
 
     def log_metrics(step_i, m):
-        # Scalars as floats, the scheme histogram as a list, the controller's
-        # mode as a string (MetricsLogger).
-        logger.log(step_i, {**m, "input_wait_frac": input_stats.input_wait_frac(),
-                            **sharding_fields})
+        # Scalars as floats (one host copy), the scheme histogram as a list,
+        # the controller's mode as a string.
+        line = {**_host_values(m), "input_wait_frac": input_stats.input_wait_frac(),
+                **att_fields, **sharding_fields}
+        if watchdog is not None:
+            for ev in watchdog.observe(step_i, line):
+                flight.note_event(ev)
+                logger.write(ev.record(), schema=HEALTH_EVENT_FIELDS)
+        flight.note_metrics(step_i, line)
+        logger.log(step_i, line)
+        write_telemetry(step_i, line)
 
     eval_hook = None
     if args.eval_every:
@@ -794,7 +888,11 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
                     # vanished between resume detection and the restore.
                     require_restore=resuming,
                     on_metrics=log_metrics, eval_every=args.eval_every, on_eval=eval_hook,
+                    # --watchdog skip routes a non-finite loss into the
+                    # rollback-and-skip path; either way the flight recorder
+                    # dumps the trajectory.
                     on_divergence="skip" if args.watchdog == "skip" else "halt",
+                    spans=spans, flight=flight,
                 )
             except RestoreRequiredError as e:
                 print(f"--ckpt-dir {args.ckpt_dir}: {e}", file=sys.stderr)
@@ -810,14 +908,28 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
                   f"{t['snapshot_s']:.3f} s, write {t['write_s']:.3f} s", file=sys.stderr)
     else:
         stream = device_batches()
+        i = 0  # the crash dump names a step even if the first fetch dies
         try:
             for i, batch in zip(range(1, args.steps + 1), stream):
-                state, metrics = step_fn(state, batch)
+                with spans.span("step"):
+                    state, metrics = step_fn(state, batch)
                 log_metrics(i, metrics)
                 if eval_hook is not None and i % args.eval_every == 0:
-                    eval_hook(i, state)
+                    with spans.span("eval"):
+                        eval_hook(i, state)
+        except BaseException as e:
+            # The resilient loop's black box: a crash leaves the last lines.
+            flight.dump(f"crash at step {i}: {type(e).__name__}: {e}")
+            raise
         finally:
             stream.close()  # joins the worker; `data` is single-reader again
+
+    if args.obs_dir:
+        spans_path = os.path.join(args.obs_dir, "host_spans.trace.json")
+        spans.export(spans_path)
+        print(f"obs: host spans -> {spans_path} ({len(spans.spans())} spans retained; "
+              f"summarize with `python -m distributed_sigmoid_loss_tpu_torch obs summarize "
+              f"{args.obs_dir}`)", file=sys.stderr)
 
     # Retrieval on the stream's next batch (the embeddings come normalized).
     held_out = put_batch(shard_batch(next(data)), device)
@@ -829,10 +941,6 @@ def _train(args, device, cfg, model, tx, source, tokenize, native_decode, cleanu
 
 
 def cmd_eval(args) -> int:
-    refusal = _unported(args)
-    if refusal:
-        print(refusal, file=sys.stderr)
-        return 2
     if args.ema and not args.ckpt_dir:
         print("--ema requires --ckpt-dir (EMA weights live in a train checkpoint; "
               "a fresh model has none)", file=sys.stderr)
@@ -1142,11 +1250,14 @@ def cmd_export(args) -> int:
 
 def _emit_serve_record(record: dict, *, strict_zero_drops: bool = False) -> int:
     """The serve-bench emit contract, shared by the snapshot and scenario
-    paths: print the record (one JSON line, the JAX command's keys; the port
-    keeps no ledger). With ``strict_zero_drops`` a non-zero ``silent_drops``
-    count fails the run — the chaos scenarios' every-outcome-is-typed
-    gate."""
+    paths: print the record (one JSON line, the JAX command's keys) and
+    append it to the run ledger (``obs/ledger.py``; never fatal). With
+    ``strict_zero_drops`` a non-zero ``silent_drops`` count fails the run —
+    the chaos scenarios' every-outcome-is-typed gate."""
+    from distributed_sigmoid_loss_tpu_torch.obs.ledger import append_record
+
     print(json.dumps(record), flush=True)
+    append_record(record, source="serve-bench")
     if strict_zero_drops and record.get("silent_drops"):
         print(f"WARNING: {record['silent_drops']} silent drop(s) — a request ended with "
               "neither a result nor a typed rejection; the degradation contract is broken",
@@ -1450,6 +1561,273 @@ def cmd_data_bench(args) -> int:
     return run_data_bench(args)
 
 
+def _load_host_spans(root: str):
+    """(host_trace, host_paths, spans) from every host_spans.trace.json under
+    ``root``: shared by `obs summarize` and the span half of `obs diff`."""
+    import glob
+
+    from distributed_sigmoid_loss_tpu_torch.obs.spans import Span
+
+    host_trace = None
+    host_paths = sorted(glob.glob(os.path.join(root, "**", "host_spans.trace.json"),
+                                  recursive=True))
+    spans: list = []
+    if host_paths:
+        host_trace = {"traceEvents": []}
+        for path in host_paths:
+            with open(path, encoding="utf-8") as f:
+                host_trace["traceEvents"].extend(json.load(f).get("traceEvents", []))
+        for ev in host_trace["traceEvents"]:
+            if ev.get("ph") == "X" and "dur" in ev:
+                t0 = ev["ts"] / 1e6
+                spans.append(Span(ev["name"], t0, t0 + ev["dur"] / 1e6, ev.get("tid", 0)))
+    return host_trace, host_paths, spans
+
+
+def _add_obs_args(p) -> None:
+    """The `obs` arguments: on the subparser (for --help) and on the
+    standalone parser ``main`` routes `obs` through, which takes options
+    between the operands (``parse_intermixed_args``)."""
+    p.add_argument("action", choices=["summarize", "ledger", "diff", "regress"],
+                   help="summarize: host spans + device kernel time under DIR; ledger: "
+                        "per-metric trajectory summary; diff: field-level diff of two "
+                        "records or two run dirs' span summaries; regress: not ported yet")
+    p.add_argument("paths", nargs="*",
+                   help="summarize: DIR; diff: two operands (metric@N ledger selector, "
+                        "entry index, record-JSON path, or run dir); ledger: none")
+    p.add_argument("--top", type=int, default=12,
+                   help="rows per device-kernel table (obs summarize)")
+    p.add_argument("--merged-out", default="", metavar="PATH",
+                   help="also write one merged Chrome-trace JSON (host + device events; "
+                        "open in ui.perfetto.dev)")
+    p.add_argument("--ledger", default="", metavar="PATH",
+                   help="ledger file for `obs ledger`/`obs diff` (default: DSL_LEDGER_PATH "
+                        "or build/ledger.jsonl at the root of the checkout)")
+    p.add_argument("--metric", default="", metavar="NAME",
+                   help="restrict `obs ledger` to one metric stream")
+    p.add_argument("--backfill", action="store_true",
+                   help="the JAX package's backfill from its round files (exits 2: those "
+                        "rounds are a TPU's)")
+
+
+def cmd_obs(args) -> int:
+    """Offline reports of a run's records; reads files only, touches no
+    device:
+
+    - ``obs summarize DIR``: a run's host spans and any device trace under
+      DIR in one report.
+    - ``obs ledger``: the per-metric trajectory of the run ledger
+      (no-backend, deferred and error entries listed, kept out of the
+      baseline statistics).
+    - ``obs diff A B``: field-level diff of two records (ledger selectors
+      ``metric@-1``, entry indices, or record-JSON paths) or of two run
+      directories' span summaries.
+    """
+    if args.action == "regress":
+        print("obs regress: the proxy-metric regression gate (obs/regress.py, analysis/*) "
+              "is not ported yet: ROADMAP.md queue A item 6.5 part 2", file=sys.stderr)
+        return 2
+    if args.action == "ledger":
+        return _obs_ledger(args)
+    if args.action == "diff":
+        return _obs_diff(args)
+    return _obs_summarize(args)
+
+
+def _obs_ledger(args) -> int:
+    from distributed_sigmoid_loss_tpu_torch.obs.ledger import (
+        ledger_path,
+        read_ledger,
+        trajectory,
+        trajectory_summary,
+    )
+
+    path = args.ledger or None
+    if args.backfill:
+        print("obs ledger --backfill: the JAX package's BENCH_r*/MULTICHIP_r* round files "
+              "record a TPU's runs, not the port's; the port's ledger has no backfill",
+              file=sys.stderr)
+        return 2
+    entries = read_ledger(path)
+    if not entries:
+        print(f"ledger {ledger_path(path)!r} is empty (serve-bench and data-bench append "
+              "automatically)", file=sys.stderr)
+        return 2
+    traj = trajectory(entries, metric=args.metric or None)
+    if not traj:
+        print(f"no entries for metric {args.metric!r}", file=sys.stderr)
+        return 2
+    for metric in sorted(traj):
+        points = traj[metric]
+        print(f"== {metric} ({len(points)} entr(y/ies))")
+        for p in points:
+            rnd = f"r{p['round']:02d}" if p.get("round") is not None else "  -"
+            val = p.get("value")
+            val_s = f"{val:>12.2f}" if isinstance(val, (int, float)) else f"{val!r:>12}"
+            print(f"  {rnd:>4} {val_s} {p.get('unit', '') or '':<13}"
+                  f"{p['status']:<12}{p['source']:<28}{p.get('device_kind', '')}")
+        summary = trajectory_summary(points)
+        if summary["n"]:
+            last = summary["last"]
+            print(f"  -> baseline over {summary['n']} measured (excluded "
+                  f"{summary['excluded']} non-measurement): last {last['value']} "
+                  f"({last.get('status')}), best {summary['best']}, "
+                  f"mean {round(summary['mean'], 2)}")
+        else:
+            print(f"  -> no measured entries ({summary['excluded']} excluded: "
+                  "outages/deferrals are not baselines)")
+    return 0
+
+
+def _resolve_diff_operand(op: str, entries):
+    """One `obs diff` operand -> ("record", dict) | ("spans", dir): a run
+    directory (span summaries), a JSON file (a raw record, a ledger entry,
+    or a file whose ``tail`` holds record lines), ``metric@N`` (the N-th
+    ledger entry of that metric, negatives from the end), or a bare
+    integer (the global ledger entry index)."""
+    from distributed_sigmoid_loss_tpu_torch.obs.ledger import _records_in_tail
+
+    if os.path.isdir(op):
+        return "spans", op
+    if os.path.exists(op):
+        with open(op, encoding="utf-8") as f:
+            data = json.load(f)
+        if not isinstance(data, dict):
+            raise ValueError(f"{op}: not a JSON object")
+        if "metric" in data:
+            return "record", data
+        if isinstance(data.get("record"), dict):
+            return "record", data["record"]
+        if "tail" in data:
+            recs = _records_in_tail(data.get("tail", ""))
+            if recs:
+                return "record", recs[-1]
+        raise ValueError(f"{op}: no record found in the file")
+    if "@" in op:
+        metric, _, idx_s = op.rpartition("@")
+        matching = [e for e in entries if e.get("record", {}).get("metric") == metric]
+        if not matching:
+            raise ValueError(f"no ledger entries for metric {metric!r}")
+        try:
+            return "record", matching[int(idx_s)]["record"]
+        except (ValueError, IndexError):
+            raise ValueError(f"{op}: index {idx_s!r} out of range ({len(matching)} "
+                             f"entr(y/ies) for {metric!r})") from None
+    try:
+        return "record", entries[int(op)]["record"]
+    except ValueError:
+        raise ValueError(f"{op}: not a path, metric@N selector, or entry index") from None
+    except IndexError:
+        raise ValueError(f"{op}: ledger has {len(entries)} entr(y/ies)") from None
+
+
+def _obs_diff(args) -> int:
+    from distributed_sigmoid_loss_tpu_torch.obs.ledger import diff_records, read_ledger
+
+    if len(args.paths) != 2:
+        print("obs diff needs exactly two operands (ledger selector metric@N, entry index, "
+              "record-JSON path, or run dir)", file=sys.stderr)
+        return 2
+    entries = read_ledger(args.ledger or None)
+    try:
+        (kind_a, a), (kind_b, b) = (_resolve_diff_operand(op, entries) for op in args.paths)
+    except ValueError as e:
+        print(f"obs diff: {e}", file=sys.stderr)
+        return 2
+    if {kind_a, kind_b} == {"spans"}:
+        from distributed_sigmoid_loss_tpu_torch.obs.spans import summarize_spans
+
+        rows_a = summarize_spans(_load_host_spans(a)[2])
+        rows_b = summarize_spans(_load_host_spans(b)[2])
+        if not rows_a or not rows_b:
+            print("obs diff: one of the run dirs has no host spans (train with --obs-dir)",
+                  file=sys.stderr)
+            return 2
+        print(f"== span summary diff (A={a} B={b})")
+        print(f"  {'span':<28}{'A mean ms':>11}{'B mean ms':>11}{'delta':>9}")
+        for name in sorted(set(rows_a) | set(rows_b)):
+            ma = rows_a.get(name, {}).get("mean_ms")
+            mb = rows_b.get(name, {}).get("mean_ms")
+            if ma is None or mb is None:
+                only = "A" if mb is None else "B"
+                print(f"  {name:<28}{'(only in ' + only + ')':>31}")
+                continue
+            print(f"  {name:<28}{ma:>11.2f}{mb:>11.2f}{mb - ma:>+9.2f}")
+        return 0
+    if kind_a != "record" or kind_b != "record":
+        print("obs diff: cannot diff a run dir against a record — pass two of the same kind",
+              file=sys.stderr)
+        return 2
+    d = diff_records(a, b)
+    print(f"== record diff (A={args.paths[0]} B={args.paths[1]})")
+    for k, entry in d["changed"].items():
+        delta = ""
+        if "rel" in entry:
+            delta = f"  ({entry['delta']:+g}, {entry['rel']:+.1%})"
+        elif "delta" in entry:
+            delta = f"  ({entry['delta']:+g})"
+        print(f"  {k:<28}{entry['a']!r} -> {entry['b']!r}{delta}")
+    if d["added"]:
+        print(f"  only in B: {', '.join(d['added'])}")
+    if d["removed"]:
+        print(f"  only in A: {', '.join(d['removed'])}")
+    if not (d["changed"] or d["added"] or d["removed"]):
+        print("  records are identical")
+    return 0
+
+
+def _obs_summarize(args) -> int:
+    """``obs summarize DIR``: one report of a run's host spans
+    (``host_spans.trace.json`` from ``train --obs-dir``) and of any device
+    trace (``*.trace.json.gz`` from ``utils.profiling.trace``) under DIR.
+    ``--merged-out`` also writes one combined Chrome trace that opens in
+    ui.perfetto.dev with host and device tracks side by side."""
+    import glob
+
+    if len(args.paths) != 1:
+        print("obs summarize needs exactly one DIR operand", file=sys.stderr)
+        return 2
+    root = args.paths[0]
+    from distributed_sigmoid_loss_tpu_torch.obs.spans import merge_chrome_traces, summarize_spans
+
+    host_trace, host_paths, spans = _load_host_spans(root)
+    device_files = glob.glob(os.path.join(root, "**", "*.trace.json.gz"), recursive=True)
+    if not spans and not device_files:
+        print(f"no host_spans.trace.json or *.trace.json.gz under {root!r} (train with "
+              "--obs-dir and/or capture a device trace with utils.profiling.trace)",
+              file=sys.stderr)
+        return 2
+    if spans:
+        print(f"== host spans ({len(spans)} retained, {len(host_paths)} file(s))")
+        print(f"  {'span':<28}{'count':>7}{'total ms':>11}{'mean ms':>9}"
+              f"{'p50':>8}{'p95':>8}{'max':>9}")
+        for name, row in summarize_spans(spans).items():
+            print(f"  {name:<28}{row['count']:>7}{row['total_ms']:>11.1f}"
+                  f"{row['mean_ms']:>9.2f}{row['p50_ms']:>8.2f}"
+                  f"{row['p95_ms']:>8.2f}{row['max_ms']:>9.2f}")
+    if device_files:
+        from distributed_sigmoid_loss_tpu_torch.utils.profiling import (
+            print_device_ops,
+            summarize_device_ops,
+        )
+
+        dev = summarize_device_ops(root, top=args.top)
+        if dev["categories"]:
+            print_device_ops(dev)
+        else:
+            print("\n(device trace files found but no device event: a host-only capture?)")
+    if args.merged_out:
+        from distributed_sigmoid_loss_tpu_torch.utils.profiling import read_trace_files
+
+        device_events = read_trace_files(root) if device_files else ()
+        merged = merge_chrome_traces(host_trace or {"traceEvents": []}, device_events)
+        with open(args.merged_out, "w", encoding="utf-8") as f:
+            json.dump(merged, f)
+        print(f"\nmerged chrome trace -> {args.merged_out} "
+              f"({len(merged['traceEvents'])} events; open in ui.perfetto.dev)")
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="distributed_sigmoid_loss_tpu_torch",
                                  description=__doc__.split("\n\n")[0])
@@ -1531,10 +1909,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="held-out eval source for --eval-every: a directory "
                          "(ImageTextFolder layout) or a tar-shard glob")
     tr.add_argument("--log-every", type=int, default=1)
-    tr.add_argument("--watchdog", choices=["off", "warn", "skip"], default="off",
-                    help="'skip' routes a non-finite loss into the rollback-and-skip "
-                         "path (requires --ckpt-dir); 'off' halts on it. 'warn' (the "
-                         "JAX package's default) needs obs/health.py, not ported yet")
+    tr.add_argument("--watchdog", choices=["off", "warn", "skip"], default="warn",
+                    help="training health watchdog (obs/health.py): 'warn' (default) "
+                         "emits health_event records on NaN/Inf metrics and loss spikes "
+                         "against the rolling median; 'skip' also routes a non-finite "
+                         "loss into the resilient loop's rollback-and-skip path (requires "
+                         "--ckpt-dir); 'off' disables detection")
     tr.add_argument("--moe-experts", type=int, default=0,
                     help="swap tower MLPs for this many experts per block (mixture of "
                          "experts; sharded over --ep ranks)")
@@ -1567,7 +1947,12 @@ def _parser() -> argparse.ArgumentParser:
                          "at this rate (parallel/dcn_emu.py); the controller times it")
     tr.add_argument("--topk-frac", type=float, default=0.01, metavar="F")
     tr.add_argument("--topk-exact", action="store_true")
-    tr.add_argument("--obs-dir", default="", metavar="DIR")  # not ported yet (6.5)
+    tr.add_argument("--obs-dir", default="", metavar="DIR",
+                    help="record host spans (fetch, h2d_commit, step, eval, checkpoint) "
+                         "into DIR/host_spans.trace.json (Chrome-trace JSON: overlays a "
+                         "device capture in ui.perfetto.dev; `obs summarize DIR` merges "
+                         "them), mirror each logged line into DIR/telemetry.json, and "
+                         "dump the flight recorder to DIR/flight.json instead of stderr")
     tr.add_argument("--coordinator", default="", metavar="HOST:PORT",
                     help="join a multi-process run at this TCP rendezvous (NCCL on cuda, "
                          "gloo with --cpu-devices 1); every process runs the same command")
@@ -1608,6 +1993,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="directory of name.txt caption files")
     tk.add_argument("--text-file", default="", help="plain text file, one caption per line")
 
+    _add_obs_args(sub.add_parser("obs", help="offline reports: host spans + device trace "
+                                             "summary, run-ledger trajectory, record diff"))
     db = sub.add_parser("data-bench", help="input-pipeline stage bench: shard read / decode / "
                                            "tokenize / augment / h2d commit alone, and the "
                                            "composed real-data pipeline vs the synthetic loader")
@@ -1728,10 +2115,18 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # obs mixes nargs="*" operands with options, which parse_args takes only
+    # trailing; parse_intermixed_args cannot traverse subparsers, so obs goes
+    # through a parser of its own built from the same _add_obs_args.
+    if argv[:1] == ["obs"]:
+        obs_ap = argparse.ArgumentParser(prog="distributed_sigmoid_loss_tpu_torch obs")
+        _add_obs_args(obs_ap)
+        return cmd_obs(obs_ap.parse_intermixed_args(argv[1:]))
+    args = _parser().parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "tokenizer": cmd_tokenizer,
             "export": cmd_export, "data-bench": cmd_data_bench,
-            "serve-bench": cmd_serve_bench}[args.cmd](args)
+            "serve-bench": cmd_serve_bench, "obs": cmd_obs}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -108,6 +108,10 @@ def make_synthetic_shards(out_dir: str, num_shards: int, pairs_per_shard: int,
 def _emit_record(record: dict, collected: list) -> None:
     collected.append(record)
     print(json.dumps(record), flush=True)
+    # The record joins the run ledger (obs/ledger.py; never fatal).
+    from distributed_sigmoid_loss_tpu_torch.obs.ledger import append_record
+
+    append_record(record, source="data-bench")
 
 
 def _timed(fn, reps: int) -> float:

@@ -20,20 +20,20 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 import warnings
 
 import numpy as np
 
 from distributed_sigmoid_loss_tpu_torch.data import native_loader
 from distributed_sigmoid_loss_tpu_torch.data.workers import default_data_workers
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["native_decode_available", "decode_batch", "default_decode_threads"]
 
 _SRC = native_loader.NATIVE_DIR / "jpeg_decode.cc"
 _LDFLAGS = ("-ljpeg",)
 
-_lock = threading.Lock()
+_build_lock = named_lock("data.native_decode._build_lock")
 # Library paths whose build or load failed: not tried again.
 _failed: set[str] = set()
 
@@ -54,7 +54,7 @@ def default_decode_threads() -> int:
 def _load():
     """The engine, or None (with one warning) where it cannot be built."""
     path = str(native_loader.library_path(_SRC, "dsl_jpeg", _LDFLAGS))
-    with _lock:
+    with _build_lock:
         if path in _failed:
             return None
         try:

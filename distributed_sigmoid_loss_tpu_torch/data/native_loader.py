@@ -27,6 +27,7 @@ import torch
 
 from distributed_sigmoid_loss_tpu_torch.data.workers import default_data_workers
 from distributed_sigmoid_loss_tpu_torch.utils.config import SigLIPConfig
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["build_shared_lib", "native_available", "NativeSyntheticImageText", "load_library"]
 
@@ -39,7 +40,7 @@ _SRC = NATIVE_DIR / "dataloader.cc"
 # The JAX package's flags (``native/Makefile``).
 _CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread")
 
-_build_lock = threading.Lock()
+_build_lock = named_lock("data.native_loader._build_lock")
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -163,8 +164,8 @@ class NativeSyntheticImageText:
         # consumer blocked inside one (dsl_pipeline_stop, taken without this
         # lock), then frees the engine under it, so destroy never races a
         # thread (e.g. the prefetch worker) inside a call.
-        self._iter_lock = threading.Lock()
-        self._close_lock = threading.Lock()  # serializes concurrent close()rs
+        self._iter_lock = named_lock("data.native_loader.NativeSyntheticImageText._iter_lock")
+        self._close_lock = named_lock("data.native_loader.NativeSyntheticImageText._close_lock")  # serializes concurrent close()rs
 
     def __iter__(self) -> Iterator[dict]:
         while True:

@@ -18,24 +18,31 @@ every few seconds without touching the metrics log. Two pieces:
   answered from the SAME cached buffer — no new snapshot, no re-render, no
   per-request allocation of the payload (pinned by test).
 
+Plus :func:`write_telemetry_file`, the train loop's push-side twin: an
+atomic-rename (tmp + ``os.replace``) JSON file that ``train --obs-dir``
+overwrites each log interval, so a reader tailing it never sees a torn
+write and never touches the metrics log.
+
 The port's copy of the JAX package's ``obs/telemetry.py`` (standard library
-only), with a plain ``threading.Lock`` where JAX takes ``named_lock``. Its
-``write_telemetry_file`` (the train loop's ``--obs-dir`` file) comes with
-``--obs-dir`` (ROADMAP queue A item 6.5).
+only).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Iterable, Mapping
 
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
+
 __all__ = [
     "render_openmetrics",
     "TelemetryExporter",
+    "write_telemetry_file",
 ]
 
 _PERCENTILE_KEY = re.compile(r"p(\d+)_ms$")
@@ -179,7 +186,7 @@ class TelemetryExporter:
         self._requested_port = port
         self._server: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.telemetry.TelemetryExporter._lock")
         self._cached: bytes = b""
         self._cached_at = 0.0
         self.scrapes = 0
@@ -267,3 +274,18 @@ class TelemetryExporter:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+def write_telemetry_file(path: str, payload: Mapping) -> None:
+    """Atomically replace ``path`` with ``payload`` as JSON: write a tmp file
+    in the same directory, fsync, then ``os.replace``, so a reader that opens
+    the file at any moment never sees a torn write. The train loop calls
+    this each log interval under ``--obs-dir``."""
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = os.path.join(parent, f".{os.path.basename(path)}.tmp.{os.getpid()}")
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)

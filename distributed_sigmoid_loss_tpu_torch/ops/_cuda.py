@@ -20,7 +20,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "build_other", "load", "library_path"]
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+__all__ = ["SOURCES", "build", "build_other", "load", "library_path", "take_op"]
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
@@ -44,6 +47,15 @@ _NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def take_op(t) -> bool:
+    """Whether a kernel's wrapper takes its custom op for tensor ``t`` rather
+    than the launch (or the plain version): while ``torch.export`` traces,
+    so the artifact records the op, and for a tensor without storage
+    (``FakeTensor``: ``obs/attribution.py``'s static attribution), whose
+    op's fake version runs and launches nothing."""
+    return isinstance(t, FakeTensor) or torch.compiler.is_exporting()
 
 
 def _nvcc() -> str:

@@ -467,7 +467,7 @@ def flash_self_attention_bwd(q, k, v, out, do, stats, causal: bool = False,
     pass, then the dQ pass. CPU tensors run the plain versions (JAX's
     blocks); CUDA tensors run the kernels, or this raises."""
     scale = _resolve_scale(q, scale)
-    if torch.compiler.is_exporting():  # the op, which the trace records
+    if _cuda.take_op(q):  # the op, which a trace records
         return _flash_attention_bwd_op(q, k, v, out, do, stats, bool(causal), scale)
     return _backward(q, k, v, out, do, stats, bool(causal), scale)
 
@@ -532,12 +532,13 @@ def flash_self_attention(q, k, v, *, causal: bool = False, scale: float | None =
     kernels, or this raises. A head dim that is not a multiple of 8 up to
     :data:`MAX_HEAD_DIM` raises ``ValueError`` on either device. A call that
     needs no gradient (serving) skips the autograd node and the custom op's
-    dispatch, except while ``torch.export`` traces it.
+    dispatch, except while ``torch.export`` traces it or its tensors are
+    fake (``_cuda.take_op``).
     """
     _check_head_dim("flash_self_attention", q.shape[-1])
     scale = _resolve_scale(q, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashSelfAttention.apply(q, k, v, bool(causal), scale)
-    if torch.compiler.is_exporting():
+    if _cuda.take_op(q):
         return _flash_attention_fwd_op(q, k, v, bool(causal), scale)[0]
     return _forward(q, k, v, bool(causal), scale)[0]

@@ -54,7 +54,8 @@ the backward (``models/transformer.py``, ``remat_policy="save_hot"``). The
 backward, K2 or K3, is the custom op ``dsl_torch_port::short_attention_bwd``.
 Both have fake versions, so ``torch.export`` records them in an artifact
 (``train/export.py``) and the artifact's replay launches (and counts) the
-kernels.
+kernels, and a static attribution on tensors without storage
+(``obs/attribution.py``) counts their FLOPs and launches nothing.
 
 On CPU tensors :func:`short_self_attention` runs the plain forward and, in
 the backward, the plain backward (never autograd through the plain forward).
@@ -686,7 +687,7 @@ def short_self_attention_bwd(q, k, v, do, causal: bool = False, scale: float | N
             f"batch_heads backward does not fit shared memory at s={s}, "
             f"width={h * dh}, h={h}; use the per-head loop"
         )
-    if torch.compiler.is_exporting():  # the op, which the trace records
+    if _cuda.take_op(q):  # the op, which a trace records
         return _short_attention_bwd_op(q, k, v, do, bool(causal), float(scale), batch_heads)
     return _backward(q, k, v, do, bool(causal), float(scale), batch_heads)
 
@@ -756,11 +757,12 @@ def short_self_attention(q, k, v, causal: bool = False, scale: float | None = No
     kernels, or this raises. A call that needs no gradient (serving) skips
     the autograd node and the custom op's dispatch, whose host time would
     exceed K1's own at the text tower's shape, except while ``torch.export``
-    traces it: then it is the op, which the trace records.
+    traces it or its tensors are fake (``_cuda.take_op``): then it is the
+    op.
     """
     scale = _resolve_scale(q, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return ShortSelfAttention.apply(q, k, v, bool(causal), scale, batch_heads)
-    if torch.compiler.is_exporting():
+    if _cuda.take_op(q):
         return _short_attention_fwd_op(q, k, v, bool(causal), scale)
     return _forward(q, k, v, bool(causal), scale)

@@ -558,14 +558,15 @@ class StreamingBlockLossSum(torch.autograd.Function):
     int8 mode. The forward saves only the embeddings and the scalars, as the
     JAX ``custom_vjp`` does; the backward recomputes the logits from them.
     Both launch the kernels directly, and through their custom ops only
-    while ``torch.export`` traces them (the op's dispatch is host time an
-    eager step need not pay)."""
+    while ``torch.export`` traces them or their tensors are fake
+    (``_cuda.take_op``; the op's dispatch is host time an eager step need
+    not pay)."""
 
     @staticmethod
     def forward(ctx, zimg, ztxt, t_prime, bias, pos_offset: int, quant: str = ""):
         ctx.save_for_backward(zimg, ztxt, t_prime, bias)
         ctx.pos_offset, ctx.quant = pos_offset, quant
-        if torch.compiler.is_exporting():
+        if _cuda.take_op(zimg):
             return _streaming_loss_fwd_op(zimg, ztxt, t_prime, bias, pos_offset, quant)
         return _fwd(zimg, ztxt, t_prime, bias, pos_offset, quant)
 
@@ -573,7 +574,7 @@ class StreamingBlockLossSum(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         zimg, ztxt, t_prime, bias = ctx.saved_tensors
-        if torch.compiler.is_exporting():
+        if _cuda.take_op(zimg):
             dzimg, dztxt, dscalars = _streaming_loss_bwd_op(zimg, ztxt, t_prime, bias,
                                                             ctx.pos_offset, g, ctx.quant)
             dtp, dbias = dscalars[0], dscalars[1]

@@ -32,8 +32,8 @@ and rides ``EmbeddingService.stats()`` / the ``/metrics`` exporter; the
 ``per_tenant`` map flattens with a ``tenant=`` label.
 
 The port's copy of the JAX package's ``serve/admission.py`` (standard
-library only): the same decisions and the same ``retry_after_s`` guidance,
-with a plain ``threading.Lock`` where JAX takes a named lock.
+library only): the same decisions and the same ``retry_after_s`` guidance, under a
+named lock (``obs/lockwatch.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from collections import Counter, deque
 from dataclasses import dataclass, field
 
 from distributed_sigmoid_loss_tpu_torch.utils.logging import LatencyWindow
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = [
     "AdmissionController",
@@ -181,7 +182,7 @@ class AdmissionController:
         self.shed_window_s = float(shed_window_s)
         self._policies = {p.name: p for p in policies}
         self._default = default_policy or TenantPolicy(DEFAULT_TENANT)
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.admission.AdmissionController._lock")
         self._states: dict[str, _TenantState] = {}
         self._total_inflight = 0
         self._decisions: deque = deque(maxlen=65536)  # (ts, was_shed)

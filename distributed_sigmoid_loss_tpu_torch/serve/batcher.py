@@ -25,8 +25,8 @@ LatencyWindow`, surfaced as ``stage_latency_ms`` in
 ``EmbeddingService.stats()``, so a p99 regression names its stage.
 
 The port of the JAX package's ``serve/batcher.py``, with its chaos point
-(``batcher.stall``, ``serve/siege.py``); its host spans (``obs/spans.py``)
-are not ported yet.
+(``batcher.stall``, ``serve/siege.py``) and its host spans
+(``serve/<name>/<stage>``, ``obs/spans.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from typing import Any, Callable, Sequence
 
 from distributed_sigmoid_loss_tpu_torch.serve.siege import maybe_inject
 from distributed_sigmoid_loss_tpu_torch.utils.logging import LatencyWindow
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 BATCH_STAGES = ("queue_wait", "assembly", "device", "reply")
 
@@ -113,6 +114,7 @@ class MicroBatcher:
         max_wait_ms: float = 5.0,
         max_queue: int = 1024,
         name: str = "batcher",
+        spans=None,
     ):
         if max_batch_size < 1:
             raise ValueError(f"max_batch_size must be >= 1, got {max_batch_size}")
@@ -122,9 +124,10 @@ class MicroBatcher:
         self.max_batch_size = max_batch_size
         self.max_wait = max_wait_ms / 1000.0
         self.name = name
+        self._spans = spans  # SpanRecorder or None (obs/spans.py)
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
         self._closed = False
-        self._hist_lock = threading.Lock()
+        self._hist_lock = named_lock("serve.batcher.MicroBatcher._hist_lock")
         self._batch_sizes: Counter[int] = Counter()
         # Small windows: a batcher's stage stats cover recent traffic, and
         # four windows per batcher must stay cheap.
@@ -211,6 +214,8 @@ class MicroBatcher:
 
     def _stage(self, stage: str, t0: float, t1: float) -> None:
         self._stage_windows[stage].record(t1 - t0)
+        if self._spans is not None:
+            self._spans.record(f"serve/{self.name}/{stage}", t0, t1)
 
     # -- worker side ---------------------------------------------------------
 

@@ -9,8 +9,7 @@ row. Hits skip tokenize→pad→device→encode entirely.
 
 Thread-safe: ``get``/``put`` run under one lock (the service's batcher workers
 and client threads share the cache). Counters (hits/misses/evictions) feed the
-service's ``stats()`` snapshot. A copy of the JAX package's ``serve/cache.py``
-with a plain ``threading.Lock``.
+service's ``stats()`` snapshot. A copy of the JAX package's ``serve/cache.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ import threading
 from collections import OrderedDict
 
 import numpy as np
+
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["EmbeddingCache", "content_key"]
 
@@ -61,7 +62,7 @@ class EmbeddingCache:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self._data: OrderedDict[str, np.ndarray] = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.cache.EmbeddingCache._lock")
         self.hits = 0
         self.misses = 0
         self.evictions = 0

@@ -24,7 +24,6 @@ item 9).
 
 from __future__ import annotations
 
-import threading
 from collections import Counter
 from typing import Any, Callable, Sequence
 
@@ -33,6 +32,7 @@ import torch
 
 from distributed_sigmoid_loss_tpu_torch.serve.siege import maybe_inject
 from distributed_sigmoid_loss_tpu_torch.utils.device import resolve_device
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["InferenceEngine"]
 
@@ -73,8 +73,8 @@ class InferenceEngine:
         self._fns = {"image": encode_image_fn, "text": encode_text_fn}
         self._compiled: set[tuple] = set()
         self.calls: Counter[str] = Counter()  # tower calls by kind
-        self._lock = threading.Lock()  # guards _compiled and calls
-        self._call_lock = threading.Lock()  # one tower call at a time
+        self._lock = named_lock("serve.engine.InferenceEngine._lock")  # guards _compiled and calls
+        self._call_lock = named_lock("serve.engine.InferenceEngine._call_lock")  # one tower call at a time
 
     @classmethod
     def from_model(cls, model, params=None, **kw):

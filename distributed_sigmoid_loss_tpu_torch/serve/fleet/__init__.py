@@ -5,8 +5,7 @@ distributed admission via token leases (:mod:`.leases`), a health-driven
 replica-group front door with session-affinity pinning (:mod:`.router`),
 and coordinated zero-downtime swap waves (:mod:`.waves`) — drilled end to
 end by the fleet scenarios (:mod:`.scenarios`). The port of the JAX
-package's ``serve/fleet/``: standard library only, with plain
-``threading.Lock``s where JAX takes named locks.
+package's ``serve/fleet/``: standard library only.
 """
 
 from distributed_sigmoid_loss_tpu_torch.serve.fleet.leases import (

@@ -52,6 +52,7 @@ from distributed_sigmoid_loss_tpu_torch.serve.admission import (
     TenantPolicy,
 )
 from distributed_sigmoid_loss_tpu_torch.serve.siege import maybe_inject
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = [
     "USE_FRACTION",
@@ -114,7 +115,7 @@ class LeaseCoordinator:
             raise ValueError(f"ttl_s must be > 0, got {ttl_s}")
         self.ttl_s = float(ttl_s)
         self.ceilings = dict(ceilings)
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.fleet.leases.LeaseCoordinator._lock")
         self._grants: dict = {t: {} for t in self.ceilings}
         self._members: frozenset = frozenset()
         self._epoch = 0
@@ -241,7 +242,7 @@ class LeaseClient:
             if renew_interval_s is not None
             else coordinator.ttl_s / 4.0
         )
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.fleet.leases.LeaseClient._lock")
         self._leases: dict = {}
         self._partitioned = False
         self._stop = threading.Event()
@@ -337,7 +338,7 @@ class LeasedAdmission:
     def __init__(self, client: LeaseClient, policies):
         self._client = client
         self._policies = {p.name: p for p in policies}
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.fleet.leases.LeasedAdmission._lock")
         self._buckets: dict = {}
         # (monotonic timestamp, items) per admit — the scenario harness's
         # over-admission evidence; bounded so a soak can't grow it.

@@ -30,10 +30,10 @@ concurrently.
 
 from __future__ import annotations
 
-import threading
 import time
 
 from distributed_sigmoid_loss_tpu_torch.serve.siege import HostLostError
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = [
     "FleetRouter",
@@ -98,7 +98,7 @@ class FleetRouter:
         self._replicas = {r.name: r for r in replicas}
         self._order = names
         self._drain_poll_s = drain_poll_s
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.fleet.router.FleetRouter._lock")
         self._credit = {n: 0.0 for n in names}
         self._inflight = {n: 0 for n in names}
         self._lost: set = set()

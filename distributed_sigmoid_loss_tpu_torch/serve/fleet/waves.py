@@ -31,10 +31,10 @@ dead host); the skip is visible in the wave result.
 
 from __future__ import annotations
 
-import threading
 import time
 
 from distributed_sigmoid_loss_tpu_torch.utils.logging import LatencyWindow
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["WaveController"]
 
@@ -50,7 +50,7 @@ class WaveController:
     def __init__(self, router, *, drain_timeout_s: float = 10.0):
         self.router = router
         self.drain_timeout_s = float(drain_timeout_s)
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.fleet.waves.WaveController._lock")
         self._wave_id = 0
         self._window = LatencyWindow(256)
 

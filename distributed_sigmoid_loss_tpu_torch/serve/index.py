@@ -2,8 +2,7 @@
 
 Exact, not approximate: brute force over host numpy is both the correctness
 oracle and the baseline any approximate tier must reproduce on its recall
-ceiling. A copy of the JAX package's ``serve/index.py`` (host numpy, no JAX)
-with a plain ``threading.Lock``.
+ceiling. A copy of the JAX package's ``serve/index.py`` (host numpy, no JAX).
 
 The scan is CHUNKED over index rows: per query block only a
 (queries × chunk_size) score panel is live, so memory stays bounded by the
@@ -18,6 +17,8 @@ from __future__ import annotations
 import threading
 
 import numpy as np
+
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["RetrievalIndex"]
 
@@ -41,7 +42,7 @@ class RetrievalIndex:
         self._blocks: list[np.ndarray] = []
         self._ids: list[np.ndarray] = []
         self._size = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.index.RetrievalIndex._lock")
 
     def __len__(self) -> int:
         with self._lock:

@@ -16,9 +16,9 @@ one JSON record whose fields are all registered in
 prints this snapshot). ``health()`` is the ``/healthz`` payload, and
 ``start_metrics_server`` mounts the live ``/metrics`` endpoint.
 
-The port of the JAX package's ``serve/service.py``, with plain
-``threading.Lock``s where JAX takes named locks; its host spans
-(``spans=``, ``obs/spans.py``) are not ported yet.
+The port of the JAX package's ``serve/service.py``: its locks are named
+(``obs/lockwatch.py``) and its host spans (``spans=``, ``obs/spans.py``)
+carry JAX's names.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from distributed_sigmoid_loss_tpu_torch.serve.engine import InferenceEngine
 from distributed_sigmoid_loss_tpu_torch.serve.index import RetrievalIndex
 from distributed_sigmoid_loss_tpu_torch.serve.shard_index import ShardedIndex
 from distributed_sigmoid_loss_tpu_torch.utils.logging import LatencyWindow, MetricsLogger
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["EmbeddingService", "RequestTimeoutError", "RetrievalRouter"]
 
@@ -82,8 +83,8 @@ class RetrievalRouter:
       1.0 by construction — they are ranking-identical to the oracle).
 
     Per-stage latencies (fan-out / merge / coarse / re-rank / exact scan)
-    land in :meth:`stats`. JAX's ``spans=`` (host-timeline spans,
-    ``obs/spans.py``) is not ported yet.
+    land in :meth:`stats` and, when ``spans`` is wired, on the host timeline
+    as ``serve/search/<stage>`` spans.
     """
 
     TIERS = ("exact", "sharded", "ann")
@@ -99,6 +100,7 @@ class RetrievalRouter:
         measure_every: int = 16,
         chunk_size: int = 4096,
         query_buckets=(1, 8, 64),
+        spans=None,
     ):
         if tier not in self.TIERS:
             raise ValueError(f"tier must be one of {self.TIERS}, got {tier!r}")
@@ -114,10 +116,11 @@ class RetrievalRouter:
         self.measure_every = max(int(measure_every), 0)
         self.chunk_size = chunk_size
         self.query_buckets = tuple(query_buckets)
+        self.spans = spans
         self._current: _IndexVersion | None = None
-        self._publish_lock = threading.Lock()
+        self._publish_lock = named_lock("serve.service.RetrievalRouter._publish_lock")
         self._versions = 0
-        self._stats_lock = threading.Lock()
+        self._stats_lock = named_lock("serve.service.RetrievalRouter._stats_lock")
         self._swap_count = 0
         self._swaps_in_flight = 0
         self._swap_window = LatencyWindow(1024)
@@ -197,6 +200,8 @@ class RetrievalRouter:
 
     def _stage(self, stage: str, t0: float, t1: float) -> None:
         self._stage_windows[stage].record(t1 - t0)
+        if self.spans is not None:
+            self.spans.record(f"serve/search/{stage}", t0, t1)
 
     def search(self, queries, k: int = 10, *, return_version: bool = False):
         """Top-k under the shared ranking contract, routed by tier. Returns
@@ -323,6 +328,7 @@ class EmbeddingService:
         default_timeout: float | None = 10.0,
         admission: AdmissionController | None = None,
         logger: MetricsLogger | None = None,
+        spans=None,
     ):
         self.engine = engine
         self.tokenize = tokenize
@@ -331,18 +337,21 @@ class EmbeddingService:
         self.default_timeout = default_timeout
         self.admission = admission
         self.logger = logger
+        # An obs/spans.py SpanRecorder or None: per-request spans on the
+        # caller threads plus per-stage spans on the batcher workers.
+        self.spans = spans
         if max_batch_size is None:
             max_batch_size = engine.batch_buckets[-1]
         self._batchers = {
             kind: MicroBatcher(
                 fn, max_batch_size=max_batch_size, max_wait_ms=max_wait_ms,
-                max_queue=max_queue, name=kind,
+                max_queue=max_queue, name=kind, spans=spans,
             )
             for kind, fn in (("text", self._encode_rows_text),
                              ("image", self._encode_rows_image))
         }
         self._latency = LatencyWindow()
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.service.EmbeddingService._lock")
         self._requests = 0
         self._items = 0
         self._rejected = 0
@@ -459,7 +468,10 @@ class EmbeddingService:
             with self._lock:
                 self._requests += 1
                 self._items += len(rows)
-            self._latency.record(time.monotonic() - t0)
+            t1 = time.monotonic()
+            self._latency.record(t1 - t0)
+            if self.spans is not None:
+                self.spans.record(f"serve/request/{kind}", t0, t1)
         return np.stack(results)
 
     def encode_text(self, texts, *, timeout: float | None = None,

@@ -36,12 +36,12 @@ as JAX counts its compiled fan-out programs.
 
 from __future__ import annotations
 
-import threading
 
 import numpy as np
 import torch
 
 from distributed_sigmoid_loss_tpu_torch.eval.retrieval import merge_topk
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["ShardedIndex"]
 
@@ -110,7 +110,7 @@ class ShardedIndex:
             self._ids.append(torch.from_numpy(shard_ids).to(device))
             self._real.append(hi - lo)
         self._compiled: set[tuple[int, int]] = set()
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.shard_index.ShardedIndex._lock")
 
     def __len__(self) -> int:
         return self.size

@@ -28,8 +28,7 @@ contracts that are never exercised rot. This module makes them drillable:
 Module-level imports stay stdlib + admission + utils (``serve.batcher``
 imports this module for its injection point, so importing service/engine
 here would cycle through the partially-initialized package). The port's
-copy of the JAX package's ``serve/siege.py``, with plain
-``threading.Lock``s where JAX takes named locks.
+copy of the JAX package's ``serve/siege.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +48,7 @@ from distributed_sigmoid_loss_tpu_torch.serve.admission import (
     TenantPolicy,
 )
 from distributed_sigmoid_loss_tpu_torch.utils.logging import LatencyWindow
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = [
     "CHAOS_POINTS",
@@ -98,7 +98,7 @@ CHAOS_POINTS = {
 # tests and scenario drivers arm faults cross-thread, and the production
 # read path must stay one dict probe.
 _INJECTORS: dict = {}
-_INJECT_LOCK = threading.Lock()
+_INJECT_LOCK = named_lock("serve.siege._INJECT_LOCK")
 
 
 def chaos_enabled() -> bool:
@@ -249,7 +249,7 @@ class EngineProcess:
         self._worker = worker or _echo_worker
         self._ctx_name = ctx or drill_start_method()
         self._latency_s = latency_s
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.siege.EngineProcess._lock")
         self.restarts = 0
         self._start()
 
@@ -436,7 +436,7 @@ def run_scenario(
     tallies = {p.name: _TenantTally() for p in tenants}
     windows = {p.name: LatencyWindow(8192) for p in tenants}
     overall_window = LatencyWindow(8192)
-    tally_lock = threading.Lock()
+    tally_lock = named_lock("serve.siege.run_scenario.tally_lock")
     stop = threading.Event()
     t_start = time.monotonic()
     kill_at = {"t": None}

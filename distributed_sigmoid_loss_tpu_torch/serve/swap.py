@@ -23,7 +23,7 @@ serve the old segments is two attribute assignments wide. Cross-request
 consistency (an encode followed by a search landing on different versions)
 is inherently eventual in any rolling deploy; PER-SEARCH consistency is
 what the version object guarantees. The port of the JAX package's
-``serve/swap.py``, with a plain ``threading.Lock``.
+``serve/swap.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import time
 from distributed_sigmoid_loss_tpu_torch.serve.engine import InferenceEngine
 from distributed_sigmoid_loss_tpu_torch.serve.service import RetrievalRouter
 from distributed_sigmoid_loss_tpu_torch.serve.siege import maybe_inject
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["SwapController"]
 
@@ -50,7 +51,7 @@ class SwapController:
     def __init__(self, engine: InferenceEngine, router: RetrievalRouter):
         self.engine = engine
         self.router = router
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.swap.SwapController._lock")
 
     def swap(self, *, params=None, embeddings=None, ids=None) -> int:
         """Publish a new serving version; returns its version number.
@@ -84,5 +85,8 @@ class SwapController:
                 version = self.router.publish_built(built)
             finally:
                 self.router.end_swap()
-        self.router.record_swap(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self.router.record_swap(t1 - t0)
+        if self.router.spans is not None:
+            self.router.spans.record("serve/swap", t0, t1)
         return version

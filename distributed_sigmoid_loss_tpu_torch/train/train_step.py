@@ -117,6 +117,7 @@ __all__ = [
     "accum_finish",
     "global_norm",
     "make_batch_grads",
+    "step_attribution",
     "step_metrics",
     "UPDATE_SHARDING_MODES",
 ]
@@ -1103,20 +1104,24 @@ def make_train_step(
                                 cached_accum, acc_dt, gradcache_embed_dtype, moe_aux_weight,
                                 forward)
 
-    def step(state: TrainState, batch: dict):
-        params = state.params
-        layout = state.layout
-        full = state.update_sharding == "full"
-        loss, lp, grads = grads_of(params, batch)
+    def sync(loss, aux, grads, layout, full: bool):
         # DDP: one average over the data axis per step, the loss (and the
         # router aux) riding along; under full update sharding each rank
         # keeps its rows.
-        scalars = torch.stack([loss, lp["moe_aux"]]) if "moe_aux" in lp else loss.reshape(1)
+        scalars = loss.reshape(1) if aux is None else torch.stack([loss, aux])
         if layout is None:
             all_reduce_mean_([*grads, scalars], axis_group(loss_cfg.axis_name))
         else:
             all_reduce_mean_([scalars], axis_group(loss_cfg.axis_name))
             grads = layout.mean_grads(grads, scatter=full)
+        return grads, scalars
+
+    def step(state: TrainState, batch: dict):
+        params = state.params
+        layout = state.layout
+        full = state.update_sharding == "full"
+        loss, lp, grads = grads_of(params, batch)
+        grads, scalars = sync(loss, lp.get("moe_aux"), grads, layout, full)
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state, layout,
                                                 grads_sharded=full, part_axes=state.part_axes)
         if ema_decay is not None:
@@ -1133,7 +1138,57 @@ def make_train_step(
             metrics["moe_aux"] = scalars[1]
         return state, metrics
 
+    # What step_attribution traces: one microbatch's forward and backward
+    # (accum_steps of them run, alike; GradCache's whole batch at once) and
+    # the sync.
+    per_micro = accum_steps > 1 and not cached_accum
+    step.attribution_parts = (
+        make_batch_grads(model, per_shard, loss_cfg.axis_name, 1, False, acc_dt,
+                         gradcache_embed_dtype, moe_aux_weight, forward)
+        if per_micro else grads_of,
+        accum_steps if per_micro else 1, sync, moe_aux_weight is not None)
     return step
+
+
+def step_attribution(step, state: TrainState, batch: dict) -> dict | None:
+    """``obs.attribution.static_attribution`` of what :func:`make_train_step`'s
+    ``step`` runs on ``batch`` before the update: the microbatches' forwards
+    and backwards (one traced, times ``accum_steps``) and the gradients'
+    sync, the step's matrix products and collectives (the optimizer's and
+    the EMA's updates are elementwise). The model runs on fake copies of its
+    parameters, so the real ones and their ``.grad`` stay untouched, and
+    nothing launches on the device. None for a step without these parts
+    (the compressed steps)."""
+    parts = getattr(step, "attribution_parts", None)
+    if parts is None:
+        return None
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    from distributed_sigmoid_loss_tpu_torch.obs.attribution import static_attribution
+
+    grads_of, times, sync, aux = parts
+    model = state.model
+
+    def fakes() -> dict:
+        return {n: p.detach().clone().requires_grad_(p.requires_grad)
+                for n, p in model.named_parameters()}
+
+    def forward_backward(b):
+        params = fakes()
+        with _reparametrize_module(model, params):
+            grads_of(list(params.values()), b)
+
+    def synced():
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in fakes().values()]
+        zero = grads[0].new_zeros(())
+        sync(zero, zero if aux else None, grads, state.layout,
+             state.update_sharding == "full")
+
+    rows = len(batch["images"]) // times
+    micro = {k: v[:rows] for k, v in batch.items()}
+    costs = static_attribution(forward_backward, micro)
+    once = static_attribution(synced)
+    return {k: v * times + once[k] for k, v in costs.items()}
 
 
 def grid_axis_names() -> tuple:

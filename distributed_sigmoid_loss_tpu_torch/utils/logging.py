@@ -7,10 +7,11 @@ from __future__ import annotations
 import json
 import math
 import sys
-import threading
 import time
 from collections import deque
 from typing import IO, Mapping
+
+from distributed_sigmoid_loss_tpu_torch.obs.lockwatch import named_lock
 
 __all__ = ["LatencyWindow", "MetricsLogger"]
 
@@ -25,7 +26,7 @@ class LatencyWindow:
 
     def __init__(self, maxlen: int = 8192):
         self._samples: deque[float] = deque(maxlen=maxlen)
-        self._lock = threading.Lock()
+        self._lock = named_lock("utils.logging.LatencyWindow._lock")
         self.count = 0  # total ever recorded (not just retained)
 
     def record(self, seconds: float) -> None:

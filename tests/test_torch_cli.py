@@ -1,14 +1,13 @@
 """The port's command line (``cli.py``: ``train``, ``eval``, ``tokenizer``)
 on the CPU (``--cpu-devices 1``), in process, beside the JAX package's CLI.
 
-- ``train --tiny`` exits 0 and its JSON lines carry the JAX CLI's keys, save
-  the observability-only ones (``OBS_ONLY``: the static attribution fields,
-  ROADMAP.md queue A item 6.5).
+- ``train --tiny`` exits 0 and its JSON lines carry the JAX CLI's keys, the
+  static attribution's (``OBS_ONLY``) among them.
 - ``--ckpt-dir``: a run stopped at step 2 resumes to 4 and ends where an
   uninterrupted run does, bit for bit; ``eval`` restores it with and without
   ``--ema`` (the EMA weights are the ones evaluated), and refuses ``--ema``
   on a checkpoint without them.
-- Every flag of an unported path exits 2 naming its ROADMAP.md item; the
+- ``obs regress`` and ``obs ledger --backfill`` exit 2 saying why; the
   adaptive compression and MoE flags refuse incoherent sets with JAX's
   messages and run on gloo ranks, every rank printing the same lines;
   without ``--cpu-devices 1`` and without CUDA the commands exit non-zero.
@@ -75,9 +74,9 @@ def test_train_exits_0_with_the_jax_clis_keys(jax_train_lines):
     rc, out, err = run(["train", *TINY, "--steps", "2", "--eval-every", "2"])
     assert rc == 0, err
     lines = json_lines(out)
-    want = [set(line) - OBS_ONLY for line in jax_train_lines]
+    want = [set(line) for line in jax_train_lines]
     assert [set(line) for line in lines] == want
-    assert OBS_ONLY <= set(jax_train_lines[0])
+    assert OBS_ONLY <= set(lines[0])
     assert all(np.isfinite(v) for line in lines for v in line.values())
     assert {"i2t_recall@1", "t2i_recall@5"} <= set(ast.literal_eval(err.strip().splitlines()[-1]))
 
@@ -160,14 +159,15 @@ def test_eval_refuses_ema_on_a_checkpoint_without_it(runs):
 
 
 REFUSED = [
-    (["--obs-dir", "d"], "6.5"), (["--watchdog", "warn"], "6.5"),
+    (["obs", "regress"], "ROADMAP.md queue A item 6.5 part 2"),
+    (["obs", "ledger", "--backfill"], "the port's ledger has no backfill"),
 ]
 
 
-@pytest.mark.parametrize("flags,item", REFUSED, ids=[" ".join(f) for f, _ in REFUSED])
-def test_train_refuses_unported_flags_naming_their_item(flags, item):
-    rc, out, err = run(["train", *TINY, *flags])
-    assert rc == 2 and f"ROADMAP.md queue A item {item}" in err and flags[0] in err
+@pytest.mark.parametrize("argv,why", REFUSED, ids=[" ".join(a) for a, _ in REFUSED])
+def test_obs_refuses_what_the_port_has_not(argv, why):
+    rc, out, err = run(argv)
+    assert rc == 2 and why in err
     assert out == ""
 
 

@@ -384,7 +384,8 @@ def test_port_imports_nothing_of_jax():
         "'serve.shard_index', 'serve.ann', 'serve.swap', 'serve.fleet.leases', "
         "'serve.fleet.router', 'serve.fleet.waves', 'serve.fleet.scenarios', "
         "'models.hf_import', 'models.towers', 'train.export', 'models.moe', "
-        "'parallel.adaptive_compression', 'parallel.dcn_emu']\n"
+        "'parallel.adaptive_compression', 'parallel.dcn_emu', 'obs.attribution', "
+        "'obs.health', 'obs.ledger', 'obs.lockwatch', 'obs.spans', 'utils.profiling']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
