@@ -226,7 +226,19 @@ and nothing is caught:
    (K1 12 a tower call, rows at cosine >= 0.9999); ``[multihost]``, ``train
    --coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0`` for one
    B/16 step on NCCL, its launches equal to the plain command's;
-25. a JSON line of the kernels' numbers and, last, the device record.
+25. the static analysis (``[analysis]``): the lint (``analysis.run_lint``)
+   with its step-config traces on CUDA tensors without storage, run from
+   the export commands' join in a process of its own at EXPORT_NICE
+   (``analysis_trace``),
+   must give no finding, and the proxies of those traces must equal the
+   committed ``obs/regress_baseline.json`` within ``PROXY_METRICS``'
+   tolerances (the card's dispatch reaches the CPU's custom ops); then the
+   four loss islands of ``obs regress`` on real tensors at rank 0 of a fake
+   world of 8 (``collect_island_bytes``: the streaming ones launch K4-K6,
+   1 + 8 of each) between two reads of the counts, their allocator peaks
+   held to the ratio contracts (chunked and streaming-fused < 0.5 x fused,
+   streaming-chunked <= 1.1 x chunked);
+26. a JSON line of the kernels' numbers and, last, the device record.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -5086,6 +5098,96 @@ def run_multihost_path(args, sa, ssl) -> dict:
     return add_counts(joined["counts"], plain["counts"])
 
 
+# [analysis]: the lint's trace half runs in a process of its own
+# (:func:`analysis_trace`), started when the kernels are built; its report,
+# and how long the phase may wait for it after the other phases.
+ANALYSIS_REPORT = os.path.join("build", "analysis", "report.json")
+ANALYSIS_WAIT_S = 240
+
+
+def analysis_trace(out_path: str) -> int:
+    """The lint's own process: the lint with the step-config
+    traces on CUDA tensors without storage (nothing launches), and the
+    proxies of those traces, into ``out_path``."""
+    from distributed_sigmoid_loss_tpu_torch.analysis import run_lint
+    from distributed_sigmoid_loss_tpu_torch.obs.regress import collect_step_proxies
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    findings = run_lint(device="cuda")
+    t1 = time.monotonic()
+    proxies = collect_step_proxies(device="cuda")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump({"findings": [x.as_dict() for x in findings], "step_configs": proxies,
+                   "lint_seconds": t1 - t0, "seconds": time.monotonic() - t0,
+                   "torch": torch.__version__.split("+")[0]}, f)
+    return 0
+
+
+def start_analysis_trace():
+    """The :func:`analysis_trace` process, at EXPORT_NICE (it traces on
+    the host while the card runs the other phases)."""
+    if os.path.exists(ANALYSIS_REPORT):
+        os.remove(ANALYSIS_REPORT)
+    return subprocess.Popen(
+        [sys.executable, "-c", "import os, sys; os.nice(int(sys.argv[1])); import chip_smoke; "
+         "sys.exit(chip_smoke.analysis_trace(sys.argv[2]))", str(EXPORT_NICE), ANALYSIS_REPORT],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def run_analysis_path(args, sa, ssl, proc) -> dict:
+    """``[analysis]``: the lint report of :func:`start_analysis_trace`'s
+    process (no finding; its CUDA traces' proxies equal to the committed
+    baseline's), then the loss islands on the card between two reads of
+    the counts: K4, K5 and K6 1 + 8 times each, the ratio contracts on the
+    allocator's peaks."""
+    from distributed_sigmoid_loss_tpu_torch.obs import regress
+
+    t0 = time.monotonic()
+    try:
+        out, _ = proc.communicate(timeout=ANALYSIS_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"[analysis] the lint process ran past {ANALYSIS_WAIT_S} s "
+                             "after the other phases")
+    waited = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[analysis] the lint process exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    with open(ANALYSIS_REPORT, encoding="utf-8") as f:
+        report = json.load(f)
+    if report["findings"]:
+        raise AssertionError("[analysis] lint findings on the card's host: "
+                             + "; ".join(f"[{x['rule']}] {x['subject']}: {x['detail']}"
+                                         for x in report["findings"]))
+    baseline = regress.load_baseline()
+    current = {"meta": {"torch": report["torch"]}, "step_configs": report["step_configs"]}
+    failures, _ = regress.compare_proxies(current, baseline)
+    if failures or set(current["step_configs"]) != set(baseline["step_configs"]):
+        raise AssertionError("[analysis] the CUDA traces' proxies differ from the baseline: "
+                             + "; ".join(str(x) for x in failures))
+    t1 = time.monotonic()
+    islands, counts, _ = counted(sa, ssl, lambda: regress.collect_island_bytes(device="cuda"))
+    islands_s = time.monotonic() - t1
+    loss = 1 + regress.ISLAND_WORLD
+    expect_counts(counts, "analysis", sigmoid_loss_fwd=loss, sigmoid_loss_bwd_img=loss,
+                  sigmoid_loss_bwd_txt=loss)
+    broken = regress.contract_findings({"loss_islands": islands})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log("analysis", card=smi, lint_findings=0, lint_seconds=report["lint_seconds"],
+        trace_process_seconds=report["seconds"], waited_s=waited,
+        configs=len(current["step_configs"]), proxies_equal_baseline=True,
+        islands={k: v for k, v in islands.items() if k != "_meta"},
+        ratios={k: islands[k]["temp_bytes"] / islands["fused"]["temp_bytes"]
+                for k in regress.ISLAND_CONFIGS},
+        islands_s=islands_s, launches={k: v for k, v in counts.items() if v})
+    if broken:
+        raise AssertionError("[analysis] island contracts: " + "; ".join(str(x) for x in broken))
+    return counts
+
+
 def global_norm_of(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
@@ -5243,6 +5345,9 @@ def main() -> int:
             raise AssertionError(f"sigmoid_loss K4 smem (int8 {q}) != python mirror")
 
     join_export_commands(exports, exports_t0)
+    # The lint's traces run on the host from here to [analysis].
+    analysis_proc = start_analysis_trace()
+    atexit.register(lambda: analysis_proc.poll() is None and analysis_proc.kill())
 
     # Phase 3: each kernel against its plain version.
     log("profiler", **check_device_events())
@@ -5256,7 +5361,7 @@ def main() -> int:
     f32_recs = check_f32_attention(sa, fa, gen)
     int8_recs = check_loss_kernels_int8(ssl, gen)
 
-    # Phases 4-24: the main paths, each between two reads of the counts.
+    # Phases 4-25: the main paths, each between two reads of the counts.
     paths, seconds = {}, {}
     for path, run in (("serve", lambda: run_serve_path(args, sa, ssl, fa, SERVE)),
                       ("train", lambda: run_train_path(args, sa, ssl, fa, TRAIN)),
@@ -5291,13 +5396,14 @@ def main() -> int:
                       ("export_moe", lambda: run_export_moe_path(args, sa, ssl, fa)),
                       ("train_pp", lambda: run_train_pp_path(args, sa, ssl, fa)),
                       ("moe_ep", lambda: run_moe_ep_path(args, sa, ssl, fa)),
-                      ("multihost", lambda: run_multihost_path(args, sa, ssl))):
+                      ("multihost", lambda: run_multihost_path(args, sa, ssl)),
+                      ("analysis", lambda: run_analysis_path(args, sa, ssl, analysis_proc))):
         t0 = time.monotonic()
         paths[path] = run()
         seconds[path] = time.monotonic() - t0
     log("paths", seconds=seconds, launches=paths)
 
-    # Phase 25: the records.
+    # Phase 26: the records.
     source = "distributed_sigmoid_loss_tpu_torch/csrc/"
     attn = "distributed_sigmoid_loss_tpu/ops/pallas_short_attention.py:"
     loss = "distributed_sigmoid_loss_tpu/ops/pallas_sigmoid_loss.py:"

@@ -1,0 +1,148 @@
+"""The declared schema of the port's JSON record fields (its copy of the JAX
+package's ``analysis/bench_schema.py``, with JAX's field set).
+
+The port's record emitters, ``data-bench`` (``data/data_bench.py``) and
+``serve-bench`` (``cli.py``), route every record through
+:func:`validate_record` before they print it: a violation is a warning on
+stderr and is written into the record's ledger entry; the record still
+prints (a measurement is never lost to its own validator). The lint rule
+``repo-bench-record`` (``analysis/repo_lint.py``) checks every record-field
+string literal in those emitters against :data:`BENCH_RECORD_FIELDS`, so an
+unregistered field fails before it runs on a card. The field set is JAX's,
+the train headline's included, for the port's ``bench`` entry to come.
+
+Stdlib only: the emitters import it without torch.
+"""
+
+from __future__ import annotations
+
+__all__ = [
+    "REQUIRED_RECORD_FIELDS",
+    "BENCH_RECORD_FIELDS",
+    "validate_record",
+]
+
+# Present in every record, error stubs included: a record stream is keyed by
+# `metric` and plots `value`/`unit`.
+REQUIRED_RECORD_FIELDS = ("metric", "value", "unit")
+
+# The full registered field set, grouped by the emit path that owns them.
+# Adding a record field to an emitter without registering it here fails the
+# repo-bench-record lint rule (and the schema tests).
+BENCH_RECORD_FIELDS = frozenset(
+    REQUIRED_RECORD_FIELDS
+    + (
+        # shared across modes
+        "vs_baseline", "model", "steps", "device_kind", "error",
+        # train headline
+        "a100_ref_pairs_per_sec", "per_chip_batch", "global_batch",
+        "accum_steps", "accum_negatives", "steps_per_call", "variant",
+        "loss_family", "precision", "use_pallas", "remat_policy",
+        "n_devices", "final_loss", "model_tflops_per_sec_per_chip",
+        "peak_hbm_gb", "peak_hbm_live_gb", "scan_layers", "attn_impl",
+        "text_attn_impl", "attn_bwd", "attn_bwd_argv", "attn_bwd_mismatch",
+        "attn_bwd_traced", "pallas_engaged", "pallas_mismatch",
+        "moe_experts", "moe_num_selected",
+        "moe_group_size", "moe_capacity_factor", "quant_train", "loss_impl",
+        "ring_overlap", "zero1", "update_sharding",
+        "opt_mem_bytes_per_replica", "adam_mu_dtype", "accum_dtype",
+        "gradcache_embed_dtype", "no_text_remat",
+        "hw_tflops_per_sec_per_chip", "mfu", "hw_util",
+        # train headline, compressed DCN sync (--grad-compression): the
+        # config axes plus the step's wire accounting — per-device egress
+        # bytes/round, payload bits/param, per-scheme tensor counts, the EF
+        # residual norm, and the controller's bandwidth EWMA.
+        "grad_compression", "dcn_slices", "dcn_budget_mbps", "topk_frac",
+        "dcn_wire_bytes", "bits_per_param", "compression_scheme_hist",
+        "ef_residual_norm", "dcn_bw_est_mbps",
+        # graftcodec (--controller / --emu-dcn-mbps): the controller policy
+        # axis + its spent loss-impact budget, the learned rung's
+        # reconstruction error, and the emulated-DCN measurements — the
+        # throttle setting, the bandwidth MEASURED through the pipe, and the
+        # wall-clock step-time ratio vs the fixed-bf16 reference transfer
+        # (> 1 = adaptive saves wall clock at that bandwidth).
+        "controller_mode", "error_budget", "codec_recon_err",
+        "emu_dcn_mbps", "dcn_measured_mbps", "wire_savings_wallclock_ratio",
+        # eval-throughput
+        "batch", "quant", "fwd_tflops_per_sec_per_chip", "mfu_bf16_basis",
+        # context bench
+        "context", "width", "num_heads", "impls",
+        # step breakdown
+        "parts",
+        # moe breakdown
+        "dense_mlp_ms", "stages", "tokens", "experts", "num_selected",
+        "group", "capacity",
+        # shield deferral records
+        "deferred", "signal", "child_pid", "child_stdout", "child_stderr",
+        # data-bench (stage + composed-pipeline records, data/data_bench.py)
+        "stage", "data_workers", "native_decode", "worker_scaling",
+        "synthetic_pairs_per_sec", "synthetic_ratio", "input_wait_frac",
+        "pipelined", "read_ahead", "zero_copy", "bound_stage",
+        # graftscope static attribution (obs/attribution.py): the chip-free
+        # roofline estimate + per-kind collective wire bytes stamped on the
+        # train headline record (and every train metrics line)
+        "mfu_est", "roofline_bound", "comm_bytes_total",
+        "comm_bytes_all_gather", "comm_bytes_ppermute", "comm_bytes_psum",
+        "comm_bytes_psum_scatter", "comm_bytes_all_to_all",
+        # serve-bench record (cli.py cmd_serve_bench: invocation fields +
+        # the serve stats() snapshot spread in — the snapshot's own field
+        # set is declared in obs/metrics_schema.py SERVE_STATS_FIELDS and
+        # mirrored here so the one-JSON-line record validates end to end;
+        # stage_latency_ms carries the per-stage p50/p95/p99 percentiles)
+        "clients", "requests_sent", "batch_buckets", "max_wait_ms",
+        "sharded", "warmup_s", "uptime_s", "requests", "items", "qps",
+        "items_per_sec", "latency_ms", "batch_size_hist", "stage_latency_ms",
+        "rejected", "timeouts", "compile_count", "bucket_space", "index_size",
+        "cache",
+        # serve/distindex (RetrievalRouter through cmd_serve_bench): the
+        # retrieval tier + churn-mode invocation fields and the router's
+        # stats fields the snapshot spread carries (mirrored from
+        # obs/metrics_schema.py SERVE_STATS_FIELDS).
+        "index_tier", "swap_every", "index_version", "shard_count",
+        "swap_count", "swap_latency_ms", "recall_at_k", "rerank_k",
+        "search_stage_latency_ms",
+        # graftsiege (serve/siege.py run_scenario through cmd_serve_bench
+        # --scenario): the degradation record — scenario identity + offered
+        # load, the trailing shed rate, per-tenant outcome rows (sent / ok /
+        # shed / typed_errors / p99 vs slo), host-loss recovery time, and
+        # the zero-silent-drops counter the acceptance drill asserts on;
+        # plus the admission/swap fields the stats() snapshot spread carries
+        # (mirrored from obs/metrics_schema.py SERVE_STATS_FIELDS).
+        "scenario", "offered_load", "duration_s", "tenants", "per_tenant",
+        "shed_rate", "recovery_time_s", "silent_drops", "restarts",
+        "shed", "admission", "swap_in_flight", "inflight",
+        # graftfleet (serve/fleet/scenarios.py run_fleet_scenario through
+        # cmd_serve_bench --fleet-scenario): the fleet_siege record — the
+        # router/wave/lease stats snaps (mirrored from SERVE_STATS_FIELDS)
+        # plus the invocation fields and the over-admission evidence: the
+        # global rate ceiling, the peak admitted rate any sliding window
+        # saw, and the count of windows that exceeded ceiling + burst
+        # (asserted zero — the bounded-staleness lease proof).
+        "replica_count", "healthy_replicas", "reroutes", "affinity_hits",
+        "lease_epoch", "lease_reclaims", "wave_id", "fleet_replicas",
+        "lease_ttl_s", "ceiling_rate", "peak_admitted_rate",
+        "over_ceiling_samples",
+    )
+)
+
+
+def validate_record(record) -> list[str]:
+    """Validate one bench JSON record against the declared schema.
+
+    Returns a list of problem strings (empty = valid). Field VALUES are not
+    typed here — the schema pins the field NAMESPACE, which is what drifts.
+    """
+    if not isinstance(record, dict):
+        return [f"record must be a dict, got {type(record).__name__}"]
+    problems = []
+    for field in REQUIRED_RECORD_FIELDS:
+        if field not in record:
+            problems.append(f"missing required field {field!r}")
+    unknown = sorted(set(record) - BENCH_RECORD_FIELDS)
+    if unknown:
+        problems.append(
+            "unregistered field(s) "
+            + ", ".join(repr(u) for u in unknown)
+            + " — register in analysis/bench_schema.py BENCH_RECORD_FIELDS"
+        )
+    return problems

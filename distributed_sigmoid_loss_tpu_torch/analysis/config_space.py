@@ -1,0 +1,574 @@
+"""The declarative step-config feature model (the port's copy of the JAX
+package's ``analysis/config_space.py``, with JAX's axes, constraints and
+samples).
+
+The step builders' legality is encoded imperatively as refusals in
+``parallel/api.py``, ``train/train_step.py``, ``train/compressed_step.py``
+and the ``train`` command's conflict block (``cli.py``). This module states
+the same rules once (:data:`CONSTRAINTS`), derives the legal product from
+them (:func:`enumerate_legal`), and cross-checks the declaration against
+the port's own imperative layers by probing every config of the raw
+product through them (:func:`config_space_drift_findings`). A config the
+table calls legal but a layer refuses, or the reverse, is a
+``config-space-drift`` finding.
+
+The sampled products (:func:`tier1_sample`, :func:`full_product_sample`)
+are the lattice the trace audit (``analysis/trace_audit.py``),
+``obs/attribution.step_config_attribution`` and ``obs/regress.py`` trace.
+The ``ema`` axis is constraint-only (it changes the state's contents, not
+the step's dataflow) and is projected out of every trace sample.
+
+Stdlib only at module level: the probe imports the builders when it runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import itertools
+from typing import Callable, Iterator
+
+from distributed_sigmoid_loss_tpu_torch.analysis.findings import Finding
+
+__all__ = [
+    "AXES",
+    "CONFIG_SPACE_RULES",
+    "CONSTRAINTS",
+    "Constraint",
+    "LEGACY_CONFIGS",
+    "StepConfig",
+    "config_space_drift_findings",
+    "enumerate_legal",
+    "full_product_sample",
+    "is_legal",
+    "iter_product",
+    "label_of",
+    "probe_imperative",
+    "tier1_sample",
+    "violations",
+]
+
+# The rule this module emits (catalog constant, mirrored in
+# analysis.CONFIG_RULES).
+CONFIG_SPACE_RULES = ("config-space-drift",)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """One point in the step-config product.
+
+    Axis semantics mirror the user-facing knobs, not the builders' internal
+    derived values: ``quant_train`` is the towers' quant mode (the loss
+    kernel's int8 path is DERIVED — active iff ``quant_train`` and
+    ``use_pallas``, train_step.resolve_loss_quant); ``accum`` means
+    ``accum_steps > 1``; ``pp`` means ``pp > 1`` with microbatching;
+    ``compression`` implies the compressed (dcn) step builder.
+    """
+
+    family: str = "sigmoid"  # sigmoid | softmax
+    variant: str = "all_gather"  # all_gather | ring
+    loss_impl: str = "fused"  # fused | chunked
+    ring_overlap: bool = False
+    use_pallas: bool = False
+    quant_train: str = ""  # "" | "int8" (tower STE mode)
+    # "" | "int8" | "topk" | "adaptive" | "learned" (dcn grad hop; "learned"
+    # is the adaptive ladder with the learned autoencoder rung armed)
+    compression: str = ""
+    controller: str = ""  # "" | "greedy" | "budgeted" (adaptive bit policy)
+    error_feedback: bool = False
+    pp: bool = False
+    update_sharding: str = ""  # "" | "zero1" | "full" (update-sharding modes)
+    accum: bool = False
+    accum_negatives: str = "local"  # local | global
+    moe: bool = False
+    ema: bool = False
+
+
+# Axis name -> the values the product ranges over. Order is the product's
+# enumeration order (deterministic labels, deterministic sampling).
+AXES: dict = {
+    "family": ("sigmoid", "softmax"),
+    "variant": ("all_gather", "ring"),
+    "loss_impl": ("fused", "chunked"),
+    "ring_overlap": (False, True),
+    "use_pallas": (False, True),
+    "quant_train": ("", "int8"),
+    "compression": ("", "int8", "topk", "adaptive", "learned"),
+    "controller": ("", "greedy", "budgeted"),
+    "error_feedback": (False, True),
+    "pp": (False, True),
+    "update_sharding": ("", "zero1", "full"),
+    "accum": (False, True),
+    "accum_negatives": ("local", "global"),
+    "moe": (False, True),
+    "ema": (False, True),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Constraint:
+    """One declarative compatibility rule.
+
+    ``source``: where the imperative refusal lives — the location a
+    ``config-space-drift`` finding points at. ``ok`` returns True when the
+    config SATISFIES the constraint.
+    """
+
+    name: str
+    source: str
+    reason: str
+    ok: Callable[[StepConfig], bool]
+
+    def __str__(self) -> str:
+        return f"{self.name} [{self.source}]: {self.reason}"
+
+
+CONSTRAINTS: tuple = (
+    Constraint(
+        "chunked-needs-allgather",
+        "parallel/api.py::make_per_shard_loss",
+        "the chunked scan streams the all_gather's W chunks; the ring "
+        "already streams negatives one chunk per hop",
+        lambda c: c.loss_impl != "chunked" or c.variant == "all_gather",
+    ),
+    Constraint(
+        "overlap-needs-ring",
+        "parallel/api.py::make_per_shard_loss",
+        "the all-gather loss has no hop loop to overlap",
+        lambda c: not c.ring_overlap or c.variant == "ring",
+    ),
+    Constraint(
+        "softmax-fused-only",
+        "parallel/api.py::make_per_shard_loss",
+        "chunked/ring_overlap apply to the sigmoid family only (the softmax "
+        "ring already streams its logsumexp)",
+        lambda c: c.family != "softmax"
+        or (c.loss_impl == "fused" and not c.ring_overlap),
+    ),
+    Constraint(
+        "pallas-sigmoid-only",
+        "parallel/api.py::make_per_shard_loss",
+        "the streaming kernel computes the sigmoid family's block math",
+        lambda c: not c.use_pallas or c.family == "sigmoid",
+    ),
+    Constraint(
+        "compression-needs-allgather",
+        "train/compressed_step.py::validate_compressed_step_args",
+        "the ring ppermute has no joint-(dcn, dp) axis form",
+        lambda c: not c.compression or c.variant == "all_gather",
+    ),
+    Constraint(
+        "topk-needs-error-feedback",
+        "train/compressed_step.py::validate_compressed_step_args",
+        "top-k without error feedback silently drops ~99% of every gradient "
+        "as pure bias",
+        lambda c: c.compression != "topk" or c.error_feedback,
+    ),
+    Constraint(
+        "adaptive-needs-error-feedback",
+        "train/compressed_step.py::validate_compressed_step_args",
+        "the adaptive controller's sign/topk rungs are pure bias without the "
+        "residual carry, and scheme changes lean on it to absorb transitions",
+        lambda c: c.compression != "adaptive" or c.error_feedback,
+    ),
+    Constraint(
+        "learned-needs-error-feedback",
+        "train/compressed_step.py::validate_compressed_step_args",
+        "the learned rung's autoencoder reconstruction is biased between "
+        "codec retrains; only the EF residual carry absorbs that bias",
+        lambda c: c.compression != "learned" or c.error_feedback,
+    ),
+    Constraint(
+        "adaptive-excludes-pp",
+        "train/compressed_step.py::validate_compressed_step_args",
+        "the controller's scheme table and stats are per GLOBAL tensor; pp "
+        "shards block-stack gradients stage-locally (learned is the same "
+        "adaptive step with the codec rung armed)",
+        lambda c: not (c.compression in ("adaptive", "learned") and c.pp),
+    ),
+    Constraint(
+        "controller-needs-adaptive",
+        "cli.py::_train_config_conflicts",
+        "the bit controller only exists inside the adaptive/learned step "
+        "wrapper; a fixed scheme has no per-round policy to select",
+        lambda c: not c.controller
+        or c.compression in ("adaptive", "learned"),
+    ),
+    Constraint(
+        "error-feedback-needs-compression",
+        "train/compressed_step.py::with_error_feedback",
+        "the EF residual is the compressor's quantization error; there is "
+        "nothing to feed back without a compressed hop",
+        lambda c: not c.error_feedback or bool(c.compression),
+    ),
+    Constraint(
+        "gradcache-excludes-pp",
+        "train/train_step.py::validate_step_args",
+        "the pp forward is already whole-batch per accumulation step",
+        lambda c: not (c.pp and c.accum and c.accum_negatives == "global"),
+    ),
+    Constraint(
+        # One mode-agnostic row for zero1 and full. The other full-mode
+        # refusal, full-requires-dp>1, is an environment check (a property
+        # of the process grid, not of the config product), held by the
+        # train command's exit-2 tests instead.
+        "pp-excludes-update-sharding",
+        "train/train_step.py::validate_step_args",
+        "the sharded update would re-shard the stage-local moments dp-wise "
+        "every step (zero1's constrain and full's reduce-scatter alike)",
+        lambda c: not (c.pp and c.update_sharding),
+    ),
+    Constraint(
+        "pp-excludes-moe",
+        "train/train_step.py::validate_step_args",
+        "pp towers are dense (Block.apply drops sown aux losses)",
+        lambda c: not (c.pp and c.moe),
+    ),
+    Constraint(
+        "ema-excludes-compression",
+        "cli.py::_train_config_conflicts",
+        "the compressed step maintains no EMA (no ema_decay parameter); the "
+        "CLI refuses rather than silently dropping the flag",
+        lambda c: not (c.ema and c.compression),
+    ),
+)
+
+
+def iter_product() -> Iterator[StepConfig]:
+    """Every point in the raw (unconstrained) product, in AXES order."""
+    names = tuple(AXES)
+    for values in itertools.product(*AXES.values()):
+        yield StepConfig(**dict(zip(names, values)))
+
+
+def violations(cfg: StepConfig) -> tuple:
+    """The constraints ``cfg`` breaks (empty tuple == legal)."""
+    return tuple(c for c in CONSTRAINTS if not c.ok(cfg))
+
+
+def is_legal(cfg: StepConfig) -> bool:
+    return not violations(cfg)
+
+
+@functools.lru_cache(maxsize=1)
+def enumerate_legal() -> tuple:
+    """The full legal product, enumerated (deterministic order)."""
+    return tuple(c for c in iter_product() if is_legal(c))
+
+
+# The fifteen hand-picked configs of JAX's DEFAULT_STEP_CONFIGS, stated
+# declaratively: the legal product must stay a superset of these.
+LEGACY_CONFIGS: dict = {
+    "fused": StepConfig(),
+    "chunked": StepConfig(loss_impl="chunked"),
+    "ring": StepConfig(variant="ring"),
+    "ring_overlap": StepConfig(variant="ring", ring_overlap=True),
+    "compressed_dcn": StepConfig(compression="int8", error_feedback=True),
+    "quant_train_int8": StepConfig(variant="ring", quant_train="int8"),
+    "pallas_fused": StepConfig(use_pallas=True),
+    "pallas_chunked": StepConfig(loss_impl="chunked", use_pallas=True),
+    "pallas_ring": StepConfig(variant="ring", use_pallas=True),
+    "pallas_ring_overlap": StepConfig(
+        variant="ring", ring_overlap=True, use_pallas=True
+    ),
+    "pallas_int8_fused": StepConfig(use_pallas=True, quant_train="int8"),
+    "pallas_int8_chunked": StepConfig(
+        loss_impl="chunked", use_pallas=True, quant_train="int8"
+    ),
+    "pallas_int8_ring": StepConfig(
+        variant="ring", use_pallas=True, quant_train="int8"
+    ),
+    "pallas_int8_ring_overlap": StepConfig(
+        variant="ring", ring_overlap=True, use_pallas=True, quant_train="int8"
+    ),
+    "compressed_pallas_chunked": StepConfig(
+        loss_impl="chunked", use_pallas=True,
+        compression="int8", error_feedback=True,
+    ),
+}
+
+_LEGACY_BY_CONFIG = {cfg: name for name, cfg in LEGACY_CONFIGS.items()}
+
+
+def label_of(cfg: StepConfig) -> str:
+    """Stable human label: the historical name for the fifteen legacy
+    configs, else a canonical generated one (non-default axes, AXES order)."""
+    legacy = _LEGACY_BY_CONFIG.get(cfg)
+    if legacy is not None:
+        return legacy
+    base = StepConfig()
+    parts = []
+    for name in AXES:
+        v = getattr(cfg, name)
+        if v == getattr(base, name):
+            continue
+        if v is True:
+            parts.append(name)
+        else:
+            parts.append(f"{name}={v}")
+    return "+".join(parts) if parts else "fused"
+
+
+# ---------------------------------------------------------------------------
+# Trace samples: which legal configs the trace audit traces.
+
+# Coverage configs added on top of the legacy fifteen: one per axis they
+# leave untraced (pp / zero1 / accum / GradCache / MoE / softmax / top-k EF).
+_TIER1_EXTRAS = (
+    StepConfig(variant="ring", update_sharding="zero1"),
+    StepConfig(variant="ring", accum=True),
+    StepConfig(accum=True, accum_negatives="global"),  # GradCache
+    StepConfig(variant="ring", moe=True),
+    StepConfig(pp=True),
+    StepConfig(family="softmax"),
+    StepConfig(family="softmax", variant="ring"),
+    StepConfig(compression="topk", error_feedback=True),
+    StepConfig(compression="adaptive", error_feedback=True),
+    # The sharded-update corners: the regular step's reduce-scatter and
+    # publish, and both compressed shapes that must prove shard-local EF
+    # threading (trace-ef-threaded) and gather placement
+    # (trace-gather-placement).
+    StepConfig(update_sharding="full"),
+    StepConfig(compression="int8", error_feedback=True,
+               update_sharding="full"),
+    StepConfig(compression="adaptive", error_feedback=True,
+               update_sharding="full"),
+    # The learned-rung corners: the codec operands must reach the update
+    # (trace-codec-threaded) beside the EF carry, replicated and under full
+    # sharding; the budgeted controller is a host-side policy (the same
+    # trace), so one budgeted config pins that the axis does not fork it.
+    StepConfig(compression="learned", error_feedback=True),
+    StepConfig(compression="learned", error_feedback=True,
+               controller="budgeted"),
+    StepConfig(compression="learned", error_feedback=True,
+               update_sharding="full"),
+)
+
+
+def tier1_sample() -> dict:
+    """label -> StepConfig for the tier-1 (and default ``lint``) trace set:
+    the fifteen legacy configs plus one coverage config per previously
+    untraced axis (30 traces)."""
+    out = dict(LEGACY_CONFIGS)
+    for cfg in _TIER1_EXTRAS:
+        assert is_legal(cfg), f"tier1 extra violates the table: {cfg}"
+        out[label_of(cfg)] = cfg
+    return out
+
+
+def _traceable(cfg: StepConfig) -> bool:
+    # ema is constraint-only: it swaps state contents (an EMA param copy),
+    # not the traced step dataflow — project it out of every trace sample.
+    return not cfg.ema
+
+
+@functools.lru_cache(maxsize=1)
+def full_product_sample() -> dict:
+    """label -> StepConfig for ``lint --full-product``: the
+    tier-1 sample plus a deterministic greedy pairwise-covering sample of
+    the remaining legal product (every legal VALUE PAIR of distinct axes
+    appears in at least one traced config, ema projected out). Pairwise is
+    the sweet spot: the historical step-builder bugs (pp x quant drop,
+    chunked x pallas checkpoint, compression x accum) were all two-axis
+    interactions."""
+    sample = tier1_sample()
+    names = tuple(n for n in AXES if n != "ema")
+
+    def pairs(cfg):
+        vals = [(n, getattr(cfg, n)) for n in names]
+        return set(itertools.combinations(vals, 2))
+
+    covered = set()
+    for cfg in sample.values():
+        covered |= pairs(cfg)
+    # Pairs no legal config exhibits (constraint-excluded) can never be
+    # covered; restrict the target to the achievable set.
+    legal = [c for c in enumerate_legal() if _traceable(c)]
+    achievable = set()
+    for cfg in legal:
+        achievable |= pairs(cfg)
+    remaining = achievable - covered
+    while remaining:
+        best, best_gain = None, 0
+        for cfg in legal:
+            gain = len(pairs(cfg) & remaining)
+            if gain > best_gain:
+                best, best_gain = cfg, gain
+        if best is None:  # pragma: no cover - achievable set guarantees progress
+            break
+        label = label_of(best)
+        assert label not in sample or sample[label] == best
+        sample[label] = best
+        remaining -= pairs(best)
+    return dict(sample)
+
+
+# ---------------------------------------------------------------------------
+# The imperative cross-check ("probe"): run every config in the RAW product
+# through the real refusal layers and compare with the table's verdict.
+
+
+def _derived_loss_quant(cfg: StepConfig) -> str:
+    # train_step.resolve_loss_quant: the loss matmul takes the int8 MXU path
+    # iff the towers train int8-STE AND the pallas kernel carries the loss.
+    return "int8" if (cfg.quant_train == "int8" and cfg.use_pallas) else ""
+
+
+def probe_imperative(cfg: StepConfig) -> tuple[bool, str]:
+    """Would the port's builders accept ``cfg``? Returns (accepted, detail).
+
+    Three layers, in the order a run meets them: the ``train`` command's
+    conflict block (``cli._train_config_conflicts`` on a synthesized
+    namespace), the loss builder (``parallel.api.make_per_shard_loss``),
+    and the step builders' validators
+    (``train_step.validate_step_args`` /
+    ``compressed_step.validate_compressed_step_args``, given a grid with
+    every axis so that no environment refusal fires). Tower-shape and
+    state-content checks are environmental and out of the probe's scope,
+    as in JAX.
+    """
+    import types
+
+    from distributed_sigmoid_loss_tpu_torch.cli import _train_config_conflicts
+
+    ns = types.SimpleNamespace(
+        ep=1,
+        moe_experts=4 if cfg.moe else 0,
+        moe_aux_weight=0.01 if cfg.moe else None,
+        pp=2 if cfg.pp else 1,
+        pp_microbatches=2 if cfg.pp else 0,
+        zero1=False,  # the deprecated alias; the axis rides update_sharding
+        update_sharding=cfg.update_sharding,
+        accum=2 if cfg.accum else 1,
+        accum_bf16=False,
+        accum_negatives=cfg.accum_negatives,
+        gradcache_bf16=False,
+        loss_family=cfg.family,
+        variant=cfg.variant,
+        loss_impl=cfg.loss_impl,
+        ring_overlap=cfg.ring_overlap,
+        use_pallas=cfg.use_pallas,
+        watchdog="off",
+        ckpt_dir="",
+        async_checkpoint=False,
+        eval_every=0,
+        log_every=1,
+        ckpt_every=1,
+        dcn_slices=2 if cfg.compression else 1,
+        grad_compression=cfg.compression,
+        topk_frac=0.01,
+        topk_exact=False,
+        dcn_budget_mbps=None,
+        # The controller axis maps onto --controller (None: unset); the DCN
+        # emulator is an environment knob, left off as in JAX.
+        controller=cfg.controller or None,
+        emu_dcn_mbps=None,
+        ema_decay=0.999 if cfg.ema else None,
+    )
+    conflict = _train_config_conflicts(ns)
+    if conflict is not None:
+        return False, f"cli: {conflict}"
+    # Error feedback exists only behind --grad-compression: the command is
+    # its refusal point (with_error_feedback serves the compressed step).
+    if cfg.error_feedback and not cfg.compression:
+        return False, "cli: error feedback requires --grad-compression"
+
+    from distributed_sigmoid_loss_tpu_torch.parallel.api import make_per_shard_loss
+
+    try:
+        make_per_shard_loss(
+            family=cfg.family,
+            variant=cfg.variant,
+            axis_name=("dcn", "dp") if cfg.compression else "dp",
+            bidir=False,
+            precision="highest",
+            use_pallas=cfg.use_pallas,
+            loss_impl=cfg.loss_impl,
+            ring_overlap=cfg.ring_overlap,
+            quant=_derived_loss_quant(cfg),
+        )
+    except ValueError as e:
+        return False, f"parallel/api: {e}"
+
+    accum_steps = 2 if cfg.accum else 1
+    pp_microbatches = 2 if cfg.pp else 0
+    try:
+        if cfg.compression:
+            from distributed_sigmoid_loss_tpu_torch.train.compressed_step import (
+                validate_compressed_step_args,
+            )
+
+            validate_compressed_step_args(
+                accum_steps=accum_steps,
+                accum_dtype=None,
+                accum_negatives=cfg.accum_negatives,
+                pp_microbatches=pp_microbatches,
+                moe_aux_weight=0.01 if cfg.moe else None,
+                gradcache_embed_dtype=None,
+                compression=cfg.compression,
+                error_feedback=cfg.error_feedback,
+                topk_frac=0.01,
+                loss_variant=cfg.variant,
+                mesh_axis_names=("dcn", "dp", "pp"),
+                update_sharding=cfg.update_sharding,
+            )
+        else:
+            from distributed_sigmoid_loss_tpu_torch.train.train_step import (
+                validate_step_args,
+            )
+
+            validate_step_args(
+                accum_steps=accum_steps,
+                accum_dtype=None,
+                accum_negatives=cfg.accum_negatives,
+                pp_microbatches=pp_microbatches,
+                moe_aux_weight=0.01 if cfg.moe else None,
+                gradcache_embed_dtype=None,
+                mesh_axis_names=("dp", "pp"),
+                update_sharding=cfg.update_sharding,
+            )
+    except ValueError as e:
+        return False, f"step builder: {e}"
+    return True, "accepted"
+
+
+def config_space_drift_findings(
+    probe: Callable[[StepConfig], tuple[bool, str]] | None = None,
+    configs=None,
+) -> list[Finding]:
+    """Cross-check the declarative table against the imperative refusals
+    over the full raw product. ``probe``/``configs`` are injectable for the
+    falsification fixtures."""
+    probe = probe or probe_imperative
+    configs = list(configs) if configs is not None else list(iter_product())
+    findings: list[Finding] = []
+    for cfg in configs:
+        declared = violations(cfg)
+        accepted, detail = probe(cfg)
+        if accepted and declared:
+            broken = declared[0]
+            findings.append(
+                Finding(
+                    "config-space-drift",
+                    label_of(cfg),
+                    f"the imperative layers ACCEPT this config but the "
+                    f"declarative table forbids it ({broken.name}: "
+                    f"{broken.reason}) — a refusal was relaxed without "
+                    f"updating analysis/config_space.py, or the constraint "
+                    f"is stale",
+                    location=broken.source,
+                )
+            )
+        elif not accepted and not declared:
+            findings.append(
+                Finding(
+                    "config-space-drift",
+                    label_of(cfg),
+                    f"the declarative table calls this config legal but an "
+                    f"imperative layer refuses it ({detail}) — a refusal "
+                    f"was added without a matching Constraint, so the "
+                    f"audited sample no longer spans what users can build",
+                    location="analysis/config_space.py::CONSTRAINTS",
+                )
+            )
+    return findings

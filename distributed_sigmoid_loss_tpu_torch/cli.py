@@ -28,7 +28,10 @@
   the host spans a ``train --obs-dir`` run recorded with any device trace
   under DIR (``utils.profiling.trace``), ``obs ledger`` summarizes the run
   ledger's trajectories, ``obs diff A B`` diffs two records or two runs'
-  spans. It reads files only and touches no device.
+  spans. It reads files only and touches no device. ``obs regress`` checks
+  the proxy metrics of the step configs and the loss islands against the
+  committed baseline (``obs/regress.py``).
+- ``lint``: the static analyzers of ``analysis/`` (exit 1 on findings).
 
 The commands run on ``cuda``; ``--cpu-devices 1`` runs them on the CPU
 (serve-bench's ``hostloss`` and fleet drills touch no device and run on the
@@ -37,8 +40,8 @@ host either way). Run by every rank of an initialized process group
 one, ``parallel/multihost.py``), ``train`` lays the ranks out on a
 ``parallel.mesh.ProcessGrid`` by JAX's rules: ``(dcn, dp[, pp])`` with
 ``--dcn-slices``, ``(dp, pp)`` with ``--pp``, ``(dp, ep)`` with ``--ep``,
-else ``(dp,)``. A command whose path the port does not have yet (``obs
-regress``) exits 2 with a message naming its ROADMAP.md queue A item.
+else ``(dp,)``. ``lint`` and ``obs regress`` trace on the host's CPU, in a
+fake process group of their own, and touch no device.
 """
 
 from __future__ import annotations
@@ -623,8 +626,7 @@ def _attribution_fields(step_fn, state, batch, device) -> dict:
     """``mfu_est`` and ``comm_bytes_total`` of the step that will run
     (``obs/attribution.py``): a trace on tensors without storage, which
     launches nothing and sends nothing. Empty, with a warning, for a step
-    it cannot trace (the compressed steps) or on a failure: attribution
-    never stops a run."""
+    it cannot trace or on a failure: attribution never stops a run."""
     from distributed_sigmoid_loss_tpu_torch.obs.attribution import metrics_line_fields
     from distributed_sigmoid_loss_tpu_torch.train.train_step import step_attribution
 
@@ -637,8 +639,8 @@ def _attribution_fields(step_fn, state, batch, device) -> dict:
         costs = step_attribution(step_fn, state,
                                  {k: torch.as_tensor(v) for k, v in batch.items()})
         if costs is None:
-            print("obs attribution: not available for this step (the compressed steps); "
-                  "metrics lines carry no mfu_est/comm_bytes_total", file=sys.stderr)
+            print("obs attribution: not available for this step; metrics lines carry no "
+                  "mfu_est/comm_bytes_total", file=sys.stderr)
             return {}
         kind = torch.cuda.get_device_name(device) if device.type == "cuda" else None
         fields = metrics_line_fields(costs, device_kind=kind)
@@ -1250,14 +1252,21 @@ def cmd_export(args) -> int:
 
 def _emit_serve_record(record: dict, *, strict_zero_drops: bool = False) -> int:
     """The serve-bench emit contract, shared by the snapshot and scenario
-    paths: print the record (one JSON line, the JAX command's keys) and
-    append it to the run ledger (``obs/ledger.py``; never fatal). With
-    ``strict_zero_drops`` a non-zero ``silent_drops`` count fails the run —
-    the chaos scenarios' every-outcome-is-typed gate."""
+    paths: check the record against the declared schema
+    (``analysis/bench_schema.py``: a violation warns and never drops it),
+    print it (one JSON line, the JAX command's keys) and append it to the
+    run ledger (``obs/ledger.py``; never fatal). With ``strict_zero_drops``
+    a non-zero ``silent_drops`` count fails the run — the chaos scenarios'
+    every-outcome-is-typed gate."""
+    from distributed_sigmoid_loss_tpu_torch.analysis.bench_schema import validate_record
     from distributed_sigmoid_loss_tpu_torch.obs.ledger import append_record
 
+    problems = validate_record(record)
+    if problems:
+        print("WARNING: serve-bench record schema violation: " + "; ".join(problems),
+              file=sys.stderr)
     print(json.dumps(record), flush=True)
-    append_record(record, source="serve-bench")
+    append_record(record, source="serve-bench", problems=problems)
     if strict_zero_drops and record.get("silent_drops"):
         print(f"WARNING: {record['silent_drops']} silent drop(s) — a request ended with "
               "neither a result nor a typed rejection; the degradation contract is broken",
@@ -1591,7 +1600,8 @@ def _add_obs_args(p) -> None:
     p.add_argument("action", choices=["summarize", "ledger", "diff", "regress"],
                    help="summarize: host spans + device kernel time under DIR; ledger: "
                         "per-metric trajectory summary; diff: field-level diff of two "
-                        "records or two run dirs' span summaries; regress: not ported yet")
+                        "records or two run dirs' span summaries; regress: the proxy "
+                        "regression gate against the committed baseline")
     p.add_argument("paths", nargs="*",
                    help="summarize: DIR; diff: two operands (metric@N ledger selector, "
                         "entry index, record-JSON path, or run dir); ledger: none")
@@ -1608,6 +1618,15 @@ def _add_obs_args(p) -> None:
     p.add_argument("--backfill", action="store_true",
                    help="the JAX package's backfill from its round files (exits 2: those "
                         "rounds are a TPU's)")
+    p.add_argument("--baseline", default="", metavar="PATH",
+                   help="`obs regress`: baseline file (default: the committed "
+                        "obs/regress_baseline.json)")
+    p.add_argument("--update", action="store_true",
+                   help="`obs regress`: rewrite the baseline from the current tree instead "
+                        "of comparing (commit it with the change that moved it)")
+    p.add_argument("--cpu-devices", type=int, default=0,
+                   help="`obs regress`: the fake world the step configs are traced in "
+                        "(default 8, the world the committed baseline was written in)")
 
 
 def cmd_obs(args) -> int:
@@ -1622,16 +1641,91 @@ def cmd_obs(args) -> int:
     - ``obs diff A B``: field-level diff of two records (ledger selectors
       ``metric@-1``, entry indices, or record-JSON paths) or of two run
       directories' span summaries.
+    - ``obs regress``: the proxy regression gate (``obs/regress.py``)
+      against the committed baseline; ``--update`` rewrites it. It traces
+      on the host's CPU and touches no device.
     """
     if args.action == "regress":
-        print("obs regress: the proxy-metric regression gate (obs/regress.py, analysis/*) "
-              "is not ported yet: ROADMAP.md queue A item 6.5 part 2", file=sys.stderr)
-        return 2
+        return _obs_regress(args)
     if args.action == "ledger":
         return _obs_ledger(args)
     if args.action == "diff":
         return _obs_diff(args)
     return _obs_summarize(args)
+
+
+def _trace_world(n: int) -> tuple[int | None, str | None]:
+    """The fake world the step configs are traced in (``--cpu-devices``,
+    default 8), or an error message."""
+    n = n or 8
+    if n < 4 or n % 2:
+        return None, (f"--cpu-devices {n}: the step configs are traced in an even world of "
+                      ">= 4 ranks")
+    return n, None
+
+
+def _obs_regress(args) -> int:
+    from distributed_sigmoid_loss_tpu_torch.obs.regress import run_regress
+
+    n, err = _trace_world(args.cpu_devices)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
+    return run_regress(baseline_path=args.baseline or None, update=args.update, n_devices=n)
+
+
+def cmd_lint(args) -> int:
+    """The port's lint (``analysis/``): the repo rules, the lock rules, and
+    (unless ``--no-jaxpr``) the config-space drift check and the trace audit
+    of the sampled step configs, each traced in a fake world of
+    ``--cpu-devices`` ranks (default 8) on the host's CPU. Exit 0 = clean,
+    1 = findings, 2 = usage error."""
+    import json as jsonmod
+
+    from distributed_sigmoid_loss_tpu_torch.analysis import (
+        ALL_RULES,
+        apply_lint_baseline,
+        load_lint_baseline,
+        run_lint,
+    )
+
+    unknown = [r for r in args.disable if r not in ALL_RULES]
+    if unknown:
+        print(f"--disable: unknown rule(s) {unknown}; known rules: " + ", ".join(ALL_RULES),
+              file=sys.stderr)
+        return 2
+    n, err = _trace_world(args.cpu_devices)
+    if err and not args.no_jaxpr:
+        print(err, file=sys.stderr)
+        return 2
+    baseline_keys = None
+    if args.baseline:
+        try:
+            baseline_keys = load_lint_baseline(args.baseline)
+        except (OSError, ValueError) as e:
+            print(f"--baseline: {e}", file=sys.stderr)
+            return 2
+    findings = run_lint(disabled=set(args.disable), jaxpr=not args.no_jaxpr, n_devices=n,
+                        full_product=args.full_product)
+    if baseline_keys is not None:
+        findings = apply_lint_baseline(findings, baseline_keys)
+    checked = [r for r in ALL_RULES if r not in args.disable]
+    if args.no_jaxpr:
+        checked = [r for r in checked if not r.startswith("trace-") and r != "config-space-drift"]
+    if baseline_keys is None:
+        checked = [r for r in checked if r != "lint-stale-suppression"]
+    if args.json:
+        print(jsonmod.dumps({
+            "rules_checked": checked,
+            "disabled": sorted(args.disable),
+            "findings": [f.as_dict() for f in findings],
+        }, indent=2))
+    else:
+        for f in findings:
+            print(f)
+    print(f"lint: {len(checked)} rules checked, {len(findings)} finding(s)"
+          + (f", {len(args.disable)} disabled" if args.disable else ""), file=sys.stderr)
+    return 1 if findings else 0
 
 
 def _obs_ledger(args) -> int:
@@ -2038,6 +2132,28 @@ def _parser() -> argparse.ArgumentParser:
     ex.add_argument("--cpu-devices", type=int, default=0,
                     help="1 = run on the CPU (default: cuda)")
 
+    ln = sub.add_parser("lint", help="the port's lint: repo rules, lock rules, config-space "
+                                     "drift and the trace audit of the sampled step configs "
+                                     "(exit 1 on findings)")
+    ln.add_argument("--json", action="store_true",
+                    help="machine-readable report (rules checked + findings, each with a "
+                         "stable rule_id and location) instead of one text line a finding")
+    ln.add_argument("--disable", action="append", default=[], metavar="RULE",
+                    help="skip this rule id (repeatable); prefer fixing, or allowlisting "
+                         "with a rationale, over disabling")
+    ln.add_argument("--no-jaxpr", action="store_true",
+                    help="the AST rules only: no config-space probe and no step-config "
+                         "traces (the JAX command's name for its trace half)")
+    ln.add_argument("--full-product", action="store_true",
+                    help="trace the pairwise-covering sample of the whole legal config "
+                         "product, not only the tier-1 sample")
+    ln.add_argument("--baseline", default="", metavar="FILE",
+                    help="ratchet mode: suppress the findings recorded in FILE (a saved "
+                         "`lint --json` report or a JSON list of {rule, subject}); entries "
+                         "that no longer fire become lint-stale-suppression findings")
+    ln.add_argument("--cpu-devices", type=int, default=0,
+                    help="the fake world the step configs are traced in (default 8, the "
+                         "JAX package's emulated mesh)")
     sb = sub.add_parser("serve-bench", help="online serving micro-bench: concurrent clients "
                                             "through the batched/cached/bucketed serve/ stack; "
                                             "prints the stats snapshot as JSON")
@@ -2126,7 +2242,7 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "tokenizer": cmd_tokenizer,
             "export": cmd_export, "data-bench": cmd_data_bench,
-            "serve-bench": cmd_serve_bench, "obs": cmd_obs}[args.cmd](args)
+            "serve-bench": cmd_serve_bench, "obs": cmd_obs, "lint": cmd_lint}[args.cmd](args)
 
 
 if __name__ == "__main__":

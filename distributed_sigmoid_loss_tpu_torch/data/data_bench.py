@@ -106,12 +106,20 @@ def make_synthetic_shards(out_dir: str, num_shards: int, pairs_per_shard: int,
 
 
 def _emit_record(record: dict, collected: list) -> None:
-    collected.append(record)
-    print(json.dumps(record), flush=True)
-    # The record joins the run ledger (obs/ledger.py; never fatal).
+    """One JSON line a record, checked against the declared schema
+    (``analysis/bench_schema.py``: a violation warns and never drops the
+    record), then appended to the run ledger (``obs/ledger.py``; never
+    fatal)."""
+    from distributed_sigmoid_loss_tpu_torch.analysis.bench_schema import validate_record
     from distributed_sigmoid_loss_tpu_torch.obs.ledger import append_record
 
-    append_record(record, source="data-bench")
+    problems = validate_record(record)
+    if problems:
+        print("WARNING: data-bench record schema violation: " + "; ".join(problems),
+              file=sys.stderr)
+    collected.append(record)
+    print(json.dumps(record), flush=True)
+    append_record(record, source="data-bench", problems=problems)
 
 
 def _timed(fn, reps: int) -> float:

@@ -158,8 +158,10 @@ class NativeSyntheticImageText:
         self._token_shape = (global_batch, cfg.text.context_length)
         self._closed = False
         # The ring slots' image buffers registered with CUDA (page-locked)
-        # by the zero-copy stream: address -> bytes.
+        # by the zero-copy stream: address -> bytes, under _pin_lock (a
+        # consumer registers a slot while close() may unregister them all).
         self._registered: dict[int, int] = {}
+        self._pin_lock = named_lock("data.native_loader.NativeSyntheticImageText._pin_lock")
         # Serializes the native calls against close(): close() first wakes a
         # consumer blocked inside one (dsl_pipeline_stop, taken without this
         # lock), then frees the engine under it, so destroy never races a
@@ -185,10 +187,12 @@ class NativeSyntheticImageText:
         """Register a ring slot's image buffer with CUDA once, so a copy
         from it to the card is a DMA straight out of the ring."""
         ptr = images.data_ptr()
-        if ptr not in self._registered:
-            nbytes = images.numel() * images.element_size()
-            _cuda_call("cudaHostRegister", ptr, nbytes, 0)
-            self._registered[ptr] = nbytes
+        with self._pin_lock:
+            # After close() took the registry, a slot is no longer pinned.
+            if not self._closed and ptr not in self._registered:
+                nbytes = images.numel() * images.element_size()
+                _cuda_call("cudaHostRegister", ptr, nbytes, 0)
+                self._registered[ptr] = nbytes
 
     def batches(self, zero_copy: bool = False) -> Iterator[dict]:
         """Batch stream; ``zero_copy=True`` hands out tensors over the C++
@@ -244,12 +248,13 @@ class NativeSyntheticImageText:
             self._lib.dsl_pipeline_stop(self._handle)
             with self._iter_lock:
                 self._closed = True
-                if self._registered:
+                with self._pin_lock:
+                    registered, self._registered = self._registered, {}
+                if registered:
                     # No copy may still read a slot when it is unpinned.
                     torch.cuda.synchronize()
-                    for ptr in self._registered:
+                    for ptr in registered:
                         _cuda_call("cudaHostUnregister", ptr)
-                    self._registered.clear()
                 self._lib.dsl_pipeline_destroy(self._handle)
                 self._handle = None
 

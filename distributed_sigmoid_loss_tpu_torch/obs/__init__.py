@@ -1,5 +1,4 @@
-"""Observability, the runtime half (the JAX package's ``obs`` less its
-regression gate):
+"""Observability (the JAX package's ``obs``):
 
 - :mod:`.spans`: thread-safe ring-buffered host spans (the train loop's
   stages, the serving stack's per-request stages) with a Chrome-trace export
@@ -7,7 +6,9 @@ regression gate):
   by ``obs summarize``.
 - :mod:`.attribution`: static per-step FLOPs, bytes and per-kind collective
   wire bytes from a trace on tensors without storage, and the roofline
-  ``mfu_est`` on every train metrics line (imports torch when called).
+  ``mfu_est`` on every train metrics line; the step trace the lint reads
+  (``trace_ops``) and ``step_config_attribution`` (imports torch when
+  called).
 - :mod:`.health`: the host-side NaN/Inf and loss-spike watchdog, and the
   flight recorder that dumps the last N metrics lines on a crash, a
   divergence or SIGTERM.
@@ -20,6 +21,9 @@ regression gate):
   the telemetry file ``train --obs-dir`` writes.
 - :mod:`.lockwatch`: the ``named_lock`` factories every host-stack lock goes
   through, and the potential-deadlock witness under ``DSL_LOCKWATCH=1``.
+- :mod:`.regress`: ``obs regress``, the proxy regression gate of the step
+  configs' attribution and the loss islands' bytes against the committed
+  ``regress_baseline.json`` (imports torch when called; not imported here).
 
 Everything imported here is standard library only.
 """

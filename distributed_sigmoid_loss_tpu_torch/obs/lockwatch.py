@@ -144,7 +144,12 @@ WATCHED_LOCKS = {
     ),
     "data.native_loader.NativeSyntheticImageText._close_lock": (
         "serializes concurrent close()rs; always taken BEFORE _iter_lock "
-        "(the one deliberate nesting in the data tier)"
+        "(the data tier's outermost lock)"
+    ),
+    "data.native_loader.NativeSyntheticImageText._pin_lock": (
+        "the zero-copy stream's registry of CUDA-registered ring slots "
+        "(a consumer's first-use register vs close()'s unregister-all); "
+        "taken inside _iter_lock by close(), alone by a consumer"
     ),
     "data.native_decode._build_lock": (
         "one-time libjpeg engine build/load (the _lib/_lib_failed latch)"

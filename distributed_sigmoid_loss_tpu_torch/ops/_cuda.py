@@ -22,6 +22,7 @@ from pathlib import Path
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack as _dispatch_modes
 
 __all__ = ["SOURCES", "build", "build_other", "load", "library_path", "take_op"]
 
@@ -52,10 +53,13 @@ _loaded: dict[str, ctypes.CDLL] = {}
 def take_op(t) -> bool:
     """Whether a kernel's wrapper takes its custom op for tensor ``t`` rather
     than the launch (or the plain version): while ``torch.export`` traces,
-    so the artifact records the op, and for a tensor without storage
+    so the artifact records the op; for a tensor without storage
     (``FakeTensor``: ``obs/attribution.py``'s static attribution), whose
-    op's fake version runs and launches nothing."""
-    return isinstance(t, FakeTensor) or torch.compiler.is_exporting()
+    op's fake version runs and launches nothing; and while a step trace
+    records (``obs.attribution.trace_ops``, a dispatch mode that says
+    ``takes_ops``), so that the trace sees the op on any device."""
+    return (isinstance(t, FakeTensor) or torch.compiler.is_exporting()
+            or any(getattr(m, "takes_ops", False) for m in _dispatch_modes()))
 
 
 def _nvcc() -> str:

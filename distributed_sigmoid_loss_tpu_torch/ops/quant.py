@@ -38,6 +38,7 @@ import threading
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 __all__ = [
     "quantize_int8",
@@ -88,7 +89,8 @@ def quantize_int8(x: torch.Tensor, axis: int):
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The exact int32 product ``a · bᵀ`` of int8 rows a (m, k) and b (n, k)."""
-    if a.is_cuda and (a.shape[0] <= 16 or a.shape[1] % 8 or b.shape[0] % 8):
+    if a.is_cuda and not isinstance(a, FakeTensor) and (
+            a.shape[0] <= 16 or a.shape[1] % 8 or b.shape[0] % 8):
         raise ValueError(
             f"int8 product of ({a.shape[0]}, {a.shape[1]}) by ({b.shape[0]}, {b.shape[1]})ᵀ: "
             "torch._int_mm on a CUDA device takes more than 16 rows and widths that are "
@@ -104,7 +106,14 @@ def int8_product(xq, xs, wq, ws, out_dtype) -> torch.Tensor:
     """The dequantized product of quantized rows: xq (..., K) int8 with
     scales xs (..., 1), wq (out, K) with ws (out, 1) → ``(f32(xq·wqᵀ) · xs) ·
     ws`` cast to ``out_dtype``, shape (..., out)."""
-    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
+    rows = xq.reshape(-1, xq.shape[-1])
+    n = rows.shape[0]
+    if rows.is_cuda and not isinstance(rows, FakeTensor) and n < _INT_MM_MIN_ROWS:
+        # torch._int_mm on a card takes more than 16 rows: zero rows quantize
+        # to zeros and add nothing to the product. A tensor without storage
+        # (a trace) keeps the product's own rows, as JAX counts it.
+        rows = torch.cat([rows, rows.new_zeros(_INT_MM_MIN_ROWS - n, rows.shape[1])])
+    acc = int8_matmul(rows, wq)[:n]
     out = (acc.float() * xs.reshape(-1, 1)) * ws.reshape(1, -1)
     return out.to(out_dtype).reshape(xq.shape[:-1] + (wq.shape[0],))
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 from distributed_sigmoid_loss_tpu_torch.parallel.mesh import axis_group, axis_size, dcn_axis
 
@@ -75,6 +76,12 @@ def sparsify_topk(t: torch.Tensor, k: int):
     ``lax.top_k``."""
     flat = t.float().reshape(-1)
     a = flat.abs()
+    if isinstance(t, FakeTensor):
+        # A tensor without storage (a trace) has no values to select by: a
+        # stable descending sort picks the same k entries in the same order
+        # with no data-dependent shape on the way.
+        idx = torch.sort(a, descending=True, stable=True).indices[:k]
+        return flat[idx], idx.to(torch.int32)
     if k >= a.numel():
         sel = torch.arange(a.numel(), device=a.device)
     else:

@@ -242,50 +242,54 @@ class AdmissionController:
         name = pol.name
         now = time.monotonic()
         with self._lock:
-            st = self._state(name, pol)
-            # 1) token bucket.
-            if pol.rate > 0:
-                depth = pol.bucket_depth()
-                # max(0, ...): a freshly created state stamps refilled_at
-                # AFTER `now` was read, and a negative delta must not drain
-                # the bucket below its starting depth.
-                st.tokens = min(
-                    depth,
-                    st.tokens + max(0.0, now - st.refilled_at) * pol.rate,
-                )
-                st.refilled_at = now
-                if st.tokens < items:
-                    raise self._shed(
-                        st, name, "rate",
-                        (items - st.tokens) / pol.rate, deadline_s, now,
+            try:
+                st = self._state(name, pol)
+                # 1) token bucket.
+                if pol.rate > 0:
+                    depth = pol.bucket_depth()
+                    # max(0, ...): a freshly created state stamps refilled_at
+                    # AFTER `now` was read, and a negative delta must not drain
+                    # the bucket below its starting depth.
+                    st.tokens = min(
+                        depth,
+                        st.tokens + max(0.0, now - st.refilled_at) * pol.rate,
                     )
-            # 2) bounded per-tenant quota.
-            if pol.max_inflight and st.inflight + items > pol.max_inflight:
-                p50 = st.latency.percentiles_ms((50,))["p50_ms"] / 1000.0
-                raise self._shed(
-                    st, name, "quota", max(p50, _BACKOFF_BASE_S),
-                    deadline_s, now,
+                    st.refilled_at = now
+                    if st.tokens < items:
+                        raise self._shed(
+                            st, name, "rate",
+                            (items - st.tokens) / pol.rate, deadline_s, now,
+                        )
+                # 2) bounded per-tenant quota.
+                if pol.max_inflight and st.inflight + items > pol.max_inflight:
+                    p50 = st.latency.percentiles_ms((50,))["p50_ms"] / 1000.0
+                    raise self._shed(
+                        st, name, "quota", max(p50, _BACKOFF_BASE_S),
+                        deadline_s, now,
+                    )
+                # 3) priority-tiered global capacity: shed low priority first.
+                threshold = self._thresholds.get(
+                    pol.priority,
+                    max(1, math.ceil(
+                        self.capacity
+                        * self._rank_of(pol.priority)
+                        / max(len(self._thresholds), 1)
+                    )),
                 )
-            # 3) priority-tiered global capacity: shed low priority first.
-            threshold = self._thresholds.get(
-                pol.priority,
-                max(1, math.ceil(
-                    self.capacity
-                    * self._rank_of(pol.priority)
-                    / max(len(self._thresholds), 1)
-                )),
-            )
-            if self._total_inflight + items > threshold:
-                raise self._shed(
-                    st, name, "overload", _BACKOFF_BASE_S, deadline_s, now
-                )
-            if pol.rate > 0:
-                st.tokens -= items
-            st.inflight += items
-            st.admitted += 1
-            st.consecutive_sheds = 0
-            self._total_inflight += items
-            self._decisions.append((now, False))
+                if self._total_inflight + items > threshold:
+                    raise self._shed(
+                        st, name, "overload", _BACKOFF_BASE_S, deadline_s, now
+                    )
+                if pol.rate > 0:
+                    st.tokens -= items
+                st.inflight += items
+                st.admitted += 1
+                st.consecutive_sheds = 0
+                self._total_inflight += items
+                self._decisions.append((now, False))
+            except ShedError:
+                self._decisions.append((now, True))
+                raise
         return AdmissionTicket(self, name, items)
 
     def _rank_of(self, priority: int) -> int:
@@ -296,10 +300,10 @@ class AdmissionController:
         self, st: _TenantState, name: str, reason: str,
         base_s: float, deadline_s: float | None, now: float,
     ) -> ShedError:
-        """Build the typed rejection (caller raises it; lock already held)."""
+        """Build the typed rejection (lock already held; the caller raises
+        it and records the decision)."""
         st.shed[reason] += 1
         st.consecutive_sheds += 1
-        self._decisions.append((now, True))
         doublings = min(st.consecutive_sheds - 1, _BACKOFF_MAX_DOUBLINGS)
         backoff = min(base_s * (2.0 ** doublings), _BACKOFF_CAP_S)
         # Deterministic per-tenant jitter in [0.75, 1.25): Knuth hash of the

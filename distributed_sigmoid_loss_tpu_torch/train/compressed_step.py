@@ -38,6 +38,8 @@ syncs its stage's gradients over its dp and dcn groups.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -218,6 +220,16 @@ def adopt_rank0_decision(controller, device, codec: dict | None = None) -> dict 
     m = enc.size
     return {"enc": flat[n + 1:n + 1 + m].astype(np.float32).reshape(enc.shape),
             "dec": flat[n + 1 + m:].astype(np.float32).reshape(np.asarray(codec["dec"]).shape)}
+
+
+def _host_table(scheme: torch.Tensor) -> np.ndarray:
+    """The values of the host-side scheme table. Read outside a fake mode
+    that a trace (``obs/attribution.py``) has entered: the table is real
+    and lives on the host, where the step picks each tensor's rung."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        return scheme.numpy()
 
 
 def validate_compressed_step_args(
@@ -402,10 +414,10 @@ def make_compressed_train_step(
         leaves = views[state.update_sharding]
         comp = state.comp
         codec = {"enc": comp["codec_enc"], "dec": comp["codec_dec"]} if learned else None
-        scheme_in = comp["scheme"]
+        scheme_in = _host_table(comp["scheme"])
         means, new_ef, stats, wire = adaptive_axis_mean(
             [leaf.gather(grads) for leaf in leaves], dcn_axis, state.ef,
-            scheme_in.numpy(), topk_frac=topk_frac, codec=codec, group=dcn_group)
+            scheme_in, topk_frac=topk_frac, codec=codec, group=dcn_group)
         if full:
             # Each member's stats are of its rows: one figure per tensor is
             # their mean over dp (JAX's pmean).
@@ -417,6 +429,24 @@ def make_compressed_train_step(
         state.ef = new_ef
         state.comp = dict(comp, **stats)
         return out, wire, scheme_in, stats
+
+    def hops(state, grads, full: bool):
+        """The dp hop (an f32 mean; under full sharding each rank's rows of
+        it) and the compressed dcn hop, with this member's residuals:
+        ``(grads, new_ef, wire, scheme_in)``, the last two the adaptive
+        hop's (None for the fixed schemes)."""
+        dp_group, dcn_group = axis_group(axis), axis_group(dcn_axis)
+        if state.layout is not None:
+            grads = state.layout.mean_grads(grads, scatter=full)
+        else:
+            all_reduce_mean_(grads, dp_group)
+        if adaptive:
+            grads, wire, scheme_in, _ = adaptive_hop(state, grads, dcn_group, dp_group, full)
+            return grads, state.ef, wire, scheme_in
+        grads, new_ef = compressed_axis_mean(
+            grads, dcn_axis, state.ef if error_feedback else None, method=compression,
+            topk_frac=topk_frac, group=dcn_group)
+        return grads, new_ef, None, None
 
     def step(state: TrainState, batch: dict):
         if error_feedback and state.ef is None:
@@ -440,19 +470,7 @@ def make_compressed_train_step(
         layout = state.layout
         full = state.update_sharding == "full"
         loss, lp, grads = grads_of(params, batch)
-        # The dp hop: an f32 mean (full sharding: each rank's rows of it).
-        if layout is not None:
-            grads = layout.mean_grads(grads, scatter=full)
-        else:
-            all_reduce_mean_(grads, dp_group)
-        # The dcn hop: compressed, with this member's residuals.
-        if adaptive:
-            grads, wire, scheme_in, stats = adaptive_hop(state, grads, dcn_group, dp_group, full)
-            new_ef = state.ef
-        else:
-            grads, new_ef = compressed_axis_mean(
-                grads, dcn_axis, state.ef if error_feedback else None, method=compression,
-                topk_frac=topk_frac, group=dcn_group)
+        grads, new_ef, wire, scheme_in = hops(state, grads, full)
         scalars = torch.stack([loss, lp["moe_aux"]]) if "moe_aux" in lp else loss.reshape(1)
         all_reduce_mean_([scalars], axis_group((dcn_axis, axis)))
         grad_norm, update_norm = state.tx.apply(params, grads, state.opt_state, layout,
@@ -487,11 +505,12 @@ def make_compressed_train_step(
             metrics["ef_norm"] = torch.sqrt(sq.sum())
             metrics["ef_residual_norm"] = metrics["ef_norm"]
         if adaptive:
-            payload = table_payload_bytes(leaf_sizes(state.ef), scheme_in.numpy(), topk_frac)
-            metrics["compression_scheme_hist"] = torch.bincount(
-                scheme_in.clamp(0, N_SCHEMES - 1).long(), minlength=N_SCHEMES)
+            payload = table_payload_bytes(leaf_sizes(state.ef), scheme_in, topk_frac)
+            # The table lives on the host: count it there.
+            metrics["compression_scheme_hist"] = torch.from_numpy(np.bincount(
+                np.clip(scheme_in, 0, N_SCHEMES - 1), minlength=N_SCHEMES))
             if learned:
-                metrics["codec_recon_err"] = stats["codec_recon_err"]
+                metrics["codec_recon_err"] = state.comp["codec_recon_err"]
         else:
             payload = fixed_payload(params, layout, full)
             wire = (n_dcn - 1) * payload
@@ -502,4 +521,19 @@ def make_compressed_train_step(
                                                  dtype=torch.float32, device=device)
         return state, metrics
 
+    def attribution_sync(loss, aux, grads, state):
+        # On a copy of the state: the adaptive hop rebinds its residuals and
+        # statistics.
+        hops(copy.copy(state), grads, state.update_sharding == "full")
+        scalars = loss.reshape(1) if aux is None else torch.stack([loss, aux])
+        all_reduce_mean_([scalars], axis_group((dcn_axis, axis)))
+
+    # What train_step.step_attribution traces, as for the regular step: one
+    # microbatch's forward and backward, and the sync.
+    per_micro = accum_steps > 1 and not cached_accum
+    step.attribution_parts = (
+        make_batch_grads(model, per_shard, axis, 1, False, acc_dt, gradcache_embed_dtype,
+                         moe_aux_weight, pp_forward(model, pp_microbatches))
+        if per_micro else grads_of,
+        accum_steps if per_micro else 1, attribution_sync, moe_aux_weight is not None)
     return step

@@ -201,8 +201,12 @@ def _partitioned_sum(sq: torch.Tensor, part_axes, layout: UpdateLayout | None = 
     total = torch.zeros((), dtype=torch.float32, device=sq.device)
     for axis in (None, *sorted({a for a in part_axes if a is not None})):
         for sharded_rows in ((False, True) if layout is not None else (False,)):
-            mask = [a == axis and r == sharded_rows for a, r in zip(part_axes, rows)]
-            part = sq[torch.tensor(mask, device=sq.device)].sum()
+            # The class's entries by their indices (a boolean mask's select
+            # would take a data-dependent shape, which a trace cannot hold).
+            index = [i for i, (a, r) in enumerate(zip(part_axes, rows))
+                     if a == axis and r == sharded_rows]
+            part = sq.index_select(0, torch.tensor(index, dtype=torch.long,
+                                                   device=sq.device)).sum()
             if sharded_rows and layout.w > 1:
                 dist.all_reduce(part, op=dist.ReduceOp.SUM, group=layout.group)
             if axis is not None and axis_size(axis_group(axis)) > 1:
@@ -1146,7 +1150,10 @@ def make_train_step(
         make_batch_grads(model, per_shard, loss_cfg.axis_name, 1, False, acc_dt,
                          gradcache_embed_dtype, moe_aux_weight, forward)
         if per_micro else grads_of,
-        accum_steps if per_micro else 1, sync, moe_aux_weight is not None)
+        accum_steps if per_micro else 1,
+        lambda loss, aux, grads, state: sync(loss, aux, grads, state.layout,
+                                             state.update_sharding == "full"),
+        moe_aux_weight is not None)
     return step
 
 
@@ -1157,8 +1164,10 @@ def step_attribution(step, state: TrainState, batch: dict) -> dict | None:
     sync, the step's matrix products and collectives (the optimizer's and
     the EMA's updates are elementwise). The model runs on fake copies of its
     parameters, so the real ones and their ``.grad`` stay untouched, and
-    nothing launches on the device. None for a step without these parts
-    (the compressed steps)."""
+    nothing launches on the device. The compressed steps
+    (``train/compressed_step.py``) carry the same parts, their sync being
+    the dp hop, the compressed dcn hop and the scalars' mean. None for a
+    step without these parts."""
     parts = getattr(step, "attribution_parts", None)
     if parts is None:
         return None
@@ -1181,8 +1190,7 @@ def step_attribution(step, state: TrainState, batch: dict) -> dict | None:
     def synced():
         grads = [torch.zeros_like(p, dtype=torch.float32) for p in fakes().values()]
         zero = grads[0].new_zeros(())
-        sync(zero, zero if aux else None, grads, state.layout,
-             state.update_sharding == "full")
+        sync(zero, zero if aux else None, grads, state)
 
     rows = len(batch["images"]) // times
     micro = {k: v[:rows] for k, v in batch.items()}

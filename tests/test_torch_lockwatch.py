@@ -162,10 +162,13 @@ def test_named_lock_is_watched_when_enabled(monkeypatch):
 
 def test_registry_names_mirror_the_shipped_modules():
     """Every watched name is `<pkg>.<module>[.Class].<attr>` under a real
-    package path: JAX's 25 rows, plus the port's engine call lock."""
+    package path: JAX's 25 rows, plus the port's engine call lock and the
+    native loader's pin-registry lock."""
     from distributed_sigmoid_loss_tpu.obs.lockwatch import WATCHED_LOCKS as JAX_LOCKS
 
-    assert set(WATCHED_LOCKS) == set(JAX_LOCKS) | {"serve.engine.InferenceEngine._call_lock"}
+    assert set(WATCHED_LOCKS) == set(JAX_LOCKS) | {
+        "serve.engine.InferenceEngine._call_lock",
+        "data.native_loader.NativeSyntheticImageText._pin_lock"}
     for name, rationale in WATCHED_LOCKS.items():
         assert rationale.strip(), name
         assert name.split(".")[0] in {"serve", "obs", "data", "utils"}, name

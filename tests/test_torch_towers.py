@@ -385,7 +385,10 @@ def test_port_imports_nothing_of_jax():
         "'serve.fleet.router', 'serve.fleet.waves', 'serve.fleet.scenarios', "
         "'models.hf_import', 'models.towers', 'train.export', 'models.moe', "
         "'parallel.adaptive_compression', 'parallel.dcn_emu', 'obs.attribution', "
-        "'obs.health', 'obs.ledger', 'obs.lockwatch', 'obs.spans', 'utils.profiling']\n"
+        "'obs.health', 'obs.ledger', 'obs.lockwatch', 'obs.spans', 'utils.profiling', "
+        "'obs.regress', 'analysis', 'analysis.findings', 'analysis.bench_schema', "
+        "'analysis.config_space', 'analysis.repo_lint', 'analysis.lock_flow', "
+        "'analysis.trace_audit', 'analysis.shard_flow']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
